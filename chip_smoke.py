@@ -12,8 +12,9 @@ fails (non-zero exit, no result line) without them. Phases:
    main path's shapes (exact equality), with CUDA-event times;
 3. the main path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
    MDB-L at the paper's table size (2**24 slots in blocks of 1024, a
-   2**21-entry change segment) on a seeded 2**25-token stream, then MB
-   and MDB at 2**20 slots on 2**21 tokens. Each run's answers for 2**16
+   2**21-entry change segment) on a seeded 2**25-token stream of
+   documents, then MB and MDB at 2**20 slots on 2**21 tokens. Each run's
+   answers for 2**16
    keys (half present, half absent) must equal ``np.unique`` counts of
    its stream, document frequencies included, with nothing dropped; the
    kernels' launch counters are zeroed before each run and must all be
@@ -59,39 +60,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profiled(fn, dev):
-    """Run ``fn()`` under ``torch.profiler``; returns its result and the
-    window's wall time, summed device time (kernels, copies, fills on
-    the card), idle share and the device time of the top kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    per = {}
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            n, us = per.get(e.name, (0, 0.0))
-            per[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in per.values()) / 1e6
-    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:10]
-    return out, {"wall_s": wall, "device_s": busy,
-                 "idle_share": (1 - busy / wall) if busy else None,
-                 "top": [[name[:60], n, us / 1e3] for name, (n, us) in top]}
-
-
-def make_stream(n: int, seed: int):
-    """Three quarters Zipf(1.35) folded into 2**22 ids (the wiki corpus
-    draw of the benchmarks), one quarter uniform over [0, 2**30),
-    shuffled."""
+def make_docs(n: int, seed: int, doc_len: int = DOC_LEN):
+    """Documents of ``n`` tokens in all: each a ``SyntheticCorpus``
+    document (Zipf(1.35) folded into 2**22 ids, the wiki corpus draw of
+    the benchmarks; ``doc_len * 3/4`` tokens on average) with a third as
+    many ids uniform over [0, 2**30) shuffled in, so a quarter of the
+    stream is uniform. The last document is cut to make ``n``."""
     import numpy as np
+    from repro_torch.data import SyntheticCorpus
+    corpus = SyntheticCorpus(num_docs=2 * n // doc_len + 1,
+                             mean_doc_len=doc_len - doc_len // 4,
+                             vocab_size=1 << 22, zipf_a=1.35, seed=seed)
     rng = np.random.default_rng(seed)
-    z = rng.zipf(1.35, size=n - n // 4) % (1 << 22)
-    u = rng.integers(0, 1 << 30, size=n // 4)
-    return rng.permutation(np.concatenate([z, u]).astype(np.int64))
+    docs, total = [], 0
+    for z in corpus.token_stream():
+        u = rng.integers(0, 1 << 30, size=z.size // 3)
+        docs.append(rng.permutation(np.concatenate([z, u]))[:n - total])
+        total += docs[-1].size
+        if total == n:
+            return docs
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +117,7 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
-              doc_len: int = DOC_LEN, n_queries: int = N_QUERIES,
-              profile: bool = False):
+              doc_len: int = DOC_LEN, n_queries: int = N_QUERIES):
     """One TF-IDF run, checked against the stream; returns its record
     (launch counts, ingest tokens/s, lookup keys/s, term-table wear).
     CPU tensors (rehearsals) run the plain versions and launch nothing."""
@@ -140,30 +126,18 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     from repro_torch.core.tfidf import TfIdfPipeline
     from repro_torch.kernels.flash_hash import kernel as K
 
-    stream = make_stream(geo["tokens"], seed)
+    docs = make_docs(geo["tokens"], seed, doc_len)
+    stream = np.concatenate(docs)
     cfg = {k: v for k, v in geo.items() if k != "tokens"}
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     pipe = TfIdfPipeline(scheme=scheme, device=dev, chunk=chunk, **cfg)
-    prof = {}
-
-    def run(name, fn):
-        if not profile:
-            return fn()
-        out, prof[name] = profiled(fn, dev)
-        print(f"profile {scheme} {name}: {json.dumps(prof[name])}",
-              flush=True)
-        return out
-
-    def ingest():
-        for lo in range(0, stream.size, doc_len):
-            pipe.add_document_ids(stream[lo:lo + doc_len])
-        pipe.finalize()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     t0 = time.perf_counter()
-    run("ingest", ingest)
+    for doc in docs:
+        pipe.add_document_ids(doc)
+    pipe.finalize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     t_ingest = time.perf_counter() - t0
 
     rng = np.random.default_rng(seed + 7)
@@ -173,15 +147,14 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     keys = np.concatenate([uniq[pick],
                            rng.integers(1 << 30, 1 << 31, n_queries - half)])
     t0 = time.perf_counter()
-    got = run("lookup", lambda: pipe.term_table.query_batch(keys))
+    got = pipe.term_table.query_batch(keys)
     t_query = time.perf_counter() - t0
     want = np.concatenate([cnt[pick], np.zeros(n_queries - half, np.int64)])
     if not np.array_equal(got, want):
         fail(f"{scheme}: {int((got != want).sum())} term counts differ "
              "from np.unique counts of the stream")
-    docs = np.concatenate([np.unique(stream[lo:lo + doc_len])
-                           for lo in range(0, stream.size, doc_len)])
-    du, dc = np.unique(docs, return_counts=True)
+    du, dc = np.unique(np.concatenate([np.unique(d) for d in docs]),
+                       return_counts=True)
     df = np.zeros(n_queries, np.int64)
     df[:half] = dc[np.searchsorted(du, uniq[pick])]
     if not np.array_equal(pipe.doc_table.query_batch(keys), df):
@@ -200,7 +173,8 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     load = float((pipe.term_table.state.keys != -1).float().mean())
     pipe.close()
     out = {"scheme": scheme, "q_log2": geo["q_log2"],
-           "tokens": int(stream.size), "distinct": int(uniq.size),
+           "tokens": int(stream.size), "documents": len(docs),
+           "distinct": int(uniq.size),
            "load_factor": load, "ingest_s": t_ingest,
            "ingest_tokens_per_s": stream.size / t_ingest,
            "lookup_keys": n_queries, "lookup_s": t_query,
@@ -210,8 +184,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
            "query_tile_loads": stats["query_tile_loads"],
            "write_overlap_us": stats["write_overlap_us"],
            "write_stall_us": stats["write_stall_us"],
-           "write_dispatches": stats["write_dispatches"],
-           "profiled": bool(profile)}
+           "write_dispatches": stats["write_dispatches"]}
     print(f"main path {scheme}: {json.dumps(out)}", flush=True)
     return out
 
@@ -219,9 +192,6 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="trace the MDB-L run with torch.profiler and print "
-                         "its device time and idle share (slows it down)")
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -239,7 +209,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
-    build.load(verbose=True)
+    build.load()
     print(f"build: {build.last_build['seconds']:.1f} s -> "
           f"{build.last_build['path']}", flush=True)
     for line in build.last_build["log"].splitlines():
@@ -247,7 +217,7 @@ def main() -> int:
             print(f"ptxas: {line.strip()}")
 
     res = kernel_phase(args.seed, dev)
-    runs = [main_path("MDB-L", FULL, args.seed, dev, profile=args.profile)]
+    runs = [main_path("MDB-L", FULL, args.seed, dev)]
     for scheme in ("MB", "MDB"):
         runs.append(main_path(scheme, SMALL, args.seed + 1, dev))
     main_run = runs[0]
@@ -264,7 +234,7 @@ def main() -> int:
             "launches": main_run["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

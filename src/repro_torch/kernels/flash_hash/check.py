@@ -10,6 +10,16 @@ the inputs, and returns the largest absolute difference over every
 output (0 is required: the results are integers), the median times of
 both, and the least time the card could take for the same work.
 
+That least time (``bound_ms``) is the larger of two: the bytes these
+inputs need moved, over the card's memory rate, and the operations they
+need, over its scalar rate. Bytes are counted in 32-byte sectors, the
+least the memory system moves: a probe needs only the sectors of its
+window of slots (home to the slot it stops at, the windows of one tile
+merged), a hit only the sector of its count, a Bloom test only the
+sectors of the words it tests. Inputs that are read whole (key and
+update rows, block ids) and every output count in full. Operations are
+one compare per slot a probe walks, and a few per Bloom test.
+
 Times come from CUDA events around single calls, median of ``reps``
 (inputs restored between calls, outside the timed region); on the CPU
 they are host-clock times of the plain version and name no device.
@@ -22,13 +32,20 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ...core.hashing import Pow2Hash, filter_words_for
+from ...core.hashing import (Pow2Hash, bloom_positions, filter_bits_log2,
+                             filter_words_for)
 from . import kernel as K
 from . import ops, ref
 
 EMPTY = ref.EMPTY
 #: published HBM3 bandwidth of an H100 SXM (bytes/s) — the bytes bound
 H100_BYTES_PER_S = 3.35e12
+#: published float32 rate of an H100 SXM outside the tensor cores (op/s),
+#: taken for the scalar int32 compares of the probes
+H100_SCALAR_OPS_PER_S = 67e12
+#: bytes of one sector, the least the memory system moves at a time
+SECTOR = 32
+_WORDS = SECTOR // 4
 _I32 = torch.int32
 
 
@@ -59,8 +76,56 @@ def time_ms(fn: Callable[[], object], reps: int,
     return statistics.median(out)
 
 
-def bytes_bound_ms(n_bytes: int) -> float:
-    return n_bytes / H100_BYTES_PER_S * 1e3
+def bound(n_bytes: int, n_ops: int) -> Dict:
+    """The least time for ``n_bytes`` moved and ``n_ops`` scalar
+    operations, and which of the two bounds it."""
+    by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    by_ops = n_ops / H100_SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_bytes": n_bytes,
+            "bound_ops": n_ops,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def window_sectors(home, dist, r: int) -> torch.Tensor:
+    """``(n, r // 8)`` bool: the sectors of an ``r``-slot int32 row that
+    the cyclic windows ``[home, home + dist)`` of each row's lanes cover
+    (``home``, ``dist``: ``(n, L)``; a lane with ``dist == 0`` covers
+    nothing)."""
+    n_s = max(r // _WORDS, 1)
+    home, dist = home.long(), dist.long()
+    live = (dist > 0).to(_I32)
+    lo = home // _WORDS
+    hi = torch.where(dist > 0, (home + dist - 1) // _WORDS + 1, lo)
+    diff = torch.zeros((home.shape[0], 2 * n_s + 1), dtype=_I32,
+                       device=home.device)
+    diff.scatter_add_(1, lo, live)
+    diff.scatter_add_(1, hi, -live)
+    cov = diff.cumsum(1)[:, :2 * n_s] > 0
+    return cov[:, :n_s] | cov[:, n_s:]
+
+
+def word_sectors(words, live, n_words: int) -> torch.Tensor:
+    """``(n, ceil(n_words / 8))`` bool: the sectors holding the words
+    ``words[i, j]`` of row ``i`` where ``live[i, j]``."""
+    n_s = -(-n_words // _WORDS)
+    out = torch.zeros((words.shape[0], n_s), dtype=_I32, device=words.device)
+    out.scatter_add_(1, torch.where(live, words.long() // _WORDS, 0),
+                     live.to(_I32))
+    return out > 0
+
+
+def lane_sectors(live) -> torch.Tensor:
+    """Sectors holding the words where ``live`` (an ``(n, W)`` mask)."""
+    cols = torch.arange(live.shape[1], device=live.device).expand_as(live)
+    return word_sectors(cols, live, live.shape[1])
+
+
+def _per_block(mask, blocks, n_b: int) -> int:
+    """Sectors of ``mask`` (one row per grid row), rows of one block
+    merged."""
+    acc = torch.zeros((n_b, mask.shape[1]), dtype=_I32, device=mask.device)
+    acc.index_add_(0, blocks.long(), mask.to(_I32))
+    return int((acc > 0).sum())
 
 
 def _max_err(a, b) -> int:
@@ -146,15 +211,52 @@ def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
     restore()
     want = run_plain()
     err, spills = _max_err(got, want), int((want[3] != EMPTY).sum())
-    n_d, max_u = uk.shape
-    rows = int((uk != EMPTY).any(1).sum())
-    r, fw = keys.shape[1], filt.shape[1]
-    n_bytes = (rows * (2 * r * 4 + fw * 4) * 2 + n_d * 4
-               + 2 * n_d * max_u * 4 * 2)
     return {"max_abs_err": err, "spills": spills,
+            **merge_bound(pair, table, want[:3], blocks, uk),
             "ms": time_ms(run_kernel, reps, restore, dev),
-            "plain_ms": time_ms(run_plain, reps, restore, dev),
-            "bound_ms": bytes_bound_ms(n_bytes)}
+            "plain_ms": time_ms(run_plain, reps, restore, dev)}
+
+
+def merge_bound(pair: Pow2Hash, before, after, blocks, uk) -> Dict:
+    """What a merge of update rows ``uk`` into ``blocks`` must move and
+    compute, given the table ``before`` and ``after`` it.
+
+    Slots are never freed, so the slot a key took (or already held) lies
+    in the merged tile, and every slot between its home and that slot was
+    taken when it was probed: its probe window is home to that slot. A
+    key absent from the merged tile spilled after walking all ``r``
+    slots. Read: the keys' windows, the counts and filter words they
+    touch, the update keys, the counts of valid updates, the block ids.
+    Written: the key, count and filter sectors that changed, and both
+    spill arrays in full."""
+    n_d, max_u = uk.shape
+    r, fw = pair.r, before[2].shape[1]
+    b = blocks.long()
+    valid = uk != EMPTY
+    # the slot of every valid update in its merged tile, by sorted search
+    # of (row, key) pairs
+    row = torch.arange(n_d, device=uk.device)[:, None] << 32
+    tile = (row + (after[0][b].long() & 0xFFFFFFFF)).reshape(-1)
+    srt, order = torch.sort(tile)
+    want = (row + (uk.long() & 0xFFFFFFFF)).reshape(-1)
+    pos = torch.searchsorted(srt, want).clamp(max=max(srt.numel() - 1, 0))
+    held = valid & (srt[pos] == want).reshape(n_d, max_u)
+    slot = (order[pos] % r).reshape(n_d, max_u)
+    home = pair.home_within_block(uk)
+    dist = torch.where(held, ((slot - home) & (r - 1)) + 1,
+                       torch.where(valid, r, 0))
+    bits = bloom_positions(uk, filter_bits_log2(fw))
+    filt_read = (word_sectors(bits[0] >> 5, valid, fw)
+                 | word_sectors(bits[1] >> 5, valid, fw))
+    sectors = (int(window_sectors(home, dist, r).sum())
+               + int(word_sectors(slot, held, r).sum())
+               + int(filt_read.sum())
+               + sum(int(lane_sectors(x[b] != y[b]).sum())
+                     for x, y in zip(before, after))
+               + int(lane_sectors(valid).sum()))
+    n_bytes = SECTOR * sectors + 4 * (n_d + n_d * max_u + 2 * n_d * max_u)
+    n_ops = int(dist.sum()) + 6 * int(valid.sum())
+    return bound(n_bytes, n_ops)
 
 
 def query_layout(pair: Pow2Hash, keys, n_rows: int, qcap: int, seed: int):
@@ -181,6 +283,27 @@ def _lanes_of_block(pair, blocks, q2):
     return (pair.s(q2) == blocks[:, None]) & (q2 != EMPTY)
 
 
+def query_bound(pair: Pow2Hash, keys, blocks, q2, dists) -> Dict:
+    """What ``query_grid`` must move and compute for its gathered lanes,
+    given the distances it answered: each lane reads the key sectors of
+    its window (home to the slot it stops at) and, on a hit, the count
+    sector of that slot; the block ids and queries are read and both
+    outputs written in full."""
+    n_rows, qcap = q2.shape
+    r = pair.r
+    lanes = _lanes_of_block(pair, blocks, q2)
+    dist = torch.where(lanes, dists, 0)
+    home = pair.home_within_block(q2)
+    slot = (home + dist - 1) & (r - 1)
+    hit = lanes & (torch.gather(keys[blocks.long()], 1, slot.long()) == q2)
+    sectors = (_per_block(window_sectors(home, dist, r), blocks,
+                          pair.num_slots)
+               + _per_block(word_sectors(slot, hit, r), blocks,
+                            pair.num_slots))
+    n_bytes = SECTOR * sectors + 4 * (n_rows + 3 * n_rows * qcap)
+    return bound(n_bytes, int(dist.sum()))
+
+
 def check_query_grid(pair: Pow2Hash, table, blocks, q2, reps: int = 5
                      ) -> Dict:
     keys, counts, _ = table
@@ -189,17 +312,13 @@ def check_query_grid(pair: Pow2Hash, table, blocks, q2, reps: int = 5
     run_plain = lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2)
     got, want = run_kernel(), run_plain()
     lanes = _lanes_of_block(pair, blocks, q2)
-    n_rows, qcap = q2.shape
-    n_blk = int(torch.unique(blocks).numel())
-    n_bytes = (n_blk * keys.shape[1] * 8 + n_rows * 4 + n_rows * qcap * 4
-               + 2 * n_rows * qcap * 4)
     return {"max_abs_err": _max_err([g[lanes] for g in got],
                                     [w[lanes] for w in want]),
             "lanes": int(lanes.sum()),
             "hits": int((want[0][lanes] != 0).sum()),
+            **query_bound(pair, keys, blocks, q2, want[1]),
             "ms": time_ms(run_kernel, reps, None, dev),
-            "plain_ms": time_ms(run_plain, reps, None, dev),
-            "bound_ms": bytes_bound_ms(n_bytes)}
+            "plain_ms": time_ms(run_plain, reps, None, dev)}
 
 
 def check_query(pair: Pow2Hash, table, q_keys, qchunk: int = 128,
@@ -214,10 +333,12 @@ def check_query(pair: Pow2Hash, table, q_keys, qchunk: int = 128,
     run_kernel = lambda: K.query(pair, keys, counts, q, qchunk)
     run_plain = lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2)
     got = run_kernel()
-    want = [w.reshape(-1) for w in run_plain()]
+    want2 = run_plain()
+    want = [w.reshape(-1) for w in want2]
     lanes = _lanes_of_block(pair, blocks, q2).reshape(-1)
     return {"max_abs_err": _max_err([g[lanes] for g in got],
                                     [w[lanes] for w in want]),
+            **query_bound(pair, keys, blocks, q2, want2[1]),
             "ms": time_ms(run_kernel, reps, None, dev),
             "plain_ms": time_ms(run_plain, reps, None, dev)}
 
@@ -228,12 +349,26 @@ def check_filter_probe_grid(table, blocks, q2, reps: int = 5) -> Dict:
     run_kernel = lambda: K.filter_probe_grid(filt, blocks, q2)
     run_plain = lambda: ref.filter_probe_grid_plain(filt, blocks, q2)
     got, want = run_kernel(), run_plain()
-    n_rows, qcap = q2.shape
-    n_blk = int(torch.unique(blocks).numel())
-    n_bytes = (n_blk * filt.shape[1] * 4 + n_rows * 4
-               + 2 * n_rows * qcap * 4)
     return {"max_abs_err": _max_err([got], [want]),
             "maybe": int(want.sum()),
+            **filter_bound(filt, blocks, q2),
             "ms": time_ms(run_kernel, reps, None, dev),
-            "plain_ms": time_ms(run_plain, reps, None, dev),
-            "bound_ms": bytes_bound_ms(n_bytes)}
+            "plain_ms": time_ms(run_plain, reps, None, dev)}
+
+
+def filter_bound(filter_words, blocks, q2) -> Dict:
+    """What ``filter_probe_grid`` must move and compute: each non-EMPTY
+    lane reads the sector of its first bit's word, and of its second
+    bit's word only when the first bit is set; block ids and queries are
+    read and the mask written in full."""
+    n_b, fw = filter_words.shape
+    n_rows, qcap = q2.shape
+    live = q2 != EMPTY
+    p0, p1 = bloom_positions(q2, filter_bits_log2(fw))
+    rows = filter_words[blocks.long()]
+    w0 = torch.gather(rows, 1, (p0 >> 5).long())
+    first = live & (((w0 >> (p0 & 31).to(_I32)) & 1) != 0)
+    need = word_sectors(p0 >> 5, live, fw) | word_sectors(p1 >> 5, first, fw)
+    n_bytes = (SECTOR * _per_block(need, blocks, n_b)
+               + 4 * (n_rows + 2 * n_rows * qcap))
+    return bound(n_bytes, 8 * int(live.sum()))

@@ -12,6 +12,8 @@ from repro.core import table_jax as tj
 from repro.core.store import FlashStore as JStore
 from repro.core.tfidf import TfIdfPipeline as JPipe
 from repro.core.tfidf import tokenize
+from repro.data import CorpusStats as JStats
+from repro.data import SyntheticCorpus as JCorpus
 from repro_torch import convert
 from repro_torch.core.store import FlashStore as TStore
 from repro_torch.core.tfidf import TfIdfPipeline as TPipe
@@ -123,29 +125,64 @@ def test_tfidf_matches_reference_pipeline(scheme):
 
 
 def test_corpus_stats_counts_and_expert_histograms():
-    st = CorpusStats.create(q_log2=10, r_log2=6, scheme="MDB-L",
-                            log_capacity=256, device="cpu")
+    """The port's CorpusStats against the reference's on the same docs:
+    counts, expert histograms, IDF weights, document scores, write and
+    query counters and wear, exactly; the counts are the docs' own."""
+    kw = dict(q_log2=10, r_log2=6, scheme="MDB-L", log_capacity=256)
+    ref = JStats.create(**kw)
+    st = CorpusStats.create(device="cpu", **kw)
     rng = np.random.default_rng(5)
     docs = [rng.integers(0, 2000, 70) for _ in range(12)]
-    for d in docs:
-        st.ingest(d)
     flat = np.concatenate(docs)
     uniq, cnt = np.unique(flat, return_counts=True)
-    np.testing.assert_array_equal(st.counts(uniq), cnt)
+    probe = np.concatenate([uniq, rng.integers(2000, 4000, 64)])
+    for i, d in enumerate(docs):
+        ref.ingest(d)
+        st.ingest(d)
+        if i % 4 == 3:
+            np.testing.assert_array_equal(st.counts(probe),
+                                          ref.counts(probe))
+    got = st.counts(probe)
+    np.testing.assert_array_equal(got, ref.counts(probe))
+    np.testing.assert_array_equal(got[:uniq.size], cnt)
+    ref.flush()
     st.flush()
-    np.testing.assert_array_equal(st.counts(uniq), cnt)
-    st.ingest_expert_counts(1, np.asarray([3, 0, 5]))
-    st.ingest_expert_counts(1, np.asarray([1, 2, -5]))
-    np.testing.assert_array_equal(st.expert_counts(1, 3), [4, 2, 0])
+    got = st.counts(probe)
+    np.testing.assert_array_equal(got, ref.counts(probe))
+    np.testing.assert_array_equal(got[:uniq.size], cnt)
+    for layer, counts in ((1, [3, 0, 5]), (1, [1, 2, -5]), (2, [7, 7])):
+        ref.ingest_expert_counts(layer, np.asarray(counts))
+        st.ingest_expert_counts(layer, np.asarray(counts))
+    hist = {(layer, n): st.expert_counts(layer, n)
+            for layer, n in ((1, 3), (2, 4), (3, 2))}
+    for (layer, n), got in hist.items():
+        np.testing.assert_array_equal(got, ref.expert_counts(layer, n))
+    np.testing.assert_array_equal(hist[1, 3], [4, 2, 0])
+    assert (st.docs_seen, st.tokens_seen) == (ref.docs_seen, ref.tokens_seen)
+    np.testing.assert_array_equal(st.tfidf_weights(probe),
+                                  ref.tfidf_weights(probe))
+    for d in docs:
+        assert st.doc_score(d) == ref.doc_score(d)
+        assert st.doc_filter(0.0)(d) == ref.doc_filter(0.0)(d)
+    skip = {k[len("write_"):] for k in _TIMED}
+    assert ({k: v for k, v in st.write_stats().items() if k not in skip}
+            == {k: v for k, v in ref.write_stats().items() if k not in skip})
+    assert st.write_stats()["entries"] == flat.size + 8
+    assert st.query_stats() == ref.query_stats()
+    assert st.wear() == ref.wear()
     assert st.wear()["dropped"] == 0
-    assert st.write_stats()["entries"] == flat.size + 6
-    doc = docs[3]
-    toks, tf = np.unique(doc, return_counts=True)
-    idf = np.log(st.tokens_seen / np.maximum(cnt[np.searchsorted(uniq, toks)],
-                                             1))
-    assert st.doc_score(doc) == float((tf / len(doc) * idf).sum())
-    assert st.doc_filter(0.0)(doc)
+    ref.store.close()
     st.store.close()
+
+
+def test_synthetic_corpus_matches_reference():
+    kw = dict(num_docs=6, mean_doc_len=50, vocab_size=1 << 22, zipf_a=1.35,
+              seed=3)
+    port, want = SyntheticCorpus(**kw), JCorpus(**kw)
+    for a, b in zip(port, want):
+        np.testing.assert_array_equal(a, b)
+    for a, b, _ in zip(port.token_stream(4), want.token_stream(4), range(5)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_durability_surface_is_not_ported_yet(tmp_path):
