@@ -7,10 +7,17 @@ Run from the root of a checkout; it needs one CUDA card and ``nvcc``, and
 fails (non-zero exit, no result line) without them. Phases:
 
 1. the card's name and power limit, and the build of the CUDA kernels
-   from ``src/repro_torch/kernels/flash_hash/csrc`` (timed);
-2. every kernel held against its plain PyTorch version on the card at the
-   main path's shapes (exact equality), with CUDA-event times;
-3. the main path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
+   from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, all
+   started together; timed);
+2. every flash-hash kernel held against its plain PyTorch version on the
+   card at the main path's shapes (exact equality), with CUDA-event times;
+   the flash-attention kernel against its plain version at llama3.2-3b's
+   attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16 causal at s=512
+   (the serve phase's prefill), 4096 and a ragged 1000, f32 and
+   non-causal at 512, within 2e-2 (bf16) / 2e-5 (f32) with TF32 off, with
+   CUDA-event medians of the kernel, the plain version and one
+   ``scaled_dot_product_attention`` call (timed only, never on the path);
+3. the TF-IDF path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
    MDB-L at the paper's table size (2**24 slots in blocks of 1024, a
    2**21-entry change segment) on a seeded 2**25-token stream of
    documents, then MB and MDB at 2**20 slots on 2**21 tokens. Each run's
@@ -19,7 +26,24 @@ fails (non-zero exit, no result line) without them. Phases:
    its stream, document frequencies included, with nothing dropped; the
    kernels' launch counters are zeroed before each run and must all be
    above 0 after it;
-4. a ``kernels`` JSON line, then the card line, then the result line.
+4. the serving path at full width: llama3.2-3b (28 layers, bf16, weights
+   drawn from ``--seed`` on the card) behind ``ServeEngine`` with a
+   ``PrefixKVCache(block_tokens=8, capacity_blocks=64)`` whose refcounts
+   live in the port's device ``FlashStore``. Eight requests of 512-token
+   prompts and 32 new tokens: request 0 fills the pool, requests 1-3
+   share its first 256 tokens (prefix hits, the rest decoded token by
+   token), requests 4-7 are fresh and evict. Outputs, cached prefixes,
+   hits, misses, evictions, refcounts after release and 5 x 28
+   flash-attention launches are checked;
+5. the same request order scaled down on llama32 TINY in f32, served on
+   the card and on the CPU with the same weights: outputs, cached
+   prefixes and cache stats must be identical. The serial engine's pins
+   cancel in the store's write buffer, so the twin runs again with a
+   flush threshold of 1 (every pin and unpin drained into the device
+   table), reading each request's refcounts while it holds its pins: the
+   refcounts read back from the table must agree too, and every
+   flash-hash kernel must have launched on the card;
+6. a ``kernels`` JSON line, then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -35,9 +59,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU = "src/repro_torch/kernels/flash_hash/csrc/flash_hash.cu"
+FA_CU = "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu"
 TPU = "src/repro/kernels/flash_hash/kernel.py"
-REPLACES = {"merge_dirty": f"{TPU}:171", "query_grid": f"{TPU}:263",
-            "filter_probe_grid": f"{TPU}:343"}
+REPLACES = {"merge_dirty": f"{TPU}:172", "query_grid": f"{TPU}:264",
+            "filter_probe_grid": f"{TPU}:344",
+            "flash_attention": "src/repro/kernels/flash_attn/kernel.py:72"}
 
 FULL = dict(q_log2=24, r_log2=10, log_capacity=1 << 21,
             max_updates_per_block=512, tokens=1 << 25)
@@ -46,6 +72,24 @@ SMALL = dict(q_log2=20, r_log2=10, log_capacity=1 << 17,
 DOC_LEN = 1 << 14
 N_QUERIES = 1 << 16
 CHUNK = 1 << 16
+
+#: flash attention at llama3.2-3b's heads: (name, s, dtype, causal)
+ATTN_CASES = [("serve", 512, "bfloat16", True),
+              ("long", 4096, "bfloat16", True),
+              ("ragged", 1000, "bfloat16", True),
+              ("f32", 512, "float32", True),
+              ("non_causal", 512, "bfloat16", False)]
+#: the serve phase's traffic (full width) and its scaled-down twin (TINY)
+SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
+             capacity_blocks=64)
+TINY_SERVE = dict(prompt_len=40, shared=16, max_new=16, block_tokens=8,
+                  capacity_blocks=5)
+#: the twin again with every pin and unpin drained into the device table
+#: (the serial engine's pins otherwise cancel in H_R), each request's
+#: refcounts read back while it holds them
+TINY_DRAINED = dict(TINY_SERVE, flush_threshold=1, read_pins=True)
+#: prefix-cache counters that depend on when an asynchronous drain lands
+TIMING_STATS = ("query_cache_hits", "query_device_keys", "query_batches")
 
 
 def fail(msg: str) -> None:
@@ -189,6 +233,203 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     return out
 
 
+def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 10):
+    """Flash attention against its plain version at llama3.2-3b's heads."""
+    import torch
+    from repro_torch.kernels.flash_attn import check as FC
+    res = {}
+    for name, s, dtype, causal in cases:
+        r = FC.check_flash_attention(1, s, 24, 8, 128, 128,
+                                     getattr(torch, dtype), causal,
+                                     seed + s, dev, reps=reps)
+        print(f"kernel flash_attention {name}: {json.dumps(r)}", flush=True)
+        if not (r["finite"] and r["within_tolerance"]):
+            fail(f"flash_attention {name} disagrees with its plain version "
+                 f"(max abs err {r['max_abs_err']}, tolerance "
+                 f"{r['tolerance']})")
+        res[name] = r
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the serving path
+# ---------------------------------------------------------------------------
+def smoke_prompts(seed: int, vocab: int, prompt_len: int, shared: int):
+    """Request 0 of its own, 1-3 sharing its first ``shared`` tokens, 4-7
+    fresh."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    fresh = lambda n: rng.integers(0, vocab, n).tolist()
+    p0 = fresh(prompt_len)
+    return ([p0] + [p0[:shared] + fresh(prompt_len - shared)
+                    for _ in range(3)]
+            + [fresh(prompt_len) for _ in range(4)])
+
+
+def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
+    """Serve :func:`smoke_prompts` through ``ServeEngine`` with a fresh
+    prefix cache on ``dev``; checks outputs, cached prefixes, cache
+    counters and refcounts. Returns its record."""
+    import torch
+    from repro_torch.serving import PrefixKVCache, Request, ServeEngine
+    cache = PrefixKVCache(block_tokens=geo["block_tokens"],
+                          capacity_blocks=geo["capacity_blocks"],
+                          backend="device", device=dev,
+                          flush_threshold=geo.get("flush_threshold"))
+    engine = ServeEngine(cfg, model, prefix_cache=cache)
+    prompts = smoke_prompts(seed, cfg.vocab_size, geo["prompt_len"],
+                            geo["shared"])
+    times = {"prefill": [], "decode": []}
+    finite = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def clocked(fn, sink):
+        def run(*a):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            finite.append(bool(torch.isfinite(out[0]).all()))
+            return out
+        return run
+
+    if timed:
+        model.prefill = clocked(model.prefill, times["prefill"])
+        model.decode_step = clocked(model.decode_step, times["decode"])
+    held = []
+    if geo.get("read_pins"):
+        # each request's refcounts, read while it still holds its pins
+        release = cache.release
+
+        def read_then_release(pinned):
+            held.append(cache._count(pinned).tolist())
+            release(pinned)
+        cache.release = read_then_release
+    t0 = time.perf_counter()
+    done = engine.serve([Request(prompt=p, max_new_tokens=geo["max_new"])
+                         for p in prompts])
+    wall = time.perf_counter() - t0
+    if timed:
+        del model.prefill, model.decode_step
+    outputs = [r.output for r in done]
+    cached = [r.cached_tokens for r in done]
+    # drain what H_R still holds (nothing when every pin cancelled there),
+    # so the refcounts below are read from the table itself
+    cache._refs.flush()
+    stats = cache.stats()
+    refs = cache._count(list(cache.store)).tolist()
+    cache.close()
+    want_cached = [0] + [geo["shared"]] * 3 + [0] * 4
+    if any(len(o) != geo["max_new"] or min(o) < 0 or max(o) >= cfg.vocab_size
+           for o in outputs):
+        fail(f"serve {cfg.name}: outputs are not {geo['max_new']} ids "
+             f"below {cfg.vocab_size}: {outputs}")
+    if cached != want_cached:
+        fail(f"serve {cfg.name}: cached prefixes {cached}, expected "
+             f"{want_cached}")
+    if (stats["hits"], stats["misses"]) != (3, 5) or stats["evictions"] <= 0:
+        fail(f"serve {cfg.name}: hits/misses/evictions {stats}")
+    if stats["dropped"] != 0 or any(refs):
+        fail(f"serve {cfg.name}: dropped {stats['dropped']}, refcounts "
+             f"after release {refs}")
+    if not all(finite):
+        fail(f"serve {cfg.name}: non-finite logits")
+    if geo.get("read_pins") and (len(held) != len(prompts)
+                                 or min(min(h, default=0) for h in held) < 1):
+        fail(f"serve {cfg.name}: a held pin read below 1: {held}")
+    return {"outputs": outputs, "cached_tokens": cached, "stats": stats,
+            "refs": refs, "held_refs": held, "wall_s": wall, "prefill_ms": times["prefill"],
+            "decode_ms": times["decode"],
+            "tokens": sum(len(o) for o in outputs)}
+
+
+def serve_phase(seed: int, dev):
+    """llama3.2-3b at full width; the flash-attention launches are counted
+    over this run alone."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models.model import Model
+    cfg = get_config("llama32_3b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t0
+    for counts in (FK.LAUNCHES, K.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    rec = serve(cfg, model, dev, seed, SERVE, timed=True)
+    launches = {**FK.LAUNCHES, **K.LAUNCHES}
+    want = 5 * cfg.num_layers
+    if launches["flash_attention"] != want:
+        fail(f"serve: flash_attention launched {launches['flash_attention']}"
+             f" times, expected {want} (5 prefills x {cfg.num_layers})")
+    decode = rec["decode_ms"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "init_s": t_init, "requests": len(rec["outputs"]),
+           "cached_tokens": rec["cached_tokens"],
+           "prefill_ms": rec["prefill_ms"],
+           "decode_steps": len(decode),
+           "decode_ms_per_token": statistics.median(decode),
+           "decode_ms_mean": statistics.fmean(decode),
+           "generated_tokens": rec["tokens"], "wall_s": rec["wall_s"],
+           "tokens_per_s": rec["tokens"] / rec["wall_s"],
+           "launches": launches, "prefix_cache": rec["stats"],
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    print(f"serve {cfg.name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def tiny_card_vs_cpu(seed: int, dev):
+    """llama32 TINY in f32, the same weights on the card and on the CPU:
+    identical outputs, cached prefixes, prefix-cache stats and refcounts,
+    first as the serial engine leaves them, then drained into the device
+    table (every flash-hash kernel launched on the card)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("llama32_3b", tiny=True),
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    weights = Model(cfg, device=cpu, seed=seed).state_dict()
+    models = {}
+    for d in (dev, cpu):
+        models[d.type] = Model(cfg, device=d, seed=seed)
+        models[d.type].load_state_dict(weights)
+    for name, geo in (("tiny", TINY_SERVE), ("tiny drained", TINY_DRAINED)):
+        runs = {}
+        timing = TIMING_STATS if geo.get("flush_threshold") else ()
+        for d in (dev, cpu):
+            for k in K.LAUNCHES:
+                K.LAUNCHES[k] = 0
+            rec = serve(cfg, models[d.type], d, seed, geo)
+            stats = {k: v for k, v in rec["stats"].items()
+                     if k not in timing}
+            runs[d.type] = (rec["outputs"], rec["cached_tokens"], stats,
+                            rec["held_refs"], rec["refs"])
+            if d.type == "cuda":
+                launches = dict(K.LAUNCHES)
+        if runs["cuda"] != runs["cpu"]:
+            fail(f"serve {name}: the card and the CPU differ: {runs}")
+        if geo.get("flush_threshold") and min(launches.values()) <= 0:
+            fail(f"serve {name}: the refcounts never went through a "
+                 f"flash-hash kernel on the card: {launches}")
+        print(f"serve {name} card == cpu: cached {json.dumps(runs['cpu'][1])}"
+              f" held refcounts {json.dumps(runs['cpu'][3])} stats "
+              f"{json.dumps(runs['cpu'][2])} card launches "
+              f"{json.dumps(launches)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -202,21 +443,30 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.flash_hash import build
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attn import build as fa_build
+    from repro_torch.kernels.flash_hash import build as fh_build
     from repro_torch.kernels.flash_hash import kernel as K
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
-    build.load()
-    print(f"build: {build.last_build['seconds']:.1f} s -> "
-          f"{build.last_build['path']}", flush=True)
-    for line in build.last_build["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"ptxas: {line.strip()}")
+    libs = [fh_build.LIBRARY, fa_build.LIBRARY]
+    t0 = time.perf_counter()
+    nvcc.build_all(libs)
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libs:
+        print(f"build {lib.name}: {lib.last_build['seconds']:.1f} s -> "
+              f"{lib.last_build['path']}", flush=True)
+        for line in lib.last_build["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"ptxas: {line.strip()}")
 
     res = kernel_phase(args.seed, dev)
+    attn = attention_phase(args.seed, dev)
     runs = [main_path("MDB-L", FULL, args.seed, dev)]
     for scheme in ("MB", "MDB"):
         runs.append(main_path(scheme, SMALL, args.seed + 1, dev))
@@ -225,6 +475,12 @@ def main() -> int:
         print(f"wear {r['scheme']}: {json.dumps(r['wear'])}")
         print(f"ingest {r['scheme']}: {r['ingest_tokens_per_s']:.0f} tokens/s;"
               f" lookup: {r['lookup_keys_per_s']:.0f} keys/s")
+    served = serve_phase(args.seed, dev)
+    print(f"serve: prefill ms {[round(t, 3) for t in served['prefill_ms']]};"
+          f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "
+          f"{served['decode_steps']}); {served['tokens_per_s']:.1f} "
+          f"generated tokens/s", flush=True)
+    tiny_card_vs_cpu(args.seed, dev)
     kernels = []
     for name in K.LAUNCHES:
         r = res[name]
@@ -235,6 +491,14 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    r = attn["serve"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FA_CU,
+        "replaces": REPLACES["flash_attention"],
+        "launches": served["launches"]["flash_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -54,6 +54,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.core.tfidf, repro_torch.core.table_torch\n"
         "import repro_torch.kernels.flash_hash.check\n"
         "import repro_torch.kernels.flash_hash.build\n"
+        "import repro_torch.models, repro_torch.models.model\n"
+        "import repro_torch.configs, repro_torch.serving\n"
+        "import repro_torch.launch.serve\n"
+        "import repro_torch.kernels.flash_attn.ops\n"
+        "import repro_torch.kernels.flash_attn.build\n"
+        "import repro_torch.kernels.flash_attn.check\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")
@@ -76,6 +82,30 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TfIdfPipeline(q_log2=10, r_log2=6)
     assert tt.init(cfg, device="cpu").keys.device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default is valid here")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, init_caches
+    from repro_torch.serving import PrefixKVCache, ServeEngine
+    cfg = get_config("llama32_3b", tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_caches(cfg, 1, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrefixKVCache(q_log2=10, r_log2=6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, Model(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--tiny"])
+    model = Model(cfg, device="cpu")
+    cache = PrefixKVCache(q_log2=10, r_log2=6, device="cpu")
+    assert ServeEngine(cfg, model, cache).device.type == "cpu"
+    cache.close()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
-Exact equality at several geometries (blocks narrower than a warp up to
-2048-slot blocks) and at the main path's shapes, plus the table driven on
-the card against the same table driven on the CPU. Needs a CUDA card:
+Flash-hash kernels: exact equality at several geometries (blocks narrower
+than a warp up to 2048-slot blocks) and at the main path's shapes, plus
+the table driven on the card against the same table driven on the CPU.
+Flash attention: within the reference's tolerances (2e-5 f32, 2e-2 bf16,
+TF32 off) from tiny heads to llama3.2-3b's, ragged lengths included, and
+the serving path on the card against the CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
 import numpy as np
@@ -12,6 +15,8 @@ import torch
 from repro_torch import convert
 from repro_torch.core import table_torch as tt
 from repro_torch.core.hashing import Pow2Hash
+from repro_torch.kernels.flash_attn import check as FC
+from repro_torch.kernels.flash_attn import kernel as FK
 from repro_torch.kernels.flash_hash import check as C
 from repro_torch.kernels.flash_hash import kernel as K
 
@@ -26,7 +31,13 @@ GEOMS = [(8, 3, 16), (12, 6, 64), (16, 10, 512), (14, 11, 1024),
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    return torch.device("cuda", 0)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda", 0)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
 
 
 @pytest.mark.parametrize("q_log2,r_log2,max_u", GEOMS)
@@ -98,3 +109,80 @@ def test_wrappers_refuse_mixed_devices(cuda):
         K.query_grid(pair, keys, torch.zeros_like(keys),
                      torch.zeros(2, dtype=torch.int32),
                      torch.zeros((2, 4), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,causal", [
+    (2, 128, 4, 4, 32, 32, True),      # MHA
+    (1, 256, 8, 2, 64, 64, True),      # GQA 4:1
+    (2, 128, 6, 2, 16, 16, False),     # GQA 3:1, narrow heads, non-causal
+    (1, 1, 4, 2, 16, 16, True),        # one position
+    (1, 100, 6, 2, 16, 16, True),      # ragged
+    (1, 77, 4, 1, 32, 48, False),      # dv != d, ragged, non-causal
+    (1, 64, 4, 2, 256, 256, True),     # the widest heads
+    (1, 1000, 24, 8, 128, 128, True),  # llama3.2-3b, ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv, causal,
+                                       dtype):
+    before = FK.LAUNCHES["flash_attention"]
+    res = FC.check_flash_attention(b, s, h, kvh, d, dv, dtype, causal, s,
+                                   cuda, reps=1)
+    assert res["finite"] and res["within_tolerance"], res
+    assert FK.LAUNCHES["flash_attention"] == before   # checks do not count
+    q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, 1, cuda)
+    FK.flash_attention_fwd(q, k, v, causal=causal)
+    assert FK.LAUNCHES["flash_attention"] == before + 1
+
+
+def test_flash_attention_refuses_mixed_devices(cuda):
+    q, k, v = FC.make_inputs(1, 8, 2, 2, 16, 16, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        FK.flash_attention_fwd(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("flush_threshold", [None, 1])
+def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
+    """llama32 TINY in f32 with the same weights on both devices: the
+    same greedy outputs, cached prefixes and cache stats; every prefill
+    went through the kernel. With ``flush_threshold=1`` every pin and
+    unpin drains into the device table, so the flash-hash kernels hold
+    the refcounts on the card (counters that depend on when a drain
+    lands are left out)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import PrefixKVCache, Request, ServeEngine
+    cfg = dataclasses.replace(get_config("llama32_3b", tiny=True),
+                              dtype="float32")
+    cpu_model = Model(cfg, device="cpu", seed=3)
+    rng = np.random.default_rng(0)
+    p0 = rng.integers(0, cfg.vocab_size, 40).tolist()
+    prompts = ([p0] + [p0[:16] + rng.integers(0, cfg.vocab_size, 24).tolist()
+                       for _ in range(3)]
+               + [rng.integers(0, cfg.vocab_size, 40).tolist()
+                  for _ in range(4)])
+    timing = (("query_cache_hits", "query_device_keys", "query_batches")
+              if flush_threshold else ())
+    runs = {}
+    FK.LAUNCHES["flash_attention"] = 0
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    for dev in ("cpu", cuda):
+        model = Model(cfg, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        cache = PrefixKVCache(block_tokens=8, capacity_blocks=5, device=dev,
+                              flush_threshold=flush_threshold)
+        done = ServeEngine(cfg, model, cache).serve(
+            [Request(prompt=list(p), max_new_tokens=8) for p in prompts])
+        cache._refs.flush()
+        stats = {k: v for k, v in cache.stats().items() if k not in timing}
+        runs[str(dev)] = ([r.output for r in done],
+                          [r.cached_tokens for r in done], stats,
+                          cache._count(list(cache.store)).tolist())
+        cache.close()
+    assert runs["cpu"] == runs[str(cuda)]
+    assert runs["cpu"][1] == [0, 16, 16, 16, 0, 0, 0, 0]
+    assert FK.LAUNCHES["flash_attention"] == 5 * cfg.num_layers
+    if flush_threshold:
+        assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES
