@@ -8,15 +8,21 @@ fails (non-zero exit, no result line) without them. Phases:
 
 1. the card's name and power limit, and the build of the CUDA kernels
    from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, all
-   started together; timed);
+   started together; timed), with each kernel's registers and spills
+   (``ptxas``) and its static count of HGMMA, UTMALDG, SYNCS and LDG
+   instructions (``cuobjdump -sass``);
 2. every flash-hash kernel held against its plain PyTorch version on the
    card at the main path's shapes (exact equality), with CUDA-event times;
-   the flash-attention kernel against its plain version at llama3.2-3b's
-   attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16 causal at s=512
-   (the serve phase's prefill), 4096 and a ragged 1000, f32 and
-   non-causal at 512, within 2e-2 (bf16) / 2e-5 (f32) with TF32 off, with
-   CUDA-event medians of the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call (timed only, never on the path);
+   the two flash-attention kernels against their plain version at
+   llama3.2-3b's attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16
+   causal at s=512 (the serve phase's prefill), 4096 and a ragged 1000,
+   non-causal and with q and k scaled x8 at 512 (the tensor-core kernel,
+   and the CUDA-core kernel at the same shapes), f32 at 512 and at the
+   tiny twin's prefill (the CUDA-core kernel), within 2e-2 (bf16) / 2e-5
+   (f32) with TF32 off, with CUDA-event medians timed in turns: the
+   kernel, the CUDA-core kernel (bf16 cases), one
+   ``scaled_dot_product_attention`` call (timed only, never on the path)
+   and the plain version;
 3. the TF-IDF path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
    MDB-L at the paper's table size (2**24 slots in blocks of 1024, a
    2**21-entry change segment) on a seeded 2**25-token stream of
@@ -34,7 +40,8 @@ fails (non-zero exit, no result line) without them. Phases:
    share its first 256 tokens (prefix hits, the rest decoded token by
    token), requests 4-7 are fresh and evict. Outputs, cached prefixes,
    hits, misses, evictions, refcounts after release and 5 x 28
-   flash-attention launches are checked;
+   launches of the tensor-core flash-attention kernel (and none of the
+   CUDA-core one) are checked;
 5. the same request order scaled down on llama32 TINY in f32, served on
    the card and on the CPU with the same weights: outputs, cached
    prefixes and cache stats must be identical. The serial engine's pins
@@ -42,7 +49,9 @@ fails (non-zero exit, no result line) without them. Phases:
    flush threshold of 1 (every pin and unpin drained into the device
    table), reading each request's refcounts while it holds its pins: the
    refcounts read back from the table must agree too, and every
-   flash-hash kernel must have launched on the card;
+   flash-hash kernel must have launched on the card; every prefill of
+   the f32 twin runs the CUDA-core flash-attention kernel (and none the
+   tensor-core one);
 6. a ``kernels`` JSON line, then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
@@ -73,12 +82,18 @@ DOC_LEN = 1 << 14
 N_QUERIES = 1 << 16
 CHUNK = 1 << 16
 
-#: flash attention at llama3.2-3b's heads: (name, s, dtype, causal)
-ATTN_CASES = [("serve", 512, "bfloat16", True),
-              ("long", 4096, "bfloat16", True),
-              ("ragged", 1000, "bfloat16", True),
-              ("f32", 512, "float32", True),
-              ("non_causal", 512, "bfloat16", False)]
+#: attention heads (h, kvh, d, dv) of llama3.2-3b and of its TINY twin
+LLAMA_HEADS = (24, 8, 128, 128)
+TINY_HEADS = (4, 2, 16, 16)
+#: flash attention cases: (name, s, dtype, causal, heads, q/k scale); the
+#: tiny twin's prefill is its 40-token prompt
+ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
+              ("long", 4096, "bfloat16", True, LLAMA_HEADS, 1.0),
+              ("ragged", 1000, "bfloat16", True, LLAMA_HEADS, 1.0),
+              ("f32", 512, "float32", True, LLAMA_HEADS, 1.0),
+              ("non_causal", 512, "bfloat16", False, LLAMA_HEADS, 1.0),
+              ("qk_x8", 512, "bfloat16", True, LLAMA_HEADS, 8.0),
+              ("tiny_f32", 40, "float32", True, TINY_HEADS, 1.0)]
 #: the serve phase's traffic (full width) and its scaled-down twin (TINY)
 SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
              capacity_blocks=64)
@@ -123,6 +138,48 @@ def make_docs(n: int, seed: int, doc_len: int = DOC_LEN):
         total += docs[-1].size
         if total == n:
             return docs
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_attn_wgmma_kernel<128,2>`` from a mangled kernel name: the
+    first length-prefixed identifier ending in ``_kernel`` and its
+    template arguments (integers and types)."""
+    import re
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            i += 1
+            continue
+        j = i + len(m.group())
+        ident = mangled[j:j + int(m.group())]
+        i = j + len(ident)
+        if ident.endswith("_kernel"):
+            rest = mangled[i:]
+            if not rest.startswith("I"):
+                return ident
+            args = re.findall(r"Li(\d+)E|^I(f)|13(__nv_bfloat16)",
+                              rest[:rest.find("EE") + 1])
+            args = [{"f": "float"}.get("".join(a), "".join(a)) for a in args]
+            return f"{ident}<{','.join(args)}>"
+    return mangled
+
+
+def kernel_report(lib) -> dict:
+    """Each kernel of a built library: its static SASS counts of HGMMA,
+    UTMALDG, SYNCS and LDG and its registers and spills from ``ptxas``.
+    Fails if an instance of the tensor-core attention kernel has no
+    HGMMA."""
+    from repro_torch.kernels import nvcc
+    ptxas = nvcc.ptxas_report(lib.last_build["log"])
+    out = {}
+    for mangled, counts in nvcc.sass_counts(Path(lib.last_build["path"]))\
+            .items():
+        name = kernel_name(mangled)
+        out[name] = {**counts, **ptxas.get(mangled, {})}
+        if "wgmma" in name and counts["HGMMA"] == 0:
+            fail(f"{name}: no HGMMA instruction in its SASS")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -233,20 +290,35 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     return out
 
 
-def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 10):
-    """Flash attention against its plain version at llama3.2-3b's heads."""
+def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
+    """The flash-attention kernels against their plain version; each case
+    must run the kernel the dtype/shape split names for it."""
     import torch
     from repro_torch.kernels.flash_attn import check as FC
+    from repro_torch.kernels.flash_attn import kernel as FK
     res = {}
-    for name, s, dtype, causal in cases:
-        r = FC.check_flash_attention(1, s, 24, 8, 128, 128,
-                                     getattr(torch, dtype), causal,
-                                     seed + s, dev, reps=reps)
+    for name, s, dtype, causal, (h, kvh, d, dv), qk_scale in cases:
+        dt = getattr(torch, dtype)
+        r = FC.check_flash_attention(1, s, h, kvh, d, dv, dt, causal,
+                                     seed + s, dev, reps=reps,
+                                     qk_scale=qk_scale)
         print(f"kernel flash_attention {name}: {json.dumps(r)}", flush=True)
-        if not (r["finite"] and r["within_tolerance"]):
-            fail(f"flash_attention {name} disagrees with its plain version "
-                 f"(max abs err {r['max_abs_err']}, tolerance "
-                 f"{r['tolerance']})")
+        want = FK.kernel_for(dt, d, dv) if dev.type == "cuda" else "plain"
+        if r["kernel"] != want:
+            fail(f"flash_attention {name} ran {r['kernel']}, not {want}")
+        for who in ("", "simt_"):
+            if who + "max_abs_err" in r and not (
+                    r[who + "finite"] and r[who + "within_tolerance"]):
+                fail(f"flash_attention {name} ({who or r['kernel']}) "
+                     f"disagrees with its plain version (max abs err "
+                     f"{r[who + 'max_abs_err']}, tolerance "
+                     f"{r['tolerance']})")
+        shares = "; ".join(
+            f"{k} {r[k]:.5g} ms ({r[k.replace('ms', 'bound_share')]:.1%} of "
+            f"the bound)" for k in ("ms", "simt_ms", "library_ms", "plain_ms")
+            if r.get(k))
+        print(f"flash_attention {name} ({r['kernel']}): {shares}; bound "
+              f"{r['bound_ms']:.5g} ms ({r['bound_by']})", flush=True)
         res[name] = r
     return res
 
@@ -367,10 +439,11 @@ def serve_phase(seed: int, dev):
             counts[k] = 0
     rec = serve(cfg, model, dev, seed, SERVE, timed=True)
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
-    want = 5 * cfg.num_layers
-    if launches["flash_attention"] != want:
-        fail(f"serve: flash_attention launched {launches['flash_attention']}"
-             f" times, expected {want} (5 prefills x {cfg.num_layers})")
+    want = {FK.WGMMA: 5 * cfg.num_layers, FK.SIMT: 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"serve: flash-attention launches {got}, expected {want} (5 "
+             f"prefills x {cfg.num_layers} layers, all bf16 at d=128)")
     decode = rec["decode_ms"]
     out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "init_s": t_init, "requests": len(rec["outputs"]),
@@ -391,11 +464,14 @@ def tiny_card_vs_cpu(seed: int, dev):
     """llama32 TINY in f32, the same weights on the card and on the CPU:
     identical outputs, cached prefixes, prefix-cache stats and refcounts,
     first as the serial engine leaves them, then drained into the device
-    table (every flash-hash kernel launched on the card)."""
+    table (every flash-hash kernel launched on the card). Every prefill on
+    the card runs the CUDA-core flash-attention kernel; returns its
+    launches over the first run."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config("llama32_3b", tiny=True),
@@ -406,12 +482,14 @@ def tiny_card_vs_cpu(seed: int, dev):
     for d in (dev, cpu):
         models[d.type] = Model(cfg, device=d, seed=seed)
         models[d.type].load_state_dict(weights)
+    attn_launches = None
     for name, geo in (("tiny", TINY_SERVE), ("tiny drained", TINY_DRAINED)):
         runs = {}
         timing = TIMING_STATS if geo.get("flush_threshold") else ()
         for d in (dev, cpu):
-            for k in K.LAUNCHES:
-                K.LAUNCHES[k] = 0
+            for counts in (K.LAUNCHES, FK.LAUNCHES):
+                for k in counts:
+                    counts[k] = 0
             rec = serve(cfg, models[d.type], d, seed, geo)
             stats = {k: v for k, v in rec["stats"].items()
                      if k not in timing}
@@ -419,6 +497,13 @@ def tiny_card_vs_cpu(seed: int, dev):
                             rec["held_refs"], rec["refs"])
             if d.type == "cuda":
                 launches = dict(K.LAUNCHES)
+                attn = dict(FK.LAUNCHES)
+        want = {FK.SIMT: 5 * cfg.num_layers, FK.WGMMA: 0}
+        if dev.type == "cuda" and attn != want:
+            fail(f"serve {name}: flash-attention launches {attn}, expected "
+                 f"{want} (5 f32 prefills x {cfg.num_layers} layers)")
+        if attn_launches is None:
+            attn_launches = attn[FK.SIMT]
         if runs["cuda"] != runs["cpu"]:
             fail(f"serve {name}: the card and the CPU differ: {runs}")
         if geo.get("flush_threshold") and min(launches.values()) <= 0:
@@ -427,7 +512,8 @@ def tiny_card_vs_cpu(seed: int, dev):
         print(f"serve {name} card == cpu: cached {json.dumps(runs['cpu'][1])}"
               f" held refcounts {json.dumps(runs['cpu'][3])} stats "
               f"{json.dumps(runs['cpu'][2])} card launches "
-              f"{json.dumps(launches)}", flush=True)
+              f"{json.dumps({**launches, **attn})}", flush=True)
+    return attn_launches
 
 
 def main() -> int:
@@ -445,6 +531,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attn import build as fa_build
+    from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import build as fh_build
     from repro_torch.kernels.flash_hash import kernel as K
 
@@ -461,9 +548,8 @@ def main() -> int:
     for lib in libs:
         print(f"build {lib.name}: {lib.last_build['seconds']:.1f} s -> "
               f"{lib.last_build['path']}", flush=True)
-        for line in lib.last_build["log"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                print(f"ptxas: {line.strip()}")
+        print(f"sass {lib.name}: {json.dumps(kernel_report(lib))}",
+              flush=True)
 
     res = kernel_phase(args.seed, dev)
     attn = attention_phase(args.seed, dev)
@@ -480,7 +566,7 @@ def main() -> int:
           f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "
           f"{served['decode_steps']}); {served['tokens_per_s']:.1f} "
           f"generated tokens/s", flush=True)
-    tiny_card_vs_cpu(args.seed, dev)
+    twin_launches = tiny_card_vs_cpu(args.seed, dev)
     kernels = []
     for name in K.LAUNCHES:
         r = res[name]
@@ -491,14 +577,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    r = attn["serve"]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": FA_CU,
-        "replaces": REPLACES["flash_attention"],
-        "launches": served["launches"]["flash_attention"],
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # each flash-attention kernel at the shape of the path that runs it:
+    # the serve prefill (bf16) and the f32 twin's prefill
+    for name, case, launches in (
+            (FK.WGMMA, "serve", served["launches"][FK.WGMMA]),
+            (FK.SIMT, "tiny_f32", twin_launches)):
+        r = attn[case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FA_CU,
+            "replaces": REPLACES["flash_attention"], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

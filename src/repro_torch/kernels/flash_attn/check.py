@@ -1,14 +1,19 @@
-"""Hold the flash-attention kernel against its plain version on the same
-inputs.
+"""Hold the flash-attention kernels against their plain version on the
+same inputs.
 
 Used by ``chip_smoke.py`` at llama3.2-3b's attention shapes and by the GPU
 tests at smaller ones. Inputs are N(0, 1) draws from a seed on the target
-device. :func:`check_flash_attention` runs the wrapper (the CUDA kernel
-for CUDA tensors) and the plain version, and returns the largest absolute
-difference, whether it is within the stated tolerance, the median times
-of the kernel, the plain version and one library call computing the same
-function (``scaled_dot_product_attention``, timed only: the port never
-calls it), and the least time the card could take.
+device; ``qk_scale`` multiplies q and k, so the scores grow by its square
+(which stresses the online rescale and the -1e30 masking) while v and the
+output keep their size. :func:`check_flash_attention` runs the wrapper
+(for CUDA tensors, the kernel :func:`.kernel.kernel_for` picks) and the
+plain version, and returns the largest absolute difference, whether it
+is within the stated tolerance, the least time the card could take, and
+CUDA-event medians timed in turns within one call: the kernel, the
+CUDA-core kernel at the same shape where the tensor-core kernel took the
+call (the "before"; its error is held too), one library call computing
+the same function (``scaled_dot_product_attention``, timed only: the
+port never calls it) and the plain version.
 
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
 v and o (each read or written once) over the card's memory rate, and the
@@ -19,7 +24,8 @@ cores' bf16 rate for bf16, the f32 rate outside the tensor cores for f32
 """
 from __future__ import annotations
 
-from typing import Dict
+import statistics
+from typing import Callable, Dict
 
 import torch
 
@@ -49,11 +55,14 @@ def attention_bound(b: int, s: int, h: int, kvh: int, d: int, dv: int,
             "bound_by": "bytes" if by_bytes >= by_flops else "operations"}
 
 
-def make_inputs(b, s, h, kvh, d, dv, dtype, seed: int, device):
+def make_inputs(b, s, h, kvh, d, dv, dtype, seed: int, device,
+                qk_scale: float = 1.0):
     gen = torch.Generator(device=device).manual_seed(seed)
-    draw = lambda shape: torch.randn(shape, generator=gen, device=device,
-                                     dtype=torch.float32).to(dtype)
-    return draw((b, s, h, d)), draw((b, s, kvh, d)), draw((b, s, kvh, dv))
+    draw = lambda shape, x=1.0: (torch.randn(
+        shape, generator=gen, device=device, dtype=torch.float32) * x
+    ).to(dtype)
+    return (draw((b, s, h, d), qk_scale), draw((b, s, kvh, d), qk_scale),
+            draw((b, s, kvh, dv)))
 
 
 def library_call(q, k, v, causal: bool):
@@ -65,30 +74,77 @@ def library_call(q, k, v, causal: bool):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
+#: calls of one function between two events in :func:`in_turns`
+CALLS_PER_TURN = 10
+
+
+def in_turns(fns: Dict[str, Callable[[], object]], reps: int,
+             device) -> Dict[str, float]:
+    """Median CUDA-event milliseconds per call of each function, timed in
+    turns: each round runs every function ``CALLS_PER_TURN`` times back to
+    back between two events (so the device, not the host's launch cost,
+    sets the time of a short kernel), after one warm-up round."""
+    times = {name: [] for name in fns}
+    for i in range(reps + 1):
+        for name, fn in fns.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(CALLS_PER_TURN):
+                fn()
+            b.record()
+            torch.cuda.synchronize(device)
+            if i:
+                times[name].append(a.elapsed_time(b) / CALLS_PER_TURN)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _error(got, want, tol) -> Dict:
+    diff = (got.float() - want.float()).abs()
+    return {"max_abs_err": float(diff.max()),
+            "within_tolerance": bool(
+                (diff <= tol + tol * want.float().abs()).all()),
+            "finite": bool(torch.isfinite(got.float()).all())}
+
+
 def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
                           dtype, causal: bool, seed: int, device,
-                          reps: int = 10) -> Dict:
+                          reps: int = 10, qk_scale: float = 1.0) -> Dict:
     """The kernel against the plain version on one seeded case."""
-    q, k, v = make_inputs(b, s, h, kvh, d, dv, dtype, seed, device)
+    q, k, v = make_inputs(b, s, h, kvh, d, dv, dtype, seed, device,
+                          qk_scale)
+    name = K.kernel_for(dtype, d, dv)
+    tol = TOLERANCE[dtype]
     before = dict(K.LAUNCHES)    # comparison launches are not the path's
     got = K.flash_attention_fwd(q, k, v, causal=causal)
     want = ref.sdpa_ref(q, k, v, causal=causal)
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(device)
-    diff = (got.float() - want.float()).abs()
-    tol = TOLERANCE[dtype]
-    within = bool((diff <= tol + tol * want.float().abs()).all())
     out = {"shape": [b, s, h, kvh, d, dv], "dtype": str(dtype).split(".")[-1],
-           "causal": causal, "max_abs_err": float(diff.max()),
-           "tolerance": tol, "within_tolerance": within,
-           "finite": bool(torch.isfinite(got.float()).all())}
-    out["ms"] = time_ms(lambda: K.flash_attention_fwd(q, k, v, causal),
-                        reps, device=device)
+           "causal": causal, "qk_scale": qk_scale,
+           "kernel": name if cuda else "plain", "tolerance": tol,
+           **_error(got, want, tol)}
+    if cuda:
+        fns = {"ms": lambda: K.launch(q, k, v, causal, name)}
+        if name != K.SIMT:
+            simt = K.launch(q, k, v, causal, K.SIMT)
+            torch.cuda.synchronize(device)
+            err = _error(simt, want, tol)
+            out.update({f"simt_{key}": val for key, val in err.items()})
+            fns["simt_ms"] = lambda: K.launch(q, k, v, causal, K.SIMT)
+        fns["library_ms"] = library_call(q, k, v, causal)
+        fns["plain_ms"] = lambda: ref.sdpa_ref(q, k, v, causal)
+        out.update(in_turns(fns, reps, device))
+    else:
+        out["ms"] = time_ms(lambda: K.flash_attention_fwd(q, k, v, causal),
+                            reps)
+        out["plain_ms"] = time_ms(lambda: ref.sdpa_ref(q, k, v, causal),
+                                  reps)
+        out["library_ms"] = None
     K.LAUNCHES.update(before)
-    out["plain_ms"] = time_ms(lambda: ref.sdpa_ref(q, k, v, causal), reps,
-                              device=device)
-    out["library_ms"] = (time_ms(library_call(q, k, v, causal), reps,
-                                 device=device)
-                         if device.type == "cuda" else None)
     out.update(attention_bound(b, s, h, kvh, d, dv, dtype, causal))
+    for key in ("ms", "simt_ms", "library_ms", "plain_ms"):
+        if out.get(key):
+            out[key.replace("ms", "bound_share")] = out["bound_ms"] / out[key]
     return out

@@ -1,14 +1,23 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attn.cu``).
+"""Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``).
+
+Two kernels compute the same function; :func:`kernel_for` picks one from
+the dtype and the head widths alone:
+
+* ``flash_attention_wgmma``: bf16 with ``d`` and ``dv`` multiples of 8
+  (TMA needs 16-byte strides), on the tensor cores with TMA loads (the
+  serve prefill);
+* ``flash_attention_simt``: f32 (whose 2e-5 tolerance rules out TF32) and
+  bf16 heads of other widths, on the CUDA cores.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
 then:
 
-* for tensors on the CPU, runs the kernel's plain version
+* for tensors on the CPU, runs the kernels' plain version
   (:func:`.ref.sdpa_ref`; the CPU tests' path);
-* for CUDA tensors, launches the CUDA kernel on the current stream, or
-  raises. There is no fallback from the card to the plain version.
+* for CUDA tensors, launches the chosen kernel on the current stream, or
+  raises. Nothing falls back to the other kernel or to the plain version.
 
-``LAUNCHES`` counts CUDA launches; only a launch adds to it.
+``LAUNCHES`` counts each kernel's CUDA launches; only a launch adds to it.
 """
 from __future__ import annotations
 
@@ -16,8 +25,11 @@ import torch
 
 from . import ref
 
-#: CUDA launches (a plain int; reset by assigning 0)
-LAUNCHES = {"flash_attention": 0}
+#: the two kernels, by the names their launches are counted under
+WGMMA = "flash_attention_wgmma"
+SIMT = "flash_attention_simt"
+#: CUDA launches of each kernel (plain ints; reset by assigning 0)
+LAUNCHES = {WGMMA: 0, SIMT: 0}
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the widest q/k (d) and v (dv) head the kernel takes
@@ -56,9 +68,51 @@ def _check(q, k, v) -> None:
         raise ValueError(f"b*h={b * h} exceeds the grid's 65535 rows")
 
 
+def kernel_for(dtype, d: int, dv: int) -> str:
+    """The kernel that takes q/k of width ``d`` and v of width ``dv`` in
+    ``dtype`` (widths the wrapper accepts): fixed by dtype and shape,
+    never by a failure."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0:
+        return WGMMA
+    return SIMT
+
+
 def _lib():
     from .build import load
     return load()
+
+
+def launch(q, k, v, causal: bool, name: str):
+    """Launch kernel ``name`` on checked CUDA tensors; returns o. The
+    wrapper's own path is :func:`flash_attention_fwd`; ``check.py`` also
+    times the CUDA-core kernel at bf16 shapes through here."""
+    b, s, h, d = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    if name == WGMMA:
+        if kernel_for(q.dtype, d, dv) != WGMMA or any(
+                t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{WGMMA} takes 16-byte aligned bf16 heads of "
+                             f"widths that are multiples of 8, got "
+                             f"{q.dtype} d={d} dv={dv}")
+        if s > 65535 * 64:
+            raise ValueError(f"s={s} exceeds the grid's 65535 query tiles")
+    dev = q.device
+    o = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
+    if o.numel():
+        lib = _lib()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+                h, kvh, d, dv, 1.0 / (d ** 0.5), int(bool(causal)))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if name == WGMMA:
+            err = lib.fa_forward_wgmma(*args, stream)
+        else:
+            err = lib.fa_forward(*args, int(q.dtype == torch.bfloat16),
+                                 stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError "
+                               f"{err})")
+        LAUNCHES[name] += 1
+    return o
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True):
@@ -70,17 +124,5 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
         return ref.sdpa_ref(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    b, s, h, d = q.shape
-    kvh, dv = k.shape[2], v.shape[3]
-    o = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
-    if o.numel():
-        err = _lib().fa_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            kvh, d, dv, 1.0 / (d ** 0.5), int(bool(causal)),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attention: CUDA launch failed "
-                               f"(cudaError {err})")
-        LAUNCHES["flash_attention"] += 1
-    return o
+    return launch(q, k, v, causal,
+                  kernel_for(q.dtype, q.shape[3], v.shape[3]))

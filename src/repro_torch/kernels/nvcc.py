@@ -1,20 +1,23 @@
 """Build and load a CUDA source of the port as a shared library.
 
 Each kernel family (``flash_hash``, ``flash_attn``) keeps one ``.cu``
-file with a plain C interface under its ``csrc/`` and describes it with a
-:class:`CudaLibrary`. At first use the source is compiled with ``nvcc``
-for Hopper (``sm_90a``) and loaded with ``ctypes``. The library lands in
-the family's ``_build/`` (listed in ``.gitignore``), named by a hash of
-the source and the flags, so a changed source rebuilds and an unchanged
+file with a plain C interface under its ``csrc/`` (with any headers it
+includes beside it) and describes it with a :class:`CudaLibrary`. At
+first use the source is compiled with ``nvcc`` for Hopper (``sm_90a``)
+and loaded with ``ctypes``. The library lands in the family's ``_build/``
+(listed in ``.gitignore``), named by a hash of every file under ``csrc/``
+and the flags, so a changed source or header rebuilds and an unchanged
 one loads at once; ``ptxas``'s report of each kernel's registers and
 shared memory is kept beside it. Nothing is compiled when a module is
-imported. :func:`build_all` starts one ``nvcc`` per library at once.
+imported. :func:`build_all` starts one ``nvcc`` per library at once;
+:func:`ptxas_report` and :func:`sass_counts` read what was built.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -57,8 +60,12 @@ class CudaLibrary:
     def _start(self):
         """Start ``nvcc`` unless a library for this source and these flags
         already exists; returns what :meth:`_finish` needs."""
-        tag = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(" ".join(FLAGS).encode())
+        for f in sorted(p for p in self.source.parent.rglob("*")
+                        if p.is_file()):
+            digest.update(f.relative_to(self.source.parent).as_posix()
+                          .encode() + b"\0" + f.read_bytes())
+        tag = digest.hexdigest()[:16]
         out = self.build_dir / f"lib{self.name}_{tag}.so"
         if out.exists():
             return out, None, None, 0.0
@@ -123,3 +130,54 @@ def build_all(libraries: Sequence[CudaLibrary]) -> None:
                 proc.wait()
     for lib in libraries:
         lib.load()
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel from ``nvcc -Xptxas -v``
+    output, by mangled name."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if v}
+
+
+#: SASS instructions counted by :func:`sass_counts`: tensor-core MMAs, TMA
+#: loads, barrier operations, and loads from device memory
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "LDG")
+
+
+def sass_counts(library: Path) -> Dict[str, Dict[str, int]]:
+    """Static count of each of :data:`SASS_OPS` in each kernel of a built
+    library (``cuobjdump -sass``), by mangled name."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out: Dict[str, Dict[str, int]] = {}
+    counts = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            counts = out.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      line)
+        if counts is not None and m and m.group(1) in counts:
+            counts[m.group(1)] += 1
+    return out

@@ -3,9 +3,12 @@
 Flash-hash kernels: exact equality at several geometries (blocks narrower
 than a warp up to 2048-slot blocks) and at the main path's shapes, plus
 the table driven on the card against the same table driven on the CPU.
-Flash attention: within the reference's tolerances (2e-5 f32, 2e-2 bf16,
-TF32 off) from tiny heads to llama3.2-3b's, ragged lengths included, and
-the serving path on the card against the CPU. Needs a CUDA card:
+Flash attention: both kernels within the reference's tolerances (2e-5
+f32, 2e-2 bf16, TF32 off) from tiny heads to llama3.2-3b's, ragged lengths
+included, each call counted under the kernel the dtype/shape split picks;
+the tensor-core kernel at every tile boundary, GQA ratio, head width and
+with q and k scaled x8; and the serving path on the card against the
+CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
 import numpy as np
@@ -124,14 +127,48 @@ def test_wrappers_refuse_mixed_devices(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv, causal,
                                        dtype):
-    before = FK.LAUNCHES["flash_attention"]
+    _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal)
+
+
+def _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal, qk_scale=1.0):
+    """Both kernels that run the case within tolerance; one call of the
+    wrapper counts one launch, of the kernel the split picks."""
+    name = FK.kernel_for(dtype, d, dv)
+    before = dict(FK.LAUNCHES)
     res = FC.check_flash_attention(b, s, h, kvh, d, dv, dtype, causal, s,
-                                   cuda, reps=1)
+                                   cuda, reps=1, qk_scale=qk_scale)
+    assert res["kernel"] == name
     assert res["finite"] and res["within_tolerance"], res
-    assert FK.LAUNCHES["flash_attention"] == before   # checks do not count
-    q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, 1, cuda)
+    if name == FK.WGMMA:    # the CUDA-core kernel, timed as the "before"
+        assert res["simt_finite"] and res["simt_within_tolerance"], res
+    assert FK.LAUNCHES == before   # checks do not count
+    q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, 1, cuda, qk_scale)
     FK.flash_attention_fwd(q, k, v, causal=causal)
-    assert FK.LAUNCHES["flash_attention"] == before + 1
+    assert FK.LAUNCHES == {**before, name: before[name] + 1}
+    return name
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,causal,qk_scale", [
+    (1, 1, 4, 4, 64, 64, True, 1),          # one position, MHA
+    (1, 63, 6, 2, 64, 64, True, 1),         # GQA 3:1, below one tile
+    (1, 64, 8, 2, 128, 128, True, 1),       # GQA 4:1, one whole tile
+    (1, 65, 8, 2, 128, 128, True, 1),       # one key past a tile
+    (1, 1000, 4, 1, 128, 128, True, 1),     # ragged, many tiles, MQA
+    (2, 1000, 24, 8, 128, 128, True, 1),    # llama3.2-3b heads, two rows
+    (1, 200, 4, 4, 256, 256, True, 1),      # the widest heads
+    (1, 130, 6, 2, 64, 64, False, 1),       # non-causal, ragged
+    (2, 257, 6, 3, 256, 256, False, 1),     # non-causal, widest, two rows
+    (1, 300, 4, 2, 64, 128, True, 1),       # d < dv
+    (1, 129, 4, 1, 128, 64, False, 1),      # d > dv, non-causal
+    (1, 100, 6, 2, 40, 24, True, 1),        # widths below a box, not 2**n
+    (1, 512, 24, 8, 128, 128, True, 8),     # q, k x8: scores x64
+    (2, 333, 6, 2, 64, 64, False, 8),       # the same, non-causal, ragged
+])
+def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
+                                             causal, qk_scale):
+    name = _check_and_count(cuda, b, s, h, kvh, d, dv, torch.bfloat16,
+                            causal, qk_scale)
+    assert name == FK.WGMMA
 
 
 def test_flash_attention_refuses_mixed_devices(cuda):
@@ -165,7 +202,8 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
     timing = (("query_cache_hits", "query_device_keys", "query_batches")
               if flush_threshold else ())
     runs = {}
-    FK.LAUNCHES["flash_attention"] = 0
+    for k in FK.LAUNCHES:
+        FK.LAUNCHES[k] = 0
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     for dev in ("cpu", cuda):
@@ -183,6 +221,6 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
         cache.close()
     assert runs["cpu"] == runs[str(cuda)]
     assert runs["cpu"][1] == [0, 16, 16, 16, 0, 0, 0, 0]
-    assert FK.LAUNCHES["flash_attention"] == 5 * cfg.num_layers
+    assert FK.LAUNCHES == {FK.SIMT: 5 * cfg.num_layers, FK.WGMMA: 0}
     if flush_threshold:
         assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES

@@ -5,7 +5,8 @@ The reference's sweep of ``tests/test_flash_attn.py`` (four shapes, f32
 and bf16, non-causal, causality), the same tolerances (2e-5 in f32, 2e-2
 in bf16), inputs from numpy seeds handed to both packages. Ragged ``s``,
 which the reference kernel refuses, is held against the reference's
-dense oracle ``sdpa_ref``."""
+dense oracle ``sdpa_ref``. The split between the two CUDA kernels, which
+only the card runs, is pinned here by dtype and head widths."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,3 +108,33 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     _, (q, k, v), _ = _inputs(5, 1, 16, 6, 2, 16, 16, "float32")
     with pytest.raises(err):
         K.flash_attention_fwd(*mutate(q, k, v))
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 128, 128, K.WGMMA),   # llama3.2-3b: the serve prefill
+    (torch.bfloat16, 16, 16, K.WGMMA),     # narrow heads, padded to a box
+    (torch.bfloat16, 64, 256, K.WGMMA),    # d != dv
+    (torch.bfloat16, 256, 8, K.WGMMA),     # the widest and narrowest
+    (torch.bfloat16, 12, 16, K.SIMT),      # d: no 16-byte TMA stride
+    (torch.bfloat16, 16, 20, K.SIMT),      # dv: the same
+    (torch.float32, 128, 128, K.SIMT),     # f32: 2e-5 rules out TF32
+    (torch.float32, 16, 16, K.SIMT),
+])
+def test_kernel_split_is_fixed_by_dtype_and_widths(dtype, d, dv, want):
+    assert K.kernel_for(dtype, d, dv) == want
+    assert set(K.LAUNCHES) == {K.WGMMA, K.SIMT}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_scores_scaled_x8_match_reference_kernel(causal):
+    """q and k scaled x8 (scores x64: a peaked softmax whose running max
+    jumps between tiles and meets the -1e30 mask), v as drawn: the port
+    holds the reference kernel's bf16 tolerance."""
+    (jq, jk, jv), (q, k, v), tol = _inputs(6, 1, 256, 4, 2, 64, 64,
+                                           "bfloat16")
+    jq, jk = jq * 8, jk * 8
+    q, k = q * 8, k * 8
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
