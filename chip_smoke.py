@@ -9,10 +9,18 @@ fails (non-zero exit, no result line) without them. Phases:
 1. the card's name and power limit, and the build of the CUDA kernels
    from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, all
    started together; timed), with each kernel's registers and spills
-   (``ptxas``) and its static count of HGMMA, UTMALDG, SYNCS and LDG
-   instructions (``cuobjdump -sass``);
+   (``ptxas``) and its static count of HGMMA, UTMALDG, UBLKCP, SYNCS and
+   LDG instructions (``cuobjdump -sass``);
 2. every flash-hash kernel held against its plain PyTorch version on the
-   card at the main path's shapes (exact equality), with CUDA-event times;
+   card at the main path's shapes (exact equality). The merge runs five
+   cases over 2**24 slots in blocks of 1024, at most 512 updates a row:
+   16,384 listed blocks with 64 hot rows (``merge_dirty``), a quarter of
+   the blocks (``_partial``), no hot row (``_cold``), every tile full so
+   that every new key spills (``_full``) and the identity list
+   (``merge``); the serial kernel it replaced is held to the plain
+   version too. CUDA-event times in turns of 10 calls: each kernel's raw
+   launch alone, its wrapper (checks and host sync included), for the
+   merge the serial kernel, and the plain version over single calls;
    the two flash-attention kernels against their plain version at
    llama3.2-3b's attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16
    causal at s=512 (the serve phase's prefill), 4096 and a ragged 1000,
@@ -167,9 +175,9 @@ def kernel_name(mangled: str) -> str:
 
 def kernel_report(lib) -> dict:
     """Each kernel of a built library: its static SASS counts of HGMMA,
-    UTMALDG, SYNCS and LDG and its registers and spills from ``ptxas``.
-    Fails if an instance of the tensor-core attention kernel has no
-    HGMMA."""
+    UTMALDG, UBLKCP, SYNCS and LDG and its registers and spills from
+    ``ptxas``. Fails if an instance of the tensor-core attention kernel has
+    no HGMMA, or one of the merge kernel no bulk copy."""
     from repro_torch.kernels import nvcc
     ptxas = nvcc.ptxas_report(lib.last_build["log"])
     out = {}
@@ -179,6 +187,8 @@ def kernel_report(lib) -> dict:
         out[name] = {**counts, **ptxas.get(mangled, {})}
         if "wgmma" in name and counts["HGMMA"] == 0:
             fail(f"{name}: no HGMMA instruction in its SASS")
+        if name.startswith("merge_dirty_kernel") and counts["UBLKCP"] == 0:
+            fail(f"{name}: no bulk copy (UBLKCP) in its SASS")
     return out
 
 
@@ -192,16 +202,23 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
     pair = Pow2Hash(q_log2, r_log2)
     n_b = pair.num_slots
     table = C.fill_table(pair, 0.55, seed, dev)
+    full = C.full_table(pair, seed + 3, dev)
     res = {}
-    for name, n_d, ident in (("merge_dirty", n_b, False),
-                             ("merge_dirty_partial", n_b // 4, False),
-                             ("merge", n_b, True)):
-        blocks, uk, uc = C.merge_case(pair, table[0], n_d, max_u, 128,
-                                      min(64, n_d), seed + 1, ident)
-        res[name] = C.check_merge_dirty(pair, table, blocks, uk, uc,
-                                        identity=ident)
-        if res[name]["spills"] == 0:
+    for name, tbl, n_d, hot, ident in (
+            ("merge_dirty", table, n_b, 64, False),
+            ("merge_dirty_partial", table, n_b // 4, 64, False),
+            ("merge_dirty_cold", table, n_b, 0, False),
+            ("merge_dirty_full", full, n_b, 64, False),
+            ("merge", table, n_b, 64, True)):
+        blocks, uk, uc = C.merge_case(pair, tbl[0], n_d, max_u, 128,
+                                      min(hot, n_d), seed + 1, ident)
+        r = res[name] = C.check_merge_dirty(pair, tbl, blocks, uk, uc,
+                                            identity=ident)
+        if hot and r["spills"] == 0:
             fail(f"{name}: no hot row spilled")
+        if r.get("serial_max_abs_err", 0) != 0:
+            fail(f"{name} (serial) disagrees with its plain version")
+    del full
     n_rows = min(n_rows, n_b)
     blocks, q2 = C.query_layout(pair, table[0], n_rows, qcap, seed + 2)
     res["query_grid"] = C.check_query_grid(pair, table, blocks, q2)
@@ -211,7 +228,27 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
         if r["max_abs_err"] != 0:
             fail(f"{name} disagrees with its plain version")
+        times = "; ".join(
+            f"{k} {r[k]:.5g} ms ({r[k.replace('ms', 'bound_share')]:.1%} of "
+            f"the bound)" for k in ("ms", "wrapper_ms", "serial_ms")
+            if r.get(k))
+        print(f"{name}: {times}; plain {r['plain_ms']:.5g} ms; bound "
+              f"{r['bound_ms']:.5g} ms ({r['bound_by']})", flush=True)
     return res
+
+
+def zero_launches(*counters) -> None:
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def no_baseline(where: str) -> None:
+    """Fail if the serial merge kernel launched: no path may run it."""
+    from repro_torch.kernels.flash_hash import kernel as K
+    if any(K.BASELINE_LAUNCHES.values()):
+        fail(f"{where}: the serial merge kernel launched "
+             f"{K.BASELINE_LAUNCHES}")
 
 
 # ---------------------------------------------------------------------------
@@ -230,8 +267,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     docs = make_docs(geo["tokens"], seed, doc_len)
     stream = np.concatenate(docs)
     cfg = {k: v for k, v in geo.items() if k != "tokens"}
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
     pipe = TfIdfPipeline(scheme=scheme, device=dev, chunk=chunk, **cfg)
     t0 = time.perf_counter()
     for doc in docs:
@@ -271,6 +307,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     if dev.type == "cuda" and min(launches.values()) <= 0:
         fail(f"{scheme}: a kernel never launched on the main path: "
              f"{launches}")
+    no_baseline(scheme)
     load = float((pipe.term_table.state.keys != -1).float().mean())
     pipe.close()
     out = {"scheme": scheme, "q_log2": geo["q_log2"],
@@ -434,10 +471,9 @@ def serve_phase(seed: int, dev):
     model = Model(cfg, device=dev, seed=seed)
     torch.cuda.synchronize(dev)
     t_init = time.perf_counter() - t0
-    for counts in (FK.LAUNCHES, K.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
     rec = serve(cfg, model, dev, seed, SERVE, timed=True)
+    no_baseline("serve")
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
     want = {FK.WGMMA: 5 * cfg.num_layers, FK.SIMT: 0}
     got = {k: launches[k] for k in want}
@@ -487,10 +523,9 @@ def tiny_card_vs_cpu(seed: int, dev):
         runs = {}
         timing = TIMING_STATS if geo.get("flush_threshold") else ()
         for d in (dev, cpu):
-            for counts in (K.LAUNCHES, FK.LAUNCHES):
-                for k in counts:
-                    counts[k] = 0
+            zero_launches(K.LAUNCHES, FK.LAUNCHES, K.BASELINE_LAUNCHES)
             rec = serve(cfg, models[d.type], d, seed, geo)
+            no_baseline(f"serve {name}")
             stats = {k: v for k, v in rec["stats"].items()
                      if k not in timing}
             runs[d.type] = (rec["outputs"], rec["cached_tokens"], stats,
@@ -575,8 +610,9 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     # each flash-attention kernel at the shape of the path that runs it:
     # the serve prefill (bf16) and the f32 twin's prefill
     for name, case, launches in (

@@ -24,12 +24,11 @@ cores' bf16 rate for bf16, the f32 rate outside the tensor cores for f32
 """
 from __future__ import annotations
 
-import statistics
-from typing import Callable, Dict
+from typing import Dict
 
 import torch
 
-from ..flash_hash.check import H100_BYTES_PER_S, time_ms
+from ..flash_hash.check import H100_BYTES_PER_S, in_turns, time_ms
 from . import kernel as K
 from . import ref
 
@@ -74,31 +73,6 @@ def library_call(q, k, v, causal: bool):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
-#: calls of one function between two events in :func:`in_turns`
-CALLS_PER_TURN = 10
-
-
-def in_turns(fns: Dict[str, Callable[[], object]], reps: int,
-             device) -> Dict[str, float]:
-    """Median CUDA-event milliseconds per call of each function, timed in
-    turns: each round runs every function ``CALLS_PER_TURN`` times back to
-    back between two events (so the device, not the host's launch cost,
-    sets the time of a short kernel), after one warm-up round."""
-    times = {name: [] for name in fns}
-    for i in range(reps + 1):
-        for name, fn in fns.items():
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(CALLS_PER_TURN):
-                fn()
-            b.record()
-            torch.cuda.synchronize(device)
-            if i:
-                times[name].append(a.elapsed_time(b) / CALLS_PER_TURN)
-    return {name: statistics.median(t) for name, t in times.items()}
-
-
 def _error(got, want, tol) -> Dict:
     diff = (got.float() - want.float()).abs()
     return {"max_abs_err": float(diff.max()),
@@ -126,15 +100,16 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
            "kernel": name if cuda else "plain", "tolerance": tol,
            **_error(got, want, tol)}
     if cuda:
-        fns = {"ms": lambda: K.launch(q, k, v, causal, name)}
+        fns = {"ms": lambda _: K.launch(q, k, v, causal, name)}
         if name != K.SIMT:
             simt = K.launch(q, k, v, causal, K.SIMT)
             torch.cuda.synchronize(device)
             err = _error(simt, want, tol)
             out.update({f"simt_{key}": val for key, val in err.items()})
-            fns["simt_ms"] = lambda: K.launch(q, k, v, causal, K.SIMT)
-        fns["library_ms"] = library_call(q, k, v, causal)
-        fns["plain_ms"] = lambda: ref.sdpa_ref(q, k, v, causal)
+            fns["simt_ms"] = lambda _: K.launch(q, k, v, causal, K.SIMT)
+        library = library_call(q, k, v, causal)
+        fns["library_ms"] = lambda _: library()
+        fns["plain_ms"] = lambda _: ref.sdpa_ref(q, k, v, causal)
         out.update(in_turns(fns, reps, device))
     else:
         out["ms"] = time_ms(lambda: K.flash_attention_fwd(q, k, v, causal),

@@ -20,9 +20,17 @@ sectors of the words it tests. Inputs that are read whole (key and
 update rows, block ids) and every output count in full. Operations are
 one compare per slot a probe walks, and a few per Bloom test.
 
-Times come from CUDA events around single calls, median of ``reps``
-(inputs restored between calls, outside the timed region); on the CPU
-they are host-clock times of the plain version and name no device.
+On the card every time is a CUDA-event median over ``reps`` turns
+(:func:`in_turns`), each turn ``CALLS_PER_TURN`` calls back to back
+between two events: ``ms`` is the kernel's raw launch alone
+(``kernel._launch_*``), ``wrapper_ms`` the wrapper with its checks and
+their host sync, and for the merge ``serial_ms`` the serial kernel it
+replaced (:func:`merge_in_turns`). A merge updates its table in place,
+so each call of a turn gets its own copy of the table, restored before
+the turn, outside the timed region. The plain
+version (``plain_ms``) takes hundreds of milliseconds and is timed over
+single calls (:func:`time_ms`). On the CPU ``ms`` and ``plain_ms`` are
+host-clock times of the plain version and name no device.
 """
 from __future__ import annotations
 
@@ -49,11 +57,16 @@ _WORDS = SECTOR // 4
 _I32 = torch.int32
 
 
+#: calls of one function between two events in :func:`in_turns`
+CALLS_PER_TURN = 10
+
+
 def time_ms(fn: Callable[[], object], reps: int,
             before: Optional[Callable[[], None]] = None,
             device: Optional[torch.device] = None) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` calls (after one
-    warm-up call); ``before()`` runs untimed ahead of every call."""
+    """Median milliseconds of single calls of ``fn()`` over ``reps`` calls
+    (after one warm-up call); ``before()`` runs untimed ahead of every
+    call. CUDA events on the card, the host clock elsewhere."""
     cuda = device is not None and device.type == "cuda"
     out = []
     for i in range(reps + 1):
@@ -74,6 +87,51 @@ def time_ms(fn: Callable[[], object], reps: int,
         if i:
             out.append(ms)
     return statistics.median(out)
+
+
+def in_turns(fns: Dict[str, Callable[[int], object]], reps: int, device,
+             before: Optional[Callable[[], None]] = None
+             ) -> Dict[str, float]:
+    """Median CUDA-event milliseconds per call of each function, timed in
+    turns: each round runs every function ``CALLS_PER_TURN`` times back to
+    back between two events (``fn(i)`` for the turn's ``i``-th call, so
+    the device, not the host's launch cost, sets the time of a short
+    kernel), after one warm-up round; ``before()`` runs untimed ahead of
+    every turn."""
+    times = {name: [] for name in fns}
+    for i in range(reps + 1):
+        for name, fn in fns.items():
+            if before is not None:
+                before()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for call in range(CALLS_PER_TURN):
+                fn(call)
+            b.record()
+            torch.cuda.synchronize(device)
+            if i:
+                times[name].append(a.elapsed_time(b) / CALLS_PER_TURN)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _counted(fn: Callable[[], Dict]) -> Dict:
+    """``fn()`` with the launch counters as they were before it: the
+    checks' launches are not the paths'."""
+    saved = dict(K.LAUNCHES), dict(K.BASELINE_LAUNCHES)
+    try:
+        return fn()
+    finally:
+        K.LAUNCHES.update(saved[0])
+        K.BASELINE_LAUNCHES.update(saved[1])
+
+
+def _shares(out: Dict) -> Dict:
+    """Each measured time's share of the bound."""
+    for key in ("ms", "wrapper_ms", "serial_ms"):
+        if out.get(key):
+            out[key.replace("ms", "bound_share")] = out["bound_ms"] / out[key]
+    return out
 
 
 def bound(n_bytes: int, n_ops: int) -> Dict:
@@ -153,6 +211,23 @@ def fill_table(pair: Pow2Hash, load: float, seed: int, device):
     return keys, counts, filt
 
 
+def full_table(pair: Pow2Hash, seed: int, device):
+    """A table whose every tile is full: ``r`` distinct keys of each block
+    merged into empty tiles through the plain merge."""
+    n_b, r = pair.num_slots, pair.r
+    gen = torch.Generator().manual_seed(seed)
+    keys = torch.full((n_b, r), EMPTY, dtype=_I32, device=device)
+    counts = torch.zeros((n_b, r), dtype=_I32, device=device)
+    filt = torch.zeros((n_b, filter_words_for(r)), dtype=_I32, device=device)
+    uniq, cnt = ops.accumulate(random_keys(4 * pair.q, gen, device))
+    uk, uc, _, _, _ = ops.bucket_updates(pair, uniq, cnt, r)
+    ids = torch.arange(n_b, dtype=_I32, device=device)
+    ref.merge_dirty_plain(pair, keys, counts, filt, ids, uk, uc)
+    if bool((keys == EMPTY).any()):
+        raise RuntimeError("full_table left a slot free")
+    return keys, counts, filt
+
+
 def merge_case(pair: Pow2Hash, keys, n_d: int, max_u: int, avg_u: int,
                hot_rows: int, seed: int, identity: bool = False):
     """Update rows for ``n_d`` listed blocks (a shuffled subset, or every
@@ -186,35 +261,90 @@ def merge_case(pair: Pow2Hash, keys, n_d: int, max_u: int, avg_u: int,
 def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
                       identity: bool = False) -> Dict:
     """Kernel (``merge_dirty``, or ``merge`` with ``identity``) against
-    ``merge_dirty_plain`` on copies of one table."""
-    keys, counts, filt = table
-    dev = keys.device
+    ``merge_dirty_plain`` on copies of one table; on the card also the
+    serial kernel, held to the plain version (``serial_max_abs_err``) and
+    timed in turns with the kernel and the wrapper."""
+    dev = table[0].device
     work = [t.clone() for t in table]
-    keys_w, counts_w, filter_w = work
 
-    def restore():
-        for w, t in zip(work, table):
+    def restore(copy=work):
+        for w, t in zip(copy, table):
             w.copy_(t)
 
-    def run_kernel():
+    def run_wrapper(copy=work):
+        keys_w, counts_w, filter_w = copy
         if identity:
-            return K.merge(pair, keys_w, counts_w, filter_w, uk, uc)
-        return K.merge_dirty(pair, keys_w, counts_w, filter_w, blocks, uk,
-                             uc)
+            return K.merge(pair, keys_w, counts_w, filter_words=filter_w,
+                           upd_keys=uk, upd_counts=uc)
+        return K.merge_dirty(pair, keys_w, counts_w,
+                             filter_words=filter_w,
+                             dirty_blocks=blocks, upd_keys=uk, upd_counts=uc)
 
     def run_plain():
-        return ref.merge_dirty_plain(pair, keys_w, counts_w, filter_w,
-                                     blocks, uk, uc)
+        keys_w, counts_w, filter_w = work
+        return ref.merge_dirty_plain(pair, keys_w, counts_w,
+                                     filter_words=filter_w,
+                                     dirty_blocks=blocks, upd_keys=uk,
+                                     upd_counts=uc)
 
-    restore()
-    got = [t.clone() for t in run_kernel()]
-    restore()
-    want = run_plain()
-    err, spills = _max_err(got, want), int((want[3] != EMPTY).sum())
-    return {"max_abs_err": err, "spills": spills,
-            **merge_bound(pair, table, want[:3], blocks, uk),
-            "ms": time_ms(run_kernel, reps, restore, dev),
-            "plain_ms": time_ms(run_plain, reps, restore, dev)}
+    def run() -> Dict:
+        restore()
+        got = [t.clone() for t in run_wrapper()]
+        restore()
+        want = [t.clone() for t in run_plain()]
+        out = {"max_abs_err": _max_err(got, want),
+               "spills": int((want[3] != EMPTY).sum()),
+               **merge_bound(pair, table, want[:3], blocks, uk)}
+        if dev.type != "cuda":
+            out["ms"] = time_ms(run_wrapper, reps, restore, dev)
+            out["plain_ms"] = time_ms(run_plain, reps, restore, dev)
+            return out
+        ids = (torch.arange(pair.num_slots, dtype=_I32, device=dev)
+               if identity else blocks)
+        res = merge_in_turns(pair, table, ids, uk, uc, reps, run_wrapper)
+        out["serial_max_abs_err"] = _max_err(res.pop("serial_out"), want)
+        res.pop("per_row_out")
+        out.update(res)
+        out["plain_ms"] = time_ms(run_plain, reps, restore, dev)
+        return out
+
+    return _shares(_counted(run))
+
+
+def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
+                   wrapper: Optional[Callable[[list], object]] = None
+                   ) -> Dict:
+    """Kernel-only CUDA-event times of the merge of ``uk``/``uc`` into
+    blocks ``ids`` of ``table`` (checked CUDA tensors), in turns: the
+    parallel fold (``ms``), the serial kernel (``serial_ms``) and, if
+    given, ``wrapper(copy)`` (``wrapper_ms``). Each call of a turn works
+    on its own copy of the table, restored before the turn, outside the
+    timed region. ``per_row_out`` and ``serial_out`` are each kernel's
+    outputs (keys, counts, filter words, spill keys and counts) from one
+    untimed call on the table as given. The launches are counted as
+    usual; callers restore the counters (:func:`_counted`)."""
+    spill = [torch.empty_like(uk), torch.empty_like(uc)]
+    copies = [[t.clone() for t in table] for _ in range(CALLS_PER_TURN)]
+
+    def restore_all():
+        for copy in copies:
+            for w, t in zip(copy, table):
+                w.copy_(t)
+
+    def launch(variant):
+        return lambda i: K._launch_merge_dirty(
+            pair, *copies[i], ids, uk, uc, *spill, variant)
+
+    out = {}
+    for variant in K.MERGE_ENTRIES:
+        restore_all()
+        launch(variant)(0)
+        out[f"{variant}_out"] = [t.clone() for t in copies[0] + spill]
+    fns = {"ms": launch("per_row"), "serial_ms": launch("serial")}
+    if wrapper is not None:
+        fns["wrapper_ms"] = lambda i: wrapper(copies[i])
+    out.update(in_turns(fns, reps, uk.device, restore_all))
+    return out
 
 
 def merge_bound(pair: Pow2Hash, before, after, blocks, uk) -> Dict:
@@ -308,52 +438,85 @@ def check_query_grid(pair: Pow2Hash, table, blocks, q2, reps: int = 5
                      ) -> Dict:
     keys, counts, _ = table
     dev = keys.device
-    run_kernel = lambda: K.query_grid(pair, keys, counts, blocks, q2)
+    run_wrapper = lambda: K.query_grid(pair, keys, counts, blocks, q2)
     run_plain = lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2)
-    got, want = run_kernel(), run_plain()
-    lanes = _lanes_of_block(pair, blocks, q2)
-    return {"max_abs_err": _max_err([g[lanes] for g in got],
-                                    [w[lanes] for w in want]),
-            "lanes": int(lanes.sum()),
-            "hits": int((want[0][lanes] != 0).sum()),
-            **query_bound(pair, keys, blocks, q2, want[1]),
-            "ms": time_ms(run_kernel, reps, None, dev),
-            "plain_ms": time_ms(run_plain, reps, None, dev)}
+
+    def run() -> Dict:
+        got, want = run_wrapper(), run_plain()
+        lanes = _lanes_of_block(pair, blocks, q2)
+        out = {"max_abs_err": _max_err([g[lanes] for g in got],
+                                       [w[lanes] for w in want]),
+               "lanes": int(lanes.sum()),
+               "hits": int((want[0][lanes] != 0).sum()),
+               **query_bound(pair, keys, blocks, q2, want[1])}
+        outs = [torch.empty_like(q2), torch.empty_like(q2)]
+        return _timed(out, lambda _: K._launch_query_grid(
+            pair, keys, counts, blocks, q2, *outs), run_wrapper, run_plain,
+            reps, dev)
+
+    return _shares(_counted(run))
+
+
+def _timed(out: Dict, launch: Callable[[int], object],
+           run_wrapper: Callable[[], object], run_plain: Callable[[], object],
+           reps: int, dev) -> Dict:
+    """``out`` with the times of a kernel that leaves its inputs as they
+    were: on the card the raw launch and the wrapper in turns, else the
+    wrapper (the plain version) on the host clock; the plain version."""
+    if dev.type == "cuda":
+        out.update(in_turns({"ms": launch,
+                             "wrapper_ms": lambda _: run_wrapper()},
+                            reps, dev))
+    else:
+        out["ms"] = time_ms(run_wrapper, reps, None, dev)
+    out["plain_ms"] = time_ms(run_plain, reps, None, dev)
+    return out
 
 
 def check_query(pair: Pow2Hash, table, q_keys, qchunk: int = 128,
                 reps: int = 5) -> Dict:
     """The 1-D ``query`` wrapper: keys sorted by block, chunks of
-    ``qchunk`` answered against their first key's block."""
+    ``qchunk`` answered against their first key's block (``ms``: the
+    kernel's raw launch over that layout)."""
     keys, counts, _ = table
     dev = keys.device
     q = q_keys[torch.sort(pair.s(q_keys), stable=True).indices].contiguous()
     q2 = q.reshape(-1, qchunk)
     blocks = pair.s(q2[:, 0]).contiguous()
-    run_kernel = lambda: K.query(pair, keys, counts, q, qchunk)
+    run_wrapper = lambda: K.query(pair, keys, counts, q, qchunk)
     run_plain = lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2)
-    got = run_kernel()
-    want2 = run_plain()
-    want = [w.reshape(-1) for w in want2]
-    lanes = _lanes_of_block(pair, blocks, q2).reshape(-1)
-    return {"max_abs_err": _max_err([g[lanes] for g in got],
-                                    [w[lanes] for w in want]),
-            **query_bound(pair, keys, blocks, q2, want2[1]),
-            "ms": time_ms(run_kernel, reps, None, dev),
-            "plain_ms": time_ms(run_plain, reps, None, dev)}
+
+    def run() -> Dict:
+        got = run_wrapper()
+        want2 = run_plain()
+        want = [w.reshape(-1) for w in want2]
+        lanes = _lanes_of_block(pair, blocks, q2).reshape(-1)
+        out = {"max_abs_err": _max_err([g[lanes] for g in got],
+                                       [w[lanes] for w in want]),
+               **query_bound(pair, keys, blocks, q2, want2[1])}
+        outs = [torch.empty_like(q2), torch.empty_like(q2)]
+        return _timed(out, lambda _: K._launch_query_grid(
+            pair, keys, counts, blocks, q2, *outs), run_wrapper, run_plain,
+            reps, dev)
+
+    return _shares(_counted(run))
 
 
 def check_filter_probe_grid(table, blocks, q2, reps: int = 5) -> Dict:
     filt = table[2]
     dev = filt.device
-    run_kernel = lambda: K.filter_probe_grid(filt, blocks, q2)
+    run_wrapper = lambda: K.filter_probe_grid(filt, blocks, q2)
     run_plain = lambda: ref.filter_probe_grid_plain(filt, blocks, q2)
-    got, want = run_kernel(), run_plain()
-    return {"max_abs_err": _max_err([got], [want]),
-            "maybe": int(want.sum()),
-            **filter_bound(filt, blocks, q2),
-            "ms": time_ms(run_kernel, reps, None, dev),
-            "plain_ms": time_ms(run_plain, reps, None, dev)}
+
+    def run() -> Dict:
+        got, want = run_wrapper(), run_plain()
+        out = {"max_abs_err": _max_err([got], [want]),
+               "maybe": int(want.sum()), **filter_bound(filt, blocks, q2)}
+        may = torch.empty_like(q2)
+        return _timed(out, lambda _: K._launch_filter_probe_grid(
+            filt, blocks, q2, may), run_wrapper, run_plain, reps, dev)
+
+    return _shares(_counted(run))
 
 
 def filter_bound(filter_words, blocks, q2) -> Dict:

@@ -18,18 +18,70 @@
 //   identity block list.
 //   Bound on the card: bytes. Each listed tile (keys, counts, filter row)
 //   is read once and written once, plus the update rows in and the spill
-//   rows out. The fold itself is serial per block: insertion order fixes
-//   the slot layout, so updates cannot be applied in parallel. That serial
-//   chain (shared-memory probe, ballot, one-lane write per update) is the
-//   latency the design accepts.
-//   Design: one CTA of one warp per listed block. The tile and filter row
-//   are staged in shared memory; each update is resolved by the warp
-//   walking 32-slot windows from home with __ballot_sync, so the first set
-//   bit is the smallest cyclic distance holding the key or EMPTY (the
-//   reference's min over d_match and d_empty). Lane 0 applies it. A CTA
-//   whose row carries no valid key writes no tile, which keeps a repeated
-//   padding id harmless; the wrapper refuses a repeated id that carries
-//   updates, since two CTAs would race on one tile.
+//   rows out.
+//   Why a parallel fold keeps insertion order: only where each *new* key
+//   lands depends on the order of a row's updates.
+//   - Slots are never freed, so the slots from a key's home up to the
+//     tile's first EMPTY at or after it (its window in the tile as it was
+//     before the merge) stay as they are for the whole fold. A key found
+//     in that window is found there by the serial fold too, whatever is
+//     inserted meanwhile.
+//   - A repeat of a key inserted earlier in the row finds that key's slot:
+//     when it was inserted, every slot between its home and that slot was
+//     already taken. A repeat of a spilled key spills too: a full tile
+//     stays full.
+//   - Count adds (uint32, wrapping) and filter ORs commute.
+//   So only the keys absent from their window need a pass in update
+//   order. For such a key the serial probe walks on from the window's end
+//   (the tile's first EMPTY) over slots that later inserts filled, to the
+//   first slot still free: it takes that slot, unless it meets itself on
+//   the way (a repeat of a key inserted earlier in the row, or, in a tile
+//   the fold did not build, a key of the tile past an EMPTY). Taking a
+//   slot changes that walk only for a later key that wanted the same
+//   slot, so one warp places the new keys among 32 updates at once: each
+//   lane finds the first free slot in a bitmap of the free slots as it
+//   stands and scans the slots between for its key, __match_any_sync
+//   finds lanes that want a slot an earlier lane wants, the lanes before
+//   the first such clash are final (they insert and take their slots),
+//   and the rest look again. Rows whose new keys crowd one run of the
+//   tile take more rounds; a round always settles at least one key.
+//   Design: one CTA of 4 warps per listed row. Its tile, filter row and
+//   update row arrive in shared memory by 1-D bulk copies on an mbarrier;
+//   an array whose row size or base address is not a multiple of 16 bytes
+//   is loaded with plain coalesced loads instead (the kernel decides from
+//   its arguments). A persistent grid (as many CTAs as fit, striding over
+//   the rows with a two-stage ring, so that row i+1 loads while row i
+//   folds) was slower on the H100 in every case measured (PERF.md): the
+//   card hides each CTA's loads behind the other CTAs on its SM and hands
+//   rows to SMs as they free up, where a fixed stride leaves the CTAs that
+//   drew long rows running alone at the end.
+//   Block widths r from 8 (two int4 groups) to 8192 (a new key's first
+//   free slot is packed into 14 bits of its class); the entry point
+//   refuses others with cudaErrorInvalidValue.
+//   Per row, in chunks of at most 1024 updates:
+//   1. a bitmap of the tile's EMPTY slots, ceil(r / 32) words;
+//   2. every valid update classified in parallel: its window scanned four
+//      slots a step (int4 loads), giving "present at slot s" or "new";
+//   3. warp 0 places the new keys as above (a repeat of a new key takes
+//      the placement of its first occurrence, which a shared-memory hash
+//      keeping each key's smallest update index names), adds their counts
+//      at their slots (an insert adds to the slot's count, as the serial
+//      fold does) and compacts the spills in update order (ballot + popc),
+//      while the other warps add the counts of present keys, OR both Bloom
+//      bits of every valid update, spills included, into the filter row,
+//      and check whether every key of the tile lies in its window (warp 0
+//      waits for that on a named barrier only when it needs it);
+//   4. the tile and filter row go back only if the row held a valid key,
+//      which keeps a repeated padding id harmless (the wrapper refuses a
+//      repeated id that carries updates: two CTAs would race on a tile).
+//
+// merge_dirty_serial_kernel
+//   The kernel merge_dirty_kernel replaced, kept as the in-turn "before"
+//   of kernels/flash_hash/check.py; no path launches it. One CTA of one
+//   warp per listed block folds the row's updates one at a time: the warp
+//   walks 32-slot windows from home with __ballot_sync (the first set bit
+//   is the reference's min over d_match and d_empty) and lane 0 applies
+//   the update in shared memory.
 //
 // query_grid_kernel
 //   Replaces kernel.py:query_grid (body _query_kernel); kernel.py:query is
@@ -47,7 +99,12 @@
 //   Design: one thread per (row, lane), elementwise.
 // ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "bulk_copy.cuh"
 
 #define EMPTY_KEY (-1)
 #define FULL_MASK 0xffffffffu
@@ -81,13 +138,15 @@ __device__ __forceinline__ int probe_warp(const int* s_keys, int r, int key,
   return -1;
 }
 
-__global__ void merge_dirty_kernel(const int* __restrict__ blocks,
-                                   int* keys, int* counts, uint32_t* filt,
-                                   const int* __restrict__ uk,
-                                   const int* __restrict__ uc,
-                                   int* __restrict__ sk, int* __restrict__ sc,
-                                   int r_log2, int fw, int fbits_log2,
-                                   int max_u, uint32_t mult) {
+__global__ void merge_dirty_serial_kernel(const int* __restrict__ blocks,
+                                          int* keys, int* counts,
+                                          uint32_t* filt,
+                                          const int* __restrict__ uk,
+                                          const int* __restrict__ uc,
+                                          int* __restrict__ sk,
+                                          int* __restrict__ sc, int r_log2,
+                                          int fw, int fbits_log2, int max_u,
+                                          uint32_t mult) {
   extern __shared__ int smem[];
   const int r = 1 << r_log2;
   const int rmask = r - 1;
@@ -165,6 +224,403 @@ __global__ void merge_dirty_kernel(const int* __restrict__ blocks,
   for (int i = lane; i < fw; i += 32) tf[i] = s_filt[i];
 }
 
+// ---- merge_dirty_kernel ----------------------------------------------------
+constexpr int MERGE_THREADS = 128;
+constexpr int MERGE_WARPS = MERGE_THREADS / 32;
+// most updates of a row folded per pass; longer rows fold in chunks, each
+// against the tile the chunks before it left
+constexpr int MERGE_CHUNK = 1024;
+// s_cls of an EMPTY update; a new key's s_cls packs its first free slot
+// from home (f0, or -1) and its slot in the hash of new keys
+constexpr int CLS_INVALID = INT_MIN;
+constexpr int CLS_F0_BITS = 14;             // f0 + 1 <= 8192
+// a placement is a slot, the slot | PLACE_FOUND of a tile key met past an
+// EMPTY, or -1 (a spill); the hash entry of a placed key holds
+// PLACED | (placement + 1) instead of its smallest update index
+constexpr int PLACE_FOUND = 1 << 14;
+constexpr int PLACED = 1 << 30;
+
+struct MergeArgs {
+  const int* blocks;
+  int* keys;
+  int* counts;
+  uint32_t* filt;
+  const int* uk;
+  const int* uc;
+  int* sk;
+  int* sc;
+  int r_log2, fw, fbits_log2, max_u, chunk, hash_log2;
+  uint32_t mult;
+  int bulk_tile, bulk_filt, bulk_upd;   // arrays staged by bulk copies
+};
+
+// Shared memory of one CTA, in ints: the row's (keys, counts, filter row,
+// update keys, update counts), then each update's class, the hash of new
+// keys, the free bitmap, its summary (one bit per word that holds a free
+// slot) and its copy as the chunk found it, 8 scalars and an 8-byte
+// mbarrier.
+struct MergeSmem {
+  int r, fwp, up, hs, nwp, bw;
+  __host__ __device__ MergeSmem(const MergeArgs& a)
+      : r(1 << a.r_log2), fwp((a.fw + 3) & ~3), up((a.chunk + 3) & ~3),
+        hs(1 << a.hash_log2), nwp((((r + 31) >> 5) + 3) & ~3),
+        bw(nwp + ((((r + 1023) >> 10) + 3) & ~3)) {}
+  __host__ __device__ int work() const { return 2 * r + fwp + 2 * up; }
+  __host__ __device__ int misc() const { return work() + up + hs + 2 * bw; }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(misc() + 8) * sizeof(int) + sizeof(uint64_t);
+  }
+};
+
+__device__ __forceinline__ uint32_t home_of(int key, uint32_t mult,
+                                            uint32_t rmask) {
+  return ((uint32_t)key * mult) & rmask;
+}
+
+// First slot at or after h (cyclically) whose bit is set in the bitmap
+// `fr` of `nwords` words; -1 if none.
+__device__ __forceinline__ int first_free(const uint32_t* fr, int nwords,
+                                          uint32_t h) {
+  int w = (int)(h >> 5);
+  uint32_t bits = fr[w] & (FULL_MASK << (h & 31u));
+  for (int i = 0; i < nwords; ++i) {
+    if (bits) return (w << 5) + __ffs(bits) - 1;
+    w = (w + 1 == nwords) ? 0 : w + 1;
+    bits = fr[w];
+  }
+  bits &= (1u << (h & 31u)) - 1u;           // the start word's low part
+  return bits ? (w << 5) + __ffs(bits) - 1 : -1;
+}
+
+// The same, reading past an empty home word only the words a summary
+// `sum` names: bit w is set when word w holds a free slot, or held one (a
+// word emptied since is skipped and its bit cleared), so the search stays
+// short however few slots are free.
+__device__ __forceinline__ int first_free_sum(const uint32_t* fr,
+                                              uint32_t* sum, int nwords,
+                                              uint32_t h) {
+  const int w0 = (int)(h >> 5);
+  const uint32_t b0 = h & 31u;
+  uint32_t bits = fr[w0] & (FULL_MASK << b0);
+  if (bits) return (w0 << 5) + __ffs(bits) - 1;
+  for (int pass = 0; pass < 2; ++pass) {    // words after w0, then to w0
+    const int lo = pass ? 0 : w0 + 1;
+    const int hi = pass ? w0 + 1 : nwords;
+    for (int sw = lo >> 5; (sw << 5) < hi; ++sw) {
+      uint32_t m = sum[sw];
+      if ((sw << 5) < lo) m &= FULL_MASK << (lo & 31);
+      if (((sw + 1) << 5) > hi) m &= (1u << (hi & 31)) - 1u;
+      for (; m; m &= m - 1u) {
+        const int w = (sw << 5) + __ffs(m) - 1;
+        bits = w == w0 ? fr[w] & ((1u << b0) - 1u) : fr[w];
+        if (bits) return (w << 5) + __ffs(bits) - 1;
+        if (fr[w] == 0u) atomicAnd(&sum[sw], ~(1u << (w & 31)));
+      }
+    }
+  }
+  return -1;
+}
+
+// Smallest cyclic distance d < len from h at which the tile holds `key`,
+// reading four slots a step; -1 if none. r >= 8.
+__device__ __forceinline__ int scan_window(const int* s_keys, uint32_t rmask,
+                                           uint32_t h, int len, int key) {
+  const int4* v = reinterpret_cast<const int4*>(s_keys);
+  const uint32_t gmask = rmask >> 2;
+  const int off = (int)(h & 3u);
+  const int n_groups = (off + len + 3) >> 2;
+  for (int i = 0; i < n_groups; ++i) {
+    const int4 q = v[((h >> 2) + (uint32_t)i) & gmask];
+    const int d0 = 4 * i - off;             // distance of q.x
+    // a slot counts in the visit whose distance range holds it
+    int best = -1;
+    if (q.w == key && d0 + 3 >= 0 && d0 + 3 < len) best = d0 + 3;
+    if (q.z == key && d0 + 2 >= 0 && d0 + 2 < len) best = d0 + 2;
+    if (q.y == key && d0 + 1 >= 0 && d0 + 1 < len) best = d0 + 1;
+    if (q.x == key && d0 >= 0 && d0 < len) best = d0;
+    if (best >= 0) return best;
+  }
+  return -1;
+}
+
+// Barrier `id` (1..15; __syncthreads uses 0) over `n` threads: sync waits,
+// arrive does not.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void copy_ints(int* dst, const int* src, int n,
+                                          bool vec) {
+  if (vec) {
+    int4* d = reinterpret_cast<int4*>(dst);
+    const int4* s = reinterpret_cast<const int4*>(src);
+    for (int i = threadIdx.x; i < n / 4; i += MERGE_THREADS) d[i] = s[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += MERGE_THREADS) dst[i] = src[i];
+  }
+}
+
+// Thread 0: arm the barrier and start the bulk copies of row `row` into
+// `stage`.
+__device__ void stage_row(const MergeArgs& a, const MergeSmem& L, int* stage,
+                          uint32_t bar, int row) {
+  const size_t b = (size_t)a.blocks[row];
+  const int r = L.r;
+  const int n0 = min(a.max_u, a.chunk);
+  uint32_t bytes = 0;
+  if (a.bulk_tile) bytes += 2u * r * 4u;
+  if (a.bulk_filt) bytes += (uint32_t)a.fw * 4u;
+  if (a.bulk_upd) bytes += 2u * n0 * 4u;
+  bulk::mbar_arrive_expect_tx(bar, bytes);
+  if (a.bulk_tile) {
+    bulk::copy_to_smem(stage, a.keys + b * r, r * 4u, bar);
+    bulk::copy_to_smem(stage + r, a.counts + b * r, r * 4u, bar);
+  }
+  if (a.bulk_filt)
+    bulk::copy_to_smem(stage + 2 * r, a.filt + b * a.fw, a.fw * 4u, bar);
+  if (a.bulk_upd) {
+    const size_t u = (size_t)row * a.max_u;
+    bulk::copy_to_smem(stage + 2 * r + L.fwp, a.uk + u, n0 * 4u, bar);
+    bulk::copy_to_smem(stage + 2 * r + L.fwp + L.up, a.uc + u, n0 * 4u, bar);
+  }
+}
+
+__global__ void __launch_bounds__(MERGE_THREADS, 8)
+    merge_dirty_kernel(const MergeArgs a) {
+  extern __shared__ __align__(16) int smem[];
+  const MergeSmem L(a);
+  const int r = L.r;
+  const uint32_t rmask = (uint32_t)r - 1u;
+  const int nwords = (r + 31) >> 5;
+  const uint32_t fmask = (1u << a.fbits_log2) - 1u;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t hmask = (uint32_t)L.hs - 1u;
+  // per update: present at slot (>= 0), new (-1 - (hash slot << 14 |
+  // f0 + 1)) or CLS_INVALID
+  int* s_cls = smem + L.work();
+  int* s_hash = s_cls + L.up;       // new keys: smallest update index
+  uint32_t* s_free = reinterpret_cast<uint32_t*>(s_hash + L.hs);
+  uint32_t* s_sum = s_free + L.nwp;
+  uint32_t* s_free0 = s_free + L.bw;
+  int* s_misc = smem + L.misc();    // n_free, n_used, n_spill, irregular
+  const uint32_t bar = bulk::smem_addr(s_misc + 8);
+  const int row = blockIdx.x;
+
+  if (tid == 0) {
+    bulk::mbar_init(bar, 1);
+    bulk::fence_barrier_init();
+    stage_row(a, L, smem, bar, row);
+  }
+  __syncthreads();
+
+  int* t_keys = smem;
+  int* t_counts = t_keys + r;
+  uint32_t* t_filt = reinterpret_cast<uint32_t*>(t_counts + r);
+  int* t_uk = t_keys + 2 * r + L.fwp;
+  int* t_uc = t_uk + L.up;
+  const size_t b = (size_t)a.blocks[row];
+  int* g_keys = a.keys + b * r;
+  int* g_counts = a.counts + b * r;
+  uint32_t* g_filt = a.filt + b * a.fw;
+  const int* g_uk = a.uk + (size_t)row * a.max_u;
+  const int* g_uc = a.uc + (size_t)row * a.max_u;
+  int* g_sk = a.sk + (size_t)row * a.max_u;
+  int* g_sc = a.sc + (size_t)row * a.max_u;
+
+  bulk::mbar_wait(bar, 0);
+  if (!a.bulk_tile) {
+    copy_ints(t_keys, g_keys, r, false);
+    copy_ints(t_counts, g_counts, r, false);
+  }
+  if (!a.bulk_filt)
+    copy_ints(reinterpret_cast<int*>(t_filt),
+              reinterpret_cast<const int*>(g_filt), a.fw, false);
+  int row_any = 0;
+  int n_spill = 0;                        // warp 0's running spill count
+
+  for (int c0 = 0; c0 < a.max_u; c0 += a.chunk) {
+    const int n = min(a.chunk, a.max_u - c0);
+    if (c0 > 0) __syncthreads();          // the last chunk's reads done
+    if (c0 > 0 || !a.bulk_upd) {
+      copy_ints(t_uk, g_uk + c0, n, false);
+      copy_ints(t_uc, g_uc + c0, n, false);
+    }
+    if (tid == 0) s_misc[0] = s_misc[1] = s_misc[3] = 0;
+    __syncthreads();
+
+    // 1. free bitmap of the tile as it stands; the chunk's used length;
+    //    the hash cleared
+    for (int w = warp; w < nwords; w += MERGE_WARPS) {
+      const int i = 32 * w + lane;
+      const unsigned bal =
+          __ballot_sync(FULL_MASK, i < r && t_keys[i] == EMPTY_KEY);
+      if (lane == 0) {
+        s_free[w] = s_free0[w] = bal;
+        if (bal) atomicAdd(&s_misc[0], __popc(bal));
+      }
+    }
+    for (int i = tid; i < L.hs; i += MERGE_THREADS) s_hash[i] = -1;
+    int used = 0;                         // past this chunk's last key
+    for (int j = tid; j < n; j += MERGE_THREADS)
+      if (t_uk[j] != EMPTY_KEY) used = j + 1;
+    if (used) atomicMax(&s_misc[1], used);
+    if (!__syncthreads_or(used)) continue;
+    row_any = 1;
+    const int n_free = s_misc[0];
+    const int n_used = s_misc[1];
+
+    // 2. classify every update against the tile as it stands; new keys
+    //    into the hash, which keeps each key's smallest update index
+    for (int j = tid; j < n_used; j += MERGE_THREADS) {
+      const int key = t_uk[j];
+      int cls = CLS_INVALID;
+      if (key != EMPTY_KEY) {
+        const uint32_t h = home_of(key, a.mult, rmask);
+        const int f0 = n_free ? first_free(s_free, nwords, h) : -1;
+        const int len = f0 < 0 ? r : (int)(((uint32_t)f0 - h) & rmask);
+        const int d = scan_window(t_keys, rmask, h, len, key);
+        if (d >= 0) {
+          cls = (int)((h + (uint32_t)d) & rmask);
+        } else {
+          uint32_t p = bloom_mix(key) & hmask;
+          for (;;) {
+            const int old = atomicCAS(&s_hash[p], -1, j);
+            if (old == -1) break;
+            if (t_uk[old] == key) {
+              atomicMin(&s_hash[p], j);
+              break;
+            }
+            p = (p + 1u) & hmask;
+          }
+          cls = -1 - (int)((p << CLS_F0_BITS) | (uint32_t)(f0 + 1));
+        }
+      }
+      s_cls[j] = cls;
+    }
+    __syncthreads();
+
+    // 3. warp 0 places the first occurrence of each new key, those among
+    //    32 updates at a time: each lane takes the first free slot from
+    //    its key's home in the bitmap as it stands (in a tile with a key
+    //    past an EMPTY, unless it meets its key on the way there).
+    //    Taking a slot changes only the answer of a later key that
+    //    wanted that same slot, so the keys before the first such clash
+    //    are final; the rest look again. A repeat takes its first
+    //    occurrence's placement. Then warp 0 adds the new keys' counts
+    //    and compacts the spills in update order, while the other warps
+    //    add present keys' counts, OR every valid key's Bloom bits and
+    //    check whether every key of the tile as the chunk found it lies
+    //    in its window (barrier 1 hands that to warp 0, which waits for
+    //    it only once a key's first free slot moved past its window).
+    if (warp == 0) {
+      int left = n_free;
+      bool checked = false, irregular = false;
+      for (int sw = 0; 32 * sw < nwords; ++sw) {
+        const int w = 32 * sw + lane;
+        const unsigned bal =
+            __ballot_sync(FULL_MASK, w < nwords && s_free[w] != 0u);
+        if (lane == 0) s_sum[sw] = bal;
+      }
+      __syncwarp();
+      for (int base = 0; base < n_used; base += 32) {
+        const int j = base + lane;
+        const int cls = j < n_used ? s_cls[j] : CLS_INVALID;
+        const bool is_new = cls < 0 && cls != CLS_INVALID;
+        const uint32_t packed = is_new ? (uint32_t)(-1 - cls) : 0u;
+        const int f0 = (int)(packed & ((1u << CLS_F0_BITS) - 1u)) - 1;
+        const int hp = (int)(packed >> CLS_F0_BITS);
+        const int key = is_new ? t_uk[j] : EMPTY_KEY;
+        const uint32_t h = home_of(key, a.mult, rmask);
+        unsigned todo = __ballot_sync(FULL_MASK, is_new && s_hash[hp] == j);
+        while (todo) {
+          const bool active = (todo >> lane) & 1u;
+          const int cand =
+              active && left ? first_free_sum(s_free, s_sum, nwords, h) : -1;
+          int place = cand;
+          const bool moved = active && f0 >= 0 && cand != f0;
+          if (!checked && __any_sync(FULL_MASK, moved)) {
+            named_sync(1, MERGE_THREADS);
+            checked = true;
+            irregular = s_misc[3] != 0;
+          }
+          if (moved && irregular) {
+            const int lo = (int)(((uint32_t)f0 - h) & rmask);
+            const int hi =
+                cand < 0 ? r : (int)(((uint32_t)cand - h) & rmask);
+            const int d =
+                scan_window(t_keys, rmask, h + (uint32_t)lo, hi - lo, key);
+            if (d >= 0)
+              place = (int)((h + (uint32_t)(lo + d)) & rmask) | PLACE_FOUND;
+          }
+          const unsigned same = __match_any_sync(
+              FULL_MASK, active && cand >= 0 ? cand : -2 - lane);
+          const unsigned clash = __ballot_sync(
+              FULL_MASK, active && (same & ((1u << lane) - 1u)) != 0u);
+          const unsigned done =
+              todo & (clash ? (1u << (__ffs(clash) - 1)) - 1u : FULL_MASK);
+          const bool mine = (done >> lane) & 1u;
+          const bool takes = mine && place >= 0 && !(place & PLACE_FOUND);
+          if (takes) {
+            atomicAnd(&s_free[place >> 5], ~(1u << (place & 31)));
+            t_keys[place] = key;
+          }
+          if (mine) s_hash[hp] = PLACED | (place + 1);
+          left -= __popc(__ballot_sync(FULL_MASK, takes));
+          todo &= ~done;
+          __syncwarp();
+        }
+        const int place = is_new ? (s_hash[hp] & ~PLACED) - 1 : -1;
+        if (place >= 0) atomicAdd(&t_counts[place & ~PLACE_FOUND], t_uc[j]);
+        const bool sp = is_new && place < 0;
+        const unsigned bal = __ballot_sync(FULL_MASK, sp);
+        if (sp) {
+          const int pos = n_spill + __popc(bal & ((1u << lane) - 1u));
+          g_sk[pos] = key;
+          g_sc[pos] = t_uc[j];
+        }
+        n_spill += __popc(bal);
+      }
+      if (!checked) named_sync(1, MERGE_THREADS);
+    } else {
+      for (int j = tid - 32; j < n_used; j += MERGE_THREADS - 32) {
+        const int key = t_uk[j];
+        if (key == EMPTY_KEY) continue;
+        const int cls = s_cls[j];
+        if (cls >= 0) atomicAdd(&t_counts[cls], t_uc[j]);
+        const uint32_t hb = bloom_mix(key);
+        const uint32_t p0 = hb & fmask;
+        const uint32_t p1 = (hb >> a.fbits_log2) & fmask;
+        atomicOr(&t_filt[p0 >> 5], 1u << (p0 & 31u));
+        atomicOr(&t_filt[p1 >> 5], 1u << (p1 & 31u));
+      }
+      // warp 0 fills free slots meanwhile: read the tile's own keys only
+      for (int i = tid - 32; n_free && i < r; i += MERGE_THREADS - 32) {
+        if ((s_free0[i >> 5] >> (i & 31)) & 1u) continue;
+        const uint32_t h = home_of(t_keys[i], a.mult, rmask);
+        const int f0 = first_free(s_free0, nwords, h);
+        if ((((uint32_t)i - h) & rmask) > (((uint32_t)f0 - h) & rmask))
+          s_misc[3] = 1;
+      }
+      named_arrive(1, MERGE_THREADS);
+    }
+  }
+  if (tid == 0) s_misc[2] = n_spill;
+  __syncthreads();
+  for (int j = s_misc[2] + tid; j < a.max_u; j += MERGE_THREADS) {
+    g_sk[j] = EMPTY_KEY;
+    g_sc[j] = 0;
+  }
+  if (row_any) {
+    copy_ints(g_keys, t_keys, r, a.bulk_tile);
+    copy_ints(g_counts, t_counts, r, a.bulk_tile);
+    copy_ints(reinterpret_cast<int*>(g_filt),
+              reinterpret_cast<const int*>(t_filt), a.fw, a.bulk_filt);
+  }
+}
+
 __global__ void query_grid_kernel(const int* __restrict__ keys,
                                   const int* __restrict__ counts,
                                   const int* __restrict__ blocks,
@@ -235,6 +691,8 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -243,10 +701,47 @@ int fh_merge_dirty(const void* blocks, int n_d, void* keys, void* counts,
                    void* filt, int r_log2, int fw, const void* uk,
                    const void* uc, int max_u, void* sk, void* sc,
                    unsigned int mult, void* stream) {
-  const size_t smem = ((size_t)2 * (1 << r_log2) + fw) * sizeof(int);
+  // blocks of 8 to 8192 slots (merge_dirty_kernel's header says why)
+  if (r_log2 < 3 || r_log2 > 13) return (int)cudaErrorInvalidValue;
+  MergeArgs a;
+  a.blocks = (const int*)blocks;
+  a.keys = (int*)keys;
+  a.counts = (int*)counts;
+  a.filt = (uint32_t*)filt;
+  a.uk = (const int*)uk;
+  a.uc = (const int*)uc;
+  a.sk = (int*)sk;
+  a.sc = (int*)sc;
+  a.r_log2 = r_log2;
+  a.fw = fw;
+  a.fbits_log2 = fbits_for(fw);
+  a.max_u = max_u;
+  a.chunk = std::min(max_u, MERGE_CHUNK);
+  a.hash_log2 = 1;                          // at most half full
+  while ((1 << a.hash_log2) < 2 * a.chunk) ++a.hash_log2;
+  a.mult = mult;
+  // row sizes and offsets that are multiples of 16 bytes go by bulk copy
+  // (r * 4 always is, r >= 8)
+  a.bulk_tile = aligned16(keys) && aligned16(counts);
+  a.bulk_filt = fw % 4 == 0 && aligned16(filt);
+  a.bulk_upd = max_u % 4 == 0 && aligned16(uk) && aligned16(uc);
+  const size_t smem = MergeSmem(a).bytes();
   cudaError_t err = allow_smem((const void*)merge_dirty_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  merge_dirty_kernel<<<n_d, 32, smem, (cudaStream_t)stream>>>(
+  merge_dirty_kernel<<<n_d, MERGE_THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The serial baseline (merge_dirty_serial_kernel), for check.py only.
+int fh_merge_dirty_serial(const void* blocks, int n_d, void* keys,
+                          void* counts, void* filt, int r_log2, int fw,
+                          const void* uk, const void* uc, int max_u,
+                          void* sk, void* sc, unsigned int mult,
+                          void* stream) {
+  const size_t smem = ((size_t)2 * (1 << r_log2) + fw) * sizeof(int);
+  cudaError_t err = allow_smem((const void*)merge_dirty_serial_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  merge_dirty_serial_kernel<<<n_d, 32, smem, (cudaStream_t)stream>>>(
       (const int*)blocks, (int*)keys, (int*)counts, (uint32_t*)filt,
       (const int*)uk, (const int*)uc, (int*)sk, (int*)sc, r_log2, fw,
       fbits_for(fw), max_u, mult);

@@ -12,7 +12,13 @@ these buffers): ``merge``/``merge_dirty`` return the very ``table_keys``,
 ``table_counts`` and ``filter_words`` tensors they were given. Filter
 words are int32 tensors holding the reference's uint32 bits.
 
-``LAUNCHES`` counts CUDA launches per kernel; only a launch adds to it.
+Each wrapper is its checks (one host sync, in :func:`_check_ids`) and a
+raw launch (``_launch_*``: checked CUDA tensors and preallocated outputs
+in, no checks, no sync), which ``check.py`` times on its own.
+
+``LAUNCHES`` counts CUDA launches per kernel of the paths; only a launch
+adds to it. ``BASELINE_LAUNCHES`` counts the serial merge kernel, which
+only ``check.py`` launches.
 """
 from __future__ import annotations
 
@@ -25,6 +31,12 @@ EMPTY = ref.EMPTY
 
 #: CUDA launches per kernel (a plain int each; reset by assigning 0)
 LAUNCHES = {"merge_dirty": 0, "query_grid": 0, "filter_probe_grid": 0}
+#: CUDA launches of the serial merge kernel, the in-turn "before"
+BASELINE_LAUNCHES = {"merge_dirty_serial": 0}
+#: C entry points of the merge: the parallel fold (every path) and the
+#: serial fold (timed by ``check.py`` only)
+MERGE_ENTRIES = {"per_row": "fh_merge_dirty",
+                 "serial": "fh_merge_dirty_serial"}
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -78,7 +90,9 @@ def merge_dirty(pair: Pow2Hash, table_keys, table_counts, filter_words,
     int32; dirty_blocks: (n_d,) int32; upd_keys/upd_counts: (n_d, max_u)
     int32, EMPTY-padded. A block id may repeat only on rows without a
     valid update. Returns ``(table_keys, table_counts, filter_words,
-    spill_keys, spill_counts)``, the spills ``(n_d, max_u)``."""
+    spill_keys, spill_counts)``, the spills ``(n_d, max_u)``. On the card
+    blocks hold 8 to 8192 slots; the kernel refuses other widths (the
+    launch raises)."""
     n_b, r = pair.num_slots, pair.r
     dev = table_keys.device
     fw = filter_words.shape[1] if filter_words.dim() == 2 else -1
@@ -99,15 +113,31 @@ def merge_dirty(pair: Pow2Hash, table_keys, table_counts, filter_words,
         raise ValueError(f"unsupported device {dev}")
     spill_k = torch.empty((n_d, max_u), dtype=torch.int32, device=dev)
     spill_c = torch.empty((n_d, max_u), dtype=torch.int32, device=dev)
-    if n_d and max_u:
-        err = _lib().fh_merge_dirty(
-            dirty_blocks.data_ptr(), n_d, table_keys.data_ptr(),
-            table_counts.data_ptr(), filter_words.data_ptr(), pair.r_log2, fw,
-            upd_keys.data_ptr(), upd_counts.data_ptr(), max_u,
-            spill_k.data_ptr(), spill_c.data_ptr(), pair.mult, _stream(dev))
-        _raise_if(err, "merge_dirty")
-        LAUNCHES["merge_dirty"] += 1
+    _launch_merge_dirty(pair, table_keys, table_counts, filter_words,
+                        dirty_blocks, upd_keys, upd_counts, spill_k, spill_c)
     return table_keys, table_counts, filter_words, spill_k, spill_c
+
+
+def _launch_merge_dirty(pair: Pow2Hash, table_keys, table_counts,
+                        filter_words, dirty_blocks, upd_keys, upd_counts,
+                        spill_k, spill_c, variant: str = "per_row"):
+    """Launch the merge (``variant`` of :data:`MERGE_ENTRIES`) on CUDA
+    tensors :func:`merge_dirty` has checked, into ``spill_k``/``spill_c``
+    of ``upd_keys``' shape."""
+    n_d, max_u = upd_keys.shape
+    if not (n_d and max_u):
+        return
+    err = getattr(_lib(), MERGE_ENTRIES[variant])(
+        dirty_blocks.data_ptr(), n_d, table_keys.data_ptr(),
+        table_counts.data_ptr(), filter_words.data_ptr(), pair.r_log2,
+        filter_words.shape[1], upd_keys.data_ptr(), upd_counts.data_ptr(),
+        max_u, spill_k.data_ptr(), spill_c.data_ptr(), pair.mult,
+        _stream(table_keys.device))
+    _raise_if(err, f"merge_dirty ({variant})")
+    if variant == "serial":
+        BASELINE_LAUNCHES["merge_dirty_serial"] += 1
+    else:
+        LAUNCHES["merge_dirty"] += 1
 
 
 def merge(pair: Pow2Hash, table_keys, table_counts, filter_words,
@@ -140,14 +170,23 @@ def query_grid(pair: Pow2Hash, table_keys, table_counts, blocks, q2):
         raise ValueError(f"unsupported device {dev}")
     cnt = torch.empty((n_rows, qcap), dtype=torch.int32, device=dev)
     dist = torch.empty((n_rows, qcap), dtype=torch.int32, device=dev)
-    if n_rows and qcap:
-        err = _lib().fh_query_grid(
-            table_keys.data_ptr(), table_counts.data_ptr(), blocks.data_ptr(),
-            q2.data_ptr(), cnt.data_ptr(), dist.data_ptr(), n_rows,
-            pair.r_log2, qcap, pair.mult, _stream(dev))
-        _raise_if(err, "query_grid")
-        LAUNCHES["query_grid"] += 1
+    _launch_query_grid(pair, table_keys, table_counts, blocks, q2, cnt, dist)
     return cnt, dist
+
+
+def _launch_query_grid(pair: Pow2Hash, table_keys, table_counts, blocks,
+                       q2, cnt, dist):
+    """Launch ``query_grid`` on checked CUDA tensors into ``cnt``/``dist``
+    of ``q2``'s shape."""
+    n_rows, qcap = q2.shape
+    if not (n_rows and qcap):
+        return
+    err = _lib().fh_query_grid(
+        table_keys.data_ptr(), table_counts.data_ptr(), blocks.data_ptr(),
+        q2.data_ptr(), cnt.data_ptr(), dist.data_ptr(), n_rows, pair.r_log2,
+        qcap, pair.mult, _stream(table_keys.device))
+    _raise_if(err, "query_grid")
+    LAUNCHES["query_grid"] += 1
 
 
 def query(pair: Pow2Hash, table_keys, table_counts, q_keys, qchunk: int = 128):
@@ -179,10 +218,19 @@ def filter_probe_grid(filter_words, blocks, q2):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     may = torch.empty((n_rows, qcap), dtype=torch.int32, device=dev)
-    if n_rows and qcap:
-        err = _lib().fh_filter_probe_grid(
-            filter_words.data_ptr(), blocks.data_ptr(), q2.data_ptr(),
-            may.data_ptr(), n_rows, qcap, fw, _stream(dev))
-        _raise_if(err, "filter_probe_grid")
-        LAUNCHES["filter_probe_grid"] += 1
+    _launch_filter_probe_grid(filter_words, blocks, q2, may)
     return may
+
+
+def _launch_filter_probe_grid(filter_words, blocks, q2, may):
+    """Launch ``filter_probe_grid`` on checked CUDA tensors into ``may`` of
+    ``q2``'s shape."""
+    n_rows, qcap = q2.shape
+    if not (n_rows and qcap):
+        return
+    err = _lib().fh_filter_probe_grid(
+        filter_words.data_ptr(), blocks.data_ptr(), q2.data_ptr(),
+        may.data_ptr(), n_rows, qcap, filter_words.shape[1],
+        _stream(filter_words.device))
+    _raise_if(err, "filter_probe_grid")
+    LAUNCHES["filter_probe_grid"] += 1

@@ -158,8 +158,9 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
 
 
 #: SASS instructions counted by :func:`sass_counts`: tensor-core MMAs, TMA
-#: loads, barrier operations, and loads from device memory
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "LDG")
+#: tensor loads, 1-D bulk copies, barrier operations, and loads from device
+#: memory
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "LDG")
 
 
 def sass_counts(library: Path) -> Dict[str, Dict[str, int]]:

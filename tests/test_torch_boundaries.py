@@ -21,7 +21,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "chip_trace.py",
-                                          REPO / "chip_serve_ab.py"]
+                                          REPO / "chip_serve_ab.py",
+                                          REPO / "chip_tfidf_ab.py"]
     assert len(files) > 15
     return files
 

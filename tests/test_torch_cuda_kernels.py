@@ -55,7 +55,109 @@ def test_merge_kernels_match_plain(cuda, q_log2, r_log2, max_u):
         res = C.check_merge_dirty(pair, table, blocks, uk, uc, reps=1,
                                   identity=ident)
         assert res["max_abs_err"] == 0, (n_d, ident)
+        assert res["serial_max_abs_err"] == 0, (n_d, ident)
         assert res["spills"] > 0
+
+
+def _fold_case(q_log2, r_log2, max_u, load, hot, scrambled, seed):
+    """A table at ``load`` (every tile's slots permuted with
+    ``scrambled``, so that keys sit past an EMPTY from their home) and
+    update rows for half its blocks: the first ``hot`` rows new keys
+    enough to fill their tile and spill, then keys the tile holds; the
+    others a random mix of held and new keys, with repeats."""
+    pair = Pow2Hash(q_log2, r_log2)
+    n_b, r = pair.num_slots, pair.r
+    rng = np.random.default_rng(seed)
+    keys, counts, filt = C.fill_table(pair, load, seed, "cpu")
+    if scrambled:
+        perm = torch.as_tensor(np.argsort(rng.random((n_b, r)), axis=1))
+        keys, counts = keys.gather(1, perm), counts.gather(1, perm)
+    pool = torch.as_tensor(rng.integers(0, 1 << 30, 8 * pair.q)
+                           .astype(np.int32))
+    blk = pair.s(pool).numpy()
+    pool = pool.numpy()
+    dirty = rng.permutation(n_b)[: max(n_b // 2, hot)].astype(np.int32)
+    uk = np.full((len(dirty), max_u), -1, np.int32)
+    for i, b in enumerate(dirty):
+        held = keys[b][keys[b] != -1].numpy()
+        fresh = np.unique(pool[blk == b])
+        fresh = fresh[~np.isin(fresh, held)]
+        if i < hot:
+            row = np.concatenate([fresh[: max_u - max_u // 4],
+                                  rng.choice(held, max_u // 4)])
+        else:
+            n = rng.integers(1, max_u + 1)
+            row = rng.choice(np.concatenate([held[: n // 3],
+                                             fresh[: n // 3 + 1]]), n)
+        uk[i, : len(row)] = row
+    uc = np.where(uk != -1, rng.integers(-3, 9, uk.shape), 0)
+    return (pair, (keys, counts, filt), torch.as_tensor(dirty),
+            torch.as_tensor(uk), torch.as_tensor(uc.astype(np.int32)))
+
+
+def _on_card(t, cuda, misaligned):
+    """``t`` on the card, its data 4 bytes past a 16-byte boundary with
+    ``misaligned`` (so the kernel loads it without bulk copies)."""
+    if not misaligned:
+        return t.to(cuda)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:]
+    out = buf.view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+#: name: (q_log2, r_log2, max_u, load, hot rows, scrambled tiles)
+FOLD_CASES = {
+    "repeats": (12, 6, 64, 0.4, 0, False),
+    "full_tiles": (12, 5, 64, 0.7, 16, False),
+    "r8": (10, 3, 16, 0.5, 16, False),
+    "keys_past_empty": (12, 6, 64, 0.4, 8, True),
+    "max_u_not_multiple_of_4": (12, 4, 23, 0.4, 16, False),
+    "all_hot": (14, 10, 1024, 0.55, 16, False),
+    "r2048": (16, 11, 1024, 0.7, 4, True),
+    "chunked": (16, 11, 2500, 0.5, 4, False),
+}
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_merge_fold_matches_plain(cuda, case, misaligned):
+    """The parallel fold and the serial kernel, each against ``merge_dirty_plain`` exactly, on
+    repeated keys, full tiles, r=8 and r=2048, keys past an EMPTY, rows
+    longer than a chunk, all-hot rows and a row width that is not a
+    multiple of 4; with tensors on 16-byte boundaries (bulk copies) and
+    4 bytes past them (plain loads)."""
+    pair, table, blocks, uk, uc = _fold_case(*FOLD_CASES[case],
+                                             seed=len(case))
+    want = K.merge_dirty(pair, *(t.clone() for t in table), blocks, uk, uc)
+    if FOLD_CASES[case][4]:
+        assert (want[3] != -1).any()
+    launches = dict(K.LAUNCHES), dict(K.BASELINE_LAUNCHES)
+    for variant in K.MERGE_ENTRIES:
+        args = [_on_card(t, cuda, misaligned)
+                for t in (*table, blocks, uk, uc)]
+        spill = [torch.empty(uk.shape, dtype=torch.int32, device=cuda)
+                 for _ in range(2)]
+        K._launch_merge_dirty(pair, *args, *spill, variant)
+        got = args[:3] + spill
+        for name, g, w in zip(("keys", "counts", "filter", "spill_k",
+                               "spill_c"), got, want):
+            assert torch.equal(g.cpu(), w), (variant, name)
+    assert K.LAUNCHES["merge_dirty"] == launches[0]["merge_dirty"] + 1
+    assert (K.BASELINE_LAUNCHES["merge_dirty_serial"]
+            == launches[1]["merge_dirty_serial"] + 1)
+
+
+def test_merge_refuses_blocks_past_8192_slots(cuda):
+    """The parallel fold takes blocks of 8 to 8192 slots; the kernel's
+    entry point refuses wider ones and the launch raises."""
+    pair = Pow2Hash(16, 14)
+    table = [t.to(cuda) for t in C.fill_table(pair, 0.1, 1, "cpu")]
+    blocks = torch.zeros(1, dtype=torch.int32, device=cuda)
+    uk = torch.full((1, 8), 5, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        K.merge_dirty(pair, *table, blocks, uk, torch.ones_like(uk))
 
 
 @pytest.mark.parametrize("q_log2,r_log2,qcap", [(8, 3, 8), (12, 6, 32),

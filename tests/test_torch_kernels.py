@@ -12,6 +12,7 @@ import torch
 
 from repro.core.hashing import Pow2Hash as JPair
 from repro.core.hashing import filter_words_for
+from repro_torch.core.hashing import bloom_positions, filter_bits_log2
 from repro.kernels.flash_hash import ops as jops
 from repro_torch.core.hashing import Pow2Hash as TPair
 from repro_torch.kernels.flash_hash import kernel as tk
@@ -291,3 +292,186 @@ def test_wrappers_refuse_bad_inputs():
         tk.filter_probe_grid(torch.zeros((n_b, 8), dtype=torch.int32),
                              torch.tensor([0, 1], dtype=torch.int32),
                              torch.zeros((4, 2), dtype=torch.int32).t())
+
+
+# ---------------------------------------------------------------------------
+# the CUDA merge kernel's phased fold, modelled in Python
+# ---------------------------------------------------------------------------
+def _wrap32(x):
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _phased_fold(tp, tk0, tc0, tf0, blocks, uk, uc, chunk):
+    """The fold of ``merge_dirty_kernel`` step by step, one row at a time,
+    in chunks of ``chunk`` updates: a bitmap of the free slots; every
+    update classified against the tile as it stands (present in its
+    window, home up to the first free slot, or new); whether every tile
+    key lies in its window; the first occurrences of new keys placed in
+    batches of those among 32 updates: each takes the first free slot from
+    its home in the bitmap as it stands (where a tile key lies outside its
+    window, unless it meets itself on the way there); the keys before the
+    first one that wants a slot an earlier key of the batch wants are
+    final; a repeat takes its first occurrence's placement; counts and
+    Bloom bits applied; spills compacted in update order. Returns numpy
+    arrays like the kernel's outputs."""
+    r = tp.r
+    keys, counts = tk0.astype(np.int64).copy(), tc0.astype(np.int64).copy()
+    filt = tf0.view(np.uint32).astype(np.int64).copy()
+    n_d, max_u = uk.shape
+    sk = np.full((n_d, max_u), EMPTY, np.int32)
+    sc = np.zeros((n_d, max_u), np.int32)
+    bits = filter_bits_log2(filt.shape[1])
+    home = lambda k: int(tp.home_within_block(k))
+
+    def first_free(h, free):
+        return next(((h + d) % r for d in range(r) if (h + d) % r in free),
+                    -1)
+
+    for i, b in enumerate(blocks.tolist()):
+        kl, cl, fl = keys[b].tolist(), counts[b].tolist(), filt[b].tolist()
+        spills = []
+        for c0 in range(0, max_u, chunk):
+            ks, cs = uk[i, c0:c0 + chunk].tolist(), uc[i, c0:c0 + chunk]
+            if all(k == EMPTY for k in ks):
+                continue
+            free = {s for s in range(r) if kl[s] == EMPTY}
+            irregular = any(
+                kl[s] != EMPTY and free and (s - home(kl[s])) % r
+                > (first_free(home(kl[s]), free) - home(kl[s])) % r
+                for s in range(r))
+            cls, first = [], {}
+            for j, k in enumerate(ks):
+                if k == EMPTY:
+                    cls.append(None)
+                    continue
+                h = home(k)
+                f0 = first_free(h, free)
+                n = r if f0 < 0 else (f0 - h) % r
+                d = next((d for d in range(n) if kl[(h + d) % r] == k), -1)
+                cls.append(("present", (h + d) % r) if d >= 0 else
+                           ("new", f0))
+                if d < 0:
+                    first.setdefault(k, j)
+            place = {}
+            for base in range(0, len(ks), 32):
+                todo = [j for j in range(base, min(base + 32, len(ks)))
+                        if cls[j] is not None and cls[j][0] == "new"
+                        and first[ks[j]] == j]
+                while todo:     # one batch: the keys before the first clash
+                    taken, done = set(), []
+                    for j in todo:
+                        k, f0 = ks[j], cls[j][1]
+                        h = home(k)
+                        f = first_free(h, free)
+                        if f >= 0 and f in taken:
+                            break
+                        taken.add(f)
+                        pl = ("insert", f) if f >= 0 else ("spill", -1)
+                        if irregular and f0 >= 0 and f != f0:
+                            hi = r if f < 0 else (f - h) % r
+                            d = next((d for d in range((f0 - h) % r, hi)
+                                      if kl[(h + d) % r] == k), -1)
+                            if d >= 0:
+                                pl = ("found", (h + d) % r)
+                        done.append((j, pl))
+                    for j, (kind, slot) in done:
+                        if kind == "insert":
+                            free.discard(slot)
+                            kl[slot] = ks[j]
+                        place[j] = (kind, slot)
+                    todo = todo[len(done):]
+            for j, (k, c) in enumerate(zip(ks, cs.tolist())):
+                if cls[j] is None:
+                    continue
+                for p in bloom_positions(torch.tensor([k]), bits):
+                    p = int(p)
+                    fl[p >> 5] |= 1 << (p & 31)
+                kind, slot = (cls[j] if cls[j][0] == "present"
+                              else place[first[k]])
+                if kind == "spill":
+                    spills.append((k, c))
+                else:
+                    cl[slot] += c
+        if (uk[i] != EMPTY).any():
+            keys[b], counts[b], filt[b] = kl, cl, fl
+        for n, (k, c) in enumerate(spills):
+            sk[i, n], sc[i, n] = k, c
+    return (keys.astype(np.int32), _wrap32(counts).astype(np.int32),
+            filt.astype(np.uint32), sk, sc)
+
+
+def _block_pool(jp, rng, n):
+    """``n`` random keys grouped by block: {block: distinct keys}."""
+    keys, blk = _block_keys(jp, rng, n, 1 << 24)
+    return {b: np.unique(keys[blk == b]) for b in range(jp.num_slots)}
+
+
+def _scramble(jp, tk0, tc0, rng):
+    """Permute the slots of every tile, so that keys sit past an EMPTY
+    from their home (a tile the fold would never build)."""
+    tk0, tc0 = tk0.copy(), tc0.copy()
+    for b in range(jp.num_slots):
+        perm = rng.permutation(jp.r)
+        tk0[b], tc0[b] = tk0[b][perm], tc0[b][perm]
+    return tk0, tc0
+
+
+#: name: (q_log2, r_log2, max_u, fill, hot rows, scrambled tiles, chunk)
+FOLD_CASES = {
+    "repeats": (10, 6, 64, 3, 0, False, 1024),
+    "full_tiles": (9, 5, 64, 2, 4, False, 1024),
+    "r8": (8, 3, 16, 4, 2, False, 1024),
+    "keys_past_empty": (10, 6, 64, 3, 2, True, 1024),
+    "max_u_not_multiple_of_4": (9, 4, 23, 3, 2, False, 1024),
+    "chunked": (10, 6, 80, 3, 2, True, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_phased_fold_model_matches_pallas(case):
+    """The CUDA kernel's phased fold (classify against the tile before the
+    merge, first occurrences placed in batches at the first free slot,
+    keys past an EMPTY found on the way, spills compacted in order),
+    modelled in Python, against the reference's
+    Pallas ``merge_dirty`` in interpret mode and the port's plain version:
+    bit for bit, on rows of repeated keys, hits, new keys and hot rows that
+    fill their tile and spill."""
+    from repro.kernels.flash_hash import kernel as jk
+    q_log2, r_log2, max_u, fill, hot, scrambled, chunk = FOLD_CASES[case]
+    jp, tp = _pairs(q_log2, r_log2)
+    n_b, r = jp.num_slots, jp.r
+    rng = np.random.default_rng(q_log2 * 100 + r_log2 + max_u)
+    tk0, tc0, tf0 = _table(jp, rng, rng.integers(0, 1 << 24, jp.q // fill))
+    if scrambled:
+        tk0, tc0 = _scramble(jp, tk0, tc0, rng)
+    pool = _block_pool(jp, rng, 8 * jp.q)
+    dirty = rng.permutation(n_b)[: max(n_b // 2, hot + 1)].astype(np.int32)
+    uk = np.full((len(dirty), max_u), EMPTY, np.int32)
+    for i, b in enumerate(dirty):
+        held = tk0[b][tk0[b] != EMPTY]
+        fresh = pool[b][~np.isin(pool[b], held)]
+        if i < hot:       # new keys enough to fill the tile, then spill,
+            # then keys the tile held (past an EMPTY, in a scrambled tile)
+            row = np.concatenate([fresh[: max_u - max_u // 4],
+                                  rng.choice(held, max_u // 4)])
+        else:
+            n = rng.integers(1, max_u + 1)
+            mix = np.concatenate([held[: n // 3], fresh[: n // 3 + 1]])
+            row = rng.choice(mix, n)          # with repeats
+        uk[i, : len(row)] = row
+    uc = np.where(uk != EMPTY, rng.integers(-3, 9, uk.shape), 0).astype(
+        np.int32)
+    want = jk.merge_dirty(jp, jnp.asarray(tk0), jnp.asarray(tc0),
+                          jnp.asarray(tf0), jnp.asarray(dirty),
+                          jnp.asarray(uk), jnp.asarray(uc))
+    model = _phased_fold(tp, tk0, tc0, tf0, dirty, uk, uc, chunk)
+    plain = tk.merge_dirty(tp, _t(tk0), _t(tc0), _t(tf0), _t(dirty), _t(uk),
+                           _t(uc))
+    for name, w, m, p in zip(("keys", "counts", "filter", "spill_k",
+                              "spill_c"), want, model, plain):
+        p = _u32(p) if name == "filter" else p.numpy()
+        np.testing.assert_array_equal(m, _np(w), err_msg=f"model {name}")
+        np.testing.assert_array_equal(p, _np(w), err_msg=f"plain {name}")
+    if hot:
+        assert (_np(want[3]) != EMPTY).any(), "no row spilled"
+        assert (_np(want[0])[dirty[:hot]] != EMPTY).all(), "no tile filled"
