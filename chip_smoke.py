@@ -12,16 +12,26 @@ fails (non-zero exit, no result line) without them. Phases:
    (``ptxas``) and its static count of HGMMA, UTMALDG, UBLKCP, SYNCS and
    LDG instructions (``cuobjdump -sass``);
 2. every flash-hash kernel held against its plain PyTorch version on the
-   card at the main path's shapes (exact equality). The merge runs five
-   cases over 2**24 slots in blocks of 1024, at most 512 updates a row:
-   16,384 listed blocks with 64 hot rows (``merge_dirty``), a quarter of
-   the blocks (``_partial``), no hot row (``_cold``), every tile full so
-   that every new key spills (``_full``) and the identity list
-   (``merge``); the serial kernel it replaced is held to the plain
-   version too. CUDA-event times in turns of 10 calls: each kernel's raw
-   launch alone, its wrapper (checks and host sync included), for the
-   merge the serial kernel, and the plain version over single calls;
-   the two flash-attention kernels against their plain version at
+   card at the main path's shapes (exact equality, every lane). The merge
+   runs five cases over 2**24 slots in blocks of 1024, at most 512
+   updates a row: 16,384 listed blocks with 64 hot rows
+   (``merge_dirty``), a quarter of the blocks (``_partial``), no hot row
+   (``_cold``), every tile full so that every new key spills (``_full``)
+   and the identity list (``merge``). The lookup kernels run at two
+   layouts of 10 calls each: dense rows (1,024 disjoint blocks x 128
+   live lanes) and the path's own dispatches (``check.path_query_layout``:
+   1,024 keys bucketed by the path's code, a key or two per row). Each
+   kernel the path's kernels replaced (the serial merge, the staged
+   query) is held to the plain version too. Times
+   (``check.py``'s docstring): each kernel's device time from CUDA-graph
+   replays (``device_ms``; the query kernels cold, with the L2 flushed
+   before every launch, and warm), the same for the replaced kernel, and
+   for the filter probe the floor of a plain copy of its lanes; its raw
+   launches from Python (``ms``) and its wrapper (checks and host sync
+   included) in turns of 10 calls between two events; the plain version
+   over single calls. The query kernels' cold device times at the path's
+   layout are taken again from a ``torch.profiler`` trace (a cross
+   check). The two flash-attention kernels against their plain version at
    llama3.2-3b's attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16
    causal at s=512 (the serve phase's prefill), 4096 and a ragged 1000,
    non-causal and with q and k scaled x8 at 512 (the tensor-core kernel,
@@ -30,7 +40,7 @@ fails (non-zero exit, no result line) without them. Phases:
    (f32) with TF32 off, with CUDA-event medians timed in turns: the
    kernel, the CUDA-core kernel (bf16 cases), one
    ``scaled_dot_product_attention`` call (timed only, never on the path)
-   and the plain version;
+   and the plain version, and the first three's device times;
 3. the TF-IDF path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
    MDB-L at the paper's table size (2**24 slots in blocks of 1024, a
    2**21-entry change segment) on a seeded 2**25-token stream of
@@ -151,7 +161,7 @@ def make_docs(n: int, seed: int, doc_len: int = DOC_LEN):
 def kernel_name(mangled: str) -> str:
     """``flash_attn_wgmma_kernel<128,2>`` from a mangled kernel name: the
     first length-prefixed identifier ending in ``_kernel`` and its
-    template arguments (integers and types)."""
+    template arguments (integers, bools and types)."""
     import re
     i = 0
     while i < len(mangled):
@@ -166,9 +176,10 @@ def kernel_name(mangled: str) -> str:
             rest = mangled[i:]
             if not rest.startswith("I"):
                 return ident
-            args = re.findall(r"Li(\d+)E|^I(f)|13(__nv_bfloat16)",
+            args = re.findall(r"Li(\d+)E|^I(f)|13(__nv_bfloat16)|Lb([01])E",
                               rest[:rest.find("EE") + 1])
-            args = [{"f": "float"}.get("".join(a), "".join(a)) for a in args]
+            args = [{"f": "float", "b0": "false", "b1": "true"}.get(
+                "".join(a[:3]) or "b" + a[3], "".join(a)) for a in args]
             return f"{ident}<{','.join(args)}>"
     return mangled
 
@@ -196,7 +207,8 @@ def kernel_report(lib) -> dict:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
-                 max_u: int = 512, qcap: int = 128, n_rows: int = 1024):
+                 max_u: int = 512, qcap: int = 128, n_rows: int = 1024,
+                 reps: int = 30):
     from repro_torch.core.hashing import Pow2Hash
     from repro_torch.kernels.flash_hash import check as C
     pair = Pow2Hash(q_log2, r_log2)
@@ -216,25 +228,78 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
                                             identity=ident)
         if hot and r["spills"] == 0:
             fail(f"{name}: no hot row spilled")
-        if r.get("serial_max_abs_err", 0) != 0:
-            fail(f"{name} (serial) disagrees with its plain version")
     del full
+    # the lookup kernels at two layouts, each call of a turn on its own:
+    # dense rows over disjoint blocks, and the path's dispatches
     n_rows = min(n_rows, n_b)
-    blocks, q2 = C.query_layout(pair, table[0], n_rows, qcap, seed + 2)
-    res["query_grid"] = C.check_query_grid(pair, table, blocks, q2)
-    res["query"] = C.check_query(pair, table, q2.reshape(-1), qcap)
-    res["filter_probe_grid"] = C.check_filter_probe_grid(table, blocks, q2)
+    turn = range(C.CALLS_PER_TURN)
+    dense = [C.query_layout(pair, table[0], n_rows, qcap, seed + 2, part=i)
+             for i in turn]
+    path = [path_layout(pair, table, seed + 2 + i, n_rows, qcap)
+            for i in turn]
+    probed = [p[0] for p in path]
+    queried = [p[1] for p in path]
+    res["query_grid"] = C.check_query_grid(pair, table, *dense[0], reps,
+                                           rotation=dense[1:])
+    res["query_grid_path"] = C.check_query_grid(pair, table, *queried[0],
+                                                reps, rotation=queried[1:])
+    res["query"] = C.check_query(pair, table, dense[0][1].reshape(-1), qcap,
+                                 reps)
+    res["filter_probe_grid"] = C.check_filter_probe_grid(
+        table, *dense[0], reps, rotation=dense[1:])
+    res["filter_probe_grid_path"] = C.check_filter_probe_grid(
+        table, *probed[0], reps, rotation=probed[1:])
     for name, r in res.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
-        if r["max_abs_err"] != 0:
-            fail(f"{name} disagrees with its plain version")
+        for who in ("", "serial_", "staged_"):
+            if r.get(who + "max_abs_err", 0) != 0:
+                fail(f"{name} ({who or 'kernel'}) disagrees with its plain "
+                     f"version")
         times = "; ".join(
-            f"{k} {r[k]:.5g} ms ({r[k.replace('ms', 'bound_share')]:.1%} of "
-            f"the bound)" for k in ("ms", "wrapper_ms", "serial_ms")
-            if r.get(k))
+            f"{k} {v:.5g} ms ({r[k[:-2] + 'bound_share']:.1%} of the bound)"
+            for k, v in r.items() if k.endswith("ms") and k not in (
+                "bound_ms", "plain_ms") and v)
         print(f"{name}: {times}; plain {r['plain_ms']:.5g} ms; bound "
               f"{r['bound_ms']:.5g} ms ({r['bound_by']})", flush=True)
+    if dev.type == "cuda":
+        res["cross_check"] = cross_check(pair, table, queried, dev, reps)
     return res
+
+
+def path_layout(pair, table, seed: int, n_keys: int, qcap: int):
+    """The ``(blocks, q2)`` of the Bloom probe and of the query for one
+    lookup dispatch: the smoke's mix (``check.lookup_mix``) through the
+    query engine's Bloom pre-filter, its first chunk of ``n_keys``, and
+    ``ops.query_blocked_ex``'s layout (``check.path_query_layout``)."""
+    from repro_torch.core import segments as seg
+    from repro_torch.kernels.flash_hash import check as C
+    mix = C.lookup_mix(table[0], seed, n_keys)
+    chunk = C.padded(mix[seg.filter_may_contain(pair, table[2], mix)],
+                     n_keys)
+    return C.path_query_layout(pair, table[2], chunk, qcap)
+
+
+def cross_check(pair, table, layouts, dev, reps: int) -> dict:
+    """Both query kernels' cold device times at the path's layouts two
+    ways: graph replays timed by events (``check.device_ms``) and the
+    kernels' own durations in a ``torch.profiler`` trace
+    (``check.profiled_ms``)."""
+    import torch
+    from repro_torch.kernels.flash_hash import check as C
+    from repro_torch.kernels.flash_hash import kernel as K
+    keys, counts, _ = table
+    outs = [(torch.empty_like(q), torch.empty_like(q)) for _, q in layouts]
+    fns = {v: (lambda i, v=v: K._launch_query_grid(
+        pair, keys, counts, *layouts[i], *outs[i], v))
+        for v in K.QUERY_ENTRIES}
+    names = {"probe": "query_grid_kernel<", "staged": "query_grid_staged"}
+    out = C._counted(lambda: {
+        "graph_ms": C.device_ms(fns, reps, dev, C.L2_FLUSH_BYTES),
+        "profiler_ms": C.profiled_ms(fns, names, reps, dev,
+                                     C.L2_FLUSH_BYTES)})
+    print(f"cross check (query_grid, path layout, cold): {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def zero_launches(*counters) -> None:
@@ -244,11 +309,11 @@ def zero_launches(*counters) -> None:
 
 
 def no_baseline(where: str) -> None:
-    """Fail if the serial merge kernel launched: no path may run it."""
+    """Fail if a replaced kernel (the serial merge, the staged query)
+    launched: no path may run one."""
     from repro_torch.kernels.flash_hash import kernel as K
     if any(K.BASELINE_LAUNCHES.values()):
-        fail(f"{where}: the serial merge kernel launched "
-             f"{K.BASELINE_LAUNCHES}")
+        fail(f"{where}: a replaced kernel launched {K.BASELINE_LAUNCHES}")
 
 
 # ---------------------------------------------------------------------------
@@ -351,9 +416,10 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
                      f"{r[who + 'max_abs_err']}, tolerance "
                      f"{r['tolerance']})")
         shares = "; ".join(
-            f"{k} {r[k]:.5g} ms ({r[k.replace('ms', 'bound_share')]:.1%} of "
-            f"the bound)" for k in ("ms", "simt_ms", "library_ms", "plain_ms")
-            if r.get(k))
+            f"{k} {r[k]:.5g} ms ({r[k[:-2] + 'bound_share']:.1%} of the "
+            f"bound)" for k in ("device_ms", "ms", "simt_device_ms",
+                                "simt_ms", "library_device_ms", "library_ms",
+                                "plain_ms") if r.get(k))
         print(f"flash_attention {name} ({r['kernel']}): {shares}; bound "
               f"{r['bound_ms']:.5g} ms ({r['bound_by']})", flush=True)
         res[name] = r
@@ -467,6 +533,10 @@ def serve_phase(seed: int, dev):
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models.model import Model
     cfg = get_config("llama32_3b")
+    # two peaks: the process's so far and this phase's own (which counts
+    # what earlier phases left allocated)
+    before = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = Model(cfg, device=dev, seed=seed)
     torch.cuda.synchronize(dev)
@@ -491,7 +561,9 @@ def serve_phase(seed: int, dev):
            "generated_tokens": rec["tokens"], "wall_s": rec["wall_s"],
            "tokens_per_s": rec["tokens"] / rec["wall_s"],
            "launches": launches, "prefix_cache": rec["stats"],
-           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+           "phase_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "process_peak_gib": max(
+               before, torch.cuda.max_memory_allocated(dev)) / 2 ** 30}
     print(f"serve {cfg.name}: {json.dumps(out)}", flush=True)
     return out
 
@@ -604,15 +676,16 @@ def main() -> int:
     twin_launches = tiny_card_vs_cpu(args.seed, dev)
     kernels = []
     for name in K.LAUNCHES:
-        r = res[name]
+        # the lookup kernels at the layout the path launches them on
+        r = res.get(f"{name}_path", res[name])
         kernels.append({
             "name": name, "route": "cuda", "source": CU,
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     # each flash-attention kernel at the shape of the path that runs it:
     # the serve prefill (bf16) and the f32 twin's prefill
     for name, case, launches in (
@@ -623,8 +696,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": FA_CU,
             "replaces": REPLACES["flash_attention"], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,7 +13,10 @@ CUDA-event medians timed in turns within one call: the kernel, the
 CUDA-core kernel at the same shape where the tensor-core kernel took the
 call (the "before"; its error is held too), one library call computing
 the same function (``scaled_dot_product_attention``, timed only: the
-port never calls it) and the plain version.
+port never calls it) and the plain version; and the device times of the
+kernel, the CUDA-core kernel and the library call with no Python between
+launches (``device_ms``, ``simt_device_ms``, ``library_device_ms``:
+graph replays, :func:`..flash_hash.check.device_ms`).
 
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
 v and o (each read or written once) over the card's memory rate, and the
@@ -28,7 +31,7 @@ from typing import Dict
 
 import torch
 
-from ..flash_hash.check import H100_BYTES_PER_S, in_turns, time_ms
+from ..flash_hash.check import H100_BYTES_PER_S, device_ms, in_turns, time_ms
 from . import kernel as K
 from . import ref
 
@@ -109,8 +112,10 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
             fns["simt_ms"] = lambda _: K.launch(q, k, v, causal, K.SIMT)
         library = library_call(q, k, v, causal)
         fns["library_ms"] = lambda _: library()
+        on_device = {key[:-2] + "device_ms": fn for key, fn in fns.items()}
         fns["plain_ms"] = lambda _: ref.sdpa_ref(q, k, v, causal)
         out.update(in_turns(fns, reps, device))
+        out.update(device_ms(on_device, reps, device))
     else:
         out["ms"] = time_ms(lambda: K.flash_attention_fwd(q, k, v, causal),
                             reps)
@@ -119,7 +124,8 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
         out["library_ms"] = None
     K.LAUNCHES.update(before)
     out.update(attention_bound(b, s, h, kvh, d, dv, dtype, causal))
-    for key in ("ms", "simt_ms", "library_ms", "plain_ms"):
+    for key in ("ms", "simt_ms", "library_ms", "plain_ms", "device_ms",
+                "simt_device_ms", "library_device_ms"):
         if out.get(key):
-            out[key.replace("ms", "bound_share")] = out["bound_ms"] / out[key]
+            out[key[:-2] + "bound_share"] = out["bound_ms"] / out[key]
     return out

@@ -15,13 +15,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 
-#: the merge's two entry points share one signature
+#: the merge's and the query's entry points each share one signature
+#: with their baseline's
 _MERGE = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _U, _P]
+_QUERY = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _P]
 
 LIBRARY = CudaLibrary(
     "flash_hash", Path(__file__).resolve().parent / "csrc" / "flash_hash.cu",
     {"fh_merge_dirty": _MERGE, "fh_merge_dirty_serial": _MERGE,
-     "fh_query_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _P],
+     "fh_query_grid": _QUERY, "fh_query_grid_staged": _QUERY,
      "fh_filter_probe_grid": [_P, _P, _P, _P, _I, _I, _I, _P]})
 build = LIBRARY.build
 load = LIBRARY.load

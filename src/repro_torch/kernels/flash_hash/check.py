@@ -3,12 +3,16 @@
 Used by ``chip_smoke.py`` at the main path's shapes and by the GPU tests
 at smaller ones. Every case is made from a seed on the target device:
 a table filled through the plain merge to a given load, then update rows
-(hits, inserts and overfull rows that spill) or query layouts (present,
-absent and padding lanes). Each ``check_*`` runs the wrapper (the CUDA
-kernel for CUDA tensors) and the plain version from identical copies of
-the inputs, and returns the largest absolute difference over every
-output (0 is required: the results are integers), the median times of
-both, and the least time the card could take for the same work.
+(hits, inserts and overfull rows that spill) or query layouts. Two
+query layouts: the dense :func:`query_layout` (every lane of every row
+live: held keys, absent keys, 1/16 EMPTY) and :func:`path_query_layout`,
+the very ``(blocks, q2)`` the lookup path hands the kernels for one
+dispatch (one row per queried block, a key or two a row, the rest EMPTY
+padding). Each ``check_*`` runs the wrapper (the CUDA kernel for CUDA
+tensors) and the plain version from identical copies of the inputs, and
+returns the largest absolute difference over every output, every lane
+included (0 is required: the results are integers), the times of both,
+and the least time the card could take for the same work.
 
 That least time (``bound_ms``) is the larger of two: the bytes these
 inputs need moved, over the card's memory rate, and the operations they
@@ -20,23 +24,37 @@ sectors of the words it tests. Inputs that are read whole (key and
 update rows, block ids) and every output count in full. Operations are
 one compare per slot a probe walks, and a few per Bloom test.
 
-On the card every time is a CUDA-event median over ``reps`` turns
-(:func:`in_turns`), each turn ``CALLS_PER_TURN`` calls back to back
-between two events: ``ms`` is the kernel's raw launch alone
-(``kernel._launch_*``), ``wrapper_ms`` the wrapper with its checks and
-their host sync, and for the merge ``serial_ms`` the serial kernel it
-replaced (:func:`merge_in_turns`). A merge updates its table in place,
-so each call of a turn gets its own copy of the table, restored before
-the turn, outside the timed region. The plain
-version (``plain_ms``) takes hundreds of milliseconds and is timed over
-single calls (:func:`time_ms`). On the CPU ``ms`` and ``plain_ms`` are
-host-clock times of the plain version and name no device.
+Times on the card, every one a median over ``reps`` turns:
+
+* ``device_ms``: the kernel's own device time per launch, with no Python
+  between launches (:func:`device_ms`: ``CALLS_PER_TURN`` raw launches
+  captured in a CUDA graph, its replays timed between two CUDA events).
+  The query kernel takes it cold (:data:`L2_FLUSH_BYTES` written before
+  every launch, evicting the L2, as the path's random tiles arrive) and
+  warm (``warm_device_ms``), the Bloom probe warm; the kernels the merge
+  and the query replaced beside them (``serial_device_ms``,
+  ``staged_device_ms``), and for the Bloom probe a floor,
+  ``copy_device_ms``: ``may.copy_(q2)``, the same lane bytes in and out
+  with nothing computed.
+* ``ms``: the same raw launches from Python, ``CALLS_PER_TURN`` between
+  two events (:func:`in_turns`); for a kernel shorter than its launch
+  this is the host's launch rate, and ``ms`` - ``device_ms`` is that
+  launch cost.
+* ``wrapper_ms``: the wrapper with its checks and their host sync.
+
+Each call of a turn takes its own inputs where the kernel would
+otherwise find them in the L2: a merge updates its table in place, so
+each call works on its own copy, restored before the turn, outside the
+timed region; the lookup checks rotate over ``CALLS_PER_TURN`` layouts.
+The plain version (``plain_ms``) is timed over single calls
+(:func:`time_ms`). On the CPU ``ms`` and ``plain_ms`` are host-clock
+times of the plain version and name no device; :func:`device_ms` raises.
 """
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,8 +75,12 @@ _WORDS = SECTOR // 4
 _I32 = torch.int32
 
 
-#: calls of one function between two events in :func:`in_turns`
+#: calls of one function between two events in :func:`in_turns`, and
+#: launches captured in one graph by :func:`device_ms`
 CALLS_PER_TURN = 10
+#: bytes written before every launch of a cold :func:`device_ms`: twice
+#: the H100's 50 MB L2
+L2_FLUSH_BYTES = 100 << 20
 
 
 def time_ms(fn: Callable[[], object], reps: int,
@@ -94,10 +116,11 @@ def in_turns(fns: Dict[str, Callable[[int], object]], reps: int, device,
              ) -> Dict[str, float]:
     """Median CUDA-event milliseconds per call of each function, timed in
     turns: each round runs every function ``CALLS_PER_TURN`` times back to
-    back between two events (``fn(i)`` for the turn's ``i``-th call, so
-    the device, not the host's launch cost, sets the time of a short
-    kernel), after one warm-up round; ``before()`` runs untimed ahead of
-    every turn."""
+    back between two events (``fn(i)`` for the turn's ``i``-th call),
+    after one warm-up round; ``before()`` runs untimed ahead of every
+    turn. The host issues each call while the device runs the last, so a
+    call shorter than its launch is timed at the host's launch rate:
+    :func:`device_ms` gives the device's own time."""
     times = {name: [] for name in fns}
     for i in range(reps + 1):
         for name, fn in fns.items():
@@ -115,6 +138,108 @@ def in_turns(fns: Dict[str, Callable[[int], object]], reps: int, device,
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def _need_cuda(device, what: str) -> torch.device:
+    device = torch.device(device) if device is not None else None
+    if (device is None or device.type != "cuda"
+            or not torch.cuda.is_available()):
+        raise RuntimeError(f"{what} times CUDA launches on a CUDA device, "
+                           f"got {device}")
+    return device
+
+
+def device_ms(fns: Dict[str, Callable[[int], object]], reps: int, device,
+              flush_bytes: int = 0,
+              before: Optional[Callable[[], None]] = None
+              ) -> Dict[str, float]:
+    """Device milliseconds per call of each function, with no Python
+    between calls: ``fn(0) .. fn(CALLS_PER_TURN - 1)`` run once eagerly
+    (libraries load, scratch is allocated), then are captured in one CUDA
+    graph, whose replays are timed between two CUDA events in turns over
+    ``reps`` rounds after a warm-up round; ``before()`` runs untimed ahead
+    of every replay. With ``flush_bytes``, a write of that many bytes
+    precedes every call in the graph, so that each call finds the L2
+    holding other data; a graph of the writes alone is replayed in the
+    same turns, and each round's time of it is subtracted. Without a
+    flush the medians include each launch's gap on the stream; behind a
+    flush most of it hides in the write before. Raises without CUDA."""
+    device = _need_cuda(device, "device_ms")
+    scratch = (torch.empty(flush_bytes // 4, dtype=_I32, device=device)
+               if flush_bytes else None)
+
+    def calls(fn):
+        def run():
+            for i in range(CALLS_PER_TURN):
+                if scratch is not None:
+                    scratch.fill_(i)
+                if fn is not None:
+                    fn(i)
+        return run
+
+    runs = {name: calls(fn) for name, fn in fns.items()}
+    if scratch is not None:
+        runs[None] = calls(None)
+    graphs = {}
+    for name, run in runs.items():
+        if before is not None:
+            before()
+        run()
+        torch.cuda.synchronize(device)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name], capture_error_mode="relaxed"):
+            run()
+    times = {name: [] for name in graphs}
+    for i in range(reps + 1):
+        for name, graph in graphs.items():
+            if before is not None:
+                before()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            torch.cuda.synchronize(device)
+            if i:
+                times[name].append(a.elapsed_time(b) / CALLS_PER_TURN)
+    base = times.pop(None, None) or [0.0] * reps
+    del graphs
+    return {name: statistics.median(t - f for t, f in zip(ts, base))
+            for name, ts in times.items()}
+
+
+def profiled_ms(fns: Dict[str, Callable[[int], object]],
+                kernels: Dict[str, str], reps: int, device,
+                flush_bytes: int = 0) -> Dict[str, Optional[float]]:
+    """Mean device duration of one kernel per function, from a
+    ``torch.profiler`` (CUPTI) trace of ``reps`` eager turns of
+    ``fn(0) .. fn(CALLS_PER_TURN - 1)``, with the same L2 flush as
+    :func:`device_ms`: ``kernels[name]`` is a piece of the name of the
+    kernel ``fns[name]`` launches. The kernels' own start-to-end times,
+    without launch gaps: the cross-check of :func:`device_ms`. ``None``
+    where the trace holds no such kernel. Raises without CUDA."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    device = _need_cuda(device, "profiled_ms")
+    scratch = (torch.empty(flush_bytes // 4, dtype=_I32, device=device)
+               if flush_bytes else None)
+    for fn in fns.values():
+        fn(0)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns.values():
+                for i in range(CALLS_PER_TURN):
+                    if scratch is not None:
+                        scratch.fill_(i)
+                    fn(i)
+        torch.cuda.synchronize(device)
+    out = {}
+    for name, piece in kernels.items():
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and piece in e.name]
+        out[name] = statistics.fmean(us) / 1e3 if us else None
+    return out
+
+
 def _counted(fn: Callable[[], Dict]) -> Dict:
     """``fn()`` with the launch counters as they were before it: the
     checks' launches are not the paths'."""
@@ -127,10 +252,11 @@ def _counted(fn: Callable[[], Dict]) -> Dict:
 
 
 def _shares(out: Dict) -> Dict:
-    """Each measured time's share of the bound."""
-    for key in ("ms", "wrapper_ms", "serial_ms"):
-        if out.get(key):
-            out[key.replace("ms", "bound_share")] = out["bound_ms"] / out[key]
+    """Each measured time's share of the bound (``device_ms`` gives
+    ``device_bound_share``)."""
+    for key in [k for k in out if k.endswith("ms")]:
+        if key not in ("bound_ms", "plain_ms") and out[key]:
+            out[key[:-2] + "bound_share"] = out["bound_ms"] / out[key]
     return out
 
 
@@ -317,11 +443,13 @@ def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
     """Kernel-only CUDA-event times of the merge of ``uk``/``uc`` into
     blocks ``ids`` of ``table`` (checked CUDA tensors), in turns: the
     parallel fold (``ms``), the serial kernel (``serial_ms``) and, if
-    given, ``wrapper(copy)`` (``wrapper_ms``). Each call of a turn works
-    on its own copy of the table, restored before the turn, outside the
-    timed region. ``per_row_out`` and ``serial_out`` are each kernel's
-    outputs (keys, counts, filter words, spill keys and counts) from one
-    untimed call on the table as given. The launches are counted as
+    given, ``wrapper(copy)`` (``wrapper_ms``); both kernels' device times
+    (``device_ms``, ``serial_device_ms``; :func:`device_ms`). Each call of
+    a turn works on its own copy of the table, restored before the turn
+    (before each graph replay), outside the timed region. ``per_row_out``
+    and ``serial_out`` are each kernel's outputs (keys, counts, filter
+    words, spill keys and counts) from one untimed call on the table as
+    given. The launches are counted as
     usual; callers restore the counters (:func:`_counted`)."""
     spill = [torch.empty_like(uk), torch.empty_like(uc)]
     copies = [[t.clone() for t in table] for _ in range(CALLS_PER_TURN)]
@@ -344,6 +472,9 @@ def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
     if wrapper is not None:
         fns["wrapper_ms"] = lambda i: wrapper(copies[i])
     out.update(in_turns(fns, reps, uk.device, restore_all))
+    out.update(device_ms({"device_ms": launch("per_row"),
+                          "serial_device_ms": launch("serial")}, reps,
+                         uk.device, before=restore_all))
     return out
 
 
@@ -389,13 +520,17 @@ def merge_bound(pair: Pow2Hash, before, after, blocks, uk) -> Dict:
     return bound(n_bytes, n_ops)
 
 
-def query_layout(pair: Pow2Hash, keys, n_rows: int, qcap: int, seed: int):
+def query_layout(pair: Pow2Hash, keys, n_rows: int, qcap: int, seed: int,
+                 part: int = 0):
     """``n_rows`` distinct blocks, each row's lanes a mix of keys its tile
-    holds, absent keys of that block, and EMPTY padding."""
+    holds, absent keys of that block, and EMPTY padding (1/16). Parts
+    ``0, 1, ...`` of one seed take consecutive runs of one permutation of
+    the blocks: disjoint while ``n_rows * parts`` blocks last."""
     n_b, r = pair.num_slots, pair.r
     dev = keys.device
     gen = torch.Generator().manual_seed(seed)
-    blocks = torch.randperm(n_b, generator=gen)[:n_rows].to(dev, _I32)
+    perm = torch.randperm(n_b, generator=gen)
+    blocks = torch.roll(perm, -part * n_rows)[:n_rows].to(dev, _I32)
     toks = random_keys(2 * n_b * qcap, gen, dev) | (1 << 30)  # never stored
     absent, _, _, _, _ = ops.bucket_updates(pair, toks, torch.ones_like(toks),
                                             qcap)
@@ -406,6 +541,42 @@ def query_layout(pair: Pow2Hash, keys, n_rows: int, qcap: int, seed: int):
     q2 = torch.where((col % 2 == 0) & (held != EMPTY), held, q2)
     q2 = torch.where(col % 16 == 15, EMPTY, q2)
     return blocks, q2.contiguous()
+
+
+def lookup_mix(keys, seed: int, n_keys: int = 1024):
+    """``chip_smoke.py``'s lookup mix as the query engine dedups it: a
+    seeded draw of ``n_keys`` keys the table ``keys`` holds and ``n_keys``
+    absent ones (at or above 2**30, where :func:`fill_table` stores none),
+    sorted and unique (``np.unique``). Held keys sort first, so once the
+    Bloom pre-filter has dropped most absent keys, a full chunk holds held
+    keys alone, as every full chunk of the smoke's lookup does."""
+    gen = torch.Generator().manual_seed(seed)
+    held = keys[keys != EMPTY]
+    pick = torch.randperm(held.numel(), generator=gen)[:n_keys]
+    absent = random_keys(n_keys, gen, keys.device) | (1 << 30)
+    return torch.unique(torch.cat([held[pick.to(keys.device)], absent]))
+
+
+def padded(keys, n: int):
+    """The query engine's dispatch chunk: the first ``n`` of ``keys``,
+    EMPTY-padded to ``n``."""
+    chunk = torch.full((n,), EMPTY, dtype=_I32, device=keys.device)
+    chunk[:min(n, keys.numel())] = keys[:n]
+    return chunk
+
+
+def path_query_layout(pair: Pow2Hash, filter_words, chunk, qcap: int = 128):
+    """What ``ops.query_blocked_ex`` launches for one dispatch chunk of the
+    query engine (its Bloom pre-filter already applied): ``((blocks, q2)``
+    of ``filter_probe_grid``, ``(blocks, q2)`` of ``query_grid)``, from
+    ``ops.lookup_waves``. Raises unless each kernel gets one wave."""
+    probed, _, _, waves = ops.lookup_waves(pair, chunk, pair.num_slots,
+                                           qcap, filter_words)
+    queried = [layout for _, _, layout in waves]
+    if len(probed) != 1 or len(queried) != 1:
+        raise ValueError(f"{len(probed)} Bloom and {len(queried)} query "
+                         "waves: the chunk must fill one wave of each")
+    return probed[0], queried[0]
 
 
 def _lanes_of_block(pair, blocks, q2):
@@ -434,87 +605,146 @@ def query_bound(pair: Pow2Hash, keys, blocks, q2, dists) -> Dict:
     return bound(n_bytes, int(dist.sum()))
 
 
-def check_query_grid(pair: Pow2Hash, table, blocks, q2, reps: int = 5
-                     ) -> Dict:
+def _mean_bound(bounds) -> Dict:
+    """The bound of one call of a rotation: its layouts' mean bytes and
+    operations."""
+    n = len(bounds)
+    return bound(sum(b["bound_bytes"] for b in bounds) / n,
+                 sum(b["bound_ops"] for b in bounds) / n)
+
+
+Layout = Tuple[torch.Tensor, torch.Tensor]
+
+
+def check_query_grid(pair: Pow2Hash, table, blocks, q2, reps: int = 5,
+                     rotation: Sequence[Layout] = ()) -> Dict:
+    """``query_grid`` against ``query_grid_plain`` on every lane of the
+    layout ``(blocks, q2)`` and of each of ``rotation``'s; on the card
+    also the staged kernel (``staged_max_abs_err``). Call ``i`` of a turn
+    takes layout ``i`` of the list; the bound is one call's mean. Device
+    times cold and warm (module docstring)."""
     keys, counts, _ = table
     dev = keys.device
-    run_wrapper = lambda: K.query_grid(pair, keys, counts, blocks, q2)
-    run_plain = lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2)
+    layouts = [(blocks, q2), *rotation]
+    at = lambda i: layouts[i % len(layouts)]
+    outs = [(torch.empty_like(q), torch.empty_like(q)) for _, q in layouts]
+
+    def launch(variant):
+        return lambda i: K._launch_query_grid(
+            pair, keys, counts, *at(i), *outs[i % len(layouts)], variant)
 
     def run() -> Dict:
-        got, want = run_wrapper(), run_plain()
-        lanes = _lanes_of_block(pair, blocks, q2)
-        out = {"max_abs_err": _max_err([g[lanes] for g in got],
-                                       [w[lanes] for w in want]),
-               "lanes": int(lanes.sum()),
-               "hits": int((want[0][lanes] != 0).sum()),
-               **query_bound(pair, keys, blocks, q2, want[1])}
-        outs = [torch.empty_like(q2), torch.empty_like(q2)]
-        return _timed(out, lambda _: K._launch_query_grid(
-            pair, keys, counts, blocks, q2, *outs), run_wrapper, run_plain,
-            reps, dev)
+        want = [ref.query_grid_plain(pair, keys, counts, b, q)
+                for b, q in layouts]
+        got = [K.query_grid(pair, keys, counts, b, q) for b, q in layouts]
+        lanes = [_lanes_of_block(pair, b, q) for b, q in layouts]
+        out = {"max_abs_err": _max_err(sum(got, ()), sum(want, ())),
+               "layouts": len(layouts),
+               "lanes": sum(int(m.sum()) for m in lanes) / len(layouts),
+               "hits": sum(int((w[0][m] != 0).sum())
+                           for w, m in zip(want, lanes)) / len(layouts),
+               **_mean_bound([query_bound(pair, keys, b, q, w[1])
+                              for (b, q), w in zip(layouts, want)])}
+        raw = {"device_ms": launch("probe")}
+        if dev.type == "cuda":
+            for i in range(len(layouts)):
+                launch("staged")(i)
+            out["staged_max_abs_err"] = _max_err(sum(outs, ()),
+                                                 sum(want, ()))
+            raw["staged_device_ms"] = launch("staged")
+        return _lookup_times(
+            out, raw, lambda i: K.query_grid(pair, keys, counts, *at(i)),
+            lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2),
+            reps, dev, cold=True)
 
     return _shares(_counted(run))
 
 
-def _timed(out: Dict, launch: Callable[[int], object],
-           run_wrapper: Callable[[], object], run_plain: Callable[[], object],
-           reps: int, dev) -> Dict:
+def _lookup_times(out: Dict, raw: Dict[str, Callable[[int], object]],
+                  wrapper: Callable[[int], object],
+                  plain: Callable[[], object], reps: int, dev,
+                  cold: bool) -> Dict:
     """``out`` with the times of a kernel that leaves its inputs as they
-    were: on the card the raw launch and the wrapper in turns, else the
-    wrapper (the plain version) on the host clock; the plain version."""
+    were. On the card: the first of the ``raw`` launches (the path's
+    kernel) from Python (``ms``) and the wrapper (``wrapper_ms``) in
+    turns; the device time of each of ``raw`` under its own name, cold
+    with ``cold`` (an L2 flush before every call) and then warm as well
+    (``warm_`` + its name), else warm. Elsewhere the wrapper (the plain
+    version) on the host clock (``ms``). Then the plain version."""
     if dev.type == "cuda":
-        out.update(in_turns({"ms": launch,
-                             "wrapper_ms": lambda _: run_wrapper()},
-                            reps, dev))
+        out.update(in_turns({"ms": next(iter(raw.values())),
+                             "wrapper_ms": wrapper}, reps, dev))
+        out.update(device_ms(raw, reps, dev,
+                             L2_FLUSH_BYTES if cold else 0))
+        if cold:
+            out.update({f"warm_{name}": t for name, t in
+                        device_ms(raw, reps, dev).items()})
     else:
-        out["ms"] = time_ms(run_wrapper, reps, None, dev)
-    out["plain_ms"] = time_ms(run_plain, reps, None, dev)
+        out["ms"] = time_ms(lambda: wrapper(0), reps, None, dev)
+    out["plain_ms"] = time_ms(plain, reps, None, dev)
     return out
 
 
 def check_query(pair: Pow2Hash, table, q_keys, qchunk: int = 128,
                 reps: int = 5) -> Dict:
     """The 1-D ``query`` wrapper: keys sorted by block, chunks of
-    ``qchunk`` answered against their first key's block (``ms``: the
-    kernel's raw launch over that layout)."""
+    ``qchunk`` answered against their first key's block (the raw launches
+    over that layout give ``ms`` and the device times), on every lane."""
     keys, counts, _ = table
     dev = keys.device
     q = q_keys[torch.sort(pair.s(q_keys), stable=True).indices].contiguous()
     q2 = q.reshape(-1, qchunk)
     blocks = pair.s(q2[:, 0]).contiguous()
-    run_wrapper = lambda: K.query(pair, keys, counts, q, qchunk)
-    run_plain = lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2)
+    outs = [torch.empty_like(q2), torch.empty_like(q2)]
+
+    def launch(variant):
+        return lambda _: K._launch_query_grid(pair, keys, counts, blocks, q2,
+                                              *outs, variant)
 
     def run() -> Dict:
-        got = run_wrapper()
-        want2 = run_plain()
-        want = [w.reshape(-1) for w in want2]
-        lanes = _lanes_of_block(pair, blocks, q2).reshape(-1)
-        out = {"max_abs_err": _max_err([g[lanes] for g in got],
-                                       [w[lanes] for w in want]),
+        got = K.query(pair, keys, counts, q, qchunk)
+        want2 = ref.query_grid_plain(pair, keys, counts, blocks, q2)
+        out = {"max_abs_err": _max_err(got, [w.reshape(-1) for w in want2]),
                **query_bound(pair, keys, blocks, q2, want2[1])}
-        outs = [torch.empty_like(q2), torch.empty_like(q2)]
-        return _timed(out, lambda _: K._launch_query_grid(
-            pair, keys, counts, blocks, q2, *outs), run_wrapper, run_plain,
-            reps, dev)
+        raw = {"device_ms": launch("probe")}
+        if dev.type == "cuda":
+            raw["staged_device_ms"] = launch("staged")
+        return _lookup_times(
+            out, raw, lambda _: K.query(pair, keys, counts, q, qchunk),
+            lambda: ref.query_grid_plain(pair, keys, counts, blocks, q2),
+            reps, dev, cold=True)
 
     return _shares(_counted(run))
 
 
-def check_filter_probe_grid(table, blocks, q2, reps: int = 5) -> Dict:
+def check_filter_probe_grid(table, blocks, q2, reps: int = 5,
+                            rotation: Sequence[Layout] = ()) -> Dict:
+    """``filter_probe_grid`` against its plain version on every lane of
+    ``(blocks, q2)`` and of each of ``rotation``'s (call ``i`` of a turn
+    takes layout ``i``); on the card device times warm (the filter rows
+    stay in the L2 on the path too) beside the copy floor."""
     filt = table[2]
     dev = filt.device
-    run_wrapper = lambda: K.filter_probe_grid(filt, blocks, q2)
-    run_plain = lambda: ref.filter_probe_grid_plain(filt, blocks, q2)
+    layouts = [(blocks, q2), *rotation]
+    at = lambda i: layouts[i % len(layouts)]
+    mays = [torch.empty_like(q) for _, q in layouts]
 
     def run() -> Dict:
-        got, want = run_wrapper(), run_plain()
-        out = {"max_abs_err": _max_err([got], [want]),
-               "maybe": int(want.sum()), **filter_bound(filt, blocks, q2)}
-        may = torch.empty_like(q2)
-        return _timed(out, lambda _: K._launch_filter_probe_grid(
-            filt, blocks, q2, may), run_wrapper, run_plain, reps, dev)
+        want = [ref.filter_probe_grid_plain(filt, b, q) for b, q in layouts]
+        got = [K.filter_probe_grid(filt, b, q) for b, q in layouts]
+        out = {"max_abs_err": _max_err(got, want),
+               "layouts": len(layouts),
+               "maybe": sum(int(w.sum()) for w in want) / len(layouts),
+               **_mean_bound([filter_bound(filt, b, q) for b, q in layouts])}
+        raw = {"device_ms": lambda i: K._launch_filter_probe_grid(
+            filt, *at(i), mays[i % len(layouts)])}
+        if dev.type == "cuda":
+            raw["copy_device_ms"] = lambda i: mays[i % len(layouts)].copy_(
+                at(i)[1])
+        return _lookup_times(
+            out, raw, lambda i: K.filter_probe_grid(filt, *at(i)),
+            lambda: ref.filter_probe_grid_plain(filt, blocks, q2), reps, dev,
+            cold=False)
 
     return _shares(_counted(run))
 

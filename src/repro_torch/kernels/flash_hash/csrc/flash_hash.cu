@@ -86,17 +86,55 @@
 // query_grid_kernel
 //   Replaces kernel.py:query_grid (body _query_kernel); kernel.py:query is
 //   a reshaping wrapper over it.
-//   Bound on the card: bytes, one tile read per grid row plus the query
-//   lanes in and two int32 results out per lane.
-//   Design: one CTA of four warps per row stages its block's tile in
-//   shared memory once; each warp answers lanes with the same 32-slot
-//   ballot walk.
+//   Bound on the card: bytes, but of sectors, not tiles. A lane needs the
+//   32-byte sectors of its window (home to the slot holding the key or the
+//   first EMPTY; one or two at the loads the tables run at) and, on a
+//   hit, the sector of one count; the query lanes come in and two int32
+//   results per lane go out. The lookup path hands it 1,024 rows of 128
+//   lanes that hold one or two live keys each (one row per queried
+//   block, the rest EMPTY padding), so a design that reads whole tiles
+//   reads some 256 sectors a row to answer one key. Each thread waits on
+//   three dependent loads (its key, the window, the count), so at these
+//   sizes latency, not bandwidth, sets the time.
+//   Design: probe in place, one thread per lane, a row's lanes in
+//   consecutive threads (CTAs of 128 threads, grid.y strides over rows),
+//   so a warp shares one tile and the EMPTY lanes of a row, which all
+//   walk from EMPTY's home, hit in L1 after the first. A thread walks its
+//   window from home in aligned sectors, two 16-byte read-only loads of
+//   8 keys each (slots before home masked off in the first sector,
+//   wrapping at r) and stops at the first slot holding its key or EMPTY;
+//   a hit loads one count (loading the home sector's counts beside its
+//   keys was faster at the path's layout cold but slower warm and on
+//   dense rows, and was dropped).
+//   No shared memory, no barrier, so it takes any block width. The answer
+//   is the plain version's on every lane: d + 1 on stopping at distance
+//   d, r when the tile holds neither the key nor EMPTY, count 0 unless
+//   the slot holds the key (an EMPTY key stops at the first EMPTY). Tiles
+//   whose base is not 16-byte aligned, and blocks under 8 slots, walk
+//   slot by slot (the entry point picks from its arguments).
+//
+// query_grid_staged_kernel
+//   The kernel query_grid_kernel replaced, kept as the in-turn "before"
+//   of kernels/flash_hash/check.py; no path launches it. One CTA of four
+//   warps per row stages the block's whole tile (keys and counts) in
+//   shared memory, as the TPU kernel's BlockSpec fetches a whole row into
+//   VMEM; each warp answers a lane at a time with a 32-slot ballot walk.
 //
 // filter_probe_kernel
 //   Replaces kernel.py:filter_probe_grid (body _filter_probe_kernel).
 //   Bound on the card: bytes, the query lanes in and one mask word out per
-//   lane; the two filter words per lane mostly hit in L1/L2.
-//   Design: one thread per (row, lane), elementwise.
+//   lane; the two filter words a lane tests mostly hit in L1/L2. At the
+//   lookup path's 1,024 x 128 lanes it is latency that sets the time:
+//   each lane waits on its key and block id, then on its filter words.
+//   A plain copy of the lanes (may.copy_(q2): one load, one store) is the
+//   floor, and this kernel runs within 1.17x of it on the H100 (PERF.md),
+//   so it stays as first written.
+//   Design: one thread per (row, lane), elementwise, both filter words
+//   loaded at once. A 2-D grid with read-only loads timed the same; four
+//   lanes a thread by 16-byte loads and stores, loading the second word
+//   only when the first bit is set, skipping the loads of EMPTY lanes and
+//   CTAs of 128 threads were each slower on the H100 at that layout
+//   (PERF.md). An EMPTY lane answers 0.
 // ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -108,6 +146,9 @@
 
 #define EMPTY_KEY (-1)
 #define FULL_MASK 0xffffffffu
+// CTA size of the query kernel, the faster of 128 and 256 at the lookup
+// path's layout on the H100 (PERF.md)
+#define QUERY_THREADS 128
 
 namespace {
 
@@ -621,13 +662,13 @@ __global__ void __launch_bounds__(MERGE_THREADS, 8)
   }
 }
 
-__global__ void query_grid_kernel(const int* __restrict__ keys,
-                                  const int* __restrict__ counts,
-                                  const int* __restrict__ blocks,
-                                  const int* __restrict__ q2,
-                                  int* __restrict__ out_cnt,
-                                  int* __restrict__ out_dist,
-                                  int r_log2, int qcap, uint32_t mult) {
+__global__ void query_grid_staged_kernel(const int* __restrict__ keys,
+                                         const int* __restrict__ counts,
+                                         const int* __restrict__ blocks,
+                                         const int* __restrict__ q2,
+                                         int* __restrict__ out_cnt,
+                                         int* __restrict__ out_dist,
+                                         int r_log2, int qcap, uint32_t mult) {
   extern __shared__ int smem[];
   const int r = 1 << r_log2;
   const int rmask = r - 1;
@@ -658,6 +699,92 @@ __global__ void query_grid_kernel(const int* __restrict__ keys,
       out_cnt[row * qcap + j] = cnt;
       out_dist[row * qcap + j] = dist;
     }
+  }
+}
+
+// Distance d from home of the first slot of `tile` holding `key` or
+// EMPTY, walked in aligned 8-slot sectors by two 16-byte read-only loads
+// each (r >= 8, tile 16-byte aligned); -1 if the tile holds neither.
+// `hit` says whether that slot holds the key (never for an EMPTY key).
+__device__ __forceinline__ int probe_sectors(const int* tile, int r_log2,
+                                             int key, uint32_t home,
+                                             bool& hit) {
+  const int r = 1 << r_log2;
+  const uint32_t smask = (1u << (r_log2 - 3)) - 1u;
+  const int head = (int)(home & 7u);
+  uint32_t s = home >> 3;
+  // d0: the distance from home of the sector's first slot; the home
+  // sector comes twice when home is not its first slot (its tail first,
+  // its head last)
+  for (int d0 = -head; d0 < r; d0 += 8) {
+    const int4* p = reinterpret_cast<const int4*>(tile + (s << 3));
+    const int4 lo = __ldg(p);
+    const int4 hi = __ldg(p + 1);
+    const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    unsigned same = 0, stop = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      same |= (unsigned)(v[i] == key) << i;
+      stop |= (unsigned)(v[i] == key || v[i] == EMPTY_KEY) << i;
+    }
+    if (d0 < 0) stop &= 0xffu << head;              // slots before home
+    if (d0 + 8 > r) stop &= (1u << (r - d0)) - 1u;  // past a full wrap
+    if (stop) {
+      const int i = __ffs(stop) - 1;
+      hit = key != EMPTY_KEY && ((same >> i) & 1u);
+      return d0 + i;
+    }
+    s = (s + 1) & smask;
+  }
+  return -1;
+}
+
+// probe_sectors one slot at a time: any r, any alignment.
+__device__ __forceinline__ int probe_slots(const int* tile, int r, int key,
+                                           uint32_t home, bool& hit) {
+  const uint32_t rmask = (uint32_t)r - 1u;
+  for (int d = 0; d < r; ++d) {
+    const int v = __ldg(tile + ((home + (uint32_t)d) & rmask));
+    if (v == key || v == EMPTY_KEY) {
+      hit = key != EMPTY_KEY && v == key;
+      return d;
+    }
+  }
+  return -1;
+}
+
+// Rows of a lookup grid: threadIdx.y picks a row of the CTA's blockDim.y,
+// and the grid's y dimension strides over the rest.
+__device__ __forceinline__ int first_row() {
+  return blockIdx.y * blockDim.y + threadIdx.y;
+}
+__device__ __forceinline__ int row_stride() {
+  return gridDim.y * blockDim.y;
+}
+
+template <bool kSectors>
+__global__ void __launch_bounds__(QUERY_THREADS)
+    query_grid_kernel(const int* __restrict__ keys,
+                      const int* __restrict__ counts,
+                      const int* __restrict__ blocks,
+                      const int* __restrict__ q2, int* __restrict__ out_cnt,
+                      int* __restrict__ out_dist, int n_rows, int r_log2,
+                      int qcap, uint32_t mult) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= qcap) return;
+  const int r = 1 << r_log2;
+  const uint32_t rmask = (uint32_t)r - 1u;
+  for (int row = first_row(); row < n_rows; row += row_stride()) {
+    const size_t lane = (size_t)row * qcap + j;
+    const int k = __ldg(q2 + lane);
+    const size_t base = (size_t)__ldg(blocks + row) << r_log2;
+    const uint32_t home = ((uint32_t)k * mult) & rmask;
+    bool hit = false;
+    const int d = kSectors ? probe_sectors(keys + base, r_log2, k, home, hit)
+                           : probe_slots(keys + base, r, k, home, hit);
+    out_cnt[lane] =
+        hit ? __ldg(counts + base + ((home + (uint32_t)d) & rmask)) : 0;
+    out_dist[lane] = d < 0 ? r : d + 1;  // neither key nor EMPTY: r slots
   }
 }
 
@@ -692,6 +819,21 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// The launch shape of a lookup grid of n_rows rows of qcap lanes, one
+// thread a lane, in CTAs of `threads`: a row's threads along x, as many
+// rows per CTA as fill it along y, and the rows past 65,535 CTAs strided
+// over.
+struct LaneGrid {
+  dim3 grid, block;
+  LaneGrid(int n_rows, int qcap, int threads) {
+    const int tx = std::min(threads, (qcap + 31) / 32 * 32);
+    const int ty = std::max(1, threads / tx);
+    block = dim3(tx, ty);
+    grid = dim3((qcap + tx - 1) / tx,
+                (unsigned)std::min(65535, (n_rows + ty - 1) / ty));
+  }
+};
 
 }  // namespace
 
@@ -751,10 +893,32 @@ int fh_merge_dirty_serial(const void* blocks, int n_d, void* keys,
 int fh_query_grid(const void* keys, const void* counts, const void* blocks,
                   const void* q2, void* out_cnt, void* out_dist, int n_rows,
                   int r_log2, int qcap, unsigned int mult, void* stream) {
+  const LaneGrid g(n_rows, qcap, QUERY_THREADS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  // sectors by 16-byte loads where a block holds whole sectors and the
+  // tiles are aligned; else slot by slot
+  if (r_log2 >= 3 && aligned16(keys))
+    query_grid_kernel<true><<<g.grid, g.block, 0, s>>>(
+        (const int*)keys, (const int*)counts, (const int*)blocks,
+        (const int*)q2, (int*)out_cnt, (int*)out_dist, n_rows, r_log2, qcap,
+        mult);
+  else
+    query_grid_kernel<false><<<g.grid, g.block, 0, s>>>(
+        (const int*)keys, (const int*)counts, (const int*)blocks,
+        (const int*)q2, (int*)out_cnt, (int*)out_dist, n_rows, r_log2, qcap,
+        mult);
+  return (int)cudaGetLastError();
+}
+
+// The staged baseline (query_grid_staged_kernel), for check.py only.
+int fh_query_grid_staged(const void* keys, const void* counts,
+                         const void* blocks, const void* q2, void* out_cnt,
+                         void* out_dist, int n_rows, int r_log2, int qcap,
+                         unsigned int mult, void* stream) {
   const size_t smem = (size_t)2 * (1 << r_log2) * sizeof(int);
-  cudaError_t err = allow_smem((const void*)query_grid_kernel, smem);
+  cudaError_t err = allow_smem((const void*)query_grid_staged_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  query_grid_kernel<<<n_rows, 128, smem, (cudaStream_t)stream>>>(
+  query_grid_staged_kernel<<<n_rows, 128, smem, (cudaStream_t)stream>>>(
       (const int*)keys, (const int*)counts, (const int*)blocks,
       (const int*)q2, (int*)out_cnt, (int*)out_dist, r_log2, qcap, mult);
   return (int)cudaGetLastError();

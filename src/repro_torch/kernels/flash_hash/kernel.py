@@ -17,8 +17,9 @@ raw launch (``_launch_*``: checked CUDA tensors and preallocated outputs
 in, no checks, no sync), which ``check.py`` times on its own.
 
 ``LAUNCHES`` counts CUDA launches per kernel of the paths; only a launch
-adds to it. ``BASELINE_LAUNCHES`` counts the serial merge kernel, which
-only ``check.py`` launches.
+adds to it. ``BASELINE_LAUNCHES`` counts the kernels the path's kernels
+replaced (the serial merge, the staged query), which only ``check.py``
+launches, through the raw launches' ``variant``.
 """
 from __future__ import annotations
 
@@ -31,12 +32,13 @@ EMPTY = ref.EMPTY
 
 #: CUDA launches per kernel (a plain int each; reset by assigning 0)
 LAUNCHES = {"merge_dirty": 0, "query_grid": 0, "filter_probe_grid": 0}
-#: CUDA launches of the serial merge kernel, the in-turn "before"
-BASELINE_LAUNCHES = {"merge_dirty_serial": 0}
-#: C entry points of the merge: the parallel fold (every path) and the
-#: serial fold (timed by ``check.py`` only)
+#: CUDA launches of the replaced kernels, the in-turn "before"s
+BASELINE_LAUNCHES = {"merge_dirty_serial": 0, "query_grid_staged": 0}
+#: C entry points of each kernel by variant: the first of each serves
+#: every path, the other is its baseline, timed by ``check.py`` only
 MERGE_ENTRIES = {"per_row": "fh_merge_dirty",
                  "serial": "fh_merge_dirty_serial"}
+QUERY_ENTRIES = {"probe": "fh_query_grid", "staged": "fh_query_grid_staged"}
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -152,9 +154,10 @@ def merge(pair: Pow2Hash, table_keys, table_counts, filter_words,
 
 def query_grid(pair: Pow2Hash, table_keys, table_counts, blocks, q2):
     """Point queries over an explicit chunk layout: row ``i`` answers all
-    of ``q2[i]`` against block ``blocks[i]``'s tile, read once. Returns
-    ``(counts, dists)``, each ``(n_rows, qcap)`` int32; lanes holding keys
-    of another block (or ``EMPTY``) are junk by contract."""
+    of ``q2[i]`` against block ``blocks[i]``'s tile. Returns ``(counts,
+    dists)``, each ``(n_rows, qcap)`` int32. Callers gather only the lanes
+    holding keys of the row's block; the kernel answers every other lane
+    (``EMPTY``, keys of another block) as the plain version does too."""
     n_b, r = pair.num_slots, pair.r
     dev = table_keys.device
     n_rows = blocks.shape[0] if blocks.dim() == 1 else -1
@@ -175,18 +178,21 @@ def query_grid(pair: Pow2Hash, table_keys, table_counts, blocks, q2):
 
 
 def _launch_query_grid(pair: Pow2Hash, table_keys, table_counts, blocks,
-                       q2, cnt, dist):
-    """Launch ``query_grid`` on checked CUDA tensors into ``cnt``/``dist``
-    of ``q2``'s shape."""
+                       q2, cnt, dist, variant: str = "probe"):
+    """Launch ``query_grid`` (``variant`` of :data:`QUERY_ENTRIES`) on
+    checked CUDA tensors into ``cnt``/``dist`` of ``q2``'s shape."""
     n_rows, qcap = q2.shape
     if not (n_rows and qcap):
         return
-    err = _lib().fh_query_grid(
+    err = getattr(_lib(), QUERY_ENTRIES[variant])(
         table_keys.data_ptr(), table_counts.data_ptr(), blocks.data_ptr(),
         q2.data_ptr(), cnt.data_ptr(), dist.data_ptr(), n_rows, pair.r_log2,
         qcap, pair.mult, _stream(table_keys.device))
-    _raise_if(err, "query_grid")
-    LAUNCHES["query_grid"] += 1
+    _raise_if(err, f"query_grid ({variant})")
+    if variant == "staged":
+        BASELINE_LAUNCHES["query_grid_staged"] += 1
+    else:
+        LAUNCHES["query_grid"] += 1
 
 
 def query(pair: Pow2Hash, table_keys, table_counts, q_keys, qchunk: int = 128):

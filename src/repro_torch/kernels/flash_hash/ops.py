@@ -10,7 +10,8 @@
 * ``merge`` / ``merge_dirty`` — the merge kernel entry points.
 * ``query_sorted`` / ``query_blocked_ex`` / ``query_blocked`` — per-key
   and batched query entry points; the batched one buckets by block so
-  each queried tile is read once per wave.
+  each queried tile is read once per wave (``lookup_waves``: the grid
+  layouts it launches).
 
 Every function works on the device of its inputs; sorts are stable where
 order matters, as in the reference. The wave loops run on host scalars
@@ -165,6 +166,48 @@ def _dense_rows(p: int, qcap: int, n_b: int, n_rows: int, sb, pos, rank, sq):
     return win, dense, g
 
 
+def _waves(pair, q, alive, n_b: int, n_rows: int, qcap: int):
+    """The keys of ``q`` that ``alive`` marks, bucketed by block
+    (:func:`_bucket`): ``(order, is_first, waves)``, ``waves`` yielding
+    wave ``p``'s ``(win, g, (grid_blocks, dense))`` (:func:`_dense_rows`;
+    a grid kernel is launched on ``(grid_blocks, dense)``)."""
+    order, sq, sb, pos, max_load, is_first, rank, grid_blocks = _bucket(
+        pair, q, alive, n_b, n_rows)
+    waves = (_dense_rows(p, qcap, n_b, n_rows, sb, pos, rank, sq)
+             for p in range(-(-max_load // qcap)))
+    return order, is_first, ((win, g, (grid_blocks, dense))
+                             for win, dense, g in waves)
+
+
+def lookup_waves(pair: Pow2Hash, q, n_b: int, qcap: int, filter_words=None):
+    """The grid layouts of :func:`query_blocked_ex` for the int32 batch
+    ``q`` (``EMPTY`` is padding) over ``n_b`` blocks.
+
+    With ``filter_words``, the Bloom pre-pass runs
+    :func:`kernel.filter_probe_grid` on each wave of the batch, and only
+    the keys it passes are bucketed for the query waves. Returns
+    ``(probed, order, is_first, waves)``: the ``(grid_blocks, dense)``
+    layouts the pre-pass probed (a list; empty without filter words), and
+    the queried keys' bucketing as :func:`_waves` gives it."""
+    (Q,) = q.shape
+    qcap = max(min(qcap, Q), 1)
+    n_rows = min(n_b, Q)
+    valid = q != EMPTY
+    order, is_first, waves = _waves(pair, q, valid, n_b, n_rows, qcap)
+    probed = []
+    if filter_words is not None:
+        may_s = torch.zeros(Q, dtype=_I32, device=q.device)
+        for win, g, layout in waves:
+            m = _k.filter_probe_grid(filter_words, *layout)
+            may_s = torch.where(win, m[g], may_s)
+            probed.append(layout)
+        may = torch.zeros(Q, dtype=_I32, device=q.device)
+        may[order] = may_s
+        order, is_first, waves = _waves(pair, q, valid & (may > 0), n_b,
+                                        n_rows, qcap)
+    return probed, order, is_first, waves
+
+
 def query_blocked_ex(pair: Pow2Hash, table_keys, table_counts, q_keys,
                      qcap: int = 128, filter_words=None):
     """Batched point queries (paper §2.7).
@@ -192,32 +235,13 @@ def query_blocked_ex(pair: Pow2Hash, table_keys, table_counts, q_keys,
         return (torch.zeros(0, dtype=table_counts.dtype, device=dev),
                 torch.zeros(0, dtype=_I32, device=dev),
                 torch.zeros((), dtype=_I32, device=dev))
-    qcap = max(min(qcap, Q), 1)
-    n_rows = min(n_b, Q)
-    q = q_keys.to(_I32)
-    valid = q != EMPTY
-    order, sq, sb, pos, max_load, is_first, rank, grid_blocks = _bucket(
-        pair, q, valid, n_b, n_rows)
-
-    if filter_words is not None:
-        may_s = torch.zeros(Q, dtype=_I32, device=dev)
-        for p in range(-(-max_load // qcap)):
-            win, dense, g = _dense_rows(p, qcap, n_b, n_rows, sb, pos, rank,
-                                        sq)
-            m = _k.filter_probe_grid(filter_words, grid_blocks, dense)
-            may_s = torch.where(win, m[g], may_s)
-        may = torch.zeros(Q, dtype=_I32, device=dev)
-        may[order] = may_s
-        order, sq, sb, pos, max_load, is_first, rank, grid_blocks = _bucket(
-            pair, q, valid & (may > 0), n_b, n_rows)
-
+    _, order, is_first, waves = lookup_waves(pair, q_keys.to(_I32), n_b,
+                                             qcap, filter_words)
     n_tiles = is_first.sum(dtype=_I32)
     cnt_s = torch.zeros(Q, dtype=table_counts.dtype, device=dev)
     dist_s = torch.zeros(Q, dtype=_I32, device=dev)
-    for p in range(-(-max_load // qcap)):
-        win, dense, g = _dense_rows(p, qcap, n_b, n_rows, sb, pos, rank, sq)
-        c, d = _k.query_grid(pair, table_keys, table_counts, grid_blocks,
-                             dense)
+    for win, g, layout in waves:
+        c, d = _k.query_grid(pair, table_keys, table_counts, *layout)
         cnt_s = torch.where(win, c[g], cnt_s)
         dist_s = torch.where(win, d[g], dist_s)
     cnts = torch.zeros(Q, dtype=table_counts.dtype, device=dev)

@@ -7,6 +7,7 @@ time, on small tables on the CPU."""
 import pytest
 import torch
 
+from repro_torch.core import segments as seg
 from repro_torch.core.hashing import Pow2Hash, bloom_positions
 from repro_torch.core.hashing import filter_bits_log2
 from repro_torch.kernels.flash_hash import check as C
@@ -124,25 +125,52 @@ def test_merge_bound_counts_the_sectors_each_key_needs(q_log2, r_log2, max_u,
     assert res["bound_by"] == "bytes"
 
 
-@pytest.mark.parametrize("q_log2,r_log2,qcap,repeat",
-                         [(9, 5, 8, False), (10, 6, 16, False),
-                          (10, 6, 16, True)])
+@pytest.mark.parametrize("q_log2,r_log2,qcap,repeat,layout", [
+    pytest.param(9, 5, 8, False, "dense", id="9-5-8-False"),
+    pytest.param(10, 6, 16, False, "dense", id="10-6-16-False"),
+    pytest.param(10, 6, 16, True, "dense", id="10-6-16-True"),
+    pytest.param(10, 4, 64, False, "path", id="10-4-64-path"),
+    pytest.param(12, 6, 128, False, "path", id="12-6-128-path"),
+])
 def test_query_and_filter_bounds_count_the_sectors_each_lane_needs(
-        q_log2, r_log2, qcap, repeat):
+        q_log2, r_log2, qcap, repeat, layout):
+    """At the dense layout and at the lookup path's (``path_query_layout``:
+    the Bloom probe sees the dispatch's layout, the query its survivors
+    bucketed again)."""
     pair = Pow2Hash(q_log2, r_log2)
     table = C.fill_table(pair, 0.7, q_log2 + 1, "cpu")
-    blocks, q2 = C.query_layout(pair, table[0], pair.num_slots // 2, qcap,
-                                r_log2)
-    if repeat:  # rows of one block share its sectors
-        blocks = torch.cat([blocks, blocks[:4]])
-        q2 = torch.cat([q2, torch.flip(q2[:4], [1])]).contiguous()
+    if layout == "path":   # one dispatch of the query engine's chunk
+        mix = C.lookup_mix(table[0], r_log2, qcap)
+        chunk = C.padded(mix[seg.filter_may_contain(pair, table[2], mix)],
+                         qcap)
+        probed, (blocks, q2) = C.path_query_layout(pair, table[2], chunk)
+    else:
+        blocks, q2 = C.query_layout(pair, table[0], pair.num_slots // 2,
+                                    qcap, r_log2)
+        if repeat:  # rows of one block share its sectors
+            blocks = torch.cat([blocks, blocks[:4]])
+            q2 = torch.cat([q2, torch.flip(q2[:4], [1])]).contiguous()
+        probed = blocks, q2
     res = C.check_query_grid(pair, table, blocks, q2, reps=1)
     assert res["max_abs_err"] == 0
     assert ((res["bound_bytes"], res["bound_ops"])
             == _query_walk(pair, table[0], blocks, q2))
-    res = C.check_filter_probe_grid(table, blocks, q2, reps=1)
+    res = C.check_filter_probe_grid(table, *probed, reps=1)
     assert ((res["bound_bytes"], res["bound_ops"])
-            == _filter_walk(table[2], blocks, q2))
+            == _filter_walk(table[2], *probed))
+
+
+def test_device_timing_needs_a_card():
+    """``device_ms`` and ``profiled_ms`` time CUDA launches only: given a
+    CPU device they raise, and never time the host under a device's
+    name."""
+    cpu = torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        C.device_ms({"x": lambda i: None}, 1, cpu)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        C.device_ms({"x": lambda i: None}, 1, cpu, C.L2_FLUSH_BYTES)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        C.profiled_ms({"x": lambda i: None}, {"x": "kernel"}, 1, cpu)
 
 
 def test_window_sectors_wrap_around_the_row():

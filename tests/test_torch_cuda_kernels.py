@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.core import segments as seg
 from repro_torch.core import table_torch as tt
 from repro_torch.core.hashing import Pow2Hash
 from repro_torch.kernels.flash_attn import check as FC
@@ -160,18 +161,94 @@ def test_merge_refuses_blocks_past_8192_slots(cuda):
         K.merge_dirty(pair, *table, blocks, uk, torch.ones_like(uk))
 
 
-@pytest.mark.parametrize("q_log2,r_log2,qcap", [(8, 3, 8), (12, 6, 32),
-                                                (16, 10, 128), (14, 11, 64),
-                                                (24, 10, 128)])
-def test_query_kernels_match_plain(cuda, q_log2, r_log2, qcap):
+#: name: (q_log2, r_log2, qcap, table, layout, misaligned). Tables:
+#: "half" filled to half load, "dense" to 0.9 (long runs: windows wrap
+#: past the tile's end), "full" every tile full (absent keys walk all r
+#: slots), "scrambled" half load with every tile's slots permuted (keys
+#: past an EMPTY). Layouts: ``check.query_layout`` ("dense") or the
+#: path's dispatch (``check.path_query_layout``). Misaligned: "q2" 4 bytes
+#: past a 16-byte boundary, "all" the table too (the query's slot-by-slot
+#: walk).
+QUERY_CASES = {
+    "8-3-8": (8, 3, 8, "half", "dense", None),
+    "12-6-32": (12, 6, 32, "half", "dense", None),
+    "16-10-128": (16, 10, 128, "half", "dense", None),
+    "14-11-64": (14, 11, 64, "half", "dense", None),
+    "24-10-128": (24, 10, 128, "half", "dense", None),
+    "full_tiles": (12, 6, 64, "full", "dense", None),
+    "wrapping_windows": (12, 6, 64, "dense", "dense", None),
+    "keys_past_empty": (12, 6, 64, "scrambled", "dense", None),
+    "r8_fw4": (10, 3, 16, "half", "dense", None),
+    "r8192": (20, 13, 128, "half", "dense", None),
+    "qcap_23": (12, 6, 23, "half", "dense", None),
+    "q2_misaligned": (12, 6, 64, "half", "dense", "q2"),
+    "all_misaligned": (12, 8, 64, "dense", "dense", "all"),
+    "path_layout": (16, 10, 128, "half", "path", None),
+    "path_layout_main_shapes": (24, 10, 128, "half", "path", None),
+}
+
+
+def _query_case(cuda, q_log2, r_log2, qcap, kind, layout, misaligned):
     pair = Pow2Hash(q_log2, r_log2)
-    table = C.fill_table(pair, 0.5, q_log2 + 1, cuda)
-    n_rows = min(pair.num_slots, 1024)
-    blocks, q2 = C.query_layout(pair, table[0], n_rows, qcap, r_log2)
-    for res in (C.check_query_grid(pair, table, blocks, q2, reps=1),
-                C.check_query(pair, table, q2.reshape(-1), qcap, reps=1),
-                C.check_filter_probe_grid(table, blocks, q2, reps=1)):
-        assert res["max_abs_err"] == 0
+    n_b, r = pair.num_slots, pair.r
+    seed = q_log2 + 1
+    if kind == "full":
+        table = C.full_table(pair, seed, cuda)
+    else:
+        table = C.fill_table(pair, 0.9 if kind == "dense" else 0.5, seed,
+                             cuda)
+    if kind == "scrambled":
+        perm = torch.argsort(torch.rand((n_b, r), generator=torch.Generator()
+                                        .manual_seed(seed)), 1).to(cuda)
+        table = (table[0].gather(1, perm), table[1].gather(1, perm),
+                 table[2])
+    table = [_on_card(t, cuda, misaligned == "all") for t in table]
+    if layout == "path":
+        mix = C.lookup_mix(table[0], r_log2, 1024)
+        chunk = C.padded(mix[seg.filter_may_contain(pair, table[2], mix)],
+                         1024)
+        probed, queried = C.path_query_layout(pair, table[2], chunk, qcap)
+    else:
+        probed = queried = C.query_layout(pair, table[0],
+                                          min(n_b, 1024), qcap, r_log2)
+    if misaligned:
+        probed, queried = ((b, _on_card(q, cuda, True))
+                           for b, q in (probed, queried))
+    return pair, table, probed, queried
+
+
+@pytest.mark.parametrize("case", list(QUERY_CASES))
+def test_query_kernels_match_plain(cuda, case):
+    """Both query kernels and the Bloom probe, each against its plain
+    version on every lane (padding and lanes of other blocks included),
+    at block widths from 8 to 8192 slots, on full tiles, windows that
+    wrap, keys past an EMPTY, a lane count that is not a multiple of 4,
+    tensors off 16-byte boundaries and the lookup path's own layout."""
+    pair, table, probed, queried = _query_case(cuda, *QUERY_CASES[case])
+    res = C.check_query_grid(pair, table, *queried, reps=1)
+    assert res["max_abs_err"] == 0 and res["staged_max_abs_err"] == 0, res
+    res = C.check_filter_probe_grid(table, *probed, reps=1)
+    assert res["max_abs_err"] == 0, res
+    assert 0 < res["maybe"]
+    blocks, q2 = queried
+    assert C.check_query(pair, table, q2.reshape(-1), q2.shape[1],
+                         reps=1)["max_abs_err"] == 0
+    # the case holds what it is named for
+    cnt, dist = (t.cpu() for t in K.query_grid(pair, *table[:2], blocks,
+                                                q2))
+    lanes = C._lanes_of_block(pair, blocks, q2).cpu()
+    home = pair.home_within_block(q2).cpu()
+    kind = QUERY_CASES[case][3]
+    if kind == "full":
+        assert (dist[lanes] == pair.r).any()
+    if kind == "dense":
+        assert ((home + dist)[lanes] > pair.r).any()
+    if kind == "scrambled":
+        held = (table[0].cpu()[blocks.long().cpu()].unsqueeze(1)
+                == q2.cpu().unsqueeze(2)).any(2)
+        assert (held & lanes & (cnt == 0)).any()
+    if QUERY_CASES[case][4] == "path":   # bucketed: no foreign keys
+        assert torch.equal(lanes, (q2 != -1).cpu())
 
 
 @pytest.mark.parametrize("scheme", ["MB", "MDB", "MDB-L"])

@@ -3,8 +3,8 @@ kernels (interpret mode) and ops of the reference, exactly.
 
 Inputs are made with numpy from a seed and fed to both packages; integer
 results must match bit for bit (tolerance 0). ``query_grid``/``query``
-are compared on the gathered lanes only: other lanes are junk by
-contract."""
+are compared on the gathered lanes at the layouts of the older tests,
+and on every lane at the lookup path's own layout."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -14,7 +14,9 @@ from repro.core.hashing import Pow2Hash as JPair
 from repro.core.hashing import filter_words_for
 from repro_torch.core.hashing import bloom_positions, filter_bits_log2
 from repro.kernels.flash_hash import ops as jops
+from repro_torch.core import segments as tseg
 from repro_torch.core.hashing import Pow2Hash as TPair
+from repro_torch.kernels.flash_hash import check as tcheck
 from repro_torch.kernels.flash_hash import kernel as tk
 from repro_torch.kernels.flash_hash import ops as tops
 from repro_torch.kernels.flash_hash import ref as tref
@@ -233,6 +235,76 @@ def test_filter_probe_grid_plain_matches_pallas(q_log2, r_log2, qcap):
     got = tk.filter_probe_grid(_t(tf0), _t(blocks), _t(q2))
     np.testing.assert_array_equal(got.numpy(), _np(want))
     assert got.sum() > 0 and (got == 0).any()
+
+
+#: (q_log2, r_log2, keys a dispatch): more blocks than keys (rows of one
+#: or two keys and surplus rows at block 0, as at the main path's size),
+#: and fewer
+PATH_SHAPES = [(10, 4, 64), (12, 6, 256)]
+
+
+def _path_case(q_log2, r_log2, n_keys):
+    jp, tp = _pairs(q_log2, r_log2)
+    rng = np.random.default_rng(400 + q_log2)
+    nk, nc, nf = _table(jp, rng, rng.integers(0, 4 * jp.q, jp.q // 2))
+    table = (_t(nk), _t(nc), _t(nf))
+    # one dispatch chunk of the query engine: the mix, Bloom-filtered
+    mix = tcheck.lookup_mix(table[0], q_log2, n_keys)
+    chunk = tcheck.padded(mix[tseg.filter_may_contain(tp, table[2], mix)],
+                          n_keys)
+    return jp, tp, (nk, nc, nf), table, (
+        chunk, *tcheck.path_query_layout(tp, table[2], chunk))
+
+
+@pytest.mark.parametrize("q_log2,r_log2,n_keys", PATH_SHAPES)
+def test_path_query_layout_is_what_the_lookup_path_launches(
+        q_log2, r_log2, n_keys, monkeypatch):
+    """``check.path_query_layout`` gives exactly the ``(blocks, q2)`` that
+    ``ops.query_blocked_ex`` hands ``filter_probe_grid`` and
+    ``query_grid`` for its dispatch chunk, recorded at the wrappers."""
+    _, tp, _, table, (chunk, probed, queried) = _path_case(q_log2, r_log2,
+                                                           n_keys)
+    seen = {}
+    for name in ("query_grid", "filter_probe_grid"):
+        def record(*args, _name=name, _fn=getattr(tk, name)):
+            seen.setdefault(_name, []).append(args)
+            return _fn(*args)
+        monkeypatch.setattr(tk, name, record)
+    tops.query_blocked_ex(tp, table[0], table[1], chunk, 128, table[2])
+    assert [len(seen[n]) for n in ("filter_probe_grid", "query_grid")] == [
+        1, 1]
+    for got, want in ((seen["filter_probe_grid"][0][1:], probed),
+                      (seen["query_grid"][0][3:], queried)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # a full chunk of the smoke's mix: keys the table holds, sorted
+    assert chunk.shape == (n_keys,) and bool((chunk != EMPTY).all())
+    assert bool((chunk[1:] > chunk[:-1]).all())
+    assert bool(torch.isin(chunk, table[0]).all())
+
+
+@pytest.mark.parametrize("q_log2,r_log2,n_keys", PATH_SHAPES)
+def test_lookup_plain_matches_pallas_on_every_lane_of_the_path_layout(
+        q_log2, r_log2, n_keys):
+    """At the path's layout the Pallas kernels (interpret mode) and the
+    plain versions agree on every lane, EMPTY padding and the surplus
+    rows at block 0 included: the CUDA kernels are held to the plain
+    versions on every lane."""
+    from repro.kernels.flash_hash import kernel as jk
+    jp, tp, (nk, nc, nf), table, (_, probed, queried) = _path_case(
+        q_log2, r_log2, n_keys)
+    blocks, q2 = queried
+    assert bool((q2 == EMPTY).any())
+    wc, wd = jk.query_grid(jp, jnp.asarray(nk), jnp.asarray(nc),
+                           jnp.asarray(blocks.numpy()),
+                           jnp.asarray(q2.numpy()))
+    gc, gd = tref.query_grid_plain(tp, table[0], table[1], blocks, q2)
+    np.testing.assert_array_equal(gc.numpy(), _np(wc))
+    np.testing.assert_array_equal(gd.numpy(), _np(wd))
+    blocks, q2 = probed
+    want = jk.filter_probe_grid(jnp.asarray(nf), jnp.asarray(blocks.numpy()),
+                                jnp.asarray(q2.numpy()))
+    got = tref.filter_probe_grid_plain(table[2], blocks, q2)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
 def test_bucket_rows_and_accumulate_match_reference():
