@@ -50,7 +50,26 @@ fails (non-zero exit, no result line) without them. Phases:
    its stream, document frequencies included, with nothing dropped; the
    kernels' launch counters are zeroed before each run and must all be
    above 0 after it;
-4. the serving path at full width: llama3.2-3b (28 layers, bf16, weights
+4. durability at the paper's table size: a child process (this script
+   under ``--durability-child``, reusing the kernels built above) opens
+   a ``FlashStore`` (MDB-L, 2**24 slots) with a write-ahead log, ingests
+   batches 1-8 of the 2**25-token stream in 16 batches (one drain each),
+   snapshots after batch 4 and is SIGKILLed by its own WAL hook at the
+   seal of batch 8. The parent restores a fresh store on the card from
+   the snapshot and the log (4 records replayed, nothing discarded),
+   checks every distinct key of batches 1-8 and as many absent keys
+   against ``np.unique`` counts, ingests batches 9-16, flushes and checks
+   every key of the stream again (with 2**15 absent keys, as the main
+   path's lookup has), with nothing dropped; the merge, query
+   and Bloom kernels must each launch after the restore. It prints the
+   snapshot's seconds and bytes, the log's bytes, the restore's seconds
+   and replayed entries per second, and the launch counts;
+5. the sim against the card: ``TfIdfPipeline`` on the event-level
+   simulator (host) and on the card, for MB, MDB and MDB-L, on the same
+   2**15 seeded tokens: identical term counts, document frequencies and
+   IDF; the sim's ``cleans`` (the paper's erase count) beside the card's
+   ``tile_stores``;
+6. the serving path at full width: llama3.2-3b (28 layers, bf16, weights
    drawn from ``--seed`` on the card) behind ``ServeEngine`` with a
    ``PrefixKVCache(block_tokens=8, capacity_blocks=64)`` whose refcounts
    live in the port's device ``FlashStore``. Eight requests of 512-token
@@ -60,7 +79,7 @@ fails (non-zero exit, no result line) without them. Phases:
    hits, misses, evictions, refcounts after release and 5 x 28
    launches of the tensor-core flash-attention kernel (and none of the
    CUDA-core one) are checked;
-5. the same request order scaled down on llama32 TINY in f32, served on
+7. the same request order scaled down on llama32 TINY in f32, served on
    the card and on the CPU with the same weights: outputs, cached
    prefixes and cache stats must be identical. The serial engine's pins
    cancel in the store's write buffer, so the twin runs again with a
@@ -70,7 +89,7 @@ fails (non-zero exit, no result line) without them. Phases:
    flash-hash kernel must have launched on the card; every prefill of
    the f32 twin runs the CUDA-core flash-attention kernel (and none the
    tensor-core one);
-6. a ``kernels`` JSON line, then the card line, then the result line.
+8. a ``kernels`` JSON line, then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -78,8 +97,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,6 +146,18 @@ TINY_SERVE = dict(prompt_len=40, shared=16, max_new=16, block_tokens=8,
 TINY_DRAINED = dict(TINY_SERVE, flush_threshold=1, read_pins=True)
 #: prefix-cache counters that depend on when an asynchronous drain lands
 TIMING_STATS = ("query_cache_hits", "query_device_keys", "query_batches")
+#: the durability run: FULL's stream in 16 batches, a snapshot after
+#: batch 4, the child killed at the seal of batch 8
+DURABILITY = dict(batches=16, snap_at=4, kill_at=8)
+SURVIVED = "DURABILITY_CHILD_SURVIVED"
+#: the sim-vs-card run: 2**15 tokens in documents of 1,024; the sim's
+#: table of 65,536 entries (64 blocks of 16 pages of 64), the card's of
+#: 2**16 slots
+SIM_TOKENS = 1 << 15
+SIM_DOC_LEN = 1 << 10
+SIM_GEOM = dict(num_blocks=64, pages_per_block=16, entries_per_page=64)
+SIM_CARD = dict(q_log2=16, r_log2=10, log_capacity=1 << 13,
+                max_updates_per_block=512)
 
 
 def fail(msg: str) -> None:
@@ -427,7 +462,230 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the serving path
+# phase 4: durability (snapshot, WAL, SIGKILL, restore) at the paper's size
+# ---------------------------------------------------------------------------
+def durability_batches(plan: dict):
+    """The plan's stream (``make_docs``) cut into its batches."""
+    import numpy as np
+    docs = make_docs(plan["geo"]["tokens"], plan["seed"], plan["doc_len"])
+    return np.array_split(np.concatenate(docs), plan["batches"])
+
+
+def durability_store(plan: dict, dev, wal: Path):
+    """The durability run's store: MDB-L at the plan's geometry on
+    ``dev``, with the WAL; the flush threshold is above a batch, so only
+    the explicit per-batch drains seal. Its lookups are checks of
+    millions of distinct keys, so it keeps no hot-key cache."""
+    from repro_torch.core.store import FlashStore
+    geo = {k: v for k, v in plan["geo"].items() if k != "tokens"}
+    batch = -(-plan["geo"]["tokens"] // plan["batches"])
+    return FlashStore.open(scheme="MDB-L", device=dev, wal=wal,
+                           chunk=plan["chunk"], query_chunk=plan["chunk"],
+                           flush_threshold=batch + 1, hot_capacity=0, **geo)
+
+
+def child_command(workdir: Path, seed: int):
+    """How the parent starts the durability child: this script again."""
+    return [sys.executable, str(Path(__file__).resolve()), "--seed",
+            str(seed), "--durability-child", str(workdir)]
+
+
+def durability_child(workdir: Path, dev) -> None:
+    """Ingest batches 1..kill_at (a drain after each, a snapshot after
+    snap_at); the WAL hook SIGKILLs this process at the seal of batch
+    kill_at, after its record is durable and before its drain runs."""
+    import torch
+    plan = json.loads((workdir / "plan.json").read_text())
+    batches = durability_batches(plan)
+    store = durability_store(plan, dev, workdir / "wal")
+
+    def kill(seal_events: int) -> None:
+        if seal_events == plan["kill_at"]:
+            os.kill(os.getpid(), signal.SIGKILL)   # no cleanup, no flush
+
+    store.wal.after_sync = kill
+    for i, batch in enumerate(batches[:plan["kill_at"]], start=1):
+        store.update(batch)
+        store.drain(wait=False)
+        if i == plan["snap_at"]:
+            t0 = time.perf_counter()
+            snap = store.snapshot(workdir / "snap")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            rec = {"snapshot_s": time.perf_counter() - t0,
+                   "snapshot_bytes": sum(f.stat().st_size
+                                         for f in snap.iterdir()),
+                   "snapshot_dir": snap.name, "after_batch": i}
+            print(f"durability child: {json.dumps(rec)}", flush=True)
+    print(SURVIVED, flush=True)
+
+
+def check_counts(store, batches, seed: int, what: str,
+                 n_absent=None) -> dict:
+    """Every distinct key of ``batches`` and ``n_absent`` absent ones (as
+    many as the distinct ones by default; ids at or above 2**30, which
+    ``make_docs`` never draws) against ``np.unique`` counts; returns the
+    lookup's size and time."""
+    import numpy as np
+    uniq, cnt = np.unique(np.concatenate(batches), return_counts=True)
+    n_absent = uniq.size if n_absent is None else n_absent
+    absent = np.random.default_rng(seed).integers(1 << 30, 1 << 31,
+                                                  n_absent)
+    keys = np.concatenate([uniq, absent])
+    t0 = time.perf_counter()
+    got = store.query_batch(keys)
+    dt = time.perf_counter() - t0
+    want = np.concatenate([cnt, np.zeros(n_absent, np.int64)])
+    if not np.array_equal(got, want):
+        fail(f"durability {what}: {int((got != want).sum())} of "
+             f"{keys.size} counts differ from np.unique counts")
+    return {"keys": int(keys.size), "distinct": int(uniq.size),
+            "lookup_s": dt, "lookup_keys_per_s": keys.size / dt}
+
+
+def durability_phase(seed: int, dev, geo: dict = FULL,
+                     doc_len: int = DOC_LEN, chunk: int = CHUNK) -> dict:
+    """Kill a child mid-stream, restore on ``dev``, check every count.
+    On the card the restore's replay must merge (its 4 records overflow
+    the 2**21-entry log), the first check must probe, and every kernel
+    must have launched by the end of the phase."""
+    import torch
+    from repro_torch.kernels.flash_hash import kernel as K
+    plan = {"geo": geo, "seed": seed, "doc_len": doc_len, "chunk": chunk,
+            **DURABILITY}
+    t_phase = time.perf_counter()
+    workdir = Path(tempfile.mkdtemp(prefix="flash-durability-"))
+    try:
+        (workdir / "plan.json").write_text(json.dumps(plan))
+        t0 = time.perf_counter()
+        proc = subprocess.run(child_command(workdir, seed),
+                              capture_output=True, text=True, timeout=900)
+        t_child = time.perf_counter() - t0
+        if proc.returncode != -signal.SIGKILL or SURVIVED in proc.stdout:
+            fail(f"durability: the child was not killed by signal 9 at "
+                 f"the seal of batch {plan['kill_at']} (rc "
+                 f"{proc.returncode})\nstdout: {proc.stdout[-2000:]}\n"
+                 f"stderr: {proc.stderr[-4000:]}")
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("durability child: ")]
+        if len(lines) != 1:
+            fail(f"durability: the child took no snapshot: {proc.stdout}")
+        child = json.loads(lines[0].split(": ", 1)[1])
+        wal_bytes = (workdir / "wal").stat().st_size
+        batches = durability_batches(plan)
+        kill_at = plan["kill_at"]
+
+        zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
+        store = durability_store(plan, dev, workdir / "wal")
+        t0 = time.perf_counter()
+        rep = store.restore(workdir / "snap")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_restore = time.perf_counter() - t0
+        if (rep.snapshot_step is None
+                or rep.records_replayed < kill_at - plan["snap_at"]
+                or rep.tail_discarded_bytes != 0):
+            fail(f"durability: restore report {rep}")
+        if store.state.device != dev:
+            fail(f"durability: restored onto {store.state.device}")
+        at_restore = dict(K.LAUNCHES)
+        first = check_counts(store, batches[:kill_at], seed + 11,
+                             f"after batch {kill_at}")
+        at_check = dict(K.LAUNCHES)
+        for batch in batches[kill_at:]:
+            store.update(batch)
+            store.drain(wait=False)
+        store.flush()
+        full = check_counts(store, batches, seed + 12, "after the stream",
+                            n_absent=N_QUERIES // 2)
+        wear = store.wear()
+        if wear["dropped"] != 0:
+            fail(f"durability: entries dropped: {wear}")
+        launches = dict(K.LAUNCHES)
+        if dev.type == "cuda" and (
+                at_restore["merge_dirty"] <= 0
+                or min(at_check["query_grid"],
+                       at_check["filter_probe_grid"]) <= 0
+                or min(launches.values()) <= 0):
+            fail(f"durability: a kernel did not launch where it must: "
+                 f"in the restore's replay {at_restore}, by the end of "
+                 f"the first check {at_check}, by the end of the phase "
+                 f"{launches}")
+        no_baseline("durability")
+        store.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out = {"child_s": t_child, **child, "wal_bytes": wal_bytes,
+           "restore_s": t_restore, "snapshot_step": rep.snapshot_step,
+           "records_replayed": rep.records_replayed,
+           "entries_replayed": rep.entries_replayed,
+           "replayed_entries_per_s": rep.entries_replayed / t_restore,
+           "tail_discarded_bytes": rep.tail_discarded_bytes,
+           "check_after_kill": first, "check_after_stream": full,
+           "launches_at_restore": at_restore,
+           "launches_at_check": at_check, "launches": launches,
+           "wear": wear, "phase_s": time.perf_counter() - t_phase}
+    print(f"durability MDB-L: {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the event-level sim against the card
+# ---------------------------------------------------------------------------
+def sim_vs_card(seed: int, dev) -> dict:
+    """TF-IDF on the sim and on ``dev`` from the same documents: term
+    counts, document frequencies and IDF identical for every scheme."""
+    import numpy as np
+    from repro_torch.core.flash_model import TableGeometry
+    from repro_torch.core.tfidf import TfIdfPipeline
+    docs = make_docs(SIM_TOKENS, seed, SIM_DOC_LEN)
+    uniq, cnt = np.unique(np.concatenate(docs), return_counts=True)
+    keys = np.concatenate([uniq, np.random.default_rng(seed).integers(
+        1 << 30, 1 << 31, 256)])
+    out = {}
+    for scheme in ("MB", "MDB", "MDB-L"):
+        pipes = {"sim": TfIdfPipeline(scheme=scheme, backend="sim",
+                                      geom=TableGeometry(**SIM_GEOM)),
+                 "card": TfIdfPipeline(scheme=scheme, device=dev,
+                                       chunk=4096, **SIM_CARD)}
+        res = {}
+        for name, pipe in pipes.items():
+            for doc in docs:
+                pipe.add_document_ids(doc)
+            pipe.finalize()
+            tf = pipe.term_table.query_batch(keys)
+            df = pipe.doc_table.query_batch(keys)
+            idf = np.zeros(keys.size)
+            idf[df > 0] = np.log(pipe.num_docs / df[df > 0])
+            res[name] = (tf, df, idf)
+        want = np.concatenate([cnt, np.zeros(keys.size - uniq.size,
+                                             np.int64)])
+        if not np.array_equal(res["sim"][0], want):
+            fail(f"sim {scheme}: term counts differ from np.unique's")
+        for i, what in enumerate(("term counts", "document frequencies",
+                                  "IDF")):
+            if not np.array_equal(res["sim"][i], res["card"][i]):
+                fail(f"sim vs card {scheme}: {what} differ")
+        card_wear = pipes["card"].term_table.wear()
+        if card_wear["dropped"] != 0:
+            fail(f"sim vs card {scheme}: the card dropped entries")
+        out[scheme] = {
+            "tokens": SIM_TOKENS, "documents": len(docs),
+            "distinct": int(uniq.size),
+            "sim_cleans": pipes["sim"].term_table.wear()["cleans"],
+            "card_tile_stores": card_wear["tile_stores"],
+            "sim_doc_cleans": pipes["sim"].doc_table.wear()["cleans"],
+            "card_doc_tile_stores":
+                pipes["card"].doc_table.wear()["tile_stores"]}
+        for pipe in pipes.values():
+            pipe.close()
+        print(f"sim vs card {scheme}: identical term counts, document "
+              f"frequencies and IDF; {json.dumps(out[scheme])}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the serving path
 # ---------------------------------------------------------------------------
 def smoke_prompts(seed: int, vocab: int, prompt_len: int, shared: int):
     """Request 0 of its own, 1-3 sharing its first ``shared`` tokens, 4-7
@@ -626,6 +884,8 @@ def tiny_card_vs_cpu(seed: int, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the durability phase's child: this script, started by the parent
+    ap.add_argument("--durability-child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -645,6 +905,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.durability_child is not None:
+        # the parent built the kernels: load them, never compile again
+        fh_build.LIBRARY.build()
+        if fh_build.LIBRARY.last_build["seconds"] != 0.0:
+            fail("durability child: the flash-hash kernels were rebuilt")
+        durability_child(args.durability_child, dev)
+        return 1                      # not killed: the parent fails it
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -668,6 +935,23 @@ def main() -> int:
         print(f"wear {r['scheme']}: {json.dumps(r['wear'])}")
         print(f"ingest {r['scheme']}: {r['ingest_tokens_per_s']:.0f} tokens/s;"
               f" lookup: {r['lookup_keys_per_s']:.0f} keys/s")
+    dur = durability_phase(args.seed, dev)
+    print(f"durability ({dur['phase_s']:.1f} s): snapshot "
+          f"{dur['snapshot_s']:.3f} s, "
+          f"{dur['snapshot_bytes']} bytes; WAL {dur['wal_bytes']} bytes; "
+          f"restore {dur['restore_s']:.3f} s ({dur['records_replayed']} "
+          f"records, {dur['replayed_entries_per_s']:.0f} replayed entries/s); "
+          f"launches in the restore {json.dumps(dur['launches_at_restore'])}"
+          f", by the end of the first check "
+          f"{json.dumps(dur['launches_at_check'])}, after the whole phase "
+          f"{json.dumps(dur['launches'])}; "
+          f"card {card}", flush=True)
+    t0 = time.perf_counter()
+    sims = sim_vs_card(args.seed, dev)
+    print(f"sim cleans vs card tile_stores (term table; "
+          f"{time.perf_counter() - t0:.1f} s): " + "; ".join(
+              f"{k} {v['sim_cleans']} / {v['card_tile_stores']}"
+              for k, v in sims.items()), flush=True)
     served = serve_phase(args.seed, dev)
     print(f"serve: prefill ms {[round(t, 3) for t in served['prefill_ms']]};"
           f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "

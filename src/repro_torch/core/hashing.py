@@ -1,11 +1,18 @@
-"""Two-level hash pair and Bloom positions of the device table, on tensors.
+"""Two-level hash pairs and Bloom positions.
 
     g(x) = (x * mult) & (q - 1)     -- primary (entry-level, closed table)
     s(x) = g(x) >> r_log2           -- secondary (block-level)
 
-The same power-of-two geometry as the reference package's ``Pow2Hash``:
-all keys in secondary slot ``m`` land in the primary range
-``[r*m, r*(m+1))``, so a staged update merges with exactly one block.
+:class:`Pow2Hash` is the device table's pair, on tensors: the same
+power-of-two geometry as the reference package's ``Pow2Hash``. All keys
+in secondary slot ``m`` land in the primary range ``[r*m, r*(m+1))``, so
+a staged update merges with exactly one block.
+
+:class:`HashPair` is the paper's linear-congruential pair
+``g(x) = (a*x + b) mod q``, ``s(x) = g(x) div r`` over any ``q`` and
+``r``, and :func:`bloom_positions_np` the Bloom mix in numpy ``uint32``:
+both are the event-level simulator's (:mod:`.table_sim`), exact in
+numpy as in the reference package.
 
 torch has no unsigned 32-bit shift on the CPU, so the arithmetic is
 written in signed types with identical bits:
@@ -20,10 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-# Knuth multiplicative constant (odd, fits uint32).
+# Knuth multiplicative constants (odd, fit uint32).
 _DEFAULT_A = 2_654_435_761
+_DEFAULT_B = 1_013_904_223
 _U32 = 0xFFFFFFFF
 
 
@@ -47,6 +56,21 @@ def bloom_positions(x: torch.Tensor, bits_log2: int):
     h = h ^ (h >> 16)
     m = (1 << bits_log2) - 1
     return h & m, (h >> bits_log2) & m
+
+
+def bloom_positions_np(x: np.ndarray, bits_log2: int):
+    """:func:`bloom_positions` on a numpy array, in ``uint32`` arithmetic
+    (multiplies wrap mod 2**32, as the reference's do): the sim's blocked
+    Bloom filter. Returns a tuple of two ``uint32`` arrays shaped like
+    ``x``."""
+    h = np.asarray(x).astype(np.uint32)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    h = h ^ (h >> np.uint32(16))
+    m = np.uint32((1 << bits_log2) - 1)
+    return h & m, (h >> np.uint32(bits_log2)) & m
 
 
 def filter_words_for(block_entries: int) -> int:
@@ -101,3 +125,46 @@ class Pow2Hash:
 
     def home_within_block(self, x):
         return self.g(x) & (self.r - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashPair:
+    """The paper's (g, s) pair. ``q`` = total entries, ``r`` = entries per
+    block; any ``q`` that ``r`` divides."""
+
+    q: int  # number of entries in the primary (closed) table
+    r: int  # entries per block == primary entries per secondary slot
+    a: int = _DEFAULT_A
+    b: int = _DEFAULT_B
+
+    def __post_init__(self):
+        if self.q % self.r != 0:
+            raise ValueError(f"q={self.q} must be a multiple of r={self.r}")
+        if self.q <= 0 or self.r <= 0:
+            raise ValueError("q and r must be positive")
+
+    @property
+    def num_slots(self) -> int:
+        """Secondary-table slot count (== number of primary blocks)."""
+        return self.q // self.r
+
+    # Inputs: Python ints or numpy int64 arrays with x < 2**31, so that
+    # a*x + b < 2**63 stays exact in int64.
+    def g(self, x):
+        return (self.a * x + self.b) % self.q
+
+    def s(self, x):
+        return self.g(x) // self.r
+
+    def block_of(self, x):
+        """The block a key belongs to (== s(x))."""
+        return self.s(x)
+
+    def home_within_block(self, x):
+        """Entry offset of the key's home position inside its block."""
+        return self.g(x) % self.r
+
+
+def hash_pair_for(num_blocks: int, block_entries: int, a: int = _DEFAULT_A,
+                  b: int = _DEFAULT_B) -> HashPair:
+    return HashPair(q=num_blocks * block_entries, r=block_entries, a=a, b=b)

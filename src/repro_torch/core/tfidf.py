@@ -7,9 +7,13 @@ Two counting tables are maintained while streaming a corpus:
 
 ``tfidf(w, d) = tf(w, d) * log(N / df(w))`` (Salton–Buckley weighting [32]).
 
-Each table is a :class:`~.store.FlashStore` on the device backend, with
-any of the MB / MDB / MDB-L schemes; it lives on the card unless the
-caller passes ``device="cpu"``.
+Each table is a :class:`~.store.FlashStore`. ``backend=`` selects:
+
+* ``"device"`` (the default) — the device table, with any of the MB /
+  MDB / MDB-L schemes, on the card unless the caller passes
+  ``device="cpu"``;
+* ``"sim"`` — the event-level numpy simulator on the host (the paper's
+  SSD cost ledger), with MB / MDB / MDB-L / naive over ``geom``.
 """
 from __future__ import annotations
 
@@ -36,23 +40,33 @@ def token_id(token: str, key_space: int = 1 << 30) -> int:
 
 
 class TfIdfPipeline:
-    """Streaming TF-IDF scorer over two device counting tables.
+    """Streaming TF-IDF scorer over two counting tables.
 
     ``store_kw`` passes table fields (``log_capacity``,
-    ``max_updates_per_block``, ...) and engine knobs (``chunk``,
-    ``async_flush``, ...) through to :meth:`FlashStore.open`."""
+    ``max_updates_per_block``, ...; ``ram_buffer_pct`` and
+    ``change_segment_pct`` for the sim) and engine knobs (``chunk``,
+    ``async_flush``, ...) through to :meth:`FlashStore.open`. ``geom``
+    (a ``TableGeometry``) is the sim's table; the device table is sized
+    by ``q_log2`` / ``r_log2``."""
 
     def __init__(self, scheme: str = "MDB-L", track_df: bool = True,
                  backend: str = "device", q_log2: int = 14, r_log2: int = 9,
-                 device="cuda", **store_kw):
-        if backend != "device":
-            raise ValueError(f"unknown backend {backend!r}; this package "
-                             "has the device backend only")
-        if scheme == "naive":
-            raise ValueError("the device table has no naive scheme")
-        mk = lambda: FlashStore.open(backend=backend, scheme=scheme,
-                                     q_log2=q_log2, r_log2=r_log2,
-                                     device=device, **store_kw)
+                 device=None, geom=None, **store_kw):
+        if backend == "sim":
+            mk = lambda: FlashStore.open(geom, backend="sim", scheme=scheme,
+                                         device=device, **store_kw)
+        elif backend == "device":
+            if scheme == "naive":
+                raise ValueError("the device table has no naive scheme")
+            if geom is not None:
+                raise ValueError("geom sizes the sim's table; size the "
+                                 "device table with q_log2 / r_log2")
+            mk = lambda: FlashStore.open(backend=backend, scheme=scheme,
+                                         q_log2=q_log2, r_log2=r_log2,
+                                         device=device, **store_kw)
+        else:
+            raise ValueError(f"unknown backend {backend!r}; expected "
+                             "'device' or 'sim'")
         self.backend = backend
         self.term_table = mk()
         self.doc_table = mk() if track_df else None

@@ -165,7 +165,7 @@ class BatchedWriteEngine:
     def __init__(self, cfg, state=None, chunk: int = 4096,
                  flush_threshold: Optional[int] = None,
                  query_engine=None, on_flush=None, dispatcher=None,
-                 device="cuda"):
+                 device="cuda", wal=None):
         from . import table_torch as tt
         from .store import SealedFront
         self._tt = tt
@@ -185,8 +185,10 @@ class BatchedWriteEngine:
         # lock so (device state, in-flight overlay) is always a
         # consistent snapshot. Without one, drains run inline.
         self.dispatcher = dispatcher
-        # the seal/settle/poison double-buffer lifecycle
-        self.front = SealedFront(dispatcher=dispatcher)
+        # the seal/settle/poison double-buffer lifecycle; with a
+        # write-ahead log (``wal``) every sealed chunk is logged and
+        # fsync'd before its drain is submitted
+        self.front = SealedFront(dispatcher=dispatcher, wal=wal)
         # device entries staged since the last merge. An adopted state may
         # arrive with a non-empty change segment, so it counts as dirty:
         # the first merge() must really run.

@@ -1,15 +1,17 @@
-"""The synthetic corpus of the TF-IDF workload.
+"""Corpora for the TF-IDF workload.
 
 ``SyntheticCorpus`` is a seeded Zipf document stream matching the paper's
 workload statistics knobs (unique/total token ratio — Wiki ≈ 7%, Meme ≈ 4%):
 documents are generated on demand from ``(seed, doc_id)`` so any worker can
 materialize any document independently (deterministic, resumable,
-shardable — no shared state).
+shardable — no shared state). ``read_text_corpus`` reads text files
+into token-id documents with the paper's tokenizer.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from pathlib import Path
+from typing import Iterator, List
 
 import numpy as np
 
@@ -39,3 +41,21 @@ class SyntheticCorpus:
         while True:
             yield self.doc_tokens(d % self.num_docs)
             d += 1
+
+
+def read_text_corpus(path, key_space: int = 1 << 30) -> List[np.ndarray]:
+    """Read a directory of .txt files (or one file) into token-id docs, one
+    per blank-line-separated paragraph, using the paper's tokenizer (word
+    split + FNV-1a ids)."""
+    from ..core.tfidf import token_id, tokenize
+    p = Path(path)
+    files = sorted(p.glob("**/*.txt")) if p.is_dir() else [p]
+    docs = []
+    for f in files:
+        for para in f.read_text(errors="ignore").split("\n\n"):
+            toks = tokenize(para)
+            if toks:
+                docs.append(np.fromiter((token_id(t, key_space)
+                                         for t in toks),
+                                        dtype=np.int64, count=len(toks)))
+    return docs

@@ -13,7 +13,9 @@ reads between ingests are never stale. On top of it:
 * ``expert_stats`` — counting-table accumulation of expert-load
   histograms (counting semantics across steps).
 
-Snapshots are not in this package yet.
+``wal=`` gives the store a write-ahead log; :meth:`CorpusStats.snapshot`
+and :meth:`CorpusStats.restore` go through the store's own snapshot, with
+the ``docs_seen`` / ``tokens_seen`` counters in its ``meta.json``.
 """
 from __future__ import annotations
 
@@ -29,12 +31,12 @@ class CorpusStats:
     def __init__(self, cfg: tt.FlashTableConfig,
                  state: Optional[tt.DeviceTableState] = None,
                  docs_seen: int = 0, tokens_seen: int = 0,
-                 backend: str = "device", device="cuda"):
+                 backend: str = "device", device="cuda", wal=None):
         self.cfg = cfg
         self.docs_seen = docs_seen
         self.tokens_seen = tokens_seen
         self.store = FlashStore.open(cfg, backend=backend, state=state,
-                                     device=device)
+                                     device=device, wal=wal)
 
     @classmethod
     def create(cls, q_log2: int = 18, r_log2: int = 10,
@@ -79,6 +81,22 @@ class CorpusStats:
     def flush(self) -> None:
         """Drain H_R and force the device merge."""
         self.store.flush()
+
+    # -- durability ---------------------------------------------------------
+    def snapshot(self, path) -> None:
+        """Persist through the store's own snapshot: the ``docs_seen`` /
+        ``tokens_seen`` counters ride in the snapshot's ``meta.json``."""
+        self.store.snapshot(path, extra_meta={
+            "docs_seen": self.docs_seen, "tokens_seen": self.tokens_seen})
+
+    def restore(self, path=None):
+        """Counterpart of :meth:`snapshot`: restores the table (and
+        replays any WAL tail), then the counters from the snapshot meta.
+        Returns the store's ``RestoreReport``."""
+        rep = self.store.restore(path)
+        self.docs_seen = int(rep.meta.get("docs_seen", 0))
+        self.tokens_seen = int(rep.meta.get("tokens_seen", 0))
+        return rep
 
     # -- queries ------------------------------------------------------------
     def counts(self, tokens: np.ndarray) -> np.ndarray:

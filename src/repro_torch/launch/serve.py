@@ -3,7 +3,8 @@
 Greedy decoding with the flash-hash prefix KV cache (counting refcounts)
 on one device: the card unless ``--device cpu`` is asked for. The weights
 are drawn from ``--seed``. Prints per-request outputs + cache statistics.
-``--continuous`` and ``--backend sim`` are not ported yet and are refused.
+``--backend sim`` keeps the cache's refcounts in the event-level
+simulator on the host. ``--continuous`` is not ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -29,19 +30,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="continuous-batching scheduler (not ported yet)")
     ap.add_argument("--backend", default="device",
                     choices=("device", "sim"),
-                    help="refcount-table backend for the prefix cache "
-                         "(only 'device' is ported)")
+                    help="refcount-table backend for the prefix cache")
     ap.add_argument("--device", default="cuda",
                     help="torch device: the card by default, 'cpu' for the "
                          "plain versions of the kernels")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.continuous:
-        ap.error("--continuous is not ported yet (ROADMAP.md, Queue 1: the "
-                 "continuous-batching scheduler)")
-    if args.backend == "sim":
-        ap.error("--backend sim is not ported yet (ROADMAP.md, Queue 1 "
-                 "item 9)")
+        ap.error("--continuous is not ported yet (ROADMAP.md, Queue 1: "
+                 "Continuous batching)")
 
     from ..configs import get_config
     from ..models.model import Model

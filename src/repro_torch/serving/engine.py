@@ -33,7 +33,9 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: M.Model,
                  prefix_cache: Optional[PrefixKVCache] = None):
-        if prefix_cache is not None:
+        # a device table of refcounts must share the model's device; the
+        # sim's refcounts live on the host beside any model
+        if prefix_cache is not None and prefix_cache.refs is not None:
             refs_dev = prefix_cache.refs.keys.device
             if refs_dev != model.device:
                 raise ValueError(f"the prefix cache's refcounts are on "

@@ -33,14 +33,17 @@ The engine path (``insert(tokens, value, slicer=...)``) stores
 The scheduler's per-block segments (``insert_block``/``acquire_blocks``)
 come with the continuous-batching scheduler, which is not ported yet.
 
-The refcounts live in the port's device ``FlashStore`` on ``device`` (the
-card unless ``"cpu"`` is asked for, where the flash-hash kernels run as
-their plain versions). ``flush_threshold`` (default ``2 *
-capacity_blocks``, the reference's) is how many distinct buffered keys
-H_R holds before it drains into the device table; a small one sends every
-pin and unpin through the flash-hash kernels. The ``sim`` backend and
-``snapshot``/``restore`` are not ported yet and raise
-``NotImplementedError``.
+The refcounts live in the port's ``FlashStore``. With the ``device``
+backend (the default) its table is on ``device`` (the card unless
+``"cpu"`` is asked for, where the flash-hash kernels run as their plain
+versions); with ``sim`` it is the event-level simulator on the host, with
+no wear feed (``"wear"`` eviction degrades to first-fit order).
+``flush_threshold`` (default ``2 * capacity_blocks``, the reference's) is
+how many distinct buffered keys H_R holds before it drains into the
+table; a small one sends every pin and unpin through the flash-hash
+kernels. :meth:`PrefixKVCache.snapshot` / :meth:`PrefixKVCache.restore`
+persist the refcounts through the store's snapshot and the page table in
+a ``cache.pkl`` sidecar.
 """
 from __future__ import annotations
 
@@ -78,11 +81,7 @@ class PrefixKVCache:
                  flush_threshold: Optional[int] = None):
         if eviction not in ("wear", "first_fit"):
             raise ValueError(f"unknown eviction policy {eviction!r}")
-        if backend == "sim":
-            raise NotImplementedError(
-                "the sim backend is not ported yet (ROADMAP.md, Queue 1 "
-                "item 9)")
-        if backend != "device":
+        if backend not in ("device", "sim"):
             raise ValueError(f"unknown backend {backend!r}")
         self.block_tokens = block_tokens
         self.capacity = capacity_blocks
@@ -101,12 +100,18 @@ class PrefixKVCache:
         # track_wear feeds the per-partition heat the eviction policy uses.
         if flush_threshold is None:
             flush_threshold = 2 * capacity_blocks
-        self._refs = FlashStore.open(self.cfg, backend=backend,
-                                     device=device, chunk=256,
-                                     query_chunk=256,
-                                     flush_threshold=flush_threshold,
-                                     hot_capacity=4 * capacity_blocks,
-                                     track_wear=True)
+        if backend == "sim":
+            # costed-simulator refcounts on the host; ``device`` places
+            # only the device backend's table
+            self._refs = FlashStore.open(None, backend="sim", scheme=scheme,
+                                         flush_threshold=flush_threshold)
+        else:
+            self._refs = FlashStore.open(self.cfg, backend=backend,
+                                         device=device, chunk=256,
+                                         query_chunk=256,
+                                         flush_threshold=flush_threshold,
+                                         hot_capacity=4 * capacity_blocks,
+                                         track_wear=True)
         self.pool = BlockPool(capacity_blocks)
         self.store: Dict[int, _Block] = {}   # page table: key -> slot
         self.hits = 0
@@ -126,7 +131,8 @@ class PrefixKVCache:
 
     @property
     def refs(self):
-        """Current refcount table state (owned by the store)."""
+        """Current refcount table state (owned by the store; None for the
+        sim)."""
         return self._refs.state
 
     def _count(self, keys: List[int]) -> np.ndarray:
@@ -230,14 +236,42 @@ class PrefixKVCache:
         """Flush the refcount store and join its drain worker."""
         self._refs.close()
 
-    # -- durability: not ported yet ------------------------------------------
+    # -- durability -----------------------------------------------------------
     def snapshot(self, path) -> None:
-        raise NotImplementedError(
-            "snapshot/restore are not ported yet (ROADMAP.md, Queue 1 item 8)")
+        """Persist the cache through the store's own snapshot: the
+        refcount table goes through ``FlashStore.snapshot()`` under
+        ``path/refs``; the host page table, pool values and hit/miss
+        counters ride in a pickle sidecar beside it."""
+        import pickle
+        from pathlib import Path
+        path = Path(path)
+        self._refs.snapshot(path / "refs")
+        blocks = [(b.key, b.tokens, self.pool.get(b.bid))
+                  for b in self.store.values()]
+        blob = pickle.dumps({"blocks": blocks, "hits": self.hits,
+                             "misses": self.misses,
+                             "evictions": self.evictions,
+                             "block_tokens": self.block_tokens})
+        tmp = path / "cache.pkl.tmp"
+        tmp.write_bytes(blob)
+        tmp.rename(path / "cache.pkl")   # atomic publish
 
     def restore(self, path) -> None:
-        raise NotImplementedError(
-            "snapshot/restore are not ported yet (ROADMAP.md, Queue 1 item 8)")
+        """Counterpart of :meth:`snapshot`; the refcount store replays its
+        WAL tail (if one is attached) through ``FlashStore.restore``. The
+        sidecar is one this cache wrote (unpickling runs its code)."""
+        import pickle
+        from pathlib import Path
+        path = Path(path)
+        self._refs.restore(path / "refs")
+        side = pickle.loads((path / "cache.pkl").read_bytes())
+        self.pool = BlockPool(self.capacity)
+        self.store = {}
+        for key, tokens, value in side["blocks"]:
+            self._put(key, tokens, value)
+        self.hits = side["hits"]
+        self.misses = side["misses"]
+        self.evictions = side["evictions"]
 
     def stats(self) -> dict:
         s = self._refs.stats()

@@ -16,14 +16,19 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+HELPER = REPO / "tests" / "helpers" / "torch_chaos_store_main.py"
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "chip_trace.py",
                                           REPO / "chip_serve_ab.py",
-                                          REPO / "chip_tfidf_ab.py"]
-    assert len(files) > 15
+                                          REPO / "chip_tfidf_ab.py",
+                                          HELPER]
+    names = {p.relative_to(PORT).as_posix() for p in files
+             if PORT in p.parents}
+    assert {"core/wal.py", "core/table_sim.py", "core/flash_model.py",
+            "checkpoint/checkpoint.py"} <= names
     return files
 
 
@@ -54,6 +59,14 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.data\n"
         "import repro_torch.core.tfidf, repro_torch.core.table_torch\n"
+        "import repro_torch.core.wal, repro_torch.core.table_sim\n"
+        "import repro_torch.core.flash_model, repro_torch.checkpoint\n"
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('v', {str(HELPER)!r})\n"
+        "victim = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(victim)\n"
+        "victim.open_store('sim', 'MDB-L', None).close()\n"
+        "victim.open_store('device', 'MDB', None).close()\n"
         "import repro_torch.kernels.flash_hash.check\n"
         "import repro_torch.kernels.flash_hash.build\n"
         "import repro_torch.models, repro_torch.models.model\n"

@@ -138,15 +138,10 @@ def test_refcounts_that_reach_the_device_table_match_reference():
 
 
 def test_prefix_cache_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PrefixKVCache(backend="sim", device="cpu")
     with pytest.raises(ValueError, match="eviction"):
         PrefixKVCache(eviction="lru", device="cpu")
-    c = PrefixKVCache(device="cpu", **GEOM)
-    for fn in (c.snapshot, c.restore):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn("somewhere")
-    c.close()
+    with pytest.raises(ValueError, match="backend"):
+        PrefixKVCache(backend="sharded", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +280,47 @@ def test_serve_cli_runs_on_the_cpu():
     assert "cached=16" in out.stdout and "[prefix-cache]" in out.stdout
 
 
-@pytest.mark.parametrize("flags", [["--continuous"], ["--backend", "sim"]])
+@pytest.mark.parametrize("flags", [["--continuous"]])
 def test_serve_cli_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         serve_cli.main(["--tiny", "--device", "cpu", *flags])
     assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP" in err and "Continuous batching" in err
+
+
+def test_serve_cli_sim_backend_matches_reference(monkeypatch, capsys):
+    """``--tiny --device cpu --backend sim``: the refcounts in the port's
+    sim. With the reference's weights for the seed (f32 on both sides),
+    every request's output and cached prefix, and the cache's stats,
+    equal the reference CLI's, token for token."""
+    import repro.launch.serve as ref_cli
+    import repro_torch.configs
+    import repro_torch.models.model as port_model
+    rcfg, params, cfg, _ = _models()
+    weights = convert.params_from_numpy(cfg, jax.tree.map(np.asarray,
+                                                          params))
+
+    class RefWeights(port_model.Model):
+        def __init__(self, c, device="cuda", seed=0):
+            super().__init__(c, device=device, seed=seed)
+            self.load_state_dict(weights)
+
+    argv = ["--tiny", "--device", "cpu", "--backend", "sim",
+            "--requests", "4", "--max-new", "6"]
+    monkeypatch.setattr(repro_torch.configs, "get_config",
+                        lambda arch, tiny=False: cfg)
+    monkeypatch.setattr(port_model, "Model", RefWeights)
+    assert serve_cli.main(argv) == 0
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(ref_cli, "get_config", lambda arch, tiny=False: rcfg)
+    monkeypatch.setattr(sys, "argv", ["serve", *argv[3:]])
+    ref_cli.main()
+    ref_out = capsys.readouterr().out
+    lines = lambda out, p: [x for x in out.splitlines() if x.startswith(p)]
+    assert len(lines(port_out, "req")) == 4
+    assert lines(port_out, "req") == lines(ref_out, "req")
+    assert "cached=16" in port_out
+    assert (lines(port_out, "[prefix-cache]")
+            == lines(ref_out, "[prefix-cache]"))
+    assert "'backend': 'sim'" in port_out
