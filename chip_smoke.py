@@ -79,7 +79,20 @@ fails (non-zero exit, no result line) without them. Phases:
    hits, misses, evictions, refcounts after release and 5 x 28
    launches of the tensor-core flash-attention kernel (and none of the
    CUDA-core one) are checked;
-7. the same request order scaled down on llama32 TINY in f32, served on
+7. continuous batching at the same width on the same model:
+   ``ContinuousBatchingScheduler`` (4 packed slots, 496 rows of context,
+   one 16-token prefill chunk a tick) over a ``PrefixKVCache(block_tokens=
+   16, capacity_blocks=128)`` on the card, replaying a seeded 16-request
+   trace (8 Zipf(1.2) users, each with a 256-token system prefix, plus
+   64-192 tokens of the request's own, 32 new tokens) through two feeder
+   threads. Every request's 32 ids, finite logits, cached prefixes
+   (block multiples, at most the prefix), hits and evictions above 0,
+   nothing dropped, every refcount 0 after the run. It prints ticks,
+   chunk calls, decode steps, median chunk and packed-decode ms (a sync
+   around each), wall time, tokens/s, latencies, hit rate, wear, the
+   hash kernels' launches and the phase's peak memory, beside the serial
+   phase's tokens/s;
+8. the same request order scaled down on llama32 TINY in f32, served on
    the card and on the CPU with the same weights: outputs, cached
    prefixes and cache stats must be identical. The serial engine's pins
    cancel in the store's write buffer, so the twin runs again with a
@@ -89,13 +102,20 @@ fails (non-zero exit, no result line) without them. Phases:
    flash-hash kernel must have launched on the card; every prefill of
    the f32 twin runs the CUDA-core flash-attention kernel (and none the
    tensor-core one);
-8. a ``kernels`` JSON line, then the card line, then the result line.
+9. the continuous run scaled down on the same TINY twin (3 slots, a
+   16-block pool, an 8-request trace of 3 users), on the card and on the
+   CPU, then again with a flush threshold of 1: outputs, cached prefixes,
+   cache stats and refcounts identical on both, and outputs identical to
+   the serial engine's on the CPU; in the drained run every flash-hash
+   kernel must have launched on the card;
+10. a ``kernels`` JSON line, then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -146,6 +166,24 @@ TINY_SERVE = dict(prompt_len=40, shared=16, max_new=16, block_tokens=8,
 TINY_DRAINED = dict(TINY_SERVE, flush_threshold=1, read_pins=True)
 #: prefix-cache counters that depend on when an asynchronous drain lands
 TIMING_STATS = ("query_cache_hits", "query_device_keys", "query_batches")
+#: the continuous-batching run at full width: four packed slots over
+#: 16-token blocks, the trace's 256-token system prefix of eight users
+#: plus 64-192 tokens of each request's own. A request pins at most 28
+#: blocks, so four slots pin at most 112 of the pool's 128: no eviction
+#: ever has to take a pinned block. About 200 distinct whole blocks: it
+#: evicts.
+CONTINUOUS = dict(max_slots=4, max_context=496, capacity_blocks=128,
+                  trace=dict(num_requests=16, num_users=8, zipf_s=1.2,
+                             prefix_blocks=16, block_tokens=16,
+                             suffix_tokens=(64, 192), max_new_tokens=32))
+#: its scaled-down twin (TINY, f32, card and CPU), then again with every
+#: pin and unpin drained into the device table; at most 3 x 4 of the 16
+#: blocks pinned
+TINY_CONTINUOUS = dict(max_slots=3, max_context=96, capacity_blocks=16,
+                       trace=dict(num_requests=8, num_users=3,
+                                  prefix_blocks=2, block_tokens=16,
+                                  suffix_tokens=(16, 40), max_new_tokens=8))
+TINY_CONTINUOUS_DRAINED = dict(TINY_CONTINUOUS, flush_threshold=1)
 #: the durability run: FULL's stream in 16 batches, a snapshot after
 #: batch 4, the child killed at the seal of batch 8
 DURABILITY = dict(batches=16, snap_at=4, kill_at=8)
@@ -685,7 +723,7 @@ def sim_vs_card(seed: int, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: the serving path
+# phases 6-9: the serving path
 # ---------------------------------------------------------------------------
 def smoke_prompts(seed: int, vocab: int, prompt_len: int, shared: int):
     """Request 0 of its own, 1-3 sharing its first ``shared`` tokens, 4-7
@@ -699,11 +737,48 @@ def smoke_prompts(seed: int, vocab: int, prompt_len: int, shared: int):
             + [fresh(prompt_len) for _ in range(4)])
 
 
+@contextlib.contextmanager
+def watched(model, names, dev, timed: bool):
+    """Wrap ``model``'s methods ``names`` for the block: every call's
+    logits are checked finite (flags kept on the device, read by the
+    caller afterwards) and, when ``timed``, every call is clocked with a
+    sync around it. Yields (ms lists by name, finite flags)."""
+    import torch
+    times = {n: [] for n in names}
+    finite = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def wrap(name):
+        fn = getattr(model, name)
+
+        def run(*a):
+            if timed:
+                sync()
+                t0 = time.perf_counter()
+            out = fn(*a)
+            if timed:
+                sync()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            finite.append(torch.isfinite(out[0]).all())
+            return out
+        return run
+
+    for n in names:
+        setattr(model, n, wrap(n))
+    try:
+        yield times, finite
+    finally:
+        for n in names:
+            delattr(model, n)
+
+
 def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
     """Serve :func:`smoke_prompts` through ``ServeEngine`` with a fresh
     prefix cache on ``dev``; checks outputs, cached prefixes, cache
     counters and refcounts. Returns its record."""
-    import torch
     from repro_torch.serving import PrefixKVCache, Request, ServeEngine
     cache = PrefixKVCache(block_tokens=geo["block_tokens"],
                           capacity_blocks=geo["capacity_blocks"],
@@ -712,27 +787,6 @@ def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
     engine = ServeEngine(cfg, model, prefix_cache=cache)
     prompts = smoke_prompts(seed, cfg.vocab_size, geo["prompt_len"],
                             geo["shared"])
-    times = {"prefill": [], "decode": []}
-    finite = []
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def clocked(fn, sink):
-        def run(*a):
-            sync()
-            t0 = time.perf_counter()
-            out = fn(*a)
-            sync()
-            sink.append((time.perf_counter() - t0) * 1e3)
-            finite.append(bool(torch.isfinite(out[0]).all()))
-            return out
-        return run
-
-    if timed:
-        model.prefill = clocked(model.prefill, times["prefill"])
-        model.decode_step = clocked(model.decode_step, times["decode"])
     held = []
     if geo.get("read_pins"):
         # each request's refcounts, read while it still holds its pins
@@ -742,12 +796,12 @@ def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
             held.append(cache._count(pinned).tolist())
             release(pinned)
         cache.release = read_then_release
-    t0 = time.perf_counter()
-    done = engine.serve([Request(prompt=p, max_new_tokens=geo["max_new"])
-                         for p in prompts])
-    wall = time.perf_counter() - t0
-    if timed:
-        del model.prefill, model.decode_step
+    with watched(model, ("prefill", "decode_step"), dev, timed) as (
+            times, finite):
+        t0 = time.perf_counter()
+        done = engine.serve([Request(prompt=p, max_new_tokens=geo["max_new"])
+                             for p in prompts])
+        wall = time.perf_counter() - t0
     outputs = [r.output for r in done]
     cached = [r.cached_tokens for r in done]
     # drain what H_R still holds (nothing when every pin cancelled there),
@@ -769,14 +823,14 @@ def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
     if stats["dropped"] != 0 or any(refs):
         fail(f"serve {cfg.name}: dropped {stats['dropped']}, refcounts "
              f"after release {refs}")
-    if not all(finite):
+    if not all(bool(f) for f in finite):
         fail(f"serve {cfg.name}: non-finite logits")
     if geo.get("read_pins") and (len(held) != len(prompts)
                                  or min(min(h, default=0) for h in held) < 1):
         fail(f"serve {cfg.name}: a held pin read below 1: {held}")
     return {"outputs": outputs, "cached_tokens": cached, "stats": stats,
             "refs": refs, "held_refs": held, "wall_s": wall, "prefill_ms": times["prefill"],
-            "decode_ms": times["decode"],
+            "decode_ms": times["decode_step"],
             "tokens": sum(len(o) for o in outputs)}
 
 
@@ -823,22 +877,114 @@ def serve_phase(seed: int, dev):
            "process_peak_gib": max(
                before, torch.cuda.max_memory_allocated(dev)) / 2 ** 30}
     print(f"serve {cfg.name}: {json.dumps(out)}", flush=True)
+    return out, model
+
+
+def continuous(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
+    """Replay ``geo``'s seeded trace through ``ContinuousBatchingScheduler``
+    with a fresh device prefix cache on ``dev`` (two feeder threads, no
+    arrival delays); checks outputs, finite logits, cached prefixes, the
+    pool and refcounts. ``timed`` clocks every chunk and packed decode
+    with a sync around it. Returns its record."""
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     PrefixKVCache, make_trace, replay_trace)
+    tr = geo["trace"]
+    bt = tr["block_tokens"]
+    cache = PrefixKVCache(block_tokens=bt,
+                          capacity_blocks=geo["capacity_blocks"],
+                          backend="device", device=dev,
+                          flush_threshold=geo.get("flush_threshold"))
+    sched = ContinuousBatchingScheduler(cfg, model, prefix_cache=cache,
+                                        max_slots=geo["max_slots"],
+                                        max_context=geo["max_context"])
+    trace = make_trace(**tr, vocab_size=cfg.vocab_size, seed=seed)
+    ticks = 0
+    step = sched.step
+
+    def counted():
+        nonlocal ticks
+        did = step()
+        ticks += did
+        return did
+    sched.step = counted
+    with watched(model, ("prefill_chunk", "decode_step_packed"), dev,
+                 timed) as (times, finite):
+        rep = replay_trace(sched, trace, workers=2, time_scale=0)
+    done = sorted(sched.completed, key=lambda r: r.request_id)
+    outputs = [r.output for r in done]
+    cached = [r.cached_tokens for r in done]
+    # drain what H_R still holds, so the refcounts are read from the table
+    cache._refs.flush()
+    stats = cache.stats()
+    refs = cache._count(list(cache.store)).tolist()
+    cache.close()
+    what = f"serve continuous {cfg.name}"
+    n_new = tr["max_new_tokens"]
+    if len(outputs) != tr["num_requests"] or any(
+            len(o) != n_new or min(o) < 0 or max(o) >= cfg.vocab_size
+            for o in outputs):
+        fail(f"{what}: outputs are not {n_new} ids below {cfg.vocab_size}: "
+             f"{outputs}")
+    if not all(bool(f) for f in finite):
+        fail(f"{what}: non-finite logits")
+    if any(c % bt or c > tr["prefix_blocks"] * bt for c in cached):
+        fail(f"{what}: cached prefixes {cached} are not block multiples "
+             f"within the {tr['prefix_blocks'] * bt}-token system prefix")
+    if stats["hits"] <= 0 or stats["evictions"] <= 0:
+        fail(f"{what}: no prefix hit or no eviction: {stats}")
+    if stats["dropped"] != 0 or any(refs):
+        fail(f"{what}: dropped {stats['dropped']}, refcounts after the "
+             f"run {refs}")
+    return {"outputs": outputs, "cached_tokens": cached, "stats": stats,
+            "refs": refs, "ticks": ticks, "chunk_calls": sched.chunk_calls,
+            "decode_steps": sched.decode_steps, "report": rep,
+            "chunk_ms": times["prefill_chunk"],
+            "decode_ms": times["decode_step_packed"]}
+
+
+def continuous_phase(seed: int, dev, model, serial_tokens_per_s: float):
+    """Continuous batching on the serve phase's full-width model; the
+    kernels' launches and the peak memory are this run's alone."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    t0 = time.perf_counter()
+    rec = continuous(cfg, model, dev, seed, CONTINUOUS, timed=True)
+    no_baseline("serve continuous")
+    rep = rec["report"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "slots": CONTINUOUS["max_slots"], "requests": rep.requests,
+           "ticks": rec["ticks"], "chunk_calls": rec["chunk_calls"],
+           "decode_steps": rec["decode_steps"],
+           "chunk_ms_median": statistics.median(rec["chunk_ms"]),
+           "decode_ms_median": statistics.median(rec["decode_ms"]),
+           "wall_s": rep.wall_s, "generated_tokens": rep.generated_tokens,
+           "tokens_per_s": rep.tokens_per_s,
+           "serial_tokens_per_s": serial_tokens_per_s,
+           "p50_latency_s": rep.p50_latency_s,
+           "p99_latency_s": rep.p99_latency_s, "hit_rate": rep.hit_rate,
+           "wear": rep.wear, "cached_tokens": rec["cached_tokens"],
+           "hash_launches": dict(K.LAUNCHES),
+           "attention_launches": dict(FK.LAUNCHES),
+           "prefix_cache": rec["stats"],
+           "phase_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "phase_s": time.perf_counter() - t0}
+    print(f"serve continuous {cfg.name}: {json.dumps(out)}", flush=True)
     return out
 
 
-def tiny_card_vs_cpu(seed: int, dev):
-    """llama32 TINY in f32, the same weights on the card and on the CPU:
-    identical outputs, cached prefixes, prefix-cache stats and refcounts,
-    first as the serial engine leaves them, then drained into the device
-    table (every flash-hash kernel launched on the card). Every prefill on
-    the card runs the CUDA-core flash-attention kernel; returns its
-    launches over the first run."""
+def tiny_models(seed: int, dev):
+    """llama32 TINY in f32 with the same weights on ``dev`` and on the
+    CPU → (cfg, models by device type)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import kernel as FK
-    from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config("llama32_3b", tiny=True),
                               dtype="float32")
@@ -848,6 +994,21 @@ def tiny_card_vs_cpu(seed: int, dev):
     for d in (dev, cpu):
         models[d.type] = Model(cfg, device=d, seed=seed)
         models[d.type].load_state_dict(weights)
+    return cfg, models
+
+
+def tiny_card_vs_cpu(seed: int, dev):
+    """llama32 TINY in f32, the same weights on the card and on the CPU:
+    identical outputs, cached prefixes, prefix-cache stats and refcounts,
+    first as the serial engine leaves them, then drained into the device
+    table (every flash-hash kernel launched on the card). Every prefill on
+    the card runs the CUDA-core flash-attention kernel; returns its
+    launches over the first run."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    cfg, models = tiny_models(seed, dev)
+    cpu = torch.device("cpu")
     attn_launches = None
     for name, geo in (("tiny", TINY_SERVE), ("tiny drained", TINY_DRAINED)):
         runs = {}
@@ -879,6 +1040,50 @@ def tiny_card_vs_cpu(seed: int, dev):
               f"{json.dumps(runs['cpu'][2])} card launches "
               f"{json.dumps({**launches, **attn})}", flush=True)
     return attn_launches
+
+
+def tiny_continuous(seed: int, dev) -> None:
+    """The continuous run on the TINY twin, on the card and on the CPU:
+    identical outputs, cached prefixes, prefix-cache stats and refcounts,
+    and the serial engine's outputs; then drained into the device table,
+    where every flash-hash kernel must launch on the card."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.serving import Request, ServeEngine, make_trace
+    cfg, models = tiny_models(seed, dev)
+    cpu = torch.device("cpu")
+    tr = TINY_CONTINUOUS["trace"]
+    serial = [r.output for r in ServeEngine(cfg, models["cpu"]).serve(
+        [Request(prompt=list(t.prompt), max_new_tokens=t.max_new_tokens)
+         for t in make_trace(**tr, vocab_size=cfg.vocab_size, seed=seed)])]
+    for name, geo in (("tiny continuous", TINY_CONTINUOUS),
+                      ("tiny continuous drained", TINY_CONTINUOUS_DRAINED)):
+        runs = {}
+        for d in (dev, cpu):
+            zero_launches(K.LAUNCHES, FK.LAUNCHES, K.BASELINE_LAUNCHES)
+            rec = continuous(cfg, models[d.type], d, seed, geo)
+            no_baseline(f"serve {name}")
+            stats = {k: v for k, v in rec["stats"].items()
+                     if k not in TIMING_STATS}
+            runs[d.type] = (rec["outputs"], rec["cached_tokens"], stats,
+                            rec["refs"], rec["chunk_calls"],
+                            rec["decode_steps"])
+            if d.type == "cuda":
+                launches = dict(K.LAUNCHES)
+        if runs["cuda"] != runs["cpu"]:
+            fail(f"serve {name}: the card and the CPU differ: {runs}")
+        if runs["cpu"][0] != serial:
+            fail(f"serve {name}: outputs differ from the serial engine's: "
+                 f"{runs['cpu'][0]} against {serial}")
+        if geo.get("flush_threshold") and min(launches.values()) <= 0:
+            fail(f"serve {name}: the refcounts never went through a "
+                 f"flash-hash kernel on the card: {launches}")
+        print(f"serve {name} card == cpu == serial: cached "
+              f"{json.dumps(runs['cpu'][1])} chunk calls {runs['cpu'][4]} "
+              f"decode steps {runs['cpu'][5]} stats "
+              f"{json.dumps(runs['cpu'][2])} card launches "
+              f"{json.dumps(launches)}", flush=True)
 
 
 def main() -> int:
@@ -952,12 +1157,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s): " + "; ".join(
               f"{k} {v['sim_cleans']} / {v['card_tile_stores']}"
               for k, v in sims.items()), flush=True)
-    served = serve_phase(args.seed, dev)
+    served, model = serve_phase(args.seed, dev)
     print(f"serve: prefill ms {[round(t, 3) for t in served['prefill_ms']]};"
           f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "
           f"{served['decode_steps']}); {served['tokens_per_s']:.1f} "
           f"generated tokens/s", flush=True)
+    cont = continuous_phase(args.seed, dev, model, served["tokens_per_s"])
+    del model
+    print(f"serve continuous ({cont['phase_s']:.1f} s): {cont['ticks']} "
+          f"ticks, chunk {cont['chunk_ms_median']:.3f} ms, packed decode "
+          f"{cont['decode_ms_median']:.3f} ms (medians); "
+          f"{cont['tokens_per_s']:.1f} generated tokens/s against the "
+          f"serial engine's {served['tokens_per_s']:.1f}; card {card}",
+          flush=True)
     twin_launches = tiny_card_vs_cpu(args.seed, dev)
+    tiny_continuous(args.seed, dev)
     kernels = []
     for name in K.LAUNCHES:
         # the lookup kernels at the layout the path launches them on

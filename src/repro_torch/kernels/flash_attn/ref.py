@@ -4,9 +4,9 @@ grouping and an f32 softmax.
 It follows the reference's precision steps: scores in f32 (products of
 the inputs accumulated in f32), the softmax in f32, probabilities cast to
 ``v.dtype``, the PV product accumulated in f32, the output in
-``v.dtype``. Any ``s`` is taken. Decode calls it too, with one query
-against a cache of ``t`` rows and an additive mask in place of the causal
-one.
+``v.dtype``. Any ``s`` is taken. Decode and chunked prefill call it
+too, with one query (or a chunk) against a cache of ``t`` rows and an
+additive mask in place of the causal one.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ NEG = -1e30
 
 def sdpa_ref(q, k, v, causal: bool = True, mask=None):
     """q: (b, s, h, d); k/v: (b, t, kvh, d/dv) → (b, s, h, dv). ``causal``
-    needs ``t == s``; ``mask`` (f32, additive) broadcasts against (s, t)."""
+    needs ``t == s``. ``mask`` (f32, additive) broadcasts against the
+    scores, (b, kvh, g, s, t): an (s, t) mask is shared by every row, a
+    (b, 1, 1, 1, t) one is per row (packed decode)."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh

@@ -9,9 +9,15 @@
   reference runs it outside any Pallas kernel too). It
   writes the new K/V row into the cache **in place**; callers hand it
   caches they own (``model.pad_caches`` always returns fresh storage).
+* ``gqa_decode_packed`` — one token per row of a packed slot table, each
+  row at its own position: a per-row write and a per-row (b, t) mask.
+* ``gqa_chunk_append`` — a chunk of prefill at absolute positions
+  ``start..start+c`` written into the cache in place and attended
+  causally over the whole cache.
 
-Sliding-window attention, MLA, packed decode and chunked append are not
-ported yet.
+The three cache modes attend through ``sdpa_ref`` with an additive mask,
+as the reference computes them with jnp ``_sdpa`` outside any Pallas
+kernel. Sliding-window attention and MLA are not ported yet.
 """
 from __future__ import annotations
 
@@ -96,5 +102,49 @@ def gqa_decode(p: GQA, cfg: ModelConfig, x, cache: KVCache, index: int
     cache.v[:, index:index + 1] = v
     kpos = torch.arange(s_max, device=x.device)[None, :]
     mask = torch.where(kpos <= index, 0.0, NEG).to(F32)
+    o = sdpa_ref(q, cache.k, cache.v, causal=False, mask=mask)
+    return _out(p, o, x.dtype), cache
+
+
+def gqa_decode_packed(p: GQA, cfg: ModelConfig, x, cache: KVCache,
+                      indices: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+    """x: (b, 1, d); ``indices``: (b,) int on x's device, the position row
+    r writes and attends at (continuous batching: every slot is at its own
+    depth; idle rows park on a scratch row no real query attends to).
+    Each row's K/V lands in ``cache`` in place; returns ``(out, cache)``.
+    Indices are not checked here (that would cost a host sync): the
+    scheduler that builds them keeps them inside the cache."""
+    b = x.shape[0]
+    s_max = cache.k.shape[1]
+    indices = indices.to(torch.int64)
+    q, k, v = _qkv(p, cfg, x, indices[:, None])
+    rows = torch.arange(b, device=x.device)
+    cache.k[rows, indices] = k[:, 0]
+    cache.v[rows, indices] = v[:, 0]
+    kpos = torch.arange(s_max, device=x.device)[None, :]
+    mask = torch.where(kpos <= indices[:, None], 0.0, NEG).to(F32)
+    o = sdpa_ref(q, cache.k, cache.v, causal=False,
+                 mask=mask[:, None, None, None, :])
+    return _out(p, o, x.dtype), cache
+
+
+def gqa_chunk_append(p: GQA, cfg: ModelConfig, x, cache: KVCache,
+                     start: int) -> Tuple[torch.Tensor, KVCache]:
+    """x: (b, c, d) at absolute positions ``start..start+c``, shared by
+    every row. The chunk's K/V fill cache rows ``[start, start+c)`` in
+    place (earlier rows hold earlier chunks or reused prefix blocks) and
+    its queries attend causally over the whole cache; returns
+    ``(out, cache)``."""
+    b, c, _ = x.shape
+    s_max = cache.k.shape[1]
+    if not (0 <= start and start + c <= s_max):
+        raise IndexError(f"chunk rows [{start}, {start + c}) outside a "
+                         f"cache of {s_max} rows")
+    pos = start + torch.arange(c, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, cfg, x, pos[None, :].expand(b, c))
+    cache.k[:, start:start + c] = k
+    cache.v[:, start:start + c] = v
+    kpos = torch.arange(s_max, device=x.device)[None, :]
+    mask = torch.where(kpos <= pos[:, None], 0.0, NEG).to(F32)
     o = sdpa_ref(q, cache.k, cache.v, causal=False, mask=mask)
     return _out(p, o, x.dtype), cache

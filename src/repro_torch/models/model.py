@@ -2,22 +2,26 @@
 
 :class:`Model` holds one :class:`Block` per layer in an ``nn.ModuleList``
 (the reference stacks them on a leading ``layers`` axis and scans;
-``convert.params_from_numpy`` unstacks). Two serving modes share the
+``convert.params_from_numpy`` unstacks). Four serving modes share the
 layer definition:
 
-* :meth:`Model.prefill`     — full sequence, returns last-position logits
-  and the caches;
-* :meth:`Model.decode_step` — one token against the caches.
+* :meth:`Model.prefill`            — full sequence, returns last-position
+  logits and the caches;
+* :meth:`Model.decode_step`        — one token against the caches;
+* :meth:`Model.decode_step_packed` — one token per row, each row at its
+  own position (the continuous-batching scheduler's packed slot table);
+* :meth:`Model.prefill_chunk`      — a chunk of prompt at absolute
+  positions ``start..start+c`` against caches that hold the rows before.
 
 Caches keep the reference's layout: a list with one :class:`KVCache` per
 slot of ``layer_pattern``, each tensor stacked over layers,
-``(num_layers, b, s, kv, hd)``. :meth:`decode_step` writes into them in
+``(num_layers, b, s, kv, hd)``. The three cache modes write into them in
 place; :func:`pad_caches` always returns fresh storage, which is what keeps
 values held by the prefix cache's pool unmutated.
 
 The port runs the ``("attn",)`` pattern with a dense FFN (GQA models such
-as llama3.2-3b). MLA, MoE, SSM, the modality frontends, training and the
-packed / chunked serving entry points raise ``NotImplementedError``.
+as llama3.2-3b). MLA, MoE, SSM, the modality frontends and training raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -120,20 +124,55 @@ class Model(nn.Module):
         logits = lm_logits(self.embed, cfg, x[:, -1:, :])
         return logits, [KVCache(torch.stack(ks), torch.stack(vs))]
 
-    def decode_step(self, tokens: torch.Tensor, caches: List[KVCache],
-                    index: int) -> Tuple[torch.Tensor, List[KVCache]]:
-        """tokens: (b, 1) at position ``index`` → (logits (b, 1, V) f32,
-        caches). The K/V rows are written into ``caches`` in place."""
+    def _over_caches(self, tokens: torch.Tensor, caches: List[KVCache],
+                     mixer) -> Tuple[torch.Tensor, List[KVCache]]:
+        """Every layer with ``mixer(gqa, cfg, h, layer_cache)`` as its
+        token mixer, which writes its K/V rows into the layer's cache in
+        place → (logits (b, s, V) f32 at every position, caches)."""
         cfg = self.cfg
         x = self.embed(tokens)
         (c,) = caches
         for i, blk in enumerate(self.layers):
             h = rmsnorm(blk.mixer_ln.scale, x, cfg.norm_eps)
-            mix, _ = attn.gqa_decode(blk.mixer, cfg, h,
-                                     KVCache(c.k[i], c.v[i]), index)
+            mix, _ = mixer(blk.mixer, cfg, h, KVCache(c.k[i], c.v[i]))
             x = self._ffn(blk, x + mix)
         x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
         return lm_logits(self.embed, cfg, x), caches
+
+    def decode_step(self, tokens: torch.Tensor, caches: List[KVCache],
+                    index: int) -> Tuple[torch.Tensor, List[KVCache]]:
+        """tokens: (b, 1) at position ``index`` → (logits (b, 1, V) f32,
+        caches). The K/V rows are written into ``caches`` in place."""
+        return self._over_caches(
+            tokens, caches,
+            lambda p, cfg, h, c: attn.gqa_decode(p, cfg, h, c, index))
+
+    def decode_step_packed(self, tokens: torch.Tensor,
+                           caches: List[KVCache], indices: torch.Tensor
+                           ) -> Tuple[torch.Tensor, List[KVCache]]:
+        """tokens: (b, 1); ``indices``: (b,) int on the model's device, row
+        r's position → (logits (b, 1, V) f32, caches). Each row's K/V is
+        written into ``caches`` in place at its own index."""
+        return self._over_caches(
+            tokens, caches,
+            lambda p, cfg, h, c: attn.gqa_decode_packed(p, cfg, h, c,
+                                                        indices))
+
+    def prefill_chunk(self, tokens: torch.Tensor, caches: List[KVCache],
+                      start: int) -> Tuple[torch.Tensor, List[KVCache]]:
+        """tokens: (b, c) at absolute positions ``start..start+c`` against
+        caches whose rows below ``start`` already hold the prefix →
+        (logits (b, c, V) f32, caches), the chunk's K/V written in place.
+        Attention-only stacks: an SSM's recurrent state cannot be entered
+        mid-sequence."""
+        if any(k == "ssm" for k in self.cfg.layer_pattern):
+            raise ValueError(
+                f"prefill_chunk requires a pure-attention stack; "
+                f"{self.cfg.name} has layer_pattern="
+                f"{self.cfg.layer_pattern}")
+        return self._over_caches(
+            tokens, caches,
+            lambda p, cfg, h, c: attn.gqa_chunk_append(p, cfg, h, c, start))
 
     # -- not ported yet ------------------------------------------------------
     def forward_train(self, *args, **kwargs):
@@ -141,14 +180,6 @@ class Model(nn.Module):
 
     def loss_fn(self, *args, **kwargs):
         raise NotImplementedError(f"training is not ported yet ({_LATER})")
-
-    def decode_step_packed(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"continuous batching is not ported yet ({_LATER})")
-
-    def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"continuous batching is not ported yet ({_LATER})")
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,9 @@ would later re-dirty a quiet region and buy a fresh block rewrite.
 
 The engine path (``insert(tokens, value, slicer=...)``) stores
 *cumulative-prefix* values: key i holds the cache for tokens [0, i·B).
-The scheduler's per-block segments (``insert_block``/``acquire_blocks``)
-come with the continuous-batching scheduler, which is not ported yet.
+The scheduler's paged path (``lookup`` / ``acquire_blocks`` /
+``insert_block``) stores per-block *segments*: key i holds only the rows
+[i·B, (i+1)·B). The two kinds do not mix, so a scheduler owns its cache.
 
 The refcounts live in the port's ``FlashStore``. With the ``device``
 backend (the default) its table is on ``device`` (the card unless
@@ -161,27 +162,33 @@ class PrefixKVCache:
             bid = self.pool.alloc(value)
         self.store[key] = _Block(key, tokens, bid)
 
+    def _resident_run(self, keys: List[int]) -> int:
+        """How many of ``keys``, from the first on, are resident."""
+        n = 0
+        while n < len(keys) and keys[n] in self.store:
+            n += 1
+        return n
+
+    def _pin_cached_prefix(self, tokens: Sequence[int]) -> List[int]:
+        """Pin (+1) the blocks of ``tokens``' longest cached prefix and
+        count a hit (any block) or a miss → their keys."""
+        keys = self.block_keys(tokens)
+        pinned = keys[:self._resident_run(keys)]
+        self._bump(pinned, +1)
+        if pinned:
+            self.hits += 1
+        else:
+            self.misses += 1
+        return pinned
+
     # -- public API: legacy cumulative-prefix path ---------------------------
     def acquire(self, tokens: Sequence[int]) -> Tuple[int, Optional[Any],
                                                       List[int]]:
         """Longest reusable prefix: → (n_cached_tokens, cache_value, keys).
         Bumps refcounts on the blocks the request will pin."""
-        keys = self.block_keys(tokens)
-        n = 0
-        value = None
-        for i, k in enumerate(keys):
-            if k in self.store:
-                n = (i + 1) * self.block_tokens
-                value = self._value(k)
-            else:
-                break
-        pinned = keys[:n // self.block_tokens]
-        self._bump(pinned, +1)
-        if n:
-            self.hits += 1
-        else:
-            self.misses += 1
-        return n, value, pinned
+        pinned = self._pin_cached_prefix(tokens)
+        value = self._value(pinned[-1]) if pinned else None
+        return len(pinned) * self.block_tokens, value, pinned
 
     def insert(self, tokens: Sequence[int], value: Any,
                slicer=None) -> List[int]:
@@ -204,6 +211,35 @@ class PrefixKVCache:
             pinned.append(k)
         self._bump(pinned, +1)
         return pinned
+
+    # -- public API: block-granular paged path (the scheduler's) ------------
+    def lookup(self, tokens: Sequence[int]) -> int:
+        """Cached-prefix length in tokens, without pinning anything."""
+        return (self._resident_run(self.block_keys(tokens))
+                * self.block_tokens)
+
+    def acquire_blocks(self, tokens: Sequence[int]
+                       ) -> Tuple[int, List[Any], List[int]]:
+        """Paged acquire: → (n_cached_tokens, [block segment values],
+        pinned keys). Each value covers only its own block's rows; the
+        scheduler copies them into a slot's cache rows one by one."""
+        pinned = self._pin_cached_prefix(tokens)
+        return (len(pinned) * self.block_tokens,
+                [self._value(k) for k in pinned], pinned)
+
+    def insert_block(self, tokens: Sequence[int], block_index: int,
+                     segment: Any) -> Optional[int]:
+        """Register one block's segment (rows [i·B, (i+1)·B) of the
+        prefix ending at block ``block_index``). Pins the new block (+1);
+        returns its key, or None if it was already resident (no pin: the
+        caller pinned it through :meth:`acquire_blocks`)."""
+        k = self.block_keys(tokens)[block_index]
+        if k in self.store:
+            return None
+        n = (block_index + 1) * self.block_tokens
+        self._put(k, tuple(tokens[:n]), segment)
+        self._bump([k], +1)
+        return k
 
     def release(self, pinned: List[int]) -> None:
         """Decrement refcounts (the paper's deletion-by-decrement)."""

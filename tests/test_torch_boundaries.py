@@ -28,7 +28,8 @@ def _port_files():
     names = {p.relative_to(PORT).as_posix() for p in files
              if PORT in p.parents}
     assert {"core/wal.py", "core/table_sim.py", "core/flash_model.py",
-            "checkpoint/checkpoint.py"} <= names
+            "checkpoint/checkpoint.py", "serving/scheduler.py",
+            "serving/trace.py"} <= names
     return files
 
 
@@ -71,6 +72,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.flash_hash.build\n"
         "import repro_torch.models, repro_torch.models.model\n"
         "import repro_torch.configs, repro_torch.serving\n"
+        "import repro_torch.serving.scheduler, repro_torch.serving.trace\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attn.ops\n"
         "import repro_torch.kernels.flash_attn.build\n"
@@ -117,6 +119,8 @@ def test_serving_entry_points_default_to_the_card():
         ServeEngine(cfg, Model(cfg))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--tiny", "--continuous"])
     model = Model(cfg, device="cpu")
     cache = PrefixKVCache(q_log2=10, r_log2=6, device="cpu")
     assert ServeEngine(cfg, model, cache).device.type == "cpu"

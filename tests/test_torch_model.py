@@ -213,7 +213,6 @@ def test_unported_architectures_and_entry_points_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.Model(dataclasses.replace(cfg, attn_type="mla"), device="cpu")
     model = M.Model(cfg, device="cpu")
-    for fn in (model.forward_train, model.loss_fn, model.decode_step_packed,
-               model.prefill_chunk):
+    for fn in (model.forward_train, model.loss_fn):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()

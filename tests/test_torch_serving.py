@@ -280,20 +280,10 @@ def test_serve_cli_runs_on_the_cpu():
     assert "cached=16" in out.stdout and "[prefix-cache]" in out.stdout
 
 
-@pytest.mark.parametrize("flags", [["--continuous"]])
-def test_serve_cli_refuses_what_is_not_ported(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve_cli.main(["--tiny", "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "Continuous batching" in err
-
-
-def test_serve_cli_sim_backend_matches_reference(monkeypatch, capsys):
-    """``--tiny --device cpu --backend sim``: the refcounts in the port's
-    sim. With the reference's weights for the seed (f32 on both sides),
-    every request's output and cached prefix, and the cache's stats,
-    equal the reference CLI's, token for token."""
+def _cli_outputs(argv, monkeypatch, capsys):
+    """The port's and the reference's serve CLI on ``argv`` (``--tiny
+    --device cpu`` first), the port with the reference's weights for the
+    seed, f32 on both sides → (port stdout, reference stdout)."""
     import repro.launch.serve as ref_cli
     import repro_torch.configs
     import repro_torch.models.model as port_model
@@ -306,21 +296,45 @@ def test_serve_cli_sim_backend_matches_reference(monkeypatch, capsys):
             super().__init__(c, device=device, seed=seed)
             self.load_state_dict(weights)
 
-    argv = ["--tiny", "--device", "cpu", "--backend", "sim",
-            "--requests", "4", "--max-new", "6"]
     monkeypatch.setattr(repro_torch.configs, "get_config",
                         lambda arch, tiny=False: cfg)
     monkeypatch.setattr(port_model, "Model", RefWeights)
     assert serve_cli.main(argv) == 0
     port_out = capsys.readouterr().out
     monkeypatch.setattr(ref_cli, "get_config", lambda arch, tiny=False: rcfg)
-    monkeypatch.setattr(sys, "argv", ["serve", *argv[3:]])
+    monkeypatch.setattr(sys, "argv", ["serve", "--tiny", *argv[3:]])
     ref_cli.main()
-    ref_out = capsys.readouterr().out
-    lines = lambda out, p: [x for x in out.splitlines() if x.startswith(p)]
-    assert len(lines(port_out, "req")) == 4
-    assert lines(port_out, "req") == lines(ref_out, "req")
+    return port_out, capsys.readouterr().out
+
+
+def _lines(out, prefix):
+    return [x for x in out.splitlines() if x.startswith(prefix)]
+
+
+def test_serve_cli_continuous_matches_reference(monkeypatch, capsys):
+    """``--tiny --device cpu --continuous``: the scheduler over 16-token
+    blocks prints the reference CLI's request lines, token for token."""
+    port_out, ref_out = _cli_outputs(
+        ["--tiny", "--device", "cpu", "--continuous"],
+        monkeypatch, capsys)
+    assert len(_lines(port_out, "req")) == 8
+    assert _lines(port_out, "req") == _lines(ref_out, "req")
     assert "cached=16" in port_out
-    assert (lines(port_out, "[prefix-cache]")
-            == lines(ref_out, "[prefix-cache]"))
+    assert "[serve:continuous] 8 requests, 96 tokens" in port_out
+    assert "on cpu" in port_out
+
+
+def test_serve_cli_sim_backend_matches_reference(monkeypatch, capsys):
+    """``--tiny --device cpu --backend sim``: the refcounts in the port's
+    sim. With the reference's weights for the seed (f32 on both sides),
+    every request's output and cached prefix, and the cache's stats,
+    equal the reference CLI's, token for token."""
+    port_out, ref_out = _cli_outputs(
+        ["--tiny", "--device", "cpu", "--backend", "sim",
+         "--requests", "4", "--max-new", "6"], monkeypatch, capsys)
+    assert len(_lines(port_out, "req")) == 4
+    assert _lines(port_out, "req") == _lines(ref_out, "req")
+    assert "cached=16" in port_out
+    assert (_lines(port_out, "[prefix-cache]")
+            == _lines(ref_out, "[prefix-cache]"))
     assert "'backend': 'sim'" in port_out
