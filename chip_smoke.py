@@ -69,7 +69,26 @@ fails (non-zero exit, no result line) without them. Phases:
    2**15 seeded tokens: identical term counts, document frequencies and
    IDF; the sim's ``cleans`` (the paper's erase count) beside the card's
    ``tile_stores``;
-6. the serving path at full width: llama3.2-3b (28 layers, bf16, weights
+6. the sharded store (``FlashStore(backend="sharded")``) in one process:
+   MDB-L's table split over 4 shards on the one card (each 2**22 slots
+   with a 2**19-entry log, so 2**24 slots and a 2**21-entry change
+   segment in all; waves of 65,536 entries a shard, a shard's H_R
+   draining at 131,072) on MDB-L's 2**25-token stream: every distinct
+   key and as many absent against ``np.unique``, the single-table run's
+   answers on its keys, nothing carried or dropped, all three hash
+   kernels launched; ingest and lookup rates beside the single table's,
+   drains, waves, tile stores overall and per shard, the placement;
+7. the sharded store over two processes: two ranks of a gloo group (this
+   script under ``--sharded-child``, reusing the kernels built above),
+   both on the card with two shards each (2**20 slots in all), on the MB
+   / MDB runs' 2**21-token stream, each rank folding alternate documents
+   and both draining after every 8; both ranks' answers equal
+   ``np.unique``'s and a single-process run's, each rank carried nothing
+   and launched all three hash kernels; a failed or hung rank fails the
+   phase;
+8. a small ±Δ stream through a 4-shard store on the card and on the CPU,
+   MB, MDB and MDB-L: identical global state arrays and answers;
+9. the serving path at full width: llama3.2-3b (28 layers, bf16, weights
    drawn from ``--seed`` on the card) behind ``ServeEngine`` with a
    ``PrefixKVCache(block_tokens=8, capacity_blocks=64)`` whose refcounts
    live in the port's device ``FlashStore``. Eight requests of 512-token
@@ -79,7 +98,7 @@ fails (non-zero exit, no result line) without them. Phases:
    hits, misses, evictions, refcounts after release and 5 x 28
    launches of the tensor-core flash-attention kernel (and none of the
    CUDA-core one) are checked;
-7. continuous batching at the same width on the same model:
+10. continuous batching at the same width on the same model:
    ``ContinuousBatchingScheduler`` (4 packed slots, 496 rows of context,
    one 16-token prefill chunk a tick) over a ``PrefixKVCache(block_tokens=
    16, capacity_blocks=128)`` on the card, replaying a seeded 16-request
@@ -92,7 +111,7 @@ fails (non-zero exit, no result line) without them. Phases:
    around each), wall time, tokens/s, latencies, hit rate, wear, the
    hash kernels' launches and the phase's peak memory, beside the serial
    phase's tokens/s;
-8. the same request order scaled down on llama32 TINY in f32, served on
+11. the same request order scaled down on llama32 TINY in f32, served on
    the card and on the CPU with the same weights: outputs, cached
    prefixes and cache stats must be identical. The serial engine's pins
    cancel in the store's write buffer, so the twin runs again with a
@@ -102,13 +121,13 @@ fails (non-zero exit, no result line) without them. Phases:
    flash-hash kernel must have launched on the card; every prefill of
    the f32 twin runs the CUDA-core flash-attention kernel (and none the
    tensor-core one);
-9. the continuous run scaled down on the same TINY twin (3 slots, a
+12. the continuous run scaled down on the same TINY twin (3 slots, a
    16-block pool, an 8-request trace of 3 users), on the card and on the
    CPU, then again with a flush threshold of 1: outputs, cached prefixes,
    cache stats and refcounts identical on both, and outputs identical to
    the serial engine's on the CPU; in the drained run every flash-hash
    kernel must have launched on the card;
-10. a ``kernels`` JSON line, then the card line, then the result line.
+13. a ``kernels`` JSON line, then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -196,6 +215,25 @@ SIM_DOC_LEN = 1 << 10
 SIM_GEOM = dict(num_blocks=64, pages_per_block=16, entries_per_page=64)
 SIM_CARD = dict(q_log2=16, r_log2=10, log_capacity=1 << 13,
                 max_updates_per_block=512)
+#: the sharded MDB-L run: MDB-L's table split over 4 shards on one card
+#: (each 2**22 slots, a 2**19-entry log: 2**24 slots and a 2**21-entry
+#: change segment in all) on MDB-L's stream; waves of 65,536 entries a
+#: shard, a shard's H_R drains at 131,072
+SHARDED = dict(q_log2=22, r_log2=10, log_capacity=1 << 19,
+               max_updates_per_block=512, tokens=1 << 25, num_shards=4,
+               shard_chunk=1 << 16, flush_threshold=1 << 17)
+#: the two-rank run: 4 shards of 2**18 slots (2**20 in all) over two
+#: processes on the card, on the MB / MDB runs' stream; each rank folds
+#: alternate documents, both drain after every 8
+TWO_RANK = dict(q_log2=18, r_log2=10, log_capacity=1 << 15,
+                max_updates_per_block=512, tokens=1 << 21, num_shards=4,
+                shard_chunk=1 << 12)
+TWO_RANK_PER_DRAIN = 8
+TWO_RANK_TIMEOUT = 300           # seconds a rank may take
+#: the sharded card-vs-CPU twin: 4 shards of 8 blocks of 128 slots
+TINY_SHARDED = dict(q_log2=10, r_log2=7, log_capacity=1 << 11,
+                    max_updates_per_block=128, num_shards=4,
+                    shard_chunk=256)
 
 
 def fail(msg: str) -> None:
@@ -462,6 +500,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
            "write_stall_us": stats["write_stall_us"],
            "write_dispatches": stats["write_dispatches"]}
     print(f"main path {scheme}: {json.dumps(out)}", flush=True)
+    out["answers"] = (keys, got)
     return out
 
 
@@ -723,7 +762,296 @@ def sim_vs_card(seed: int, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-9: the serving path
+# phases 6-8: the sharded store
+# ---------------------------------------------------------------------------
+def sharded_store(geo: dict, dev, scheme: str = "MDB-L"):
+    """A sharded ``FlashStore`` at ``geo`` (each shard's table, the shard
+    count, the wave size ``shard_chunk`` = ``bucket_cap``) on ``dev``: the
+    whole store in one process, or this rank's shards when
+    ``torch.distributed`` is initialised. No hot-key cache: its lookups
+    are checks of millions of distinct keys."""
+    from repro_torch.core import table_torch as tt
+    from repro_torch.core.distributed import ShardedTableConfig
+    from repro_torch.core.store import FlashStore
+    table = {k: geo[k] for k in ("q_log2", "r_log2", "log_capacity",
+                                 "max_updates_per_block")}
+    cfg = ShardedTableConfig(local=tt.FlashTableConfig(scheme=scheme, **table),
+                             num_shards=geo["num_shards"],
+                             bucket_cap=geo["shard_chunk"])
+    return FlashStore.open(cfg, backend="sharded", device=dev,
+                           shard_chunk=geo["shard_chunk"],
+                           flush_threshold=geo.get("flush_threshold"),
+                           query_chunk=CHUNK, hot_capacity=0)
+
+
+def distinct_and_absent(stream, seed: int):
+    """Every distinct key of ``stream`` and as many absent ones (ids at or
+    above 2**30, which ``make_docs`` never draws), with the expected
+    counts."""
+    import numpy as np
+    uniq, cnt = np.unique(stream, return_counts=True)
+    absent = np.random.default_rng(seed).integers(1 << 30, 1 << 31,
+                                                  uniq.size)
+    return (np.concatenate([uniq, absent]),
+            np.concatenate([cnt, np.zeros(uniq.size, np.int64)]))
+
+
+def shard_record(store) -> dict:
+    """The sharded store's counters the phases print."""
+    s = store.stats()
+    return {"drains": s["write_flushes"], "waves": s["write_dispatches"],
+            "auto_drains": s["write_auto_flushes"],
+            "piggybacked": s["write_piggybacked"],
+            "tile_stores": s["tile_stores"],
+            "tile_stores_per_shard": [int(st.stats.tile_stores)
+                                      for st in store.state],
+            "merges": s["merges"], "stages": s["stages"],
+            "dropped": s["dropped"], "write_carried": s["write_carried"],
+            "query_tile_loads": s["query_tile_loads"],
+            "query_filter_negatives": s["query_filter_negatives"],
+            "collectives": s["collectives"], "placement": s["placement"]}
+
+
+def sharded_phase(seed: int, dev, main_run: dict, geo: dict = SHARDED,
+                  doc_len: int = DOC_LEN) -> dict:
+    """The MDB-L run's stream through one process's sharded store
+    (``geo``'s shards all on ``dev``): every distinct key and as many
+    absent against ``np.unique``, the single-table run's answers on its
+    own keys, nothing carried or dropped, and all three hash kernels
+    launched on the card in this run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_hash import kernel as K
+    t_phase = time.perf_counter()
+    docs = make_docs(geo["tokens"], seed, doc_len)
+    zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
+    store = sharded_store(geo, dev)
+    t0 = time.perf_counter()
+    for doc in docs:
+        store.update(doc)
+    store.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_ingest = time.perf_counter() - t0
+    keys, want = distinct_and_absent(np.concatenate(docs), seed + 13)
+    t0 = time.perf_counter()
+    got = store.query_batch(keys)
+    t_query = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        fail(f"sharded MDB-L: {int((got != want).sum())} of {keys.size} "
+             "counts differ from np.unique counts of the stream")
+    one_keys, one_got = main_run["answers"]
+    if not np.array_equal(store.query_batch(one_keys), one_got):
+        fail("sharded MDB-L: answers differ from the single-table run's")
+    launches = dict(K.LAUNCHES)
+    rec = shard_record(store)
+    store.close()
+    if rec["dropped"] or rec["write_carried"]:
+        fail(f"sharded MDB-L: dropped or carried entries: {rec}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"sharded MDB-L: a kernel never launched: {launches}")
+    no_baseline("sharded MDB-L")
+    out = {"shards": geo["num_shards"], "local_q_log2": geo["q_log2"],
+           "tokens": int(sum(d.size for d in docs)), "documents": len(docs),
+           "distinct": int(keys.size // 2), "ingest_s": t_ingest,
+           "ingest_tokens_per_s": geo["tokens"] / t_ingest,
+           "lookup_keys": int(keys.size), "lookup_s": t_query,
+           "lookup_keys_per_s": keys.size / t_query,
+           "single_table_ingest_tokens_per_s":
+               main_run["ingest_tokens_per_s"],
+           "single_table_lookup_keys_per_s": main_run["lookup_keys_per_s"],
+           **rec, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"sharded MDB-L: {json.dumps(out)}", flush=True)
+    return out
+
+
+def two_rank_ingest(store, docs, rank: int, world: int, per_drain: int):
+    """Documents in groups of ``per_drain``: each rank folds the documents
+    whose index is its rank modulo ``world``, and every rank drains after
+    every group (a collective drain with several processes)."""
+    for g in range(0, len(docs), per_drain):
+        for i in range(g, min(g + per_drain, len(docs))):
+            if i % world == rank:
+                store.update(docs[i])
+        store.drain(wait=True)
+    store.flush()
+
+
+def sharded_child_command(workdir: Path, seed: int, rank: int):
+    """How the parent starts a rank of the two-rank phase: this script."""
+    return [sys.executable, str(Path(__file__).resolve()), "--seed",
+            str(seed), "--sharded-child", str(workdir), "--rank", str(rank)]
+
+
+def sharded_child(workdir: Path, rank: int, dev) -> None:
+    """One rank of the two-rank phase: join the gloo group, ingest its
+    documents, drain with the other rank after every group, flush, query
+    the plan's keys (the same on both ranks) and write its answers, its
+    counters and its kernels' launches to ``workdir``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_hash import kernel as K
+    plan = json.loads((workdir / "plan.json").read_text())
+    geo = plan["geo"]
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{plan['port']}",
+        world_size=plan["world"], rank=rank,
+        timeout=datetime.timedelta(seconds=plan["timeout"]))
+    try:
+        docs = make_docs(geo["tokens"], plan["seed"], plan["doc_len"])
+        keys, _ = distinct_and_absent(np.concatenate(docs), plan["seed"] + 17)
+        zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
+        store = sharded_store(geo, dev)
+        t0 = time.perf_counter()
+        two_rank_ingest(store, docs, rank, plan["world"], plan["per_drain"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = store.query_batch(keys)
+        t_query = time.perf_counter() - t0
+        rec = {"rank": rank, "ingest_s": t_ingest, "lookup_s": t_query,
+               "lookup_keys": int(keys.size), **shard_record(store),
+               "launches": dict(K.LAUNCHES),
+               "baseline_launches": dict(K.BASELINE_LAUNCHES)}
+        store.close()
+        np.save(workdir / f"answers_{rank}.npy", got)
+        (workdir / f"rank_{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_phase(seed: int, dev, geo: dict = TWO_RANK,
+                   doc_len: int = DOC_LEN) -> dict:
+    """Two ranks of a gloo group on ``dev``, two shards each: both ranks'
+    answers equal ``np.unique``'s and a single-process run's on the same
+    stream and drain cadence; each rank carried nothing and launched all
+    three hash kernels on the card. A failed or hung child fails the
+    phase, and no child outlives it."""
+    import socket
+
+    import numpy as np
+    t_phase = time.perf_counter()
+    workdir = Path(tempfile.mkdtemp(prefix="flash-sharded-"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    plan = {"geo": geo, "seed": seed + 1, "doc_len": doc_len, "world": 2,
+            "per_drain": TWO_RANK_PER_DRAIN, "port": port,
+            "timeout": TWO_RANK_TIMEOUT}
+    procs, logs = [], []
+    try:
+        (workdir / "plan.json").write_text(json.dumps(plan))
+        t0 = time.perf_counter()
+        for rank in range(plan["world"]):
+            logs.append(open(workdir / f"log_{rank}.txt", "w"))
+            procs.append(subprocess.Popen(
+                sharded_child_command(workdir, seed, rank),
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT + 60
+        for rank, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                for f in logs:
+                    f.flush()
+                fail(f"sharded 2-rank: rank {rank} ended with {rc}:\n" +
+                     "\n".join((workdir / f"log_{r}.txt").read_text()[-3000:]
+                               for r in range(plan["world"])))
+        t_children = time.perf_counter() - t0
+        ranks = [json.loads((workdir / f"rank_{r}.json").read_text())
+                 for r in range(plan["world"])]
+        answers = [np.load(workdir / f"answers_{r}.npy")
+                   for r in range(plan["world"])]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    docs = make_docs(geo["tokens"], plan["seed"], doc_len)
+    keys, want = distinct_and_absent(np.concatenate(docs), plan["seed"] + 17)
+    store = sharded_store(geo, dev)
+    two_rank_ingest(store, docs, 0, 1, plan["per_drain"])
+    one = store.query_batch(keys)
+    store.close()
+    for r, got in enumerate(answers):
+        if not np.array_equal(got, want):
+            fail(f"sharded 2-rank: rank {r}: {int((got != want).sum())} of "
+                 f"{keys.size} counts differ from np.unique counts")
+        if not np.array_equal(got, one):
+            fail(f"sharded 2-rank: rank {r} differs from one process")
+    for rec in ranks:
+        if rec["write_carried"] or rec["dropped"] or any(
+                rec["baseline_launches"].values()):
+            fail(f"sharded 2-rank: rank {rec['rank']}: {rec}")
+        if dev.type == "cuda" and min(rec["launches"].values()) <= 0:
+            fail(f"sharded 2-rank: rank {rec['rank']} did not launch every "
+                 f"kernel: {rec['launches']}")
+    out = {"ranks": ranks, "children_s": t_children,
+           "tokens": geo["tokens"], "lookup_keys": int(keys.size),
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"sharded 2-rank: {json.dumps(out)}", flush=True)
+    return out
+
+
+def tiny_sharded_card_vs_cpu(seed: int, dev) -> dict:
+    """A small ±Δ stream through a 4-shard store on ``dev`` and on the CPU,
+    MB, MDB and MDB-L: identical global state arrays (every leaf) and
+    answers; all three hash kernels launched on the card for each."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import global_arrays
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels.flash_hash import kernel as K
+    rng = np.random.default_rng(seed)
+    batches = [((rng.zipf(1.3, 1024) % 5000),
+                rng.choice(np.array([1, 1, 2, -1]), 1024))
+               for _ in range(16)]
+    keys = np.arange(6000)
+    out = {}
+    for scheme in ("MB", "MDB", "MDB-L"):
+        runs = {}
+        for d in (dev, torch.device("cpu")):
+            zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
+            store = sharded_store(TINY_SHARDED, d, scheme)
+            for i, (toks, dels) in enumerate(batches):
+                store.update(toks, dels)
+                if i % 4 == 3:
+                    store.drain()
+            store.flush()
+            runs[d.type] = (flatten(global_arrays(store.state)),
+                            store.query_batch(keys))
+            if d.type == "cuda":
+                launches = dict(K.LAUNCHES)
+            no_baseline(f"tiny sharded {scheme}")
+            store.close()
+        card, cpu = runs[dev.type], runs["cpu"]
+        bad = sorted(k for k in cpu[0]
+                     if not np.array_equal(card[0][k], cpu[0][k]))
+        if bad or not np.array_equal(card[1], cpu[1]):
+            fail(f"tiny sharded {scheme}: the card and the CPU differ in "
+                 f"{bad or 'the answers'}")
+        if dev.type == "cuda" and min(launches.values()) <= 0:
+            fail(f"tiny sharded {scheme}: a kernel never launched on the "
+                 f"card: {launches}")
+        out[scheme] = {"tile_stores": int(cpu[0]["stats/tile_stores"].sum()),
+                       "launches": launches if dev.type == "cuda" else None}
+        print(f"tiny sharded {scheme} card == cpu: {json.dumps(out[scheme])}",
+              flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 9-12: the serving path
 # ---------------------------------------------------------------------------
 def smoke_prompts(seed: int, vocab: int, prompt_len: int, shared: int):
     """Request 0 of its own, 1-3 sharing its first ``shared`` tokens, 4-7
@@ -1091,6 +1419,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     # the durability phase's child: this script, started by the parent
     ap.add_argument("--durability-child", type=Path, help=argparse.SUPPRESS)
+    # a rank of the two-rank sharded phase: this script, started by the
+    # parent
+    ap.add_argument("--sharded-child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1117,6 +1449,16 @@ def main() -> int:
             fail("durability child: the flash-hash kernels were rebuilt")
         durability_child(args.durability_child, dev)
         return 1                      # not killed: the parent fails it
+    if args.sharded_child is not None:
+        import faulthandler
+        # a collective that never completes dumps every thread's stack and
+        # exits non-zero instead of hanging the parent
+        faulthandler.dump_traceback_later(TWO_RANK_TIMEOUT, exit=True)
+        fh_build.LIBRARY.build()
+        if fh_build.LIBRARY.last_build["seconds"] != 0.0:
+            fail("sharded child: the flash-hash kernels were rebuilt")
+        sharded_child(args.sharded_child, args.rank, dev)
+        return 0
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1157,6 +1499,24 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s): " + "; ".join(
               f"{k} {v['sim_cleans']} / {v['card_tile_stores']}"
               for k, v in sims.items()), flush=True)
+    shard = sharded_phase(args.seed, dev, main_run)
+    print(f"sharded MDB-L ({shard['phase_s']:.1f} s; {shard['placement']}): "
+          f"ingest {shard['ingest_tokens_per_s']:.0f} tokens/s, lookup "
+          f"{shard['lookup_keys_per_s']:.0f} keys/s (single table "
+          f"{main_run['ingest_tokens_per_s']:.0f} / "
+          f"{main_run['lookup_keys_per_s']:.0f}); {shard['drains']} drains, "
+          f"{shard['waves']} waves, tile_stores {shard['tile_stores']} "
+          f"{shard['tile_stores_per_shard']}, {shard['merges']} merges, "
+          f"{shard['stages']} stages; launches "
+          f"{json.dumps(shard['launches'])}; card {card}", flush=True)
+    two = two_rank_phase(args.seed, dev)
+    print(f"sharded 2-rank ({two['phase_s']:.1f} s, children "
+          f"{two['children_s']:.1f} s): " + "; ".join(
+              f"rank {r['rank']} ({r['placement']}, {r['collectives']}) "
+              f"ingest {r['ingest_s']:.2f} s, lookup {r['lookup_s']:.2f} s, "
+              f"{r['waves']} waves, launches {json.dumps(r['launches'])}"
+              for r in two["ranks"]) + f"; card {card}", flush=True)
+    tiny_sharded_card_vs_cpu(args.seed, dev)
     served, model = serve_phase(args.seed, dev)
     print(f"serve: prefill ms {[round(t, 3) for t in served['prefill_ms']]};"
           f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "

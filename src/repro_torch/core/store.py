@@ -11,7 +11,7 @@ scheme variant (§2, Fig 4). `FlashStore` is the single entry point:
         store.flush()                   # durability point: drain + merge
         print(store.stats())
 
-Two backends plug in behind the same lifecycle:
+Three backends plug in behind the same lifecycle:
 
 * ``device`` — a :class:`~.write_engine.BatchedWriteEngine` paired with a
   :class:`~.query_engine.BatchedQueryEngine` over the device table (the
@@ -20,6 +20,11 @@ Two backends plug in behind the same lifecycle:
   pairing happens only in this module.
 * ``sim`` — the event-level numpy simulator (:mod:`.table_sim`, the
   paper's SSD cost ledger) on the host. It takes no device.
+* ``sharded`` — the table split over shards by owner block
+  (:mod:`.distributed`): per-shard H_R partitions, shard-local flush
+  thresholds, owner-aligned ``all_to_all`` waves and summed lookups; in
+  one process over its devices, or one rank of a ``torch.distributed``
+  group each.
 
 Flushes are **asynchronous and double-buffered**: ingest fills an active
 H_R buffer while one background worker (a :class:`FlushDispatcher` per
@@ -180,20 +185,23 @@ class FlushDispatcher:
 class SealedFront:
     """The double-buffered H_R lifecycle, written once:
 
-    * **fold** — (token, Δ) pairs accumulate in the *active* buffer;
+    * **fold** — (token, Δ) pairs accumulate in the *active* buffer of
+      their partition (one partition for a single table, one per owner
+      shard for the sharded store);
     * **settle** — wait out the in-flight drain; a sealed chunk still
       present *after* the barrier means its drain died, so the front is
       **poisoned**: writes fail loudly rather than silently dropping the
       chunk, and reads keep overlaying it;
-    * **seal** — post-settle, the active buffer swaps for a fresh one and
-      becomes the read-only *in-flight* overlay; the sealed ``(keys,
-      Δs)`` arrays (sorted, deterministic order) go to the caller. With a
-      WAL attached, the sealed chunk is appended and fsync'd here —
+    * **seal** — post-settle, the selected partitions' active buffers
+      swap for fresh ones and become the read-only *in-flight* overlay;
+      the sealed ``(keys, Δs)`` arrays (sorted, deterministic order) go
+      to the caller. With a WAL attached, every sealed part is appended
+      (one record per part, naming the part) and one fsync lands here —
       **before** the caller submits its drain — so a crash mid-drain
       loses nothing that was sealed;
     * **mark_drained** — worker side, under the dispatcher lock: the
-      delivered overlay clears, atomically with the device state rebind,
-      and the drain's commit record is logged.
+      delivered parts' overlays clear, atomically with the device state
+      rebind, and each drained part's commit record is logged.
 
     ``FlashStore.restore()`` is the way out of the poisoned state
     (:meth:`clear` drops every buffer; the WAL replay re-delivers them).
@@ -204,124 +212,171 @@ class SealedFront:
     _fl_guarded = ("_inflight",)
 
     def __init__(self, dispatcher: Optional[FlushDispatcher] = None,
-                 wal=None):
+                 parts: int = 1, wal=None):
         self.dispatcher = dispatcher
+        self.parts = int(parts)
         self.wal = wal
-        self._buf: Dict[int, int] = {}
-        # the sealed-but-draining chunk: the worker clears it (under the
-        # dispatcher lock) once its entries are on device
-        self._inflight: Optional[Dict[int, int]] = None
-        self._wal_seq: Optional[int] = None   # the in-flight chunk's seq
+        self._buf: List[Dict[int, int]] = [{} for _ in range(self.parts)]
+        # sealed-but-draining chunks: the worker clears a part's slot
+        # (under the dispatcher lock) once its entries are on device
+        self._inflight: List[Optional[Dict[int, int]]] = [None] * self.parts
+        self._wal_seqs: List[Optional[int]] = [None] * self.parts
         self.seals = 0
 
+    def _res(self, part: int) -> str:
+        """A part's in-flight overlay by name (the messages name it)."""
+        return ("hr:inflight" if self.parts == 1
+                else f"hr:inflight[{part}]")
+
     # -- ingest side ---------------------------------------------------------
-    def fold(self, uniq: np.ndarray, sums: np.ndarray) -> Tuple[int, int]:
-        """Fold pre-deduped (token, Δ-sum) pairs into the active buffer.
-        Returns ``(n_new_slots, n_cancelled)`` for the caller's ledger."""
+    def fold(self, uniq: np.ndarray, sums: np.ndarray,
+             owners: Optional[np.ndarray] = None) -> Tuple[int, int]:
+        """Fold pre-deduped (token, Δ-sum) pairs into the active buffers
+        (partitioned by ``owners`` when given). Returns ``(n_new_slots,
+        n_cancelled)`` for the caller's ledger."""
         from .write_engine import fold_entry
         n_new = cancelled = 0
-        buf = self._buf
-        for k, s in zip(uniq.tolist(), sums.tolist()):
-            opened = fold_entry(buf, k, s)
-            if opened > 0:
-                n_new += 1
-            elif opened < 0:
-                cancelled += 1
+        if owners is None:
+            buf = self._buf[0]
+            for k, s in zip(uniq.tolist(), sums.tolist()):
+                opened = fold_entry(buf, k, s)
+                if opened > 0:
+                    n_new += 1
+                elif opened < 0:
+                    cancelled += 1
+        else:
+            bufs = self._buf
+            for k, s, o in zip(uniq.tolist(), sums.tolist(),
+                               owners.tolist()):
+                opened = fold_entry(bufs[o], k, s)
+                if opened > 0:
+                    n_new += 1
+                elif opened < 0:
+                    cancelled += 1
         return n_new, cancelled
 
-    def active_len(self) -> int:
-        """Active-buffer size (threshold decisions)."""
-        return len(self._buf)
+    def part_len(self, part: int = 0) -> int:
+        """Active-buffer size of one partition (threshold decisions)."""
+        return len(self._buf[part])
+
+    def part_lens(self) -> List[int]:
+        return [len(b) for b in self._buf]
 
     # -- lifecycle -----------------------------------------------------------
     def settle(self) -> None:
         """Barrier the in-flight drain, then fail loudly if it died (the
         pre-barrier probe is a benign unlocked read)."""
         d = self.dispatcher
-        if (self._inflight is not None        # flashlint: disable=FL006
+        if (any(b is not None
+                for b in self._inflight)      # flashlint: disable=FL006
                 or (d is not None and d.pending)):
             if d is not None:
                 d.wait()
-        if self._inflight is not None:        # flashlint: disable=FL006
+        dead = [self._res(p) for p, b in enumerate(
+            self._inflight) if b is not None]  # flashlint: disable=FL006
+        if dead:
             raise RuntimeError(
-                "store is poisoned: a drain failed and its sealed H_R "
-                "chunk was never delivered — reopen from the last durable "
-                "state (FlashStore.restore() clears the poison and "
-                "replays the WAL)")
+                f"store is poisoned: a drain failed and its sealed H_R "
+                f"chunk ({', '.join(dead)}) was never delivered — reopen "
+                f"from the last durable state (FlashStore.restore() clears "
+                f"the poison and replays the WAL)")
 
     # flashlint: quiescent (callers settle first; see the class docstring)
-    def seal(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        """Swap the active buffer into the in-flight overlay; returns the
-        sealed ``(sorted keys, deltas)`` or ``None`` when nothing is
-        buffered. With a WAL, the chunk is logged and one fsync lands
+    def seal(self, parts: Optional[List[int]] = None
+             ) -> Optional[Dict[int, Tuple[np.ndarray, np.ndarray]]]:
+        """Swap the selected partitions' (every partition's by default)
+        active buffers into the in-flight overlay; returns ``{part:
+        (sorted keys, deltas)}`` or ``None`` when nothing is buffered.
+        With a WAL, every sealed part is logged and one fsync lands
         before this returns."""
-        if not self._buf:
+        sel = [p for p in (range(self.parts) if parts is None else parts)
+               if self._buf[p]]
+        if not sel:
             return None
-        if self._inflight is not None:
-            # never clobber a sealed chunk (a failed drain leaves its
-            # entries here — they are still the read overlay)
-            raise RuntimeError("sealed H_R over an in-flight chunk; wait "
-                               "out the previous drain first")
-        b = self._buf
-        keys = np.fromiter(b.keys(), np.int64, len(b))
-        dels = np.fromiter(b.values(), np.int64, len(b))
-        order = np.argsort(keys, kind="stable")  # deterministic
-        keys, dels = keys[order], dels[order]
-        self._inflight = b
-        self._buf = {}
+        out: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for p in sel:
+            if self._inflight[p] is not None:
+                # never clobber a sealed chunk (a failed drain leaves its
+                # entries here — they are still the read overlay)
+                raise RuntimeError(
+                    f"sealed H_R over an in-flight chunk ({self._res(p)}); "
+                    f"wait out the previous drain first")
+            b = self._buf[p]
+            keys = np.fromiter(b.keys(), np.int64, len(b))
+            dels = np.fromiter(b.values(), np.int64, len(b))
+            order = np.argsort(keys, kind="stable")  # deterministic
+            out[p] = (keys[order], dels[order])
+            self._inflight[p] = b
+            self._buf[p] = {}
+            if self.wal is not None:
+                self._wal_seqs[p] = self.wal.append_seal(p, *out[p])
         self.seals += 1
         if self.wal is not None:
-            self._wal_seq = self.wal.append_seal(0, keys, dels)
             self.wal.sync()           # durable before the drain dispatches
-        return keys, dels
+        return out
 
-    def mark_drained(self) -> None:  # flashlint: under-lock
-        """Worker side, under the dispatcher lock: the sealed chunk is
-        really on device — clear its overlay and log the commit."""
-        self._inflight = None
-        if self.wal is not None and self._wal_seq is not None:
-            self.wal.append_commit(0, self._wal_seq)
-            self._wal_seq = None
+    def mark_drained(self, parts=None) -> None:  # flashlint: under-lock
+        """Worker side, under the dispatcher lock: the sealed chunks of
+        ``parts`` (every part by default) are really on device — clear
+        their overlays and log their commits."""
+        for p in (range(self.parts) if parts is None else parts):
+            self._inflight[p] = None
+            if self.wal is not None and self._wal_seqs[p] is not None:
+                self.wal.append_commit(p, self._wal_seqs[p])
+                self._wal_seqs[p] = None
 
     # -- read-your-writes ----------------------------------------------------
-    def pending(self, flat: np.ndarray) -> np.ndarray:
+    def pending(self, flat: np.ndarray,
+                owners: Optional[np.ndarray] = None) -> np.ndarray:
         # flashlint: under-lock
-        """Not-yet-durable Δ per key: active + in-flight buffers. Call
-        under the dispatcher lock (the worker clears the in-flight chunk
-        under it)."""
-        buf, inf = self._buf, self._inflight
-        if not buf and not inf:
+        """Not-yet-durable Δ per key: active + in-flight buffers of each
+        key's partition (``owners``; partition 0 without it). Call under
+        the dispatcher lock (the worker clears in-flight slots under
+        it)."""
+        bufs, inf = self._buf, self._inflight
+        if owners is None:
+            buf, i0 = bufs[0], inf[0]
+            if not buf and not i0:
+                return np.zeros(flat.size, np.int64)
+            if i0:
+                return np.fromiter(
+                    (buf.get(int(k), 0) + i0.get(int(k), 0) for k in flat),
+                    np.int64, flat.size)
+            return np.fromiter((buf.get(int(k), 0) for k in flat),
+                               np.int64, flat.size)
+        if not any(bufs) and not any(inf):
             return np.zeros(flat.size, np.int64)
-        if inf:
-            return np.fromiter(
-                (buf.get(int(k), 0) + inf.get(int(k), 0) for k in flat),
-                np.int64, flat.size)
-        return np.fromiter((buf.get(int(k), 0) for k in flat),
-                           np.int64, flat.size)
+        return np.fromiter(
+            (bufs[o].get(k, 0) + (inf[o].get(k, 0) if inf[o] else 0)
+             for k, o in zip(flat.tolist(), owners.tolist())),
+            np.int64, flat.size)
 
     def buffers(self) -> List[Dict[int, int]]:  # flashlint: under-lock
-        """The active and in-flight buffers that hold entries."""
-        return [b for b in (self._buf, self._inflight) if b]
+        """Every partition's active and in-flight buffers that hold
+        entries."""
+        return [b for b in self._buf + self._inflight if b]
 
     def entries(self) -> int:
         # benign unlocked snapshot (monitoring only, may be momentarily
         # stale); never used for control flow
         inf = self._inflight                  # flashlint: disable=FL006
-        return len(self._buf) + (len(inf) if inf else 0)
+        return (sum(len(b) for b in self._buf)
+                + sum(len(b) for b in inf if b))
 
     @property
     def poisoned(self) -> bool:
         """An undelivered sealed chunk survives the barrier (benign
         unlocked probe: only consulted on quiesced paths)."""
-        return self._inflight is not None     # flashlint: disable=FL006
+        return any(b is not None
+                   for b in self._inflight)   # flashlint: disable=FL006
 
     def clear(self) -> None:  # flashlint: quiescent (restore path, re-armed)
-        """Drop both buffers, clearing any poison. Only the restore path
-        calls this, after re-arming the dispatcher: the dropped entries
-        are exactly what the WAL replay re-delivers."""
-        self._buf = {}
-        self._inflight = None
-        self._wal_seq = None
+        """Drop every buffer — active and in-flight — clearing any poison.
+        Only the restore path calls this, after re-arming the dispatcher:
+        the dropped entries are exactly what the WAL replay re-delivers."""
+        self._buf = [{} for _ in range(self.parts)]
+        self._inflight = [None] * self.parts
+        self._wal_seqs = [None] * self.parts
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +438,7 @@ class SimBackend:
         led.cancelled += cancelled
         led.buffered += n_new
         led.deduped += n_valid - n_new
-        if self.front.active_len() >= self.flush_threshold:
+        if self.front.part_len() >= self.flush_threshold:
             led.auto_flushes += 1
             self.drain(wait=False)
 
@@ -404,9 +459,13 @@ class SimBackend:
         elif keys is not None:
             self.table.flush()       # stage, no forced merge
 
+    def _seal(self) -> Optional[tuple]:  # flashlint: quiescent (post-settle)
+        out = self.front.seal()
+        return None if out is None else out[0]
+
     def drain(self, wait: bool = True) -> None:
         self.front.settle()
-        sealed = self.front.seal()
+        sealed = self._seal()
         if sealed is not None:
             k, d = sealed
             self._disp.submit(lambda: self._replay(k, d, merge=False),
@@ -417,7 +476,7 @@ class SimBackend:
 
     def flush(self, wait: bool = True) -> None:  # durability point
         self.front.settle()
-        sealed = self.front.seal()
+        sealed = self._seal()
         # post-settle probe: no job in flight, the flag is stable
         if sealed is None and not self._dirty:  # flashlint: disable=FL006
             if wait:
@@ -731,7 +790,501 @@ class DeviceBackend:
         self._disp.close()
 
 
-_BACKENDS = {"sim": SimBackend, "device": DeviceBackend}
+# ---------------------------------------------------------------------------
+# sharded backend: per-shard H_R partitions over the sharded table
+# ---------------------------------------------------------------------------
+class ShardedBackend:
+    """The sharded table (:mod:`.distributed`) behind the store protocol.
+
+    * **per-shard H_R partitions** — the host buffer is split by
+      ``owner(x)`` (the two-level hash that shards the data segment), so
+      dedup / cancellation state is per shard and a drain can target one
+      shard's traffic;
+    * **shard-local flush thresholds** — a partition drains when *it*
+      fills; the other shards' buffers stay warm instead of being forced
+      out by a global count. The collective has a fixed shape anyway, so
+      partitions at least ``piggyback_frac`` full ride along;
+    * **owner-aligned dispatch** — drained entries are placed in their
+      owner shard's slice of the wave, so the ``all_to_all`` routes every
+      entry from a shard to itself and no (src, dst) bucket can overflow
+      (``shard_chunk <= bucket_cap`` entries, all self-owned);
+    * **consolidated lookups** — one sharded lookup per EMPTY-padded query
+      chunk (every shard probes its blocks, one sum combines), fronted by
+      the :class:`~.query_engine.BatchedQueryEngine` hot cache and the H_R
+      overlay.
+
+    The shards live on ``device``: every visible card by default, shard
+    ``i`` on card ``i % count``; one named device (``"cuda:0"``,
+    ``"cpu"``) holds them all; ``stats()`` names the placement.
+
+    **Several processes.** When ``torch.distributed`` is initialised with
+    more than one process at construction, the same backend runs as one
+    rank of a group: the shards split evenly over the ranks, each rank
+    folds its own ingest into its local H_R partitions, and the
+    ``all_to_all`` routes drained entries to their owners across ranks
+    over the caller's process group (its backend is the caller's choice:
+    gloo, NCCL). Then:
+
+    * drains, flushes and queries are **collective** — every rank calls
+      them at the same point (no threshold auto-flush; the caller drives
+      the drain cadence), and ``query_batch`` takes identical keys on
+      every rank;
+    * ranks first **agree on the number of drain waves** (and whether a
+      device merge is pending anywhere) through a max on the caller
+      thread after settle, so the worker's collectives keep one global
+      order (``agree_k < waves_k < agree_{k+1}``) while still overlapping
+      each rank's ingest;
+    * each rank packs its sealed entries into its **local shards' slices**
+      only (at most ``shard_chunk`` a slice), so ``write_carried == 0``
+      holds while the ``all_to_all`` routes across ranks; a rank with
+      nothing sealed still runs its share of the waves with EMPTY slices.
+    """
+
+    name = "sharded"
+    # shared with the drain worker; flashlint FL006 holds every access
+    # to the state lock (or an audited under-lock/quiescent method)
+    _fl_guarded = ("state", "_staged_dirty", "_wear")
+
+    def __init__(self, cfg=None, num_shards: Optional[int] = None,
+                 shard_chunk: Optional[int] = None,
+                 flush_threshold: Optional[int] = None,
+                 query_chunk: int = 1024, hot_capacity: int = 4096,
+                 piggyback_frac: float = 0.5, async_flush: bool = True,
+                 track_wear: bool = True, device="cuda", wal=None,
+                 **table_kw):
+        import torch.distributed as dist
+
+        from . import distributed as D
+        from . import table_torch as tt
+        from .query_engine import BatchedQueryEngine
+        from .write_engine import PartitionHeatLedger, WriteEngineStats
+        multi = dist.is_initialized() and dist.get_world_size() > 1
+        devices = D.resolve_devices(device, distributed=multi)
+        if cfg is None or isinstance(cfg, tt.FlashTableConfig):
+            n = int(num_shards if num_shards is not None
+                    else len(devices) * (dist.get_world_size() if multi
+                                         else 1))
+            local = cfg if cfg is not None else tt.FlashTableConfig(
+                **table_kw)
+            cfg = D.ShardedTableConfig(local=local, num_shards=n)
+        self.cfg = cfg
+        n = cfg.num_shards
+        if n & (n - 1):
+            raise ValueError(f"num_shards={n} must be a power of two")
+        self.scheme = cfg.local.scheme
+        self.group = D.ShardGroup(n, devices,
+                                  dist.group.WORLD if multi else None)
+        self.multihost = multi
+        self.num_processes = self.group.world_size
+        self.process_index = self.group.rank
+        self.shard_chunk = int(min(cfg.bucket_cap, shard_chunk or 1024))
+        self.flush_threshold = int(2 * self.shard_chunk
+                                   if flush_threshold is None
+                                   else flush_threshold)
+        self.piggyback_frac = float(piggyback_frac)
+        group = self.group
+        self.query_engine = BatchedQueryEngine(
+            cfg.local, chunk=query_chunk, hot_capacity=hot_capacity,
+            lookup_fn=lambda states, q: D.lookup_ex(cfg, group, states, q),
+            filter_fn=((lambda states, q: D.filter_probe(cfg, group,
+                                                         states, q))
+                       if cfg.local.filters else None))
+        self.state = D.init_states(cfg, group)
+        self._staged_dirty = False    # staged entries since last merge
+        self._disp = FlushDispatcher(enabled=async_flush)
+        # per-shard H_R partitions behind the one sealed-front lifecycle
+        self.front = SealedFront(dispatcher=self._disp, parts=n, wal=wal)
+        self.stats_ledger = WriteEngineStats()
+        self._disp.ledger = self.stats_ledger
+        self.piggybacked = 0
+        self.carried = 0
+        # per-block heat keyed by *global* block id, so heat depends on
+        # the trace and not on how the shards split over processes; a
+        # merge is charged the staged volume since the last one (the
+        # trace-derived twin of DeviceBackend's Δtile_stores feed)
+        self._track_wear = bool(track_wear)
+        self._wear = PartitionHeatLedger()
+
+    # -- owner routing ------------------------------------------------------
+    def owner_of(self, keys) -> np.ndarray:
+        """Owner shard per key: the global block id's top (shard) bits."""
+        from . import distributed as D
+        return D.owner_of(self.cfg, torch.as_tensor(_flat_i64(keys))
+                          ).numpy().astype(np.int64)
+
+    def _global_blocks(self, keys: np.ndarray) -> np.ndarray:
+        return self.cfg.global_pair.s(torch.as_tensor(keys)).numpy()
+
+    # -- the buffered write path -------------------------------------------
+    def update(self, tokens, deltas=None) -> None:
+        from .write_engine import dedup_batch
+        led = self.stats_ledger
+        led.updates += 1
+        uniq, sums, n_valid = dedup_batch(tokens, deltas, EMPTY)
+        if n_valid == 0:
+            return
+        led.entries += n_valid
+        n_new, cancelled = self.front.fold(uniq, sums, self.owner_of(uniq))
+        led.cancelled += cancelled
+        led.buffered += n_new
+        led.deduped += n_valid - n_new
+        if self.multihost:
+            # drains are collective: a rank-local threshold must not start
+            # a collective the other ranks do not know about; the caller
+            # drives the drain cadence
+            return
+        lens = self.front.part_lens()
+        hot = [i for i, ln in enumerate(lens) if ln >= self.flush_threshold]
+        if hot:
+            led.auto_flushes += 1
+            ride = [i for i, ln in enumerate(lens)
+                    if i not in hot
+                    and ln >= self.piggyback_frac * self.flush_threshold]
+            self.piggybacked += len(ride)
+            self.drain(shards=hot + ride, wait=False)
+
+    def _wave(self, slices: List[Tuple[np.ndarray, np.ndarray]]):
+        # flashlint: under-lock (drain-worker body)
+        """One collective update wave: local shard ``i`` contributes the
+        ``slices[i]`` (keys, deltas), EMPTY-padded to ``shard_chunk``.
+        Consumes the shards' states and returns their successors; the
+        caller rebinds them."""
+        from . import distributed as D
+        step = self.shard_chunk
+        toks, dels = [], []
+        for dev, (ks, vs) in zip(self.group.devices, slices):
+            t = np.full(step, EMPTY, np.int32)
+            d = np.zeros(step, np.int32)
+            t[:ks.size] = ks
+            d[:vs.size] = vs
+            toks.append(torch.as_tensor(t, device=dev))
+            dels.append(torch.as_tensor(d, device=dev))
+        states, n_carry = D.update(self.cfg, self.group, self.state, toks,
+                                   dels)
+        self.stats_ledger.dispatches += 1
+        self.carried += n_carry
+        return states
+
+    # flashlint: under-lock (drain-worker body, submitted via dispatcher)
+    def _drain_sealed(self, per_shard: Dict) -> None:
+        """Dispatch sealed shard partitions to their owners' change
+        segments (no forced merge) — worker side, under the dispatcher
+        lock. One fixed-shape collective per ``shard_chunk``-entry wave;
+        every drained entry rides in its owner's slice, so the
+        ``all_to_all`` moves every entry from its shard to itself."""
+        from . import distributed as D
+        step = self.shard_chunk
+        led = self.stats_ledger
+        for s in self.state:
+            D.assert_live(s)          # off-thread donation guard
+        none = (np.zeros(0, np.int64),) * 2
+        waves = max(-(-ks.size // step) for ks, _ in per_shard.values())
+        for w in range(waves):
+            cut = slice(w * step, (w + 1) * step)
+            self.state = self._wave(
+                [tuple(a[cut] for a in per_shard.get(s, none))
+                 for s in self.group.local_shards])
+        D.synchronize(self.state)     # durable, not merely queued
+        self._staged_dirty = True
+        for ks, _vs in per_shard.values():
+            led.dispatched_entries += ks.size
+        self._note_staged(per_shard)
+        self.front.mark_drained(sorted(per_shard))
+        led.flushes += 1
+        self.query_engine.invalidate()
+        led.invalidations += 1
+
+    def _note_staged(self, per_shard: Dict) -> None:  # flashlint: under-lock
+        """Feed the wear ledger with the drained entries, keyed by global
+        block id (the same whatever the split over processes). Worker
+        side, under the dispatcher lock."""
+        if not self._track_wear or not per_shard:
+            return
+        blocks = np.concatenate([self._global_blocks(ks)
+                                 for ks, _vs in per_shard.values()])
+        parts, counts = np.unique(blocks, return_counts=True)
+        self._wear.note(list(zip(parts.tolist(), counts.tolist())), 0)
+
+    # flashlint: under-lock (drain-worker body, submitted via dispatcher)
+    def _merge_device(self) -> None:
+        """Force the device merge of every shard's staged change segment
+        — worker side, under the dispatcher lock."""
+        from . import distributed as D
+        for s in self.state:
+            D.assert_live(s)
+        self.state = D.flush(self.cfg, self.state)
+        D.synchronize(self.state)
+        self.stats_ledger.merges += 1
+        self._staged_dirty = False
+        if self._track_wear:
+            self._wear.note(None, float(sum(self._wear.staged.values())))
+        self.query_engine.invalidate()
+        self.stats_ledger.invalidations += 1
+
+    # -- several processes --------------------------------------------------
+    def _agree(self, waves: int, dirty: int) -> Tuple[int, int]:
+        """Caller-thread agreement: the maximum over the ranks of
+        ``(waves, dirty)``. Runs post-settle, so no worker collective is
+        in flight and the global order ``agree_k < waves_k <
+        agree_{k+1}`` holds on every rank."""
+        got = self.group.pmax(torch.tensor([waves, dirty], dtype=torch.int32,
+                                           device=self.group.home))
+        return int(got[0]), int(got[1])
+
+    def _drain_collective(self, merge: bool, wait: bool) -> None:
+        """Drain / flush on several processes: seal every local
+        partition, agree on the number of waves (and, for a flush, on
+        whether any rank holds staged segments), then submit one worker
+        job that runs exactly the agreed collectives — the same on every
+        rank."""
+        per_shard = self.front.seal()
+        total = (sum(ks.size for ks, _vs in per_shard.values())
+                 if per_shard else 0)
+        budget = len(self.group.local_shards) * self.shard_chunk
+        waves = -(-total // budget) if total else 0
+        # post-settle probe: no job in flight, the flag is stable
+        dirty = 1 if (merge and
+                      self._staged_dirty) else 0  # flashlint: disable=FL006
+        g_waves, g_dirty = self._agree(waves, dirty)
+        if g_waves == 0 and not (merge and g_dirty):
+            if wait:
+                self._disp.wait()
+            return
+
+        def job():
+            self._drain_sealed_multihost(per_shard, g_waves)
+            if merge and g_dirty:
+                self._merge_device()
+
+        kind = "flush" if merge else "drain"
+        mine = sorted(per_shard) if per_shard else []
+        self._disp.submit(job, label=f"mh-{kind}#{self.front.seals}:"
+                                     f"waves{g_waves}:shards{mine}")
+        if wait:
+            self._disp.wait()
+
+    # flashlint: under-lock (drain-worker body, submitted via dispatcher)
+    def _drain_sealed_multihost(self, per_shard: Optional[Dict],
+                                waves: int) -> None:
+        """Run the agreed number of waves, packing this rank's sealed
+        entries into its local shards' slices (the ``all_to_all`` routes
+        them to their owners). A slice holds at most ``shard_chunk <=
+        bucket_cap`` entries, so no (src, dst) bucket can overflow."""
+        from . import distributed as D
+        step = self.shard_chunk
+        per = len(self.group.local_shards)
+        led = self.stats_ledger
+        for s in self.state:
+            D.assert_live(s)
+        if per_shard:
+            order = sorted(per_shard)
+            ks = np.concatenate([per_shard[s][0] for s in order])
+            vs = np.concatenate([per_shard[s][1] for s in order])
+        else:
+            ks = vs = np.zeros(0, np.int64)
+        for w in range(waves):
+            lo = w * per * step
+            self.state = self._wave(
+                [(ks[lo + j * step:lo + (j + 1) * step],
+                  vs[lo + j * step:lo + (j + 1) * step])
+                 for j in range(per)])
+        D.synchronize(self.state)
+        if waves:
+            # other ranks' entries may have landed in our shards' change
+            # segments even when we sealed nothing
+            self._staged_dirty = True
+        if per_shard:
+            for pks, _pvs in per_shard.values():
+                led.dispatched_entries += pks.size
+            self._note_staged(per_shard)
+            self.front.mark_drained(sorted(per_shard))
+            led.flushes += 1
+        self.query_engine.invalidate()
+        led.invalidations += 1
+
+    def drain(self, shards: Optional[List[int]] = None,
+              wait: bool = True) -> None:
+        """Seal the selected shards' H_R partitions (every shard's by
+        default) and drain them on the worker (no forced merge). With
+        several processes this is collective: every rank seals *all* its
+        partitions (``shards`` is ignored) and the ranks agree on the
+        wave count first."""
+        self.front.settle()
+        if self.multihost:
+            self._drain_collective(merge=False, wait=wait)
+            return
+        per_shard = self.front.seal(shards)
+        if per_shard is not None:
+            self._disp.submit(lambda: self._drain_sealed(per_shard),
+                              label=f"shard-drain#{self.front.seals}:"
+                                    f"shards{sorted(per_shard)}")
+        if wait:
+            self._disp.wait()
+
+    def flush(self, wait: bool = True) -> None:
+        """Durability point: drain every H_R partition, then force the
+        device merge of every shard's staged change segment. A complete
+        no-op — nothing buffered, in flight or staged — touches neither
+        the device nor the hot cache. Collective with several processes
+        (the merge runs everywhere when *any* rank has staged
+        segments)."""
+        self.front.settle()
+        if self.multihost:
+            self._drain_collective(merge=True, wait=wait)
+            return
+        per_shard = self.front.seal()
+        # post-settle probe: no job is in flight here, so the flag is
+        # stable until we submit below
+        if (per_shard is None
+                and not self._staged_dirty):  # flashlint: disable=FL006
+            if wait:
+                self._disp.wait()
+            return
+
+        def job():
+            if per_shard is not None:
+                self._drain_sealed(per_shard)
+            self._merge_device()
+
+        shards = sorted(per_shard) if per_shard else []
+        self._disp.submit(job, label=f"shard-flush#{self.front.seals}:"
+                                     f"shards{shards}")
+        if wait:
+            self._disp.wait()
+
+    # -- read-your-writes ---------------------------------------------------
+    def pending_entries(self) -> int:
+        return self.front.entries()
+
+    def pending(self, keys) -> np.ndarray:  # flashlint: under-lock
+        """Not-yet-durable Δ per key: active + in-flight partition of the
+        key's owner shard. Call under the dispatcher lock."""
+        flat = _flat_i64(keys)
+        return self.front.pending(flat, self.owner_of(flat))
+
+    def query_batch(self, keys) -> np.ndarray:
+        if self.multihost:
+            # lookups are collective: barrier the in-flight drain first so
+            # every rank issues them at the same point of the global order
+            self._disp.wait()
+        with self._disp.lock:
+            base = self.query_engine.query_batch(self.state, keys)
+            pend = self.pending(keys)
+        return base + pend
+
+    def partition_heat(self, keys) -> np.ndarray:
+        """Write pressure of each key's *global* block: this rank's H_R
+        entries pending for it (active + in-flight) plus the decayed
+        per-merge heat of the trace-derived wear ledger. The same trace
+        gives the same heat on one process with 8 shards and on two with
+        4 each."""
+        flat = _flat_i64(keys)
+        if flat.size == 0:
+            return np.zeros(0)
+        with self._disp.lock:
+            pending, heat = self._wear.snapshot()
+            for b in self.front.buffers():
+                bk = np.fromiter(b.keys(), np.int64, len(b))
+                parts, counts = np.unique(self._global_blocks(bk),
+                                          return_counts=True)
+                for p, c in zip(parts.tolist(), counts.tolist()):
+                    pending[p] = pending.get(p, 0) + c
+        if not pending and not heat:
+            return np.zeros(flat.size)
+        parts = self._global_blocks(flat)
+        return np.asarray([pending.get(int(p), 0)
+                           + heat.get(int(p), 0.0) for p in parts])
+
+    def wear(self) -> Dict[str, int]:  # flashlint: quiescent
+        """Device wear counters summed over the local shards: every shard
+        in one process, this rank's with several (the drains route every
+        entry to its owner, so the ranks' reports sum to the whole)."""
+        self._disp.wait()             # quiesce: device counters settled
+        fields = self.state[0].stats._fields
+        return {f: sum(int(getattr(s.stats, f)) for s in self.state)
+                for f in fields}
+
+    def stats(self) -> Dict[str, int]:
+        out = {"backend": self.name, "scheme": self.scheme,
+               "shards": self.cfg.num_shards}
+        out.update(self.wear())       # barriers the in-flight drain
+        out.update({f"write_{k}": v
+                    for k, v in self.stats_ledger.as_dict().items()})
+        out.update({f"query_{k}": v
+                    for k, v in self.query_engine.stats.as_dict().items()})
+        out["buffered_entries"] = self.pending_entries()
+        out["write_piggybacked"] = self.piggybacked
+        out["write_carried"] = self.carried
+        out["buffered_per_shard_max"] = max(self.front.part_lens(),
+                                            default=0)
+        out["collectives"] = self.group.backend
+        out["placement"] = self.group.placement()
+        return out
+
+    # -- durability ----------------------------------------------------------
+    # flashlint: quiescent (facade snapshots post-flush; nothing in flight)
+    def snapshot_state(self, path, step: int, meta: Dict) -> Path:
+        """Write the shards' states in the reference's stacked global
+        layout through the checkpoint layout, with its array names, so
+        either package restores the other's. Several processes recover
+        through their per-host WALs instead: a global snapshot would need
+        a gather the checkpoint layer does not have."""
+        if self.multihost:
+            raise NotImplementedError(
+                "a sharded store over several processes snapshots through "
+                "its per-host WALs (FlashStore.restore replays them); a "
+                "global snapshot needs a gather the checkpoint layer lacks")
+        from . import distributed as D
+        from ..checkpoint.checkpoint import flatten, save_checkpoint
+        return save_checkpoint(path, step,
+                               flatten(D.global_arrays(self.state)),
+                               extra_meta=meta)
+
+    # flashlint: quiescent (restore path: dispatcher re-armed, no worker)
+    def restore_state(self, path, step: Optional[int] = None):
+        """Load the shards from the latest (or given) snapshot under
+        ``path`` onto their devices; with no snapshot, re-init fresh so
+        the WAL replay starts from zero. Returns ``(step | None,
+        meta)``."""
+        from . import distributed as D
+        from ..checkpoint.checkpoint import (latest_step, restore_checkpoint,
+                                             unflatten)
+        if path is not None and step is None:
+            step = latest_step(path)
+        if path is None or step is None:
+            self.state = D.init_states(self.cfg, self.group)
+            meta, step = {}, None
+        else:
+            if self.multihost:
+                raise NotImplementedError(
+                    "a sharded store over several processes restores from "
+                    "its per-host WALs over a fresh init (path=None)")
+            arrays, meta = restore_checkpoint(path, step=step)
+            self.state = D.from_global_arrays(self.cfg, unflatten(arrays),
+                                              self.group)
+        self._staged_dirty = True     # snapshot may hold staged segments
+        self._wear.clear()
+        self.query_engine.invalidate()
+        return step, meta
+
+    def rearm(self) -> None:
+        """Replace a (possibly wedged/poisoned) dispatcher with a fresh
+        worker; restore calls this before clearing the front."""
+        old = self._disp
+        self._disp = FlushDispatcher(enabled=old.enabled)
+        self._disp.ledger = self.stats_ledger
+        self.front.dispatcher = self._disp
+        try:
+            old.close()
+        except DrainError:
+            pass                      # the poison already surfaced once
+
+    def close(self) -> None:
+        self._disp.close()
+
+
+_BACKENDS = {"sim": SimBackend, "device": DeviceBackend,
+             "sharded": ShardedBackend}
 
 
 # ---------------------------------------------------------------------------
@@ -762,16 +1315,21 @@ class FlashStore:
     @classmethod
     def open(cls, config=None, backend: str = "device", device=None,
              **kw) -> "FlashStore":
-        """One constructor for both backends.
+        """One constructor for every backend.
 
         ``config`` is backend-shaped — a ``TableGeometry`` for ``sim``, a
-        ``FlashTableConfig`` for ``device`` — or ``None`` to build one
-        from ``**kw`` (``scheme=``, ``q_log2=``, ...). Engine knobs
-        (``chunk``, ``flush_threshold``, ``query_chunk``,
-        ``hot_capacity``, ``async_flush``, ...) pass through as keywords.
-        The device table lives on ``device``: the card by default
-        (raising when there is none), ``"cpu"`` for the plain versions of
-        the kernels. The sim runs on the host and takes no ``device``.
+        ``FlashTableConfig`` for ``device``, a ``ShardedTableConfig`` (or
+        the local ``FlashTableConfig``) for ``sharded`` — or ``None`` to
+        build one from ``**kw`` (``scheme=``, ``q_log2=``, ...). Engine
+        knobs (``chunk``, ``flush_threshold``, ``query_chunk``,
+        ``hot_capacity``, ``async_flush``; for ``sharded``
+        ``num_shards``, ``shard_chunk``, ``piggyback_frac``) pass through
+        as keywords. The device table lives on ``device``: the card by
+        default (raising when there is none; every visible card for
+        ``sharded``), ``"cpu"`` for the plain versions of the kernels.
+        The sim runs on the host and takes no ``device``. ``sharded``
+        runs as one rank of a group when ``torch.distributed`` is
+        initialised with more than one process.
 
         ``wal=`` (a path, or a :class:`~.wal.WriteAheadLog`) attaches a
         chunk-granular write-ahead log: every sealed H_R chunk is
@@ -996,7 +1554,10 @@ class FlashStore:
                     b.update(r.keys, r.deltas)
                     records_replayed += 1
                     entries_replayed += int(r.keys.size)
-                if seals:
+                # several processes: drain() is collective, so every rank
+                # calls it, with or without seal records of its own (the
+                # per-host WALs recover independently, drain in lockstep)
+                if seals or getattr(b, "multihost", False):
                     b.drain(wait=True)
         return RestoreReport(
             snapshot_step=snap_step, base_seq=base,
@@ -1007,4 +1568,5 @@ class FlashStore:
 
 
 __all__ = ["FlashStore", "FlushDispatcher", "DrainError", "SealedFront",
-           "RestoreReport", "SimBackend", "DeviceBackend", "EMPTY"]
+           "RestoreReport", "SimBackend", "DeviceBackend", "ShardedBackend",
+           "EMPTY"]

@@ -14,6 +14,9 @@ Each table is a :class:`~.store.FlashStore`. ``backend=`` selects:
   ``device="cpu"``;
 * ``"sim"`` — the event-level numpy simulator on the host (the paper's
   SSD cost ledger), with MB / MDB / MDB-L / naive over ``geom``.
+* ``"sharded"`` — the table split over shards (one per visible card by
+  default; ``num_shards=`` and ``device=`` choose), each shard a table of
+  ``q_log2`` / ``r_log2``.
 """
 from __future__ import annotations
 
@@ -55,18 +58,18 @@ class TfIdfPipeline:
         if backend == "sim":
             mk = lambda: FlashStore.open(geom, backend="sim", scheme=scheme,
                                          device=device, **store_kw)
-        elif backend == "device":
+        elif backend in ("device", "sharded"):
             if scheme == "naive":
-                raise ValueError("the device table has no naive scheme")
+                raise ValueError(f"the {backend} table has no naive scheme")
             if geom is not None:
                 raise ValueError("geom sizes the sim's table; size the "
-                                 "device table with q_log2 / r_log2")
+                                 f"{backend} table with q_log2 / r_log2")
             mk = lambda: FlashStore.open(backend=backend, scheme=scheme,
                                          q_log2=q_log2, r_log2=r_log2,
                                          device=device, **store_kw)
         else:
             raise ValueError(f"unknown backend {backend!r}; expected "
-                             "'device' or 'sim'")
+                             "'device', 'sharded' or 'sim'")
         self.backend = backend
         self.term_table = mk()
         self.doc_table = mk() if track_df else None

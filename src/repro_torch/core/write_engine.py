@@ -233,7 +233,7 @@ class BatchedWriteEngine:
         self.stats.cancelled += cancelled
         self.stats.buffered += n_new
         self.stats.deduped += n_valid - n_new
-        if self.front.active_len() >= self.flush_threshold:
+        if self.front.part_len() >= self.flush_threshold:
             self.stats.auto_flushes += 1
             self.flush(wait=False)
 
@@ -244,7 +244,8 @@ class BatchedWriteEngine:
         active buffer takes its place. Returns the sealed ``(keys,
         deltas)`` in sorted order, or ``None`` when H_R is empty. Callers
         wait out any previous in-flight drain first (:meth:`flush`)."""
-        return self.front.seal()
+        out = self.front.seal()
+        return None if out is None else out[0]
 
     # flashlint: under-lock (drain-worker body, submitted via dispatcher)
     def _dispatch(self, keys: np.ndarray, dels: np.ndarray) -> None:

@@ -5,7 +5,9 @@ streaming statistics engine.
 (MDB-L by default — the paper's recommendation) through the port's
 :class:`~repro_torch.core.store.FlashStore`, which owns the H_R
 buffering, the threshold flushes and the flush → invalidate contract, so
-reads between ingests are never stale. On top of it:
+reads between ingests are never stale; ``backend="sharded"`` splits
+the table over shards (every visible card by default) with no other
+change to the caller. On top of it:
 
 * ``tfidf_weights`` — per-token IDF weights for corpus filtering,
 * ``doc_filter`` — the paper's TF-IDF keyword criterion as a document
@@ -35,8 +37,12 @@ class CorpusStats:
         self.cfg = cfg
         self.docs_seen = docs_seen
         self.tokens_seen = tokens_seen
-        self.store = FlashStore.open(cfg, backend=backend, state=state,
-                                     device=device, wal=wal)
+        if backend == "sharded" and state is not None:
+            raise ValueError("sharded backend cannot adopt a single-table "
+                             "state")
+        kw = {"state": state} if backend == "device" else {}
+        self.store = FlashStore.open(cfg, backend=backend, device=device,
+                                     wal=wal, **kw)
 
     @classmethod
     def create(cls, q_log2: int = 18, r_log2: int = 10,

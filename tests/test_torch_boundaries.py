@@ -1,5 +1,10 @@
 """The port's boundaries: it imports nothing of JAX or of the reference
-package, and its entry points run on the card unless told otherwise."""
+package, and its entry points run on the card unless told otherwise.
+
+The port's test helpers (``tests/helpers/torch_chaos_store_main.py``,
+``tests/helpers/torch_multihost_main.py``) are held to the same rule.
+``tests/helpers/torch_sharded_ref_main.py`` is exempt: it is the
+reference's side of the sharded parity tests and runs the JAX package."""
 import ast
 import os
 import subprocess
@@ -17,6 +22,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 HELPER = REPO / "tests" / "helpers" / "torch_chaos_store_main.py"
+MH_HELPER = REPO / "tests" / "helpers" / "torch_multihost_main.py"
 
 
 def _port_files():
@@ -24,12 +30,13 @@ def _port_files():
                                           REPO / "chip_trace.py",
                                           REPO / "chip_serve_ab.py",
                                           REPO / "chip_tfidf_ab.py",
-                                          HELPER]
+                                          HELPER, MH_HELPER]
     names = {p.relative_to(PORT).as_posix() for p in files
              if PORT in p.parents}
     assert {"core/wal.py", "core/table_sim.py", "core/flash_model.py",
             "checkpoint/checkpoint.py", "serving/scheduler.py",
-            "serving/trace.py"} <= names
+            "serving/trace.py", "core/distributed.py",
+            "runtime/elastic.py"} <= names
     return files
 
 
@@ -77,6 +84,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.flash_attn.ops\n"
         "import repro_torch.kernels.flash_attn.build\n"
         "import repro_torch.kernels.flash_attn.check\n"
+        "import repro_torch.core.distributed, repro_torch.runtime.elastic\n"
+        f"spec = importlib.util.spec_from_file_location('m', {str(MH_HELPER)!r})\n"
+        "mh = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mh)\n"
+        "mh.open_sharded('MDB', shard_chunk=64).close()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")

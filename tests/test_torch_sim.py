@@ -203,8 +203,11 @@ def test_sim_takes_no_device_and_device_takes_no_geom():
         FlashStore.open(backend="sim", device="cpu")
     with pytest.raises(ValueError, match="geom"):
         TfIdfPipeline(device="cpu", geom=flash_model.TableGeometry(4))
+    with pytest.raises(ValueError, match="geom"):
+        TfIdfPipeline(backend="sharded", device="cpu",
+                      geom=flash_model.TableGeometry(4))
     with pytest.raises(ValueError, match="backend"):
-        TfIdfPipeline(backend="sharded", device="cpu")
+        TfIdfPipeline(backend="replicated", device="cpu")
     pipe = TfIdfPipeline(scheme="naive", backend="sim")
     pipe.add_document(["a", "b", "a"])
     assert pipe.term_frequency("a") == 2
