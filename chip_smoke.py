@@ -127,7 +127,33 @@ fails (non-zero exit, no result line) without them. Phases:
    cache stats and refcounts identical on both, and outputs identical to
    the serial engine's on the CPU; in the drained run every flash-hash
    kernel must have launched on the card;
-13. a ``kernels`` JSON line, then the card line, then the result line.
+13. the other model families at full width in bf16, each served as
+   llama3.2-3b is (the same eight requests, pool and checks; random
+   weights from ``--seed``; each model freed before the next):
+   minicpm3-4b (MLA, all 62 layers), granite-moe-1b (MoE, 32 experts
+   top-8, all 24), mamba2-2.7b (SSM, all 64; nothing cached, since an SSM
+   stack registers only whole prompts) and nemotron-4-340b (2 of its 96
+   layers, full width). Every prefill of every attention layer must run
+   the tensor-core flash-attention kernel (and none the CUDA-core one);
+   init, prefill, decode, tokens/s and the phase's peak are printed. The
+   attention phase (2) holds the kernel at these families' head shapes
+   too: MLA (h = kvh = 40, d 96, dv 64; s = 512 and a ragged 1000),
+   granite (16, 8, 64, 64), starcoder2 (36, 4, 128, 128), nemotron (96, 8,
+   192, 192);
+14. TINY f32 card-vs-CPU twins of the nine other architectures, the same
+   weights on both: the serial engine (40-token prompts, 32 for the SSM
+   and hybrid stacks) with identical outputs, cached prefixes and stats,
+   every attention prefill on the CUDA-core kernel; MLA again with a
+   flush threshold of 1 (all three hash kernels launched on the card);
+15. continuous twins of minicpm3, granite, mamba2 and jamba on the card
+   and on the CPU: identical outputs, cached prefixes and stats; the
+   paged path for MLA and MoE (``TINY_CONTINUOUS``), the whole-prompt
+   fallback (no chunk call) for the SSM and hybrid stacks on the
+   reference scheduler test's prompts; outputs equal to the serial
+   engine's except on the paged MoE stack, whose 16-token chunks route
+   with their own expert capacity;
+16. a ``families`` JSON line with every record of 13-15, a ``kernels``
+   JSON line, then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -162,9 +188,16 @@ DOC_LEN = 1 << 14
 N_QUERIES = 1 << 16
 CHUNK = 1 << 16
 
-#: attention heads (h, kvh, d, dv) of llama3.2-3b and of its TINY twin
+#: attention heads (h, kvh, d, dv) of llama3.2-3b and of its TINY twin,
+#: and of the other families' prefills: minicpm3's MLA (the latent
+#: expanded to 40 heads of nope 64 + rope 32, values of 64),
+#: granite-moe-1b, starcoder2-7b (h/kvh = 9) and nemotron-4-340b
 LLAMA_HEADS = (24, 8, 128, 128)
 TINY_HEADS = (4, 2, 16, 16)
+MLA_HEADS = (40, 40, 96, 64)
+GRANITE_HEADS = (16, 8, 64, 64)
+STARCODER2_HEADS = (36, 4, 128, 128)
+NEMOTRON_HEADS = (96, 8, 192, 192)
 #: flash attention cases: (name, s, dtype, causal, heads, q/k scale); the
 #: tiny twin's prefill is its 40-token prompt
 ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
@@ -173,7 +206,12 @@ ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("f32", 512, "float32", True, LLAMA_HEADS, 1.0),
               ("non_causal", 512, "bfloat16", False, LLAMA_HEADS, 1.0),
               ("qk_x8", 512, "bfloat16", True, LLAMA_HEADS, 8.0),
-              ("tiny_f32", 40, "float32", True, TINY_HEADS, 1.0)]
+              ("tiny_f32", 40, "float32", True, TINY_HEADS, 1.0),
+              ("mla", 512, "bfloat16", True, MLA_HEADS, 1.0),
+              ("mla_ragged", 1000, "bfloat16", True, MLA_HEADS, 1.0),
+              ("granite", 512, "bfloat16", True, GRANITE_HEADS, 1.0),
+              ("starcoder2", 512, "bfloat16", True, STARCODER2_HEADS, 1.0),
+              ("nemotron", 512, "bfloat16", True, NEMOTRON_HEADS, 1.0)]
 #: the serve phase's traffic (full width) and its scaled-down twin (TINY)
 SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
              capacity_blocks=64)
@@ -203,6 +241,29 @@ TINY_CONTINUOUS = dict(max_slots=3, max_context=96, capacity_blocks=16,
                                   prefix_blocks=2, block_tokens=16,
                                   suffix_tokens=(16, 40), max_new_tokens=8))
 TINY_CONTINUOUS_DRAINED = dict(TINY_CONTINUOUS, flush_threshold=1)
+#: the other families at full width, served as llama3.2-3b is (SERVE):
+#: (arch, layers kept or None for all); nemotron-4-340b keeps 2 of its 96
+#: layers (16.4B parameters, ~33 GB in bf16; its widths are never cut)
+FAMILY_SERVES = (("minicpm3_4b", None), ("granite_moe_1b", None),
+                 ("mamba2_2p7b", None), ("nemotron4_340b", 2))
+#: every architecture served here besides llama3.2-3b, as TINY f32
+#: card-vs-CPU twins of the serial engine; the first two of the
+#: continuous ones run the paged path, the last two the whole-prompt
+#: fallback of the SSM and hybrid stacks
+FAMILY_TWINS = ("granite_moe_1b", "phi35_moe_42b", "minicpm3_4b",
+                "starcoder2_7b", "nemotron4_340b", "llava_next_mistral_7b",
+                "mamba2_2p7b", "musicgen_large", "jamba15_large_398b")
+FAMILY_CONTINUOUS = ("minicpm3_4b", "granite_moe_1b", "mamba2_2p7b",
+                     "jamba15_large_398b")
+#: the SSM and hybrid stacks' TINY serial order: 32-token prompts (their
+#: TINY chunk), 16 shared
+TINY_SERVE_SSM = dict(TINY_SERVE, prompt_len=32)
+#: their continuous twin: the reference scheduler test's prompts (a shared
+#: 16-token block plus 5, 9, 0 and 16 tokens of each one's own: at most
+#: 32), 2 slots
+TINY_SSM_CONTINUOUS = dict(max_slots=2, max_context=64, capacity_blocks=32,
+                           block_tokens=16, shared=16,
+                           suffixes=(5, 9, 0, 16), max_new_tokens=8)
 #: the durability run: FULL's stream in 16 batches, a snapshot after
 #: batch 4, the child killed at the seal of batch 8
 DURABILITY = dict(batches=16, snap_at=4, kill_at=8)
@@ -1082,11 +1143,11 @@ def watched(model, names, dev, timed: bool):
     def wrap(name):
         fn = getattr(model, name)
 
-        def run(*a):
+        def run(*a, **kw):
             if timed:
                 sync()
                 t0 = time.perf_counter()
-            out = fn(*a)
+            out = fn(*a, **kw)
             if timed:
                 sync()
                 times[name].append((time.perf_counter() - t0) * 1e3)
@@ -1103,10 +1164,18 @@ def watched(model, names, dev, timed: bool):
             delattr(model, n)
 
 
+def attn_layers(cfg) -> int:
+    """The layers whose prefill runs the flash-attention kernel."""
+    return cfg.num_groups * cfg.layer_pattern.count("attn")
+
+
 def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
     """Serve :func:`smoke_prompts` through ``ServeEngine`` with a fresh
     prefix cache on ``dev``; checks outputs, cached prefixes, cache
-    counters and refcounts. Returns its record."""
+    counters and refcounts. An SSM or hybrid stack registers only each
+    prompt's whole-block prefix (no slicer), so nothing is cached and
+    every request misses. Returns its record."""
+    from repro_torch.models.model import has_ssm
     from repro_torch.serving import PrefixKVCache, Request, ServeEngine
     cache = PrefixKVCache(block_tokens=geo["block_tokens"],
                           capacity_blocks=geo["capacity_blocks"],
@@ -1138,7 +1207,8 @@ def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
     stats = cache.stats()
     refs = cache._count(list(cache.store)).tolist()
     cache.close()
-    want_cached = [0] + [geo["shared"]] * 3 + [0] * 4
+    ssm = has_ssm(cfg)
+    want_cached = [0] * 8 if ssm else [0] + [geo["shared"]] * 3 + [0] * 4
     if any(len(o) != geo["max_new"] or min(o) < 0 or max(o) >= cfg.vocab_size
            for o in outputs):
         fail(f"serve {cfg.name}: outputs are not {geo['max_new']} ids "
@@ -1146,7 +1216,8 @@ def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
     if cached != want_cached:
         fail(f"serve {cfg.name}: cached prefixes {cached}, expected "
              f"{want_cached}")
-    if (stats["hits"], stats["misses"]) != (3, 5) or stats["evictions"] <= 0:
+    if (stats["hits"], stats["misses"]) != ((0, 8) if ssm else (3, 5)) or (
+            not ssm and stats["evictions"] <= 0):
         fail(f"serve {cfg.name}: hits/misses/evictions {stats}")
     if stats["dropped"] != 0 or any(refs):
         fail(f"serve {cfg.name}: dropped {stats['dropped']}, refcounts "
@@ -1160,6 +1231,31 @@ def serve(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
             "refs": refs, "held_refs": held, "wall_s": wall, "prefill_ms": times["prefill"],
             "decode_ms": times["decode_step"],
             "tokens": sum(len(o) for o in outputs)}
+
+
+def decode_ops(model, dev) -> int:
+    """The aten ops one ``decode_step`` dispatches (batch 1, after a
+    16-token prefill): the host's work per generated token, which sets an
+    eager decode step's time. Run after a phase's launches are read."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import model as M
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = model.cfg
+    toks = torch.zeros((1, 16), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        _, caches = model.prefill(toks, M.zero_frontend_embeds(cfg, model))
+        caches = M.pad_caches(cfg, caches, 17)
+        with Count() as count:
+            model.decode_step(toks[:, :1], caches, 16)
+    return count.n
 
 
 def serve_phase(seed: int, dev):
@@ -1193,6 +1289,7 @@ def serve_phase(seed: int, dev):
     decode = rec["decode_ms"]
     out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "init_s": t_init, "requests": len(rec["outputs"]),
+           "decode_ops": decode_ops(model, dev),
            "cached_tokens": rec["cached_tokens"],
            "prefill_ms": rec["prefill_ms"],
            "decode_steps": len(decode),
@@ -1270,6 +1367,61 @@ def continuous(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
             "decode_ms": times["decode_step_packed"]}
 
 
+def whole_prompt_requests(seed: int, vocab: int, geo: dict):
+    """The reference scheduler test's prompts: ``geo["shared"]`` tokens
+    shared, then ``geo["suffixes"]`` of each one's own."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab, geo["shared"]).tolist()
+    return [shared + rng.integers(1, vocab, n).tolist()
+            for n in geo["suffixes"]]
+
+
+def continuous_whole_prompt(cfg, model, dev, seed: int, geo: dict):
+    """An SSM or hybrid stack through ``ContinuousBatchingScheduler``: its
+    whole-prompt fallback (no chunk call, nothing pooled or cached), the
+    packed decode over the recurrent state, a fresh device prefix cache on
+    ``dev``. Checks outputs, finite logits, cached prefixes, chunk calls
+    and refcounts; returns the same record as :func:`continuous`."""
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     PrefixKVCache, SchedRequest)
+    cache = PrefixKVCache(block_tokens=geo["block_tokens"],
+                          capacity_blocks=geo["capacity_blocks"],
+                          backend="device", device=dev,
+                          flush_threshold=geo.get("flush_threshold"))
+    sched = ContinuousBatchingScheduler(cfg, model, prefix_cache=cache,
+                                        max_slots=geo["max_slots"],
+                                        max_context=geo["max_context"])
+    prompts = whole_prompt_requests(seed, cfg.vocab_size, geo)
+    n_new = geo["max_new_tokens"]
+    with watched(model, ("prefill", "decode_step_packed"), dev, False) as (
+            _, finite):
+        done = sched.run([SchedRequest(prompt=p, max_new_tokens=n_new,
+                                       request_id=i)
+                          for i, p in enumerate(prompts)])
+    done = sorted(done, key=lambda r: r.request_id)
+    outputs = [r.output for r in done]
+    cached = [r.cached_tokens for r in done]
+    cache._refs.flush()
+    stats = cache.stats()
+    refs = cache._count(list(cache.store)).tolist()
+    cache.close()
+    what = f"serve continuous {cfg.name}"
+    if len(outputs) != len(prompts) or any(
+            len(o) != n_new or min(o) < 0 or max(o) >= cfg.vocab_size
+            for o in outputs):
+        fail(f"{what}: outputs are not {n_new} ids below {cfg.vocab_size}: "
+             f"{outputs}")
+    if not all(bool(f) for f in finite):
+        fail(f"{what}: non-finite logits")
+    if sched.chunk_calls or any(cached) or refs:
+        fail(f"{what}: the whole-prompt fallback ran {sched.chunk_calls} "
+             f"chunks, cached {cached}, left refcounts {refs}")
+    return {"outputs": outputs, "cached_tokens": cached, "stats": stats,
+            "refs": refs, "chunk_calls": sched.chunk_calls,
+            "decode_steps": sched.decode_steps, "prompts": prompts}
+
+
 def continuous_phase(seed: int, dev, model, serial_tokens_per_s: float):
     """Continuous batching on the serve phase's full-width model; the
     kernels' launches and the peak memory are this run's alone."""
@@ -1306,16 +1458,15 @@ def continuous_phase(seed: int, dev, model, serial_tokens_per_s: float):
     return out
 
 
-def tiny_models(seed: int, dev):
-    """llama32 TINY in f32 with the same weights on ``dev`` and on the
+def tiny_models(seed: int, dev, arch: str = "llama32_3b"):
+    """``arch``'s TINY in f32 with the same weights on ``dev`` and on the
     CPU → (cfg, models by device type)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config("llama32_3b", tiny=True),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
     cpu = torch.device("cpu")
     weights = Model(cfg, device=cpu, seed=seed).state_dict()
     models = {}
@@ -1325,20 +1476,29 @@ def tiny_models(seed: int, dev):
     return cfg, models
 
 
-def tiny_card_vs_cpu(seed: int, dev):
-    """llama32 TINY in f32, the same weights on the card and on the CPU:
+def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
+                     drained: bool = True) -> dict:
+    """``arch``'s TINY in f32, the same weights on the card and on the CPU:
     identical outputs, cached prefixes, prefix-cache stats and refcounts,
-    first as the serial engine leaves them, then drained into the device
-    table (every flash-hash kernel launched on the card). Every prefill on
-    the card runs the CUDA-core flash-attention kernel; returns its
-    launches over the first run."""
+    first as the serial engine leaves them, then (``drained``) drained
+    into the device table (every flash-hash kernel launched on the card).
+    Every prefill on the card runs the CUDA-core flash-attention kernel
+    in each attention layer. Returns the first run's record and its
+    flash-attention launches."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
-    cfg, models = tiny_models(seed, dev)
+    from repro_torch.models.model import has_ssm
+    cfg, models = tiny_models(seed, dev, arch)
     cpu = torch.device("cpu")
-    attn_launches = None
-    for name, geo in (("tiny", TINY_SERVE), ("tiny drained", TINY_DRAINED)):
+    label = "tiny" if arch == "llama32_3b" else f"tiny {arch}"
+    base = TINY_SERVE_SSM if has_ssm(cfg) else TINY_SERVE
+    geos = [(label, base)]
+    if drained:
+        geos.append((f"{label} drained",
+                     dict(base, flush_threshold=1, read_pins=True)))
+    first = None
+    for name, geo in geos:
         runs = {}
         timing = TIMING_STATS if geo.get("flush_threshold") else ()
         for d in (dev, cpu):
@@ -1352,12 +1512,13 @@ def tiny_card_vs_cpu(seed: int, dev):
             if d.type == "cuda":
                 launches = dict(K.LAUNCHES)
                 attn = dict(FK.LAUNCHES)
-        want = {FK.SIMT: 5 * cfg.num_layers, FK.WGMMA: 0}
+        # every miss prefills the whole prompt
+        prefills = rec["stats"]["misses"]
+        want = {FK.SIMT: prefills * attn_layers(cfg), FK.WGMMA: 0}
         if dev.type == "cuda" and attn != want:
             fail(f"serve {name}: flash-attention launches {attn}, expected "
-                 f"{want} (5 f32 prefills x {cfg.num_layers} layers)")
-        if attn_launches is None:
-            attn_launches = attn[FK.SIMT]
+                 f"{want} ({prefills} f32 prefills x {attn_layers(cfg)} "
+                 f"attention layers)")
         if runs["cuda"] != runs["cpu"]:
             fail(f"serve {name}: the card and the CPU differ: {runs}")
         if geo.get("flush_threshold") and min(launches.values()) <= 0:
@@ -1367,30 +1528,64 @@ def tiny_card_vs_cpu(seed: int, dev):
               f" held refcounts {json.dumps(runs['cpu'][3])} stats "
               f"{json.dumps(runs['cpu'][2])} card launches "
               f"{json.dumps({**launches, **attn})}", flush=True)
-    return attn_launches
+        if first is None:
+            first = {"arch": cfg.name, "prompt_len": geo["prompt_len"],
+                     "outputs_equal": True, "cached_tokens": runs["cpu"][1],
+                     "hits": rec["stats"]["hits"],
+                     "misses": rec["stats"]["misses"],
+                     "attention_launches": attn}
+        else:
+            first["drained_launches"] = launches
+    return first
 
 
-def tiny_continuous(seed: int, dev) -> None:
-    """The continuous run on the TINY twin, on the card and on the CPU:
-    identical outputs, cached prefixes, prefix-cache stats and refcounts,
-    and the serial engine's outputs; then drained into the device table,
-    where every flash-hash kernel must launch on the card."""
+def tiny_continuous(seed: int, dev, arch: str = "llama32_3b",
+                    drained: bool = True) -> dict:
+    """The continuous run on ``arch``'s TINY twin, on the card and on the
+    CPU: identical outputs, cached prefixes, prefix-cache stats and
+    refcounts, and the serial engine's outputs; then (``drained``) drained
+    into the device table, where every flash-hash kernel must launch on
+    the card. Attention stacks replay ``TINY_CONTINUOUS``'s trace on the
+    paged path; SSM and hybrid stacks take ``TINY_SSM_CONTINUOUS``'s
+    prompts through the whole-prompt fallback. A paged MoE stack routes
+    each 16-token chunk with its own expert capacity, so its outputs are
+    held to the card's and the CPU's, not to the serial engine's (the
+    reference's scheduler departs from its serial engine the same way).
+    Returns the first run's record."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models.model import has_ssm
     from repro_torch.serving import Request, ServeEngine, make_trace
-    cfg, models = tiny_models(seed, dev)
+    cfg, models = tiny_models(seed, dev, arch)
     cpu = torch.device("cpu")
-    tr = TINY_CONTINUOUS["trace"]
+    label = ("tiny continuous" if arch == "llama32_3b"
+             else f"tiny continuous {arch}")
+    if has_ssm(cfg):
+        geo = TINY_SSM_CONTINUOUS
+        prompts = whole_prompt_requests(seed, cfg.vocab_size, geo)
+        n_new = [geo["max_new_tokens"]] * len(prompts)
+        run = continuous_whole_prompt
+    else:
+        geo = TINY_CONTINUOUS
+        trace = make_trace(**geo["trace"], vocab_size=cfg.vocab_size,
+                           seed=seed)
+        prompts = [list(t.prompt) for t in trace]
+        n_new = [t.max_new_tokens for t in trace]
+        run = continuous
     serial = [r.output for r in ServeEngine(cfg, models["cpu"]).serve(
-        [Request(prompt=list(t.prompt), max_new_tokens=t.max_new_tokens)
-         for t in make_trace(**tr, vocab_size=cfg.vocab_size, seed=seed)])]
-    for name, geo in (("tiny continuous", TINY_CONTINUOUS),
-                      ("tiny continuous drained", TINY_CONTINUOUS_DRAINED)):
+        [Request(prompt=p, max_new_tokens=n) for p, n in zip(prompts,
+                                                             n_new)])]
+    must_equal_serial = has_ssm(cfg) or cfg.num_experts == 0
+    geos = [(label, geo)]
+    if drained:
+        geos.append((f"{label} drained", dict(geo, flush_threshold=1)))
+    first = None
+    for name, g in geos:
         runs = {}
         for d in (dev, cpu):
             zero_launches(K.LAUNCHES, FK.LAUNCHES, K.BASELINE_LAUNCHES)
-            rec = continuous(cfg, models[d.type], d, seed, geo)
+            rec = run(cfg, models[d.type], d, seed, g)
             no_baseline(f"serve {name}")
             stats = {k: v for k, v in rec["stats"].items()
                      if k not in TIMING_STATS}
@@ -1401,17 +1596,113 @@ def tiny_continuous(seed: int, dev) -> None:
                 launches = dict(K.LAUNCHES)
         if runs["cuda"] != runs["cpu"]:
             fail(f"serve {name}: the card and the CPU differ: {runs}")
-        if runs["cpu"][0] != serial:
+        equal_serial = runs["cpu"][0] == serial
+        if must_equal_serial and not equal_serial:
             fail(f"serve {name}: outputs differ from the serial engine's: "
                  f"{runs['cpu'][0]} against {serial}")
-        if geo.get("flush_threshold") and min(launches.values()) <= 0:
+        if g.get("flush_threshold") and min(launches.values()) <= 0:
             fail(f"serve {name}: the refcounts never went through a "
                  f"flash-hash kernel on the card: {launches}")
-        print(f"serve {name} card == cpu == serial: cached "
-              f"{json.dumps(runs['cpu'][1])} chunk calls {runs['cpu'][4]} "
-              f"decode steps {runs['cpu'][5]} stats "
+        print(f"serve {name} card == cpu{' == serial' * equal_serial}: "
+              f"cached {json.dumps(runs['cpu'][1])} chunk calls "
+              f"{runs['cpu'][4]} decode steps {runs['cpu'][5]} stats "
               f"{json.dumps(runs['cpu'][2])} card launches "
               f"{json.dumps(launches)}", flush=True)
+        if first is None:
+            first = {"arch": cfg.name, "requests": len(prompts),
+                     "outputs_equal": True, "equal_serial": equal_serial,
+                     "cached_tokens": runs["cpu"][1],
+                     "chunk_calls": runs["cpu"][4],
+                     "decode_steps": runs["cpu"][5]}
+    return first
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: the other model families
+# ---------------------------------------------------------------------------
+def family_serve_phase(seed: int, dev, arch: str, layers=None) -> dict:
+    """``arch``'s CONFIG at full width in bf16 (``layers`` of its layers
+    kept, or all), random weights from ``seed`` on the card, served as
+    the llama3.2-3b phase is (``SERVE``); its flash-attention launches
+    are this run's alone: every prefill in every attention layer on the
+    tensor-core kernel. The model is freed before it returns."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t_phase
+    params = sum(p.numel() for p in model.parameters())
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    rec = serve(cfg, model, dev, seed, SERVE, timed=True)
+    no_baseline(f"serve {cfg.name}")
+    launches = {**FK.LAUNCHES, **K.LAUNCHES}
+    prefills = rec["stats"]["misses"]
+    want = {FK.WGMMA: prefills * attn_layers(cfg), FK.SIMT: 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"serve {cfg.name}: flash-attention launches {got}, expected "
+             f"{want} ({prefills} prefills x {attn_layers(cfg)} attention "
+             f"layers, all bf16)")
+    decode = rec["decode_ms"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "layers_of": full_layers, "dtype": cfg.dtype,
+           "parameters": params, "init_s": t_init,
+           "requests": len(rec["outputs"]),
+           "cached_tokens": rec["cached_tokens"],
+           "prefill_ms": rec["prefill_ms"], "decode_steps": len(decode),
+           "decode_ms_per_token": statistics.median(decode),
+           "generated_tokens": rec["tokens"], "wall_s": rec["wall_s"],
+           "tokens_per_s": rec["tokens"] / rec["wall_s"],
+           "launches": launches, "prefix_cache": rec["stats"],
+           "phase_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "decode_ops": decode_ops(model, dev)}
+    del model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve {cfg.name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def families_phase(seed: int, dev, card: str) -> dict:
+    """The other families: each full-width serve (``FAMILY_SERVES``), each
+    TINY card-vs-CPU serial twin (``FAMILY_TWINS``; MLA again drained into
+    the device table), each continuous twin (``FAMILY_CONTINUOUS``).
+    Returns their records."""
+    rec = {"serve": {}, "tiny": {}, "tiny_continuous": {}}
+    for arch, layers in FAMILY_SERVES:
+        r = family_serve_phase(seed, dev, arch, layers)
+        rec["serve"][arch] = r
+        print(f"serve {r['arch']} ({r['layers']} of {r['layers_of']} "
+              f"layers, {r['parameters']} parameters; {r['phase_s']:.1f} "
+              f"s): init {r['init_s']:.1f} s, prefill ms "
+              f"{[round(t, 3) for t in r['prefill_ms']]}, decode "
+              f"{r['decode_ms_per_token']:.3f} ms/token (median of "
+              f"{r['decode_steps']}; {r['decode_ops']} ops a step), "
+              f"{r['tokens_per_s']:.1f} generated tokens/s, peak "
+              f"{r['phase_peak_gib']:.2f} GiB; card {card}",
+              flush=True)
+    t0 = time.perf_counter()
+    for arch in FAMILY_TWINS:
+        rec["tiny"][arch] = tiny_card_vs_cpu(seed, dev, arch,
+                                             drained=arch == "minicpm3_4b")
+    for arch in FAMILY_CONTINUOUS:
+        rec["tiny_continuous"][arch] = tiny_continuous(seed, dev, arch,
+                                                       drained=False)
+    rec["twins_s"] = time.perf_counter() - t0
+    return rec
 
 
 def main() -> int:
@@ -1520,8 +1811,8 @@ def main() -> int:
     served, model = serve_phase(args.seed, dev)
     print(f"serve: prefill ms {[round(t, 3) for t in served['prefill_ms']]};"
           f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "
-          f"{served['decode_steps']}); {served['tokens_per_s']:.1f} "
-          f"generated tokens/s", flush=True)
+          f"{served['decode_steps']}; {served['decode_ops']} ops a step); "
+          f"{served['tokens_per_s']:.1f} generated tokens/s", flush=True)
     cont = continuous_phase(args.seed, dev, model, served["tokens_per_s"])
     del model
     print(f"serve continuous ({cont['phase_s']:.1f} s): {cont['ticks']} "
@@ -1530,8 +1821,14 @@ def main() -> int:
           f"{cont['tokens_per_s']:.1f} generated tokens/s against the "
           f"serial engine's {served['tokens_per_s']:.1f}; card {card}",
           flush=True)
-    twin_launches = tiny_card_vs_cpu(args.seed, dev)
+    twin = tiny_card_vs_cpu(args.seed, dev)
     tiny_continuous(args.seed, dev)
+    torch.cuda.empty_cache()
+    fam = families_phase(args.seed, dev, card)
+    wgmma = served["launches"][FK.WGMMA] + sum(
+        r["launches"][FK.WGMMA] for r in fam["serve"].values())
+    simt = twin["attention_launches"][FK.SIMT] + sum(
+        r["attention_launches"][FK.SIMT] for r in fam["tiny"].values())
     kernels = []
     for name in K.LAUNCHES:
         # the lookup kernels at the layout the path launches them on
@@ -1545,10 +1842,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     # each flash-attention kernel at the shape of the path that runs it:
-    # the serve prefill (bf16) and the f32 twin's prefill
-    for name, case, launches in (
-            (FK.WGMMA, "serve", served["launches"][FK.WGMMA]),
-            (FK.SIMT, "tiny_f32", twin_launches)):
+    # the serve prefill (bf16) and the f32 twin's prefill; launches over
+    # every family's serve (bf16) and every twin's serial run (f32)
+    for name, case, launches in ((FK.WGMMA, "serve", wgmma),
+                                 (FK.SIMT, "tiny_f32", simt)):
         r = attn[case]
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
@@ -1558,6 +1855,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"families": fam}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Each ported module defines ``CONFIG`` (the published config) and ``TINY``
-(a reduced same-family config for CPU tests). ``ARCH_IDS`` lists every
-architecture of the reference; those not ported yet raise
-``NotImplementedError``.
+Each module defines ``CONFIG`` (the published config) and ``TINY`` (a
+reduced same-family config for CPU tests), field for field the
+reference's. ``ARCH_IDS`` lists every architecture; ``ALIASES`` maps the
+external ids onto them.
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from ..models.config import ModelConfig
 
@@ -38,18 +39,15 @@ ALIASES = {
     "jamba-1.5-large-398b": "jamba15_large_398b",
 }
 
-#: architectures whose configs (and model family) the port has
-PORTED = ("llama32_3b",)
-
 
 def get_config(arch: str, tiny: bool = False) -> ModelConfig:
     mod_name = ALIASES.get(arch, arch)
     if mod_name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; expected one of "
                          f"{ARCH_IDS} or an alias")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{mod_name} is not ported to the PyTorch package yet (see "
-            f"ROADMAP.md, Queue 1: MLA/MoE/SSM/hybrid families)")
     mod = importlib.import_module(f".{mod_name}", __package__)
     return mod.TINY if tiny else mod.CONFIG
+
+
+def all_configs(tiny: bool = False) -> Dict[str, ModelConfig]:
+    return {a: get_config(a, tiny) for a in ARCH_IDS}

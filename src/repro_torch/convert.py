@@ -111,7 +111,11 @@ def params_from_numpy(cfg, tree) -> Dict[str, torch.Tensor]:
     """The port's ``Model`` ``state_dict`` (CPU tensors) from the
     reference's parameter pytree with numpy leaves. The reference stacks
     each group slot on a leading ``layers`` axis; layer ``g * G + slot``
-    of the port is row ``g`` of slot ``slot`` (G = group size)."""
+    of the port is row ``g`` of slot ``slot`` (G = group size), whatever
+    its mixer (GQA, MLA, SSM) and FFN (dense, MoE, none). Every leaf
+    keeps its dtype: the MoE router and the SSM's ``a_log`` / ``d_skip``
+    / ``dt_bias`` are f32 in a bf16 model, as the port's modules hold
+    them."""
     sd = {f"embed.{n}": _tensor_from_numpy(a)
           for n, a in _walk(tree["embed"])}
     sd.update({f"final_norm.{n}": _tensor_from_numpy(a)

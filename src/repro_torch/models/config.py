@@ -3,9 +3,10 @@
 One :class:`ModelConfig` describes a decoder-only LM backbone composed of a
 repeating *group* of layers (``layer_pattern``), each layer being an
 ``attn``/``mla``/``ssm`` token mixer followed by a ``dense``/``moe``/``none``
-channel mixer (``ffn_pattern``). Homogeneous models use a group of size 1.
-The port runs the ``("attn",)`` + dense pattern so far (``model.py``); the
-schema keeps every field so configurations read the same in both packages.
+channel mixer (``ffn_pattern``). Homogeneous models use a group of size 1;
+Jamba's 1:7 attn:mamba interleave with MoE-every-other-layer uses a group of
+8. The schema keeps every field so configurations read the same in both
+packages.
 """
 from __future__ import annotations
 

@@ -38,7 +38,7 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator,
     device (the reference's ``_dense_init`` distribution)."""
     fan_in = max(w.shape[in_axis], 1)
     draw = torch.randn(w.shape, generator=gen, dtype=F32, device=w.device)
-    w.copy_(draw * (1.0 / fan_in ** 0.5))
+    w.copy_(draw.mul_(1.0 / fan_in ** 0.5))    # one f32 temporary, not two
 
 
 def matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -58,6 +58,13 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.to(F32)).to(dt)
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Mamba-2's output norm: RMSNorm(x · silu(gate)), the gate taken in
+    f32 and cast to x's type before the product."""
+    return rmsnorm(scale, x * F.silu(gate.to(F32)).to(x.dtype), eps)
 
 
 class RMSNorm(nn.Module):
@@ -111,7 +118,7 @@ class Embed(nn.Module):
     def init_(self, gen: torch.Generator) -> None:
         draw = torch.randn(self.tokens.shape, generator=gen, dtype=F32,
                            device=self.tokens.device)
-        self.tokens.copy_(draw * 0.02)
+        self.tokens.copy_(draw.mul_(0.02))
         del draw
         if hasattr(self, "head"):
             dense_init_(self.head, gen)

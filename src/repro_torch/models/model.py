@@ -1,8 +1,11 @@
 """Model assembly: ``embed → layers → final_norm → lm_head``.
 
-:class:`Model` holds one :class:`Block` per layer in an ``nn.ModuleList``
-(the reference stacks them on a leading ``layers`` axis and scans;
-``convert.params_from_numpy`` unstacks). Four serving modes share the
+:class:`Model` holds one :class:`Block` per layer in an ``nn.ModuleList``.
+Layer ``g · G + slot`` (G = ``len(layer_pattern)``) is group ``g``'s slot
+``slot``: an ``attn`` (GQA or MLA, by ``attn_type``) or ``ssm`` token
+mixer, then a ``dense``, ``moe`` or ``none`` channel mixer. The reference
+stacks each slot's layers on a leading axis and scans over groups;
+``convert.params_from_numpy`` unstacks. Four serving modes share the
 layer definition:
 
 * :meth:`Model.prefill`            — full sequence, returns last-position
@@ -10,60 +13,92 @@ layer definition:
 * :meth:`Model.decode_step`        — one token against the caches;
 * :meth:`Model.decode_step_packed` — one token per row, each row at its
   own position (the continuous-batching scheduler's packed slot table);
+  SSM decode is position-free, so it is packed by nature (idle rows
+  included, as in the reference);
 * :meth:`Model.prefill_chunk`      — a chunk of prompt at absolute
-  positions ``start..start+c`` against caches that hold the rows before.
+  positions ``start..start+c`` against caches that hold the rows before
+  (attention-only stacks).
 
-Caches keep the reference's layout: a list with one :class:`KVCache` per
-slot of ``layer_pattern``, each tensor stacked over layers,
-``(num_layers, b, s, kv, hd)``. The three cache modes write into them in
-place; :func:`pad_caches` always returns fresh storage, which is what keeps
-values held by the prefix cache's pool unmutated.
+Caches keep the reference's layout: a list with one cache tuple per slot
+of ``layer_pattern`` (:class:`~.attention.KVCache`,
+:class:`~.attention.MLACache` or :class:`~.ssm.SSMCache`), each tensor
+stacked over the groups, ``(num_groups, b, ...)``. The cache modes write
+into them in place; :func:`pad_caches` always returns fresh storage, which
+is what keeps values held by the prefix cache's pool unmutated.
 
-The port runs the ``("attn",)`` pattern with a dense FFN (GQA models such
-as llama3.2-3b). MLA, MoE, SSM, the modality frontends and training raise
-``NotImplementedError``.
+The modality stubs (``vision_stub``, ``audio_stub``) take precomputed
+embeddings, ``frontend_embeds`` (b, num_patches, d), which replace the
+first ``num_patches`` positions of the prefill's token embeddings.
+Training raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..core.table_torch import resolve_device
 from . import attention as attn
-from .attention import KVCache
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (FFN, Embed, RMSNorm, ffn_apply, lm_logits, rmsnorm,
                      torch_dtype)
 
 _LATER = "see ROADMAP.md, Queue 1"
+MIXERS = ("attn", "ssm")
+FFNS = ("dense", "moe", "none")
+FRONTENDS = ("none", "vision_stub", "audio_stub")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    what = None
-    if any(k != "attn" for k in cfg.layer_pattern):
-        what = f"layer_pattern {cfg.layer_pattern} (SSM / hybrid stacks)"
-    elif cfg.attn_type != "gqa":
-        what = f"attn_type {cfg.attn_type!r}"
-    elif any(f != "dense" for f in cfg.ffn_pattern):
-        what = f"ffn_pattern {cfg.ffn_pattern} (MoE)"
-    elif cfg.frontend != "none":
-        what = f"frontend {cfg.frontend!r}"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet ({_LATER})")
+    """Refuse a layout no reference configuration can hold."""
+    ok = (set(cfg.layer_pattern) <= set(MIXERS)
+          and set(cfg.ffn_pattern) <= set(FFNS)
+          and cfg.attn_type in ("gqa", "mla") and cfg.frontend in FRONTENDS)
+    if not ok:
+        raise ValueError(
+            f"{cfg.name}: layer_pattern {cfg.layer_pattern}, ffn_pattern "
+            f"{cfg.ffn_pattern}, attn_type {cfg.attn_type!r}, frontend "
+            f"{cfg.frontend!r}: expected mixers in {MIXERS}, FFNs in "
+            f"{FFNS}, attn_type gqa or mla, frontend in {FRONTENDS}")
+
+
+def has_ssm(cfg: ModelConfig) -> bool:
+    """Whether the stack holds an SSM layer (SSM or hybrid): its
+    recurrent state is neither sliced by position nor entered
+    mid-sequence, so serving prefills and caches whole prompts only."""
+    return "ssm" in cfg.layer_pattern
 
 
 class Block(nn.Module):
-    """One layer: ``mixer_ln → mixer (GQA) → ffn_ln → ffn``."""
+    """One layer: ``mixer_ln → mixer → [ffn_ln → ffn]``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: str, ffn_kind: str, dtype,
+                 device):
         super().__init__()
+        self.kind = kind
+        self.ffn_kind = ffn_kind
         self.mixer_ln = RMSNorm(cfg.d_model, dtype, device)
-        self.mixer = attn.GQA(cfg, dtype, device)
-        self.ffn_ln = RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = FFN(cfg, dtype, device)
+        if kind == "ssm":
+            self.mixer = ssm_mod.SSM(cfg, dtype, device)
+        elif cfg.attn_type == "mla":
+            self.mixer = attn.MLA(cfg, dtype, device)
+        else:
+            self.mixer = attn.GQA(cfg, dtype, device)
+        if ffn_kind != "none":
+            self.ffn_ln = RMSNorm(cfg.d_model, dtype, device)
+            self.ffn = (FFN(cfg, dtype, device) if ffn_kind == "dense"
+                        else moe_mod.MoE(cfg, dtype, device))
+
+
+class _Mode(NamedTuple):
+    """One cache mode's token mixers, each ``(p, cfg, h, layer_cache) →
+    (out, layer_cache)``."""
+    gqa: object
+    mla: object
+    ssm: object
 
 
 class Model(nn.Module):
@@ -71,8 +106,9 @@ class Model(nn.Module):
     asked for), its weights drawn from ``seed`` with a
     ``torch.Generator`` on that device, one tensor at a time, from the
     reference's distributions (N(0, 1)/sqrt(fan_in) matrices, embedding
-    N(0, 0.02²), norm scales 1). The draws are not JAX's: parity with the
-    reference goes through ``load_state_dict(params_from_numpy(...))``."""
+    N(0, 0.02²), norm scales 1, the SSM's own constants). The draws are
+    not JAX's: parity with the reference goes through
+    ``load_state_dict(params_from_numpy(...))``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -80,16 +116,19 @@ class Model(nn.Module):
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
         self.cfg = cfg
+        G = cfg.group_size
         self.embed = Embed(cfg, dtype, dev)
-        self.layers = nn.ModuleList(Block(cfg, dtype, dev)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            Block(cfg, cfg.layer_pattern[i % G], cfg.ffn_pattern[i % G],
+                  dtype, dev) for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.d_model, dtype, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             self.embed.init_(gen)
             for blk in self.layers:
                 blk.mixer.init_(gen)
-                blk.ffn.init_(gen)
+                if blk.ffn_kind != "none":
+                    blk.ffn.init_(gen)
 
     @property
     def device(self) -> torch.device:
@@ -99,80 +138,121 @@ class Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.final_norm.scale.dtype
 
-    # -- serving -------------------------------------------------------------
+    # -- layers --------------------------------------------------------------
     def _ffn(self, blk: Block, x):
-        return x + ffn_apply(blk.ffn, self.cfg,
-                             rmsnorm(blk.ffn_ln.scale, x, self.cfg.norm_eps))
+        """Residual channel mixer → (x, aux, counts or None)."""
+        if blk.ffn_kind == "none":
+            return x, None, None
+        h = rmsnorm(blk.ffn_ln.scale, x, self.cfg.norm_eps)
+        if blk.ffn_kind == "dense":
+            return x + ffn_apply(blk.ffn, self.cfg, h), None, None
+        y, aux, counts = moe_mod.moe_apply(blk.ffn, self.cfg, h)
+        return x + y, aux, counts
 
-    def prefill(self, tokens: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[KVCache]]:
-        """tokens: (b, s) → (logits (b, 1, V) f32 at the last position,
-        caches sized to s)."""
-        cfg = self.cfg
+    def _embed(self, tokens: torch.Tensor,
+               frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.embed(tokens)
+        if self.cfg.frontend == "none":
+            return x
+        if frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name}: frontend "
+                             f"{self.cfg.frontend!r} needs frontend_embeds "
+                             f"(b, {self.cfg.num_patches}, d)")
+        pe = frontend_embeds.to(x.dtype)
+        return torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
+
+    # -- serving -------------------------------------------------------------
+    def prefill(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, list]:
+        """tokens: (b, s) [+ ``frontend_embeds`` (b, num_patches, d) for
+        the stubs] → (logits (b, 1, V) f32 at the last position, caches
+        sized to s)."""
+        cfg = self.cfg
+        x = self._embed(tokens, frontend_embeds)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None, :]
-        ks, vs = [], []
-        for blk in self.layers:
-            h = rmsnorm(blk.mixer_ln.scale, x, cfg.norm_eps)
-            mix, k, v = attn.gqa_full_kv(blk.mixer, cfg, h, positions)
-            x = self._ffn(blk, x + mix)
-            ks.append(k)
-            vs.append(v)
-        x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
-        logits = lm_logits(self.embed, cfg, x[:, -1:, :])
-        return logits, [KVCache(torch.stack(ks), torch.stack(vs))]
-
-    def _over_caches(self, tokens: torch.Tensor, caches: List[KVCache],
-                     mixer) -> Tuple[torch.Tensor, List[KVCache]]:
-        """Every layer with ``mixer(gqa, cfg, h, layer_cache)`` as its
-        token mixer, which writes its K/V rows into the layer's cache in
-        place → (logits (b, s, V) f32 at every position, caches)."""
-        cfg = self.cfg
-        x = self.embed(tokens)
-        (c,) = caches
+        per_slot: List[list] = [[] for _ in range(cfg.group_size)]
         for i, blk in enumerate(self.layers):
             h = rmsnorm(blk.mixer_ln.scale, x, cfg.norm_eps)
-            mix, _ = mixer(blk.mixer, cfg, h, KVCache(c.k[i], c.v[i]))
-            x = self._ffn(blk, x + mix)
+            if blk.kind == "ssm":
+                mix, cache = ssm_mod.ssd_full(blk.mixer, cfg, h,
+                                              return_cache=True)
+            elif cfg.attn_type == "mla":
+                mix, latent, k_rope = attn.mla_full_cache(blk.mixer, cfg, h,
+                                                          positions)
+                cache = attn.MLACache(latent, k_rope)
+            else:
+                mix, k, v = attn.gqa_full_kv(blk.mixer, cfg, h, positions)
+                cache = attn.KVCache(k, v)
+            x, _, _ = self._ffn(blk, x + mix)
+            per_slot[i % cfg.group_size].append(cache)
+        x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
+        logits = lm_logits(self.embed, cfg, x[:, -1:, :])
+        return logits, [type(cs[0])(*(torch.stack(t) for t in zip(*cs)))
+                        for cs in per_slot]
+
+    def _over_caches(self, tokens: torch.Tensor, caches: list, mode: _Mode
+                     ) -> Tuple[torch.Tensor, list]:
+        """Every layer with its mode's mixer over its own views of the
+        caches, which the mixer writes in place → (logits (b, s, V) f32 at
+        every position, caches)."""
+        cfg = self.cfg
+        G = cfg.group_size
+        x = self.embed(tokens)
+        for i, blk in enumerate(self.layers):
+            c = caches[i % G]
+            view = type(c)(*(t[i // G] for t in c))
+            h = rmsnorm(blk.mixer_ln.scale, x, cfg.norm_eps)
+            if blk.kind == "ssm":
+                fn = mode.ssm
+            else:
+                fn = mode.mla if cfg.attn_type == "mla" else mode.gqa
+            mix, _ = fn(blk.mixer, cfg, h, view)
+            x, _, _ = self._ffn(blk, x + mix)
         x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
         return lm_logits(self.embed, cfg, x), caches
 
-    def decode_step(self, tokens: torch.Tensor, caches: List[KVCache],
-                    index: int) -> Tuple[torch.Tensor, List[KVCache]]:
+    def decode_step(self, tokens: torch.Tensor, caches: list, index: int
+                    ) -> Tuple[torch.Tensor, list]:
         """tokens: (b, 1) at position ``index`` → (logits (b, 1, V) f32,
-        caches). The K/V rows are written into ``caches`` in place."""
-        return self._over_caches(
-            tokens, caches,
-            lambda p, cfg, h, c: attn.gqa_decode(p, cfg, h, c, index))
+        caches). Every layer's new rows or state go into ``caches`` in
+        place."""
+        return self._over_caches(tokens, caches, _Mode(
+            lambda p, cfg, h, c: attn.gqa_decode(p, cfg, h, c, index),
+            lambda p, cfg, h, c: attn.mla_decode(p, cfg, h, c, index),
+            ssm_mod.ssd_decode))
 
-    def decode_step_packed(self, tokens: torch.Tensor,
-                           caches: List[KVCache], indices: torch.Tensor
-                           ) -> Tuple[torch.Tensor, List[KVCache]]:
+    def decode_step_packed(self, tokens: torch.Tensor, caches: list,
+                           indices: torch.Tensor
+                           ) -> Tuple[torch.Tensor, list]:
         """tokens: (b, 1); ``indices``: (b,) int on the model's device, row
-        r's position → (logits (b, 1, V) f32, caches). Each row's K/V is
-        written into ``caches`` in place at its own index."""
-        return self._over_caches(
-            tokens, caches,
+        r's position → (logits (b, 1, V) f32, caches). Each row's rows or
+        state go into ``caches`` in place at its own index."""
+        return self._over_caches(tokens, caches, _Mode(
             lambda p, cfg, h, c: attn.gqa_decode_packed(p, cfg, h, c,
-                                                        indices))
+                                                        indices),
+            lambda p, cfg, h, c: attn.mla_decode_packed(p, cfg, h, c,
+                                                        indices),
+            ssm_mod.ssd_decode))
 
-    def prefill_chunk(self, tokens: torch.Tensor, caches: List[KVCache],
-                      start: int) -> Tuple[torch.Tensor, List[KVCache]]:
+    def prefill_chunk(self, tokens: torch.Tensor, caches: list, start: int
+                      ) -> Tuple[torch.Tensor, list]:
         """tokens: (b, c) at absolute positions ``start..start+c`` against
         caches whose rows below ``start`` already hold the prefix →
-        (logits (b, c, V) f32, caches), the chunk's K/V written in place.
+        (logits (b, c, V) f32, caches), the chunk's rows written in place.
         Attention-only stacks: an SSM's recurrent state cannot be entered
         mid-sequence."""
-        if any(k == "ssm" for k in self.cfg.layer_pattern):
+        if has_ssm(self.cfg):
             raise ValueError(
                 f"prefill_chunk requires a pure-attention stack; "
                 f"{self.cfg.name} has layer_pattern="
                 f"{self.cfg.layer_pattern}")
-        return self._over_caches(
-            tokens, caches,
-            lambda p, cfg, h, c: attn.gqa_chunk_append(p, cfg, h, c, start))
+        return self._over_caches(tokens, caches, _Mode(
+            lambda p, cfg, h, c: attn.gqa_chunk_append(p, cfg, h, c, start),
+            lambda p, cfg, h, c: attn.mla_chunk_append(p, cfg, h, c, start),
+            None))
 
     # -- not ported yet ------------------------------------------------------
     def forward_train(self, *args, **kwargs):
@@ -182,24 +262,55 @@ class Model(nn.Module):
         raise NotImplementedError(f"training is not ported yet ({_LATER})")
 
 
+def zero_frontend_embeds(cfg: ModelConfig, model: Model
+                         ) -> Optional[torch.Tensor]:
+    """Zero stub embeddings (1, num_patches, d) on the model's device for
+    a model with a modality frontend, else None: what the reference's
+    serving paths pass."""
+    if cfg.frontend == "none":
+        return None
+    return torch.zeros((1, cfg.num_patches, cfg.d_model), dtype=model.dtype,
+                       device=model.device)
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype,
-                device="cuda") -> List[KVCache]:
-    """Zero caches, ``(num_layers, batch, s_max, kv, hd)`` per tensor."""
+                device="cuda") -> list:
+    """Zero caches, one tuple per slot, each tensor ``(num_groups, batch,
+    ...)``: K/V ``(…, s_max, kv, hd)``, MLA latent / roped key
+    ``(…, s_max, kv_lora | rope)``, SSM conv tail ``(…, conv_width - 1,
+    d_inner + 2·d_state)`` and state ``(…, heads, headdim, d_state)`` in
+    f32."""
     _check_supported(cfg)
-    shape = (cfg.num_groups, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
-    return [KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                    torch.zeros(shape, dtype=dtype, device=dev))]
+    n = cfg.num_groups
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((n, batch) + shape, dtype=dt, device=dev)
+
+    caches = []
+    for kind in cfg.layer_pattern:
+        if kind == "ssm":
+            caches.append(ssm_mod.SSMCache(
+                zeros(cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                zeros(cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                      dt=torch.float32)))
+        elif cfg.attn_type == "mla":
+            caches.append(attn.MLACache(
+                zeros(s_max, cfg.kv_lora_rank), zeros(s_max, cfg.qk_rope_dim)))
+        else:
+            kv = (s_max, cfg.num_kv_heads, cfg.head_dim)
+            caches.append(attn.KVCache(zeros(*kv), zeros(*kv)))
+    return caches
 
 
-def pad_caches(cfg: ModelConfig, caches: List[KVCache],
-               new_len: int) -> List[KVCache]:
-    """Copies of ``caches`` with the sequence axis grown to ``new_len``
-    (never shrunk; zero rows appended). Always fresh storage, even when
-    nothing grows: decode writes into what this returns."""
+def pad_caches(cfg: ModelConfig, caches: list, new_len: int) -> list:
+    """Copies of ``caches`` with the attention caches' sequence axis grown
+    to ``new_len`` (never shrunk; zero rows appended); SSM caches are
+    copied as they are. Always fresh storage, even when nothing grows:
+    decode writes into what this returns."""
     out = []
     for kind, c in zip(cfg.layer_pattern, caches):
         if kind == "attn":
@@ -209,6 +320,8 @@ def pad_caches(cfg: ModelConfig, caches: List[KVCache],
                 y = x.new_zeros(shape)
                 y[:, :, :x.shape[2]] = x
                 return y
-            c = KVCache(grow(c.k), grow(c.v))
+            c = type(c)(*(grow(x) for x in c))
+        else:
+            c = type(c)(*(x.clone() for x in c))
         out.append(c)
     return out

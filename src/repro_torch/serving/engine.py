@@ -8,7 +8,11 @@ from the cached block prefix instead of prefilling. Decoding is one
 
 Cached values are never written: the pool holds views of a prefill's
 caches (``_slicer``), and every cache the engine decodes into comes out
-of ``pad_caches``, which always copies.
+of ``pad_caches``, which always copies. SSM and hybrid stacks have no
+slicer (a recurrent state is not cut by position), so only a prompt's
+whole-block prefix is registered, as in the reference. Models with a
+modality stub get zero frontend embeddings, as the reference's engine
+gives them.
 """
 from __future__ import annotations
 
@@ -68,7 +72,8 @@ class ServeEngine:
                         caches, prompt[-1], consumed - 1)
                 return logits, caches, consumed, n, pinned
         tokens = torch.tensor([prompt], dtype=torch.int64, device=self.device)
-        logits, caches = self.model.prefill(tokens)
+        logits, caches = self.model.prefill(
+            tokens, M.zero_frontend_embeds(self.cfg, self.model))
         if self.cache is not None:
             pinned += self.cache.insert(prompt, caches,
                                         slicer=self._slicer())
@@ -77,7 +82,7 @@ class ServeEngine:
     def _slicer(self):
         """Seq-axis cache trimmer (views, not copies) — only for
         pure-attention stacks."""
-        if any(k == "ssm" for k in self.cfg.layer_pattern):
+        if M.has_ssm(self.cfg):
             return None
 
         def slicer(caches, n):

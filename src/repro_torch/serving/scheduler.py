@@ -18,8 +18,10 @@ cached prefixes come straight back out (``acquire_blocks``, then one row
 copy per block). The counting flash-hash refcounts pin each block for
 the lifetime of the requests using it.
 
-The slot caches, ``(layers, max_slots, max_context + 1, kv, hd)`` on the
-model's device, are written in place: a chunk runs on views of its own
+The slot caches (``model.init_caches`` over ``max_slots`` rows of
+``max_context + 1`` positions: K/V or MLA's latent and roped key, or an
+SSM's conv tail and state, each stacked over the groups) live on the
+model's device and are written in place: a chunk runs on views of its own
 slot's rows, so the other slots are untouched; a packed decode writes one
 row per slot. A pooled block is a copy (fresh storage that no later
 decode or chunk can reach), and a pinned block is copied into a slot's
@@ -27,9 +29,12 @@ rows, never aliased. A tick syncs the host once per packed decode (the
 argmax of every row) and once per finished prefill, as the reference
 does; token and index tensors reach the card by asynchronous copies.
 
-SSM / hybrid stacks need the reference's whole-prompt prefill fallback,
-which waits for the SSM family (``ROADMAP.md``, Queue 1); the scheduler
-refuses them.
+SSM / hybrid stacks cannot enter a recurrent state mid-sequence, so they
+take the reference's whole-prompt fallback: the prompt is prefilled at
+its exact length (frontend stub embeddings included), its caches padded
+to the slot's rows and copied into them, and no chunk, block pool or
+prefix lookup is used. Packed decode is unchanged: SSM decode is
+position-free.
 
 This module is the one serving file allowed to use ``threading``
 (flashlint FL004): :func:`replay_trace` replays an arrival-timed trace
@@ -49,12 +54,9 @@ import numpy as np
 import torch
 
 from ..models import model as M
-from ..models.attention import KVCache
 from ..models.config import ModelConfig
 from .block_pool import NUM_TOKENS_IN_BLOCK
 from .prefix_cache import PrefixKVCache
-
-_LATER = "see ROADMAP.md, Queue 1"
 
 
 @dataclasses.dataclass
@@ -84,10 +86,6 @@ class ContinuousBatchingScheduler:
                  prefix_cache: Optional[PrefixKVCache] = None,
                  max_slots: int = 4, max_context: int = 192,
                  prefill_chunks_per_tick: int = 1):
-        if any(k == "ssm" for k in cfg.layer_pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: the whole-prompt prefill fallback of SSM / "
-                f"hybrid stacks is not ported yet ({_LATER})")
         # a device table of refcounts must share the model's device; the
         # sim's refcounts live on the host beside any model
         if prefix_cache is not None and prefix_cache.refs is not None:
@@ -104,6 +102,7 @@ class ContinuousBatchingScheduler:
         self.prefill_chunks_per_tick = prefill_chunks_per_tick
         self.bt = (prefix_cache.block_tokens if prefix_cache is not None
                    else NUM_TOKENS_IN_BLOCK)
+        self._ssm = M.has_ssm(cfg)
         # slot rows run 0..max_context-1; row max_context is a scratch row
         # where idle slots "decode" a dummy token each tick (never attended
         # to: every real query position is < max_context)
@@ -127,7 +126,7 @@ class ContinuousBatchingScheduler:
                 f"request needs {len(req.prompt) + req.max_new_tokens} "
                 f"rows > max_context={self.max_context}")
         padded = -(-len(req.prompt) // self.bt) * self.bt
-        if padded > self.s_max:
+        if not self._ssm and padded > self.s_max:
             # the last chunk's padding would run past the cache (the
             # reference clamps that chunk onto earlier rows)
             raise ValueError(
@@ -147,23 +146,22 @@ class ContinuousBatchingScheduler:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _row(self, slot: int) -> List[KVCache]:
-        """Views of one slot's rows, (layers, 1, s_max, kv, hd)."""
-        return [KVCache(c.k[:, slot:slot + 1], c.v[:, slot:slot + 1])
+    def _row(self, slot: int) -> list:
+        """Views of one slot's caches, every tensor (groups, 1, ...)."""
+        return [type(c)(*(x[:, slot:slot + 1] for x in c))
                 for c in self.caches]
 
-    def _read_block(self, slot: int, start: int) -> List[KVCache]:
+    def _read_block(self, slot: int, start: int) -> list:
         """A copy of one slot's rows ``[start, start+B)``: fresh storage,
         so the pooled segment never changes when the slot is reused."""
-        return [KVCache(*(x[:, :, start:start + self.bt].clone()
+        return [type(c)(*(x[:, :, start:start + self.bt].clone()
                           for x in c)) for c in self._row(slot)]
 
-    def _write_block(self, seg: List[KVCache], slot: int, start: int
-                     ) -> None:
+    def _write_block(self, seg: list, slot: int, start: int) -> None:
         """Copy a pooled segment into one slot's rows ``[start, start+B)``."""
         for c, s in zip(self._row(slot), seg):
-            c.k[:, :, start:start + self.bt].copy_(s.k)
-            c.v[:, :, start:start + self.bt].copy_(s.v)
+            for x, y in zip(c, s):
+                x[:, :, start:start + self.bt].copy_(y)
 
     # -- admission -----------------------------------------------------------
     def _admit(self) -> None:
@@ -175,7 +173,10 @@ class ContinuousBatchingScheduler:
             slot = self._free_slots.pop()
             req.slot = slot
             req.start_s = time.monotonic()
-            self._admit_paged(req)
+            if self._ssm:
+                self._admit_whole_prompt(req)
+            else:
+                self._admit_paged(req)
             self._active[slot] = req
 
     def _admit_paged(self, req: SchedRequest) -> None:
@@ -192,6 +193,22 @@ class ContinuousBatchingScheduler:
         # with an empty output; the first decode tick re-decodes the final
         # prompt token at its own position to recover first-token logits
         req.phase = "prefill" if n < len(req.prompt) else "decode"
+
+    def _admit_whole_prompt(self, req: SchedRequest) -> None:
+        """SSM / hybrid fallback: prefill the whole prompt at its exact
+        length and copy its caches, padded to the slot's rows, into the
+        slot."""
+        tokens = self._tensor([req.prompt])
+        logits, row = self.model.prefill(
+            tokens, M.zero_frontend_embeds(self.cfg, self.model))
+        row = M.pad_caches(self.cfg, row, self.s_max)
+        for c, r in zip(self._row(req.slot), row):
+            for x, y in zip(c, r):
+                x.copy_(y)
+        req.done = len(req.prompt)
+        req.output.append(
+            int(torch.argmax(logits[0, -1, :self.cfg.vocab_size])))
+        req.phase = "decode"
 
     # -- chunked prefill ------------------------------------------------------
     def _prefill_one_chunk(self, req: SchedRequest) -> None:

@@ -36,7 +36,8 @@ def _port_files():
     assert {"core/wal.py", "core/table_sim.py", "core/flash_model.py",
             "checkpoint/checkpoint.py", "serving/scheduler.py",
             "serving/trace.py", "core/distributed.py",
-            "runtime/elastic.py"} <= names
+            "runtime/elastic.py", "models/moe.py", "models/ssm.py",
+            "configs/jamba15_large_398b.py"} <= names
     return files
 
 
@@ -78,6 +79,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.flash_hash.check\n"
         "import repro_torch.kernels.flash_hash.build\n"
         "import repro_torch.models, repro_torch.models.model\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "from repro_torch.configs import all_configs; all_configs()\n"
         "import repro_torch.configs, repro_torch.serving\n"
         "import repro_torch.serving.scheduler, repro_torch.serving.trace\n"
         "import repro_torch.launch.serve\n"

@@ -342,6 +342,11 @@ def _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal, qk_scale=1.0):
     (1, 100, 6, 2, 40, 24, True, 1),        # widths below a box, not 2**n
     (1, 512, 24, 8, 128, 128, True, 8),     # q, k x8: scores x64
     (2, 333, 6, 2, 64, 64, False, 8),       # the same, non-causal, ragged
+    (1, 512, 40, 40, 96, 64, True, 1),      # minicpm3's MLA prefill heads
+    (1, 1000, 40, 40, 96, 64, True, 1),     # the same, ragged
+    (1, 512, 16, 8, 64, 64, True, 1),       # granite-moe-1b
+    (1, 512, 36, 4, 128, 128, True, 1),     # starcoder2-7b, h/kvh = 9
+    (1, 512, 96, 8, 192, 192, True, 1),     # nemotron-4-340b
 ])
 def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
                                              causal, qk_scale):
@@ -403,3 +408,46 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
     assert FK.LAUNCHES == {FK.SIMT: 5 * cfg.num_layers, FK.WGMMA: 0}
     if flush_threshold:
         assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "phi35_moe_42b",
+                                  "minicpm3_4b", "starcoder2_7b",
+                                  "nemotron4_340b", "llava_next_mistral_7b",
+                                  "mamba2_2p7b", "musicgen_large",
+                                  "jamba15_large_398b"])
+def test_family_serving_on_card_equals_serving_on_cpu(cuda, arch):
+    """Each family's TINY in f32 with the same weights on both devices:
+    the same greedy outputs, cached prefixes and cache stats; every
+    attention prefill on the card went through the CUDA-core kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import PrefixKVCache, Request, ServeEngine
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    cpu_model = Model(cfg, device="cpu", seed=3)
+    n = 32 if "ssm" in cfg.layer_pattern else 40
+    rng = np.random.default_rng(0)
+    p0 = rng.integers(0, cfg.vocab_size, n).tolist()
+    prompts = ([p0] + [p0[:16] + rng.integers(0, cfg.vocab_size,
+                                              n - 16).tolist()
+                       for _ in range(3)]
+               + [rng.integers(0, cfg.vocab_size, n).tolist()
+                  for _ in range(4)])
+    runs = {}
+    for k in FK.LAUNCHES:
+        FK.LAUNCHES[k] = 0
+    for dev in ("cpu", cuda):
+        model = Model(cfg, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        cache = PrefixKVCache(block_tokens=8, capacity_blocks=5, device=dev)
+        done = ServeEngine(cfg, model, cache).serve(
+            [Request(prompt=list(p), max_new_tokens=8) for p in prompts])
+        cache._refs.flush()
+        runs[str(dev)] = ([r.output for r in done],
+                          [r.cached_tokens for r in done], cache.stats())
+        cache.close()
+    assert runs["cpu"] == runs[str(cuda)]
+    attn_layers = cfg.num_groups * cfg.layer_pattern.count("attn")
+    prefills = 5 if "ssm" not in cfg.layer_pattern else 8
+    assert FK.LAUNCHES == {FK.SIMT: prefills * attn_layers, FK.WGMMA: 0}

@@ -365,14 +365,6 @@ def test_pins_released_and_oversized_requests_refused():
     cache.close()
 
 
-def test_scheduler_refuses_what_is_not_ported():
-    _, _, cfg, model = _pair()
-    ssm = dataclasses.replace(cfg, layer_pattern=("attn", "ssm"),
-                              ffn_pattern=("dense", "dense"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingScheduler(ssm, model)
-
-
 def _hold_crank_until_submitted(sched, n):
     """Make ``sched.step`` wait until ``n`` requests were submitted, so the
     first tick admits a full slot table whatever the feeders' interleaving
