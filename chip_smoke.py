@@ -152,8 +152,39 @@ fails (non-zero exit, no result line) without them. Phases:
    reference scheduler test's prompts; outputs equal to the serial
    engine's except on the paged MoE stack, whose 16-token chunks route
    with their own expert capacity;
-16. a ``families`` JSON line with every record of 13-15, a ``kernels``
-   JSON line, then the card line, then the result line.
+16. training at full width: ``repro_torch.launch.train`` (in this
+   process) trains llama3.2-3b (28 layers, bf16, random weights from
+   ``--seed``) for 8 steps behind the flash-hash TF-IDF document filter
+   (``CorpusStats``, 2**16 slots in blocks of 512, over the train CLI's
+   512-document corpus), at the train CLI's defaults: global batch 8 of 128
+   tokens in 2 microbatches, peak lr 3e-3, 20 warm-up steps, AdamW with
+   f32 moments, every group recomputed in the backward pass. No
+   checkpoint is written at this width (10 bytes a parameter). Checks:
+   finite losses and gradient norms, step 0's loss within 0.5 of
+   ln(128,256) + var/2 (var: the variance of step 0's logits over the
+   vocabulary, ~0.02**2 x 3072 = 1.23 for tied embeddings drawn
+   N(0, 0.02**2); random logits cost ln V + var/2), the mean of the last two losses below step 0's, every
+   attention projection of every layer with a nonzero gradient on step
+   0's first microbatch, all three hash kernels launched by the filter
+   and no flash-attention launch (training attends through the plain
+   ``_sdpa``, as the reference trains through its jnp attention), 8
+   steps, no restart, no rollback. It prints each step's loss, gradient
+   norm and time, the median step time, tokens/s, the aten ops of one
+   step (forward, backward and AdamW, counted as ``decode_ops`` counts a
+   decode step) and the phase's peak memory;
+17. train twins: the TINY f32 llama32, granite-moe-1b (MoE), minicpm3
+   (MLA) and mamba2 (SSM), each trained 4 steps by the train CLI on the card
+   and on the CPU with the same weights, checkpointing every 2 steps,
+   with a failure injected at step 3 (a restart from step 2's
+   checkpoint): equal reports, losses within 1e-4 relative, the same
+   kept documents and corpus counts, the hash kernels launched on the
+   card. A fresh process (this script under ``--train-child``, reusing
+   the kernels built above) resumes the llama twin's card checkpoint and
+   trains step 3 again: its loss equals the card run's within 1e-5;
+18. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
+   line with the records of 16-17, a ``kernels`` JSON line (each hash
+   kernel's launches on the main path and, as ``train_launches``, in
+   phase 16), then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -264,6 +295,11 @@ TINY_SERVE_SSM = dict(TINY_SERVE, prompt_len=32)
 TINY_SSM_CONTINUOUS = dict(max_slots=2, max_context=64, capacity_blocks=32,
                            block_tokens=16, shared=16,
                            suffixes=(5, 9, 0, 16), max_new_tokens=8)
+#: the tiny train twins: 4 steps, a checkpoint every 2, a failure
+#: injected at step 3 (a restart from step 2's checkpoint)
+TINY_TRAIN = dict(steps=4, ckpt_every=2, fail_at=3)
+TINY_TRAIN_ARCHS = ("llama32_3b", "granite_moe_1b", "minicpm3_4b",
+                    "mamba2_2p7b")
 #: the durability run: FULL's stream in 16 batches, a snapshot after
 #: batch 4, the child killed at the seal of batch 8
 DURABILITY = dict(batches=16, snap_at=4, kill_at=8)
@@ -1705,6 +1741,308 @@ def families_phase(seed: int, dev, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def train_argv(arch: str, steps: int, ckpt_dir: Path, seed: int,
+               ckpt_every: int, dev, tiny: bool = False):
+    """The train CLI's flags: its own defaults (global batch 8, seq
+    128, 2 microbatches, peak lr 3e-3) plus these."""
+    return (["--arch", arch, "--steps", str(steps), "--tfidf-filter",
+             "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(ckpt_every),
+             "--seed", str(seed), "--device", str(dev)]
+            + (["--tiny"] if tiny else []))
+
+
+def train_ops(run) -> int:
+    """The aten ops one more train step dispatches, backward and AdamW
+    included (a ``TorchDispatchMode``, as ``decode_ops`` counts a decode
+    step): the host's work per step. Run after the phase's checks."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    step = run.args.steps
+    with Count() as count:
+        run.trainer.step_fn(run.state, step)
+    run.history.pop()
+    return count.n
+
+
+def step0_check(run, dev) -> dict:
+    """Step 0's first microbatch through the built model, before the first
+    step: the gradient of every attention projection of every layer (the
+    trap of an attention that autograd treats as a constant is a zero
+    ``wq`` / ``wk`` / ``wv``), and the variance of the logits over the
+    vocabulary. Returns the smallest max-abs gradient of each projection
+    and the mean logit variance."""
+    import torch
+    from repro_torch.data import make_batch
+    model = run.state.model
+    mb = {k: torch.from_numpy(v[0]).to(dev)
+          for k, v in make_batch(run.lcfg, 0).items()}
+    names = ("wq", "wk", "wv", "wo")
+    leaves = [getattr(blk.mixer, n) for blk in model.layers for n in names]
+    with torch.no_grad():
+        logits, _, _ = model.forward_train(mb, remat=False)
+        var = float(logits[..., :run.cfg.vocab_size].var(-1).mean())
+        del logits
+    loss, _ = model.loss_fn(mb)
+    grads = torch.autograd.grad(loss, leaves)
+    amax = torch.stack([g.abs().amax().float() for g in grads]).cpu()
+    del grads, loss
+    per = amax.reshape(len(model.layers), len(names))
+    zero = [(i, names[j]) for i, j in (per == 0).nonzero().tolist()]
+    if zero:
+        fail(f"train: zero attention gradients on step 0 at {zero}")
+    return {"min_attention_grad": {n: float(per[:, j].min())
+                                   for j, n in enumerate(names)},
+            "logit_var": var}
+
+
+def train_phase(seed: int, dev, card: str) -> dict:
+    """llama3.2-3b at full width in bf16 (random weights from ``seed``)
+    trained 8 steps by ``repro_torch.launch.train`` in this process, behind
+    the flash-hash TF-IDF filter; no checkpoint is written (a train state
+    is 10 bytes a parameter, and the train CLI would save step 0: its
+    manager's periodic save is switched off). Checks finite losses and gradient norms,
+    step 0's loss within 0.5 of ln(vocab), the last two steps' mean loss
+    below step 0's, every attention projection's gradient nonzero on
+    step 0, the three hash kernels launched by the filter and no
+    flash-attention launch (training attends through ``_sdpa``), 8 steps,
+    0 restarts, 0 rollbacks."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.launch import train
+    torch.cuda.synchronize(dev)       # the peak counters need the context
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    workdir = Path(tempfile.mkdtemp(prefix="flash-train-"))
+    step0 = {}
+    try:
+        args = train.parse_args(train_argv("llama32_3b", 8, workdir / "ck",
+                                           seed, 1000, dev))
+        zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+        def built(r):
+            # the train CLI checkpoints step 0 whatever --ckpt-every says
+            # (0 % n == 0), as the reference's does: at this width that
+            # is 32 GB, so this run's manager saves nothing
+            r.trainer.ckpt.maybe_save = lambda *a, **k: False
+            step0.update(step0_check(r, dev))
+
+        run = train.run(args, on_built=built)
+        no_baseline("train")
+        launches = {**K.LAUNCHES, **FK.LAUNCHES}
+        hist = run.history
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        cfg = run.cfg
+        rep = run.report
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f"train: non-finite loss or grad norm: {hist}")
+        # random logits of variance s2 over V lanes cost ln V + s2 / 2
+        # in expectation: with tied embeddings drawn N(0, 0.02**2) and a
+        # unit-RMS final norm, s2 = 0.02**2 * d = 1.23 at d = 3072
+        expect = math.log(cfg.vocab_size) + step0["logit_var"] / 2
+        if abs(losses[0] - expect) > 0.5:
+            fail(f"train: step 0 loss {losses[0]} is not within 0.5 of "
+                 f"ln({cfg.vocab_size}) + var/2 = {expect:.4f} (logit "
+                 f"variance {step0['logit_var']:.4f})")
+        if statistics.fmean(losses[-2:]) >= losses[0]:
+            fail(f"train: the loss did not fall: {losses}")
+        if (rep.steps_done, rep.restarts, rep.rollbacks) != (8, 0, 0) or \
+                len(hist) != 8:
+            fail(f"train: report {rep}, {len(hist)} steps recorded")
+        if min(K.LAUNCHES.values()) <= 0:
+            fail(f"train: a hash kernel never launched in the filter: "
+                 f"{K.LAUNCHES}")
+        if any(FK.LAUNCHES.values()):
+            fail(f"train: the forward-only flash-attention kernel launched "
+                 f"in training: {FK.LAUNCHES}")
+        if (workdir / "ck").exists() and any((workdir / "ck").iterdir()):
+            fail("train: the full-width phase wrote a checkpoint")
+        times = run.trainer.watchdog.times
+        step_s = statistics.median(times)
+        tokens = args.global_batch * args.seq_len
+        params = sum(p.numel() for p in run.state.model.parameters())
+        out = {"arch": cfg.name, "layers": cfg.num_layers,
+               "dtype": cfg.dtype, "parameters": params,
+               "global_batch": args.global_batch, "seq_len": args.seq_len,
+               "microbatches": args.microbatches, "steps": rep.steps_done,
+               "losses": losses, "grad_norms": norms,
+               "lr": [h["lr"] for h in hist], "step_s": times,
+               "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+               "wall_s": run.wall_s,
+               "cli_tokens_per_s": rep.steps_done * tokens / run.wall_s,
+               "ln_vocab": math.log(cfg.vocab_size),
+               "step0_expected_loss": expect, **step0,
+               "launches": launches,
+               "stats_tokens": run.stats.tokens_seen,
+               "stats_docs": run.stats.docs_seen,
+               "phase_peak_gib": torch.cuda.max_memory_allocated(dev)
+               / 2 ** 30}
+        out["ops_per_step"] = train_ops(run)
+        run.close()
+        del run
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train {out['arch']}: {json.dumps(out)}", flush=True)
+    print(f"train {out['arch']} ({out['layers']} layers, "
+          f"{out['parameters']} parameters, bf16; {out['phase_s']:.1f} s): "
+          f"median step {out['step_s_median']:.3f} s, "
+          f"{out['tokens_per_s']:.0f} tokens/s, {out['ops_per_step']} ops a "
+          f"step, peak {out['phase_peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]}; card {card}", flush=True)
+    return out
+
+
+def tiny_train_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+
+
+def tiny_train(seed: int, dev, arch: str, ckpt_dir: Path, weights) -> dict:
+    """``arch``'s TINY in f32 with ``weights`` trained 4 steps by the train
+    CLI on ``dev``, checkpointing every 2 steps, with a failure
+    injected at step 3 (a restart from step 2's checkpoint follows).
+    Returns its report, losses, kept documents and corpus counts."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.launch import train
+    args = train.parse_args(train_argv(arch, TINY_TRAIN["steps"], ckpt_dir,
+                                       seed, TINY_TRAIN["ckpt_every"], dev,
+                                       tiny=True))
+    run = train.run(args, cfg=tiny_train_cfg(arch),
+                    on_built=lambda r: r.state.model.load_state_dict(weights),
+                    inject_failure_at=TINY_TRAIN["fail_at"])
+    keep = run.stats.doc_filter(0.0)
+    corpus = run.lcfg.corpus
+    rec = {"report": dataclasses.asdict(run.report),
+           "losses": [h["loss"] for h in run.history],
+           "steps": [h["step"] for h in run.history],
+           "kept": [bool(keep(corpus.doc_tokens(i)))
+                    for i in range(corpus.num_docs)],
+           "counts": run.stats.counts(
+               np.arange(run.cfg.vocab_size)).tolist(),
+           "stats": [run.stats.tokens_seen, run.stats.docs_seen]}
+    run.close()
+    return rec
+
+
+def train_child_command(workdir: Path, seed: int):
+    """How the parent starts the restore child: this script again."""
+    return [sys.executable, str(Path(__file__).resolve()), "--seed",
+            str(seed), "--train-child", str(workdir)]
+
+
+def train_child(workdir: Path, dev) -> None:
+    """A fresh process: resume the llama twin's checkpoints in
+    ``workdir / "ck"`` through the train CLI on ``dev`` and train its last
+    step; prints the train CLI's lines and the step's loss."""
+    from repro_torch.launch import train
+    plan = json.loads((workdir / "plan.json").read_text())
+    args = train.parse_args(train_argv(
+        "llama32_3b", TINY_TRAIN["steps"], workdir / "ck", plan["seed"],
+        TINY_TRAIN["ckpt_every"], dev, tiny=True))
+    run = train.run(args, cfg=tiny_train_cfg("llama32_3b"))
+    print(f"train child: {json.dumps({'start': run.start, 'history': run.history})}",
+          flush=True)
+    run.close()
+
+
+def tiny_train_twins(seed: int, dev) -> dict:
+    """``TINY_TRAIN_ARCHS`` trained on the card and on the CPU with the
+    same weights (``tiny_train``): equal reports, losses within 1e-4
+    relative (the CPU tests' tolerance for the train step), the same
+    kept documents and corpus counts; the llama twin's checkpoint is
+    restored by a fresh process on the card, whose step 3 loss must be
+    the card run's within 1e-5 relative."""
+    import math
+
+    import torch
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models.model import Model
+    cpu = torch.device("cpu")
+    out = {}
+    workdir = Path(tempfile.mkdtemp(prefix="flash-train-twins-"))
+    try:
+        for arch in TINY_TRAIN_ARCHS:
+            weights = Model(tiny_train_cfg(arch), device=cpu,
+                            seed=seed).state_dict()
+            runs = {}
+            for d in (dev, cpu):
+                zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
+                runs[d.type] = tiny_train(seed, d, arch,
+                                          workdir / arch / d.type, weights)
+                if d.type == "cuda":
+                    launches = dict(K.LAUNCHES)
+            no_baseline(f"train twin {arch}")
+            a, b = runs["cuda"], runs["cpu"]
+            ra, rb = dict(a["report"]), dict(b["report"])
+            la, lb = ra.pop("final_loss"), rb.pop("final_loss")
+            ra.pop("stragglers")
+            rb.pop("stragglers")
+            if ra != rb or ra["restarts"] != 1 or ra["steps_done"] != 4:
+                fail(f"train twin {arch}: reports differ or are off: "
+                     f"{a['report']} / {b['report']}")
+            if a["steps"] != b["steps"] or any(
+                    not math.isclose(x, y, rel_tol=1e-4)
+                    for x, y in zip(a["losses"] + [la], b["losses"] + [lb])):
+                fail(f"train twin {arch}: losses differ: {a['losses']} / "
+                     f"{b['losses']}")
+            for k in ("kept", "counts", "stats"):
+                if a[k] != b[k]:
+                    fail(f"train twin {arch}: {k} differ on the card and "
+                         f"the CPU")
+            if dev.type == "cuda" and min(launches.values()) <= 0:
+                fail(f"train twin {arch}: a hash kernel never launched on "
+                     f"the card: {launches}")
+            out[arch] = {"report": a["report"], "losses": a["losses"],
+                         "cpu_losses": b["losses"], "steps": a["steps"],
+                         "kept": sum(a["kept"]), "launches": launches}
+            print(f"train twin {arch} card == cpu: "
+                  f"{json.dumps(out[arch])}", flush=True)
+        # a fresh process resumes the llama twin's card checkpoints
+        child_dir = workdir / "child"
+        shutil.copytree(workdir / "llama32_3b" / dev.type, child_dir / "ck")
+        (child_dir / "plan.json").write_text(json.dumps({"seed": seed}))
+        proc = subprocess.run(train_child_command(child_dir, seed),
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("train child: ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            fail(f"train child: rc {proc.returncode}\nstdout: "
+                 f"{proc.stdout[-2000:]}\nstderr: {proc.stderr[-4000:]}")
+        child = json.loads(lines[0].split(": ", 1)[1])
+        last = TINY_TRAIN["steps"] - 1
+        want = out["llama32_3b"]["losses"][-1]
+        got = [h["loss"] for h in child["history"] if h["step"] == last]
+        if child["start"] != last or len(got) != 1 or not math.isclose(
+                got[0], want, rel_tol=1e-5):
+            fail(f"train child: resumed at {child['start']} with "
+                 f"{child['history']}, expected step {last} loss {want}")
+        out["restore_child"] = {"start": child["start"], "loss": got[0]}
+        print(f"train child resumed at step {child['start']}: loss "
+              f"{got[0]} (card run {want})", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1714,6 +2052,8 @@ def main() -> int:
     # parent
     ap.add_argument("--sharded-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    # the train twins' restore child: this script, started by the parent
+    ap.add_argument("--train-child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1749,6 +2089,12 @@ def main() -> int:
         if fh_build.LIBRARY.last_build["seconds"] != 0.0:
             fail("sharded child: the flash-hash kernels were rebuilt")
         sharded_child(args.sharded_child, args.rank, dev)
+        return 0
+    if args.train_child is not None:
+        fh_build.LIBRARY.build()
+        if fh_build.LIBRARY.last_build["seconds"] != 0.0:
+            fail("train child: the flash-hash kernels were rebuilt")
+        train_child(args.train_child, dev)
         return 0
     t_start = time.perf_counter()
     card = card_line()
@@ -1825,6 +2171,8 @@ def main() -> int:
     tiny_continuous(args.seed, dev)
     torch.cuda.empty_cache()
     fam = families_phase(args.seed, dev, card)
+    trained = train_phase(args.seed, dev, card)
+    twins = tiny_train_twins(args.seed, dev)
     wgmma = served["launches"][FK.WGMMA] + sum(
         r["launches"][FK.WGMMA] for r in fam["serve"].values())
     simt = twin["attention_launches"][FK.SIMT] + sum(
@@ -1837,6 +2185,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CU,
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
+            "train_launches": trained["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1850,12 +2199,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
             "replaces": REPLACES["flash_attention"], "launches": launches,
+            "train_launches": trained["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
+    print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Trace the port's main path on one NVIDIA GPU with ``torch.profiler``.
 
-    python3 chip_trace.py [--seed N]
+    python3 chip_trace.py [--seed N] [--train]
 
 Runs ``chip_smoke.py``'s MDB-L case (``TfIdfPipeline`` over ``FlashStore``
 at 2**24 slots on the same seeded 2**25-token documents) and traces its
 two windows, ingest (every document, then ``finalize``) and one lookup of
-2**16 keys. For each window it prints one JSON line: the wall time, the
-summed device time of every item on the card (kernels, copies, fills),
-the share of the window the card sat idle, and the ten items that took
-the most device time. The profiler's own host cost is inside the
-windows, so the idle shares are upper bounds for an untraced run.
+2**16 keys. With ``--train`` it traces the smoke's full-width training
+instead: llama3.2-3b through ``repro_torch.launch.train`` (its defaults,
+the TF-IDF filter, no checkpoint), two steps untraced, then one step
+traced whole (the loader's batch, forward, backward and AdamW, ending in
+the loss's host read) and, apart, one call of ``adamw_update`` alone.
+For each window it prints one JSON line: the wall time, the summed
+device time of every item on the card (kernels, copies, fills), the
+share of the window the card sat idle, and the ten items that took the
+most device time. The profiler's own host cost is inside the windows,
+so the idle shares are upper bounds for an untraced run.
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ def traced(fn, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="trace the full-width train step instead")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -59,6 +66,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     print(f"card: {S.card_line()}", flush=True)
+    if args.train:
+        return trace_train(args.seed, dev)
     docs = S.make_docs(S.FULL["tokens"], args.seed)
     cfg = {k: v for k, v in S.FULL.items() if k != "tokens"}
     pipe = TfIdfPipeline(scheme="MDB-L", device=dev, chunk=S.CHUNK, **cfg)
@@ -83,6 +92,41 @@ def main() -> int:
                                "write_dispatches", "query_tile_loads",
                                "query_filter_negatives")}), flush=True)
     pipe.close()
+    return 0
+
+
+def trace_train(seed: int, dev) -> int:
+    """Two untraced steps of the smoke's full-width training, then one
+    traced step and one traced ``adamw_update``."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, adamw_update
+    torch.backends.cuda.matmul.allow_tf32 = False
+    workdir = Path(tempfile.mkdtemp(prefix="flash-trace-train-"))
+    args = train.parse_args(S.train_argv("llama32_3b", 2, workdir / "ck",
+                                         seed, 1000, dev))
+
+    def built(r):
+        r.trainer.ckpt.maybe_save = lambda *a, **k: False
+
+    run = train.run(args, on_built=built)
+    _, rec = traced(lambda: run.trainer.step_fn(run.state, 2), dev)
+    print(f"trace train step: {json.dumps(rec)}", flush=True)
+    state = run.state
+    params = dict(state.model.named_parameters())
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+             for k, p in params.items()}
+
+    def step():
+        _, state.opt, _ = adamw_update(AdamWConfig(), grads, state.opt,
+                                       params, 1e-4)
+
+    _, rec = traced(step, dev)
+    print(f"trace train adamw_update: {json.dumps(rec)}", flush=True)
+    run.close()
     return 0
 
 

@@ -1,3 +1,3 @@
-"""Snapshots of named numpy arrays (the store's durability layout)."""
-from .checkpoint import (latest_step, restore_checkpoint,  # noqa: F401
-                         save_checkpoint)
+"""Checkpoints of array trees: store snapshots and train states."""
+from .checkpoint import (CheckpointManager, latest_step,  # noqa: F401
+                         restore_checkpoint, save_checkpoint)

@@ -12,7 +12,13 @@ this boundary is the only conversion.
 
 :func:`params_from_numpy` takes the reference's ``init_params`` pytree
 mapped to numpy and returns the port's ``Model`` ``state_dict``;
-:func:`params_to_numpy` is its inverse.
+:func:`params_to_numpy` is its inverse (:func:`params_to_host` the same
+with CPU tensors as leaves, so a bf16 leaf keeps its type without
+``ml_dtypes``). :func:`opt_state_from_numpy` / :func:`opt_state_to_numpy`
+do the same for an ``AdamWState``: ``m`` and ``v`` in the parameters'
+layout, ``count`` a 0-d int32. Together they carry a train state between
+the packages; the checkpoint layer writes it under the reference's names
+(``params/groups/0/mixer/wq``, ``opt/m/...``, ``opt/count``).
 """
 from __future__ import annotations
 
@@ -76,7 +82,10 @@ def state_to_numpy(state: DeviceTableState) -> Dict:
 # ---------------------------------------------------------------------------
 def _tensor_from_numpy(a) -> torch.Tensor:
     """A CPU tensor from a numpy leaf; a bf16 leaf (``ml_dtypes``'
-    bfloat16, as JAX gives it) is carried by its 16-bit pattern."""
+    bfloat16, as JAX gives it) is carried by its 16-bit pattern. A tensor
+    leaf is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -123,7 +132,8 @@ def params_from_numpy(cfg, tree) -> Dict[str, torch.Tensor]:
     G = cfg.group_size
     for slot, group in enumerate(tree["groups"]):
         for n, a in _walk(group):
-            a = np.asarray(a)
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
             if a.shape[0] != cfg.num_groups:
                 raise ValueError(f"groups[{slot}].{n}: leading axis "
                                  f"{a.shape[0]} != {cfg.num_groups} groups")
@@ -132,32 +142,80 @@ def params_from_numpy(cfg, tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def params_to_numpy(cfg, state_dict) -> Dict:
-    """The reference's parameter pytree (numpy leaves, layers stacked per
-    group slot) from a port ``state_dict``."""
-    def nest(items):
-        out: Dict = {}
-        for name, leaf in items:
-            *path, last = name.split(".")
-            node = out
-            for part in path:
-                node = node.setdefault(part, {})
-            node[last] = leaf
-        return out
+def _nest(items) -> Dict:
+    out: Dict = {}
+    for name, leaf in items:
+        *path, last = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
 
-    host = {k: _numpy_from_tensor(v) for k, v in state_dict.items()}
+
+def _stacked(cfg, host: Dict, stack) -> Dict:
+    """The reference's parameter layout from per-layer leaves (``host``:
+    state_dict names → arrays), each group slot stacked with ``stack``."""
     G = cfg.group_size
     groups = []
     for slot in range(G):
         names = sorted({k.split(".", 2)[2] for k in host
                         if k.startswith(f"layers.{slot}.")})
-        groups.append(nest(
-            (n, np.stack([host[f"layers.{g * G + slot}.{n}"]
-                          for g in range(cfg.num_groups)]))
+        groups.append(_nest(
+            (n, stack([host[f"layers.{g * G + slot}.{n}"]
+                       for g in range(cfg.num_groups)]))
             for n in names))
-    return {"embed": nest((k[len("embed."):], v) for k, v in host.items()
-                          if k.startswith("embed.")),
+    return {"embed": _nest((k[len("embed."):], v) for k, v in host.items()
+                           if k.startswith("embed.")),
             "groups": groups,
-            "final_norm": nest((k[len("final_norm."):], v)
-                               for k, v in host.items()
-                               if k.startswith("final_norm."))}
+            "final_norm": _nest((k[len("final_norm."):], v)
+                                for k, v in host.items()
+                                if k.startswith("final_norm."))}
+
+
+def params_to_numpy(cfg, state_dict) -> Dict:
+    """The reference's parameter pytree (numpy leaves, layers stacked per
+    group slot) from a port ``state_dict``."""
+    return _stacked(cfg, {k: _numpy_from_tensor(v)
+                          for k, v in state_dict.items()}, np.stack)
+
+
+def params_to_host(cfg, state_dict) -> Dict:
+    """:func:`params_to_numpy` with CPU tensors as leaves (every dtype
+    kept, bf16 included)."""
+    return _stacked(cfg, {k: v.detach().cpu() for k, v in state_dict.items()},
+                    torch.stack)
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+def opt_state_from_numpy(cfg, tree, device="cuda"):
+    """The port's ``AdamWState`` on ``device`` from the reference's (an
+    ``AdamWState`` mapped to numpy, or a dict with ``m``, ``v``,
+    ``count``); leaves may be numpy arrays or tensors."""
+    from .core.table_torch import resolve_device
+    from .optim.adamw import AdamWState
+    dev = resolve_device(device)
+
+    def put(t):
+        return {k: v.to(dev) for k, v in params_from_numpy(cfg, t).items()}
+
+    count = _tensor_from_numpy(_get(tree, "count")).to(torch.int32)
+    return AdamWState(m=put(_get(tree, "m")), v=put(_get(tree, "v")),
+                      count=count.reshape(()).to(dev))
+
+
+def opt_state_to_host(cfg, state) -> Dict:
+    """``{"m", "v", "count"}`` in the reference's layout, CPU tensors."""
+    return {"m": params_to_host(cfg, state.m),
+            "v": params_to_host(cfg, state.v),
+            "count": state.count.detach().cpu().to(torch.int32)}
+
+
+def opt_state_to_numpy(cfg, state) -> Dict:
+    """The reference's ``AdamWState`` fields as a dict of numpy trees
+    (``count`` a 0-d int32 array)."""
+    return {"m": params_to_numpy(cfg, state.m),
+            "v": params_to_numpy(cfg, state.v),
+            "count": state.count.detach().cpu().numpy().astype(np.int32)}

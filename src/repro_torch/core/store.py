@@ -56,9 +56,14 @@ import torch
 
 EMPTY = -1
 
-_NO_MANAGER = ("snapshot(manager=...) needs the CheckpointManager, which "
-               "comes with the training slice of the port (ROADMAP.md, "
-               "Queue 1: Training); call snapshot(path) without one")
+def _save_tree(path, step: int, tree, meta: Dict, manager=None) -> Path:
+    """A table state through the checkpoint layout: a blocking save of
+    ``manager`` when one is given (into its directory), else a plain
+    atomic write under ``path``."""
+    from ..checkpoint.checkpoint import save_checkpoint
+    if manager is None:
+        return save_checkpoint(path, step, tree, extra_meta=meta)
+    return manager.save(step, tree, blocking=True, extra_meta=meta)
 
 
 def _flat_i64(x) -> np.ndarray:
@@ -501,11 +506,14 @@ class SimBackend:
 
     # -- durability ----------------------------------------------------------
     # flashlint: quiescent (facade snapshots post-flush; nothing in flight)
-    def snapshot_state(self, path, step: int, meta: Dict) -> Path:
+    def snapshot_state(self, path, step: int, meta: Dict,
+                       manager=None) -> Path:
         """Capture the whole costed simulator (table + its own RAM buffer
         + ledgers) in the checkpoint layout, as one pickle carried as a
         byte array: the sim is a plain numpy/host object graph, so
-        pickling round-trips it exactly."""
+        pickling round-trips it exactly. ``manager`` is accepted for
+        parity with the device backends and unused, as in the reference
+        (the pickle is not a tree of arrays)."""
         import pickle
         from ..checkpoint.checkpoint import save_checkpoint
         with self._disp.lock:
@@ -722,15 +730,16 @@ class DeviceBackend:
 
     # -- durability ----------------------------------------------------------
     # flashlint: quiescent (facade snapshots post-flush; nothing in flight)
-    def snapshot_state(self, path, step: int, meta: Dict) -> Path:
+    def snapshot_state(self, path, step: int, meta: Dict,
+                       manager=None) -> Path:
         """Write the device table state through the checkpoint layout
         (atomic tmp + rename ``step_<N>/{meta.json, arrays.npz}``), with
-        the reference package's array names."""
+        the reference package's array names; through ``manager`` (a
+        ``CheckpointManager``: its directory, its quiesce barriers and
+        its retention) when one is given."""
         from .. import convert
-        from ..checkpoint.checkpoint import flatten, save_checkpoint
-        return save_checkpoint(path, step,
-                               flatten(convert.state_to_numpy(self.state)),
-                               extra_meta=meta)
+        return _save_tree(path, step, convert.state_to_numpy(self.state),
+                          meta, manager)
 
     # flashlint: quiescent (restore path: dispatcher re-armed, no worker)
     def restore_state(self, path, step: Optional[int] = None):
@@ -1223,22 +1232,22 @@ class ShardedBackend:
 
     # -- durability ----------------------------------------------------------
     # flashlint: quiescent (facade snapshots post-flush; nothing in flight)
-    def snapshot_state(self, path, step: int, meta: Dict) -> Path:
+    def snapshot_state(self, path, step: int, meta: Dict,
+                       manager=None) -> Path:
         """Write the shards' states in the reference's stacked global
-        layout through the checkpoint layout, with its array names, so
-        either package restores the other's. Several processes recover
-        through their per-host WALs instead: a global snapshot would need
-        a gather the checkpoint layer does not have."""
+        layout through the checkpoint layout (through ``manager`` when one
+        is given), with its array names, so either package restores the
+        other's. Several processes recover through their per-host WALs
+        instead: a global snapshot would need a gather the checkpoint
+        layer does not have."""
         if self.multihost:
             raise NotImplementedError(
                 "a sharded store over several processes snapshots through "
                 "its per-host WALs (FlashStore.restore replays them); a "
                 "global snapshot needs a gather the checkpoint layer lacks")
         from . import distributed as D
-        from ..checkpoint.checkpoint import flatten, save_checkpoint
-        return save_checkpoint(path, step,
-                               flatten(D.global_arrays(self.state)),
-                               extra_meta=meta)
+        return _save_tree(path, step, D.global_arrays(self.state), meta,
+                          manager)
 
     # flashlint: quiescent (restore path: dispatcher re-armed, no worker)
     def restore_state(self, path, step: Optional[int] = None):
@@ -1488,10 +1497,10 @@ class FlashStore:
 
         ``step`` defaults to one past the latest snapshot under ``path``
         (0 for the first). ``extra_meta`` rides along in ``meta.json``
-        (e.g. ``CorpusStats`` counters)."""
+        (e.g. ``CorpusStats`` counters). With ``manager`` (a
+        ``CheckpointManager``) a device or sharded state is saved through
+        it, into its directory, as the reference does."""
         self._check_open()
-        if manager is not None:
-            raise NotImplementedError(_NO_MANAGER)
         from ..checkpoint.checkpoint import latest_step
         self._b.flush(wait=True)
         wal = self._b.front.wal
@@ -1502,7 +1511,7 @@ class FlashStore:
         meta = {"wal_base_seq": base, "store_backend": self.backend,
                 "store_scheme": self.scheme}
         meta.update(extra_meta or {})
-        out = self._b.snapshot_state(path, step, meta)
+        out = self._b.snapshot_state(path, step, meta, manager=manager)
         if wal is not None:
             wal.rotate()
         return out

@@ -10,7 +10,9 @@ the dtype and the head widths alone:
   bf16 heads of other widths, on the CUDA cores.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
-then:
+refuses inputs that need a gradient (neither the kernels nor the
+reference's Pallas kernel have a backward; training attends through
+``models.attention._sdpa``), then:
 
 * for tensors on the CPU, runs the kernels' plain version
   (:func:`.ref.sdpa_ref`; the CPU tests' path);
@@ -117,8 +119,18 @@ def launch(q, k, v, causal: bool, name: str):
 
 def flash_attention_fwd(q, k, v, causal: bool = True):
     """q: (b, s, h, d); k/v: (b, s, kvh, d/dv) → o: (b, s, h, dv) in
-    ``v.dtype``. Query head ``hq`` reads KV head ``hq // (h // kvh)``."""
+    ``v.dtype``. Query head ``hq`` reads KV head ``hq // (h // kvh)``.
+
+    Forward only: with grad mode on and any input requiring grad it
+    raises rather than hand back an output autograd would treat as a
+    constant."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_fwd has no backward: an input requires grad. "
+            "The training path (Model.forward_train / loss_fn) attends "
+            "through models.attention._sdpa / _sdpa_chunked; run prefill "
+            "under torch.no_grad() or torch.inference_mode()")
     dev = q.device
     if dev.type == "cpu":
         return ref.sdpa_ref(q, k, v, causal=causal)

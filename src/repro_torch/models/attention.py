@@ -1,12 +1,15 @@
 """Attention token mixers: GQA (+RoPE) and MLA (MiniCPM3 / DeepSeek
 latent attention, with absorbed-projection decode).
 
-* ``gqa_full`` / ``mla_full`` — prefill over the whole sequence (causal).
-  Its attention is the flash-attention kernel (``kernels/flash_attn``)
+* ``gqa_full`` / ``mla_full`` — the whole sequence (causal). For prefill
+  its attention is the flash-attention kernel (``kernels/flash_attn``)
   under either ``attn_impl``: the reference's dense ``_sdpa`` and chunked
-  ``_sdpa_chunked`` compute the same function, which is the kernel's. MLA
-  expands its latent into per-head K/V first (d = nope + rope, dv =
-  v_head, kvh = h).
+  ``_sdpa_chunked`` compute the same function, which is the kernel's.
+  With ``train=True`` (``Model.forward_train``) it attends through
+  :func:`_sdpa` or :func:`_sdpa_chunked`, by ``attn_impl``: plain,
+  differentiable torch, as the reference trains through its jnp
+  functions (neither package has a backward kernel). MLA expands its
+  latent into per-head K/V first (d = nope + rope, dv = v_head, kvh = h).
 * ``*_decode`` — one new token against a cache, written into the cache
   **in place**; callers hand it caches they own (``model.pad_caches``
   always returns fresh storage).
@@ -75,7 +78,87 @@ def _out(p, o: torch.Tensor, dtype) -> torch.Tensor:
                         p.wo.reshape(h * hd, d)).to(dtype)
 
 
-def gqa_full_kv(p: GQA, cfg: ModelConfig, x, positions
+def _causal_mask(s: int, device) -> torch.Tensor:
+    """(s, s) additive f32 mask: 0 where key ≤ query, else ``NEG``."""
+    pos = torch.arange(s, device=device)
+    return torch.where(pos[None, :] <= pos[:, None], 0.0, NEG).to(F32)
+
+
+def _sdpa(q, k, v, mask) -> torch.Tensor:
+    """The reference's dense ``_sdpa``, differentiable: q (b, s, h, dq),
+    k (b, t, kvh, dq), v (b, t, kvh, dv), ``mask`` additive f32 (s, t) →
+    (b, s, h, dv) in ``v.dtype``. Scores from the inputs' products summed
+    in f32, the softmax in f32, probabilities cast to ``v.dtype``, the PV
+    product summed in f32."""
+    b, s, h, dq = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    qr = q.reshape(b, s, kvh, h // kvh, dq)
+    scale = 1.0 / torch.sqrt(torch.tensor(dq, dtype=F32))
+    scores = torch.einsum("bskgd,btkd->bkgst", qr.to(F32), k.to(F32))
+    probs = torch.softmax(scores * scale + mask, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(F32), v.to(F32))
+    return out.reshape(b, s, h, dv).to(v.dtype)
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``_sdpa_chunked``, differentiable: causal attention
+    by online softmax over (``attn_q_chunk`` x ``attn_kv_chunk``) tiles,
+    with :func:`_sdpa`'s rounding steps. A key tile wholly after a query
+    tile is skipped: in the reference it adds exactly 0 (its
+    probabilities are ``exp(-1e30 - m) = 0`` and its rescale 1)."""
+    b, s, h, dq = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    g = h // kvh
+    qc, kc = min(cfg.attn_q_chunk, s), min(cfg.attn_kv_chunk, s)
+    if s % qc or s % kc:
+        raise ValueError(f"seq {s} is not a multiple of the chunks "
+                         f"({qc}, {kc})")
+    scale = 1.0 / torch.sqrt(torch.tensor(dq, dtype=F32))
+    qr = q.reshape(b, s // qc, qc, kvh, g, dq).to(F32)
+    kr = k.reshape(b, s // kc, kc, kvh, dq).to(F32)
+    vr = v.reshape(b, s // kc, kc, kvh, dv)
+    pos = torch.arange(s, device=q.device)
+    chunks = []
+    for qi in range(s // qc):
+        q_last = (qi + 1) * qc - 1
+        q_pos = pos[qi * qc:q_last + 1]
+        m = torch.full((b, kvh, g, qc), NEG, dtype=F32, device=q.device)
+        l = torch.zeros((b, kvh, g, qc), dtype=F32, device=q.device)
+        acc = torch.zeros((b, kvh, g, qc, dv), dtype=F32, device=q.device)
+        for ki in range(s // kc):
+            if ki * kc > q_last:
+                break
+            k_pos = pos[ki * kc:(ki + 1) * kc]
+            scores = torch.einsum("bqkgd,btkd->bkgqt", qr[:, qi],
+                                  kr[:, ki]) * scale
+            ok = k_pos[None, :] <= q_pos[:, None]
+            scores = torch.where(ok, scores, NEG)
+            m_new = torch.maximum(m, scores.amax(-1))
+            pr = torch.exp(scores - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + pr.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", pr.to(v.dtype).to(F32),
+                vr[:, ki].to(F32))
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        chunks.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, h, dv)
+                      .to(v.dtype))
+    return torch.cat(chunks, dim=1)
+
+
+def _attend(q, k, v, cfg: ModelConfig, train: bool) -> torch.Tensor:
+    """Causal attention over the whole sequence: the flash-attention kernel
+    for prefill; the reference's differentiable jnp functions, by
+    ``attn_impl``, for training."""
+    if not train:
+        return flash_attention(q, k, v, causal=True)
+    if cfg.attn_impl == "chunked":
+        return _sdpa_chunked(q, k, v, cfg)
+    return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device))
+
+
+def gqa_full_kv(p: GQA, cfg: ModelConfig, x, positions, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`gqa_full` that also returns the roped K and V it attended
     over (prefill keeps them as the cache)."""
@@ -83,13 +166,15 @@ def gqa_full_kv(p: GQA, cfg: ModelConfig, x, positions
         raise NotImplementedError(
             f"sliding-window attention is not ported yet ({_LATER})")
     q, k, v = _qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=True)
+    o = _attend(q, k, v, cfg, train)
     return _out(p, o, x.dtype), k, v
 
 
-def gqa_full(p: GQA, cfg: ModelConfig, x, positions) -> torch.Tensor:
-    """x: (b, s, d) → (b, s, d); causal full-sequence attention."""
-    return gqa_full_kv(p, cfg, x, positions)[0]
+def gqa_full(p: GQA, cfg: ModelConfig, x, positions,
+             train: bool = False) -> torch.Tensor:
+    """x: (b, s, d) → (b, s, d); causal full-sequence attention (the
+    training form with ``train=True``)."""
+    return gqa_full_kv(p, cfg, x, positions, train)[0]
 
 
 def gqa_decode(p: GQA, cfg: ModelConfig, x, cache: KVCache, index: int
@@ -202,7 +287,8 @@ def _mla_qkv_full(p: MLA, cfg: ModelConfig, x, positions):
     return q_nope, q_rope, latent, k_rope
 
 
-def mla_full_cache(p: MLA, cfg: ModelConfig, x, positions
+def mla_full_cache(p: MLA, cfg: ModelConfig, x, positions,
+                   train: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`mla_full` that also returns the normed latent and the roped
     key it attended over, (b, s, kv_lora) and (b, s, rope) (prefill keeps
@@ -214,14 +300,16 @@ def mla_full_cache(p: MLA, cfg: ModelConfig, x, positions
     v = matmul_heads(latent, p.wv_up)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
-    o = flash_attention(q, k, v, causal=True)
+    o = _attend(q, k, v, cfg, train)
     return _out(p, o, x.dtype), latent, k_rope[:, :, 0]
 
 
-def mla_full(p: MLA, cfg: ModelConfig, x, positions) -> torch.Tensor:
+def mla_full(p: MLA, cfg: ModelConfig, x, positions,
+             train: bool = False) -> torch.Tensor:
     """x: (b, s, d) → (b, s, d); the latent expanded to per-head K/V and
-    attended causally by the flash-attention kernel."""
-    return mla_full_cache(p, cfg, x, positions)[0]
+    attended causally by the flash-attention kernel (by the training
+    attention with ``train=True``)."""
+    return mla_full_cache(p, cfg, x, positions, train)[0]
 
 
 def _mla_absorbed_attend(p: MLA, cfg: ModelConfig, q_nope, q_rope,

@@ -28,25 +28,35 @@ is what keeps values held by the prefix cache's pool unmutated.
 
 The modality stubs (``vision_stub``, ``audio_stub``) take precomputed
 embeddings, ``frontend_embeds`` (b, num_patches, d), which replace the
-first ``num_patches`` positions of the prefill's token embeddings.
-Training raises ``NotImplementedError``.
+first ``num_patches`` positions of the token embeddings.
+
+Training: :meth:`Model.forward_train` runs the whole sequence through
+every layer with the training attention (``attention._sdpa`` or
+``_sdpa_chunked``, by ``attn_impl``; never the forward-only kernel) and
+returns f32 logits, the summed MoE aux loss and expert counts;
+:meth:`Model.loss_fn` is the masked next-token cross entropy plus
+``aux_coef · aux``. With ``remat`` each group of ``len(layer_pattern)``
+layers is recomputed in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps each
+group in ``jax.checkpoint(nothing_saveable)``. Parameters are created
+with ``requires_grad=False`` (serving builds no graph); a trainer calls
+``model.requires_grad_(True)``.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.table_torch import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import (FFN, Embed, RMSNorm, ffn_apply, lm_logits, rmsnorm,
-                     torch_dtype)
-
-_LATER = "see ROADMAP.md, Queue 1"
+from .layers import (F32, FFN, Embed, RMSNorm, ffn_apply, lm_logits,
+                     rmsnorm, torch_dtype)
 MIXERS = ("attn", "ssm")
 FFNS = ("dense", "moe", "none")
 FRONTENDS = ("none", "vision_stub", "audio_stub")
@@ -254,12 +264,84 @@ class Model(nn.Module):
             lambda p, cfg, h, c: attn.mla_chunk_append(p, cfg, h, c, start),
             None))
 
-    # -- not ported yet ------------------------------------------------------
-    def forward_train(self, *args, **kwargs):
-        raise NotImplementedError(f"training is not ported yet ({_LATER})")
+    # -- training ------------------------------------------------------------
+    def _embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The token embeddings of ``batch["tokens"]``, the stubs'
+        ``frontend_embeds`` over the first positions."""
+        return self._embed(batch["tokens"], batch.get("frontend_embeds"))
 
-    def loss_fn(self, *args, **kwargs):
-        raise NotImplementedError(f"training is not ported yet ({_LATER})")
+    def _group_train(self, g: int, x: torch.Tensor, positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor]]:
+        """Group ``g``'s layers over the whole sequence → (x, the group's
+        aux loss (f32), its expert counts (e,) int32 or None)."""
+        cfg = self.cfg
+        G = cfg.group_size
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        counts = (torch.zeros(cfg.num_experts, dtype=torch.int32,
+                              device=x.device) if cfg.num_experts else None)
+        for blk in self.layers[g * G:(g + 1) * G]:
+            h = rmsnorm(blk.mixer_ln.scale, x, cfg.norm_eps)
+            if blk.kind == "ssm":
+                mix = ssm_mod.ssd_full(blk.mixer, cfg, h)
+            elif cfg.attn_type == "mla":
+                mix = attn.mla_full(blk.mixer, cfg, h, positions, train=True)
+            else:
+                mix = attn.gqa_full(blk.mixer, cfg, h, positions, train=True)
+            x, a, c = self._ffn(blk, x + mix)
+            if a is not None:
+                aux = aux + a
+                counts = counts + c
+        return x, aux, counts
+
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      remat: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]:
+        """batch: ``tokens`` (b, s) [+ ``frontend_embeds``] → (logits
+        (b, s, V) f32, aux loss (f32 scalar), expert counts (e,) int32 or
+        None). With ``remat`` each group is recomputed in the backward
+        pass instead of keeping its activations."""
+        cfg = self.cfg
+        if cfg.opt_bf16_grads:
+            raise NotImplementedError(
+                "opt_bf16_grads (bf16 cotangents at the reference's "
+                "all-to-all boundaries) is not ported: no configuration "
+                "sets it")
+        x = self._embed_inputs(batch)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None, :]
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        counts = None
+        for g in range(cfg.num_groups):
+            if remat:
+                x, a, c = checkpoint(self._group_train, g, x, positions,
+                                     use_reentrant=False)
+            else:
+                x, a, c = self._group_train(g, x, positions)
+            aux = aux + a
+            if c is not None:
+                counts = c if counts is None else counts + c
+        x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
+        return lm_logits(self.embed, cfg, x), aux, counts
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], aux_coef: float = 0.01,
+                remat: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """Next-token cross entropy over the positions whose label is ≥ 0,
+        plus ``aux_coef`` times the MoE aux loss → (loss, metrics ``ce``,
+        ``aux``, ``tokens`` [, ``expert_counts``])."""
+        logits, aux, counts = self.forward_train(batch, remat)
+        labels = batch["labels"].long()
+        mask = (labels >= 0).to(F32)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.take_along_dim(logp, labels.clamp(min=0)[..., None],
+                                    -1)[..., 0]
+        tokens = mask.sum()
+        ce = (nll * mask).sum() / torch.clamp(tokens, min=1.0)
+        metrics = {"ce": ce, "aux": aux, "tokens": tokens}
+        if counts is not None:
+            metrics["expert_counts"] = counts
+        return ce + aux_coef * aux, metrics
 
 
 def zero_frontend_embeds(cfg: ModelConfig, model: Model

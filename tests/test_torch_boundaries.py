@@ -37,7 +37,10 @@ def _port_files():
             "checkpoint/checkpoint.py", "serving/scheduler.py",
             "serving/trace.py", "core/distributed.py",
             "runtime/elastic.py", "models/moe.py", "models/ssm.py",
-            "configs/jamba15_large_398b.py"} <= names
+            "configs/jamba15_large_398b.py", "optim/adamw.py",
+            "optim/schedule.py", "optim/compress.py", "data/loader.py",
+            "runtime/fault_tolerance.py", "launch/steps.py",
+            "launch/train.py"} <= names
     return files
 
 
@@ -88,6 +91,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.flash_attn.build\n"
         "import repro_torch.kernels.flash_attn.check\n"
         "import repro_torch.core.distributed, repro_torch.runtime.elastic\n"
+        "import repro_torch.optim, repro_torch.optim.compress\n"
+        "import repro_torch.data.loader, repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.checkpoint.checkpoint\n"
         f"spec = importlib.util.spec_from_file_location('m', {str(MH_HELPER)!r})\n"
         "mh = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(mh)\n"

@@ -311,11 +311,19 @@ def test_sharded_store_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(ValueError, match="power of two"):
         FlashStore.open(backend="sharded", device="cpu", num_shards=6,
                         q_log2=10, r_log2=7)
+    # a snapshot through a CheckpointManager, which it once refused,
+    # lands in the manager's directory and restores
+    from repro_torch.checkpoint import CheckpointManager
     st = _open("MDB-L")
     st.update(np.arange(10))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        st.snapshot(tmp_path, manager=object())
+    ck = CheckpointManager(tmp_path / "ck", every_steps=1)
+    assert st.snapshot(tmp_path, manager=ck) == \
+        tmp_path / "ck" / "step_00000000"
     st.close()
+    st2 = _open("MDB-L")
+    assert st2.restore(tmp_path / "ck").snapshot_step == 0
+    np.testing.assert_array_equal(st2.query(np.arange(10)), np.ones(10))
+    st2.close()
 
 
 def test_sharded_wal_logs_one_record_per_part_and_restores(tmp_path):

@@ -284,8 +284,8 @@ def test_seals_after_a_restore_onto_a_rotated_log_replay(tmp_path, backend):
 
 def test_restored_table_lands_on_the_backend_device(tmp_path):
     """A backend built from a passed-in state remembers its device; a
-    snapshot of another geometry is refused; ``manager=`` waits for the
-    training slice."""
+    snapshot of another geometry is refused; ``manager=`` saves into the
+    manager's directory, from which the table restores."""
     cfg = tt.FlashTableConfig(scheme="MB", **TABLE)
     state = tt.init(cfg, "cpu")
     st = FlashStore.open(cfg, device="cpu", state=state)
@@ -296,8 +296,13 @@ def test_restored_table_lands_on_the_backend_device(tmp_path):
     assert rep.snapshot_step == 0 and st.state.device.type == "cpu"
     assert st.state.log_ptr.dim() == 0 and st.state.stats.merges.dim() == 0
     np.testing.assert_array_equal(st.query(np.arange(64)), np.ones(64))
-    with pytest.raises(NotImplementedError, match="Training"):
-        st.snapshot(tmp_path / "snap2", manager=object())
+    from repro_torch.checkpoint import CheckpointManager
+    ck = CheckpointManager(tmp_path / "ck", every_steps=1)
+    out = st.snapshot(tmp_path / "snap2", manager=ck)
+    assert out == tmp_path / "ck" / "step_00000000"
+    assert not (tmp_path / "snap2").exists()
+    assert st.restore(tmp_path / "ck").snapshot_step == 0
+    np.testing.assert_array_equal(st.query(np.arange(64)), np.ones(64))
     st.close()
     other = FlashStore.open(tt.FlashTableConfig(
         scheme="MB", **{**TABLE, "q_log2": 11}), device="cpu")
