@@ -49,7 +49,27 @@ fails (non-zero exit, no result line) without them. Phases:
    keys (half present, half absent) must equal ``np.unique`` counts of
    its stream, document frequencies included, with nothing dropped; the
    kernels' launch counters are zeroed before each run and must all be
-   above 0 after it;
+   above 0 after it. Then the race phase: ``repro_torch.analysis``'s
+   race harness attached to a ``FlashStore`` (MDB-L at the same size,
+   filters and the default hot cache on, the drain worker on) that takes
+   the same stream in 16 ``update`` calls, a 2**16-key lookup after each
+   (half present, checked against the running counts), a
+   ``drain(wait=False)`` after each odd batch, a ``flush(wait=False)``
+   after batch 8 and a ``flush()`` at the end, with a flush threshold
+   between one batch's distinct keys and two batches', so drains overlap
+   the caller's updates and lookups. Its log must check clean, every
+   distinct key's count must equal ``np.unique``'s with nothing dropped,
+   all three hash kernels and neither attention kernel must launch under
+   the tracer, and every drain and merge job, sampled at its start (at
+   least one on the drain worker), must run on the caller's CUDA stream;
+   an untraced twin runs
+   the same ops on a fresh store with the same answers and wear. Then the
+   reference harness tests' three seeded races on the card (each flagged
+   as on the CPU), the 4-shard tiny store traced (no finding, every
+   shard's partition sealed and cleared) and the port's flashlint over
+   ``src/repro_torch``, the ``chip_*.py`` scripts and
+   ``tests/test_torch_*.py`` (no violation). It prints the event counts,
+   the checker's seconds and the traced and untraced tokens/s;
 4. durability at the paper's table size: a child process (this script
    under ``--durability-child``, reusing the kernels built above) opens
    a ``FlashStore`` (MDB-L, 2**24 slots) with a write-ahead log, ingests
@@ -183,8 +203,10 @@ fails (non-zero exit, no result line) without them. Phases:
    trains step 3 again: its loss equals the card run's within 1e-5;
 18. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
    line with the records of 16-17, a ``kernels`` JSON line (each hash
-   kernel's launches on the main path and, as ``train_launches``, in
-   phase 16), then the card line, then the result line.
+   kernel's launches on the main path, as ``race_launches`` under the
+   race phase's tracer (0 for attention, checked) and, as
+   ``train_launches``, in phase 16), then the
+   card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -331,6 +353,17 @@ TWO_RANK_TIMEOUT = 300           # seconds a rank may take
 TINY_SHARDED = dict(q_log2=10, r_log2=7, log_capacity=1 << 11,
                     max_updates_per_block=128, num_shards=4,
                     shard_chunk=256)
+# the race phase: the main path's MDB-L stream in 16 update calls, a
+# lookup of 2**16 keys after each, a drain after each odd batch and an
+# early flush after batch 8
+RACE = dict(batches=16, queries=1 << 16, flush_at=8)
+#: the seeded interleavings' store: the reference harness tests' geometry
+RACE_SEEDED = dict(scheme="MDB-L", q_log2=8, r_log2=4, log_capacity=64,
+                   cs_partitions=4, max_updates_per_block=32,
+                   overflow_capacity=128, flush_threshold=10_000)
+RACE_TOUCHED_MAX = 5000          # the checker is quadratic in these
+RACE_KINDS = {"hr_write", "seal", "swap", "inflight_clear", "state_rebind",
+              "invalidate", "cache_insert", "job_start", "job_end"}
 
 
 def fail(msg: str) -> None:
@@ -633,6 +666,330 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
               f"{r['bound_ms']:.5g} ms ({r['bound_by']})", flush=True)
         res[name] = r
     return res
+
+
+# ---------------------------------------------------------------------------
+# the race phase: the race harness over the drain worker on the card
+# ---------------------------------------------------------------------------
+def race_plan(batches, seed: int, n_keys: int):
+    """The race phase's lookups and threshold: ``n_keys`` keys (half
+    distinct keys of the stream, half absent), each key's expected count
+    after every batch (a running sum), and a flush threshold between one
+    batch's distinct keys and two batches'."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    per = [np.unique(b, return_counts=True) for b in batches]
+    uniq = np.unique(np.concatenate([u for u, _ in per]))
+    half = n_keys // 2
+    keys = np.concatenate([rng.choice(uniq, half, replace=False),
+                           rng.integers(1 << 30, 1 << 31, n_keys - half)])
+    run, want = np.zeros(n_keys, np.int64), []
+    for bu, bc in per:
+        i = np.minimum(np.searchsorted(bu, keys), bu.size - 1)
+        run = run + np.where(bu[i] == keys, bc[i], 0)
+        want.append(run)
+    one = per[0][0].size
+    two = np.union1d(per[0][0], per[1][0]).size
+    return keys, want, (one + two) // 2
+
+
+def race_store(geo: dict, dev, flush_threshold: int):
+    """The race phase's store: MDB-L at ``geo`` on ``dev``, filters on,
+    the default hot cache (4,096 keys), the drain worker on."""
+    from repro_torch.core.store import FlashStore
+    cfg = {k: v for k, v in geo.items() if k != "tokens"}
+    return FlashStore.open(scheme="MDB-L", device=dev, chunk=CHUNK,
+                           query_chunk=CHUNK, flush_threshold=flush_threshold,
+                           async_flush=True, **cfg)
+
+
+def race_run(store, batches, keys, want, flush_at: int) -> dict:
+    """The race phase's op sequence on one store: after batch ``b`` (from
+    1) a lookup of ``keys``, checked against the running counts; a
+    ``drain(wait=False)`` after each odd batch, a ``flush(wait=False)``
+    after batch ``flush_at``, a ``flush()`` at the end and the lookup
+    again. Returns the answers and the sequence's wall time."""
+    import numpy as np
+    answers = []
+    t0 = time.perf_counter()
+    for b, batch in enumerate(batches, start=1):
+        store.update(batch)
+        answers.append(store.query_batch(keys))
+        if not np.array_equal(answers[-1], want[b - 1]):
+            fail(f"race: after batch {b}, "
+                 f"{int((answers[-1] != want[b - 1]).sum())} of {keys.size} "
+                 "counts differ from the stream's")
+        if b % 2:
+            store.drain(wait=False)
+        if b == flush_at:
+            store.flush(wait=False)
+    store.flush()
+    mix_s = time.perf_counter() - t0
+    answers.append(store.query_batch(keys))
+    if not np.array_equal(answers[-1], want[-1]):
+        fail("race: counts after the last flush differ from the stream's")
+    return {"answers": answers, "mix_s": mix_s}
+
+
+def seeded_interleavings(dev) -> dict:
+    """The reference harness tests' three seeded races on ``dev``, each a
+    one-line regression injected through a monkeypatched hook of a live
+    store; each must be flagged as it is on the CPU: invalidate before
+    rebind (exactly one ``unfenced-rebind``), a double seal without
+    settling (exactly one ``data-race``, on ``hr:inflight``), a cache
+    clear without the epoch bump (exactly one ``stale-cache-insert``)."""
+    import threading
+
+    import numpy as np
+    from repro_torch.analysis import race_harness as RH
+    from repro_torch.core.store import FlashStore
+    out = {}
+
+    st = FlashStore.open(device=dev, **RACE_SEEDED)
+    eng = st._b.writer
+    tr = RH.attach(st)
+    st.update(np.arange(64))
+    orig = eng._dispatch
+
+    def bad_dispatch(keys, dels):
+        eng._invalidate()                      # fence first (the bug)
+        qe, eng.query_engine = eng.query_engine, None
+        try:
+            orig(keys, dels)                   # ...rebind after, unfenced
+        finally:
+            eng.query_engine = qe
+
+    eng._dispatch = bad_dispatch
+    st.drain(wait=True)
+    eng._dispatch = orig
+    out["invalidate_before_rebind"] = tr.check()
+    st.close()
+
+    st = FlashStore.open(device=dev, **RACE_SEEDED)
+    eng = st._b.writer
+    tr = RH.attach(st)
+    gate = threading.Event()
+    eng.update(np.arange(32))
+    sealed = eng.seal()
+
+    def gated_drain():
+        gate.wait(timeout=30)
+        eng._dispatch(*sealed)
+
+    eng.dispatcher.submit(gated_drain, label="gated-drain#1")
+    eng.update(np.arange(100, 140))
+    eng.front._inflight[0] = None              # re-seal unsettled (the bug)
+    eng.seal()
+    gate.set()
+    eng.dispatcher.wait()
+    out["double_seal"] = tr.check()
+    st.close()
+
+    st = FlashStore.open(device=dev, **RACE_SEEDED)
+    qe = st._b.query_engine
+    tr = RH.attach(st)
+    st.update(np.arange(64))
+    st.flush()
+    orig_lookup, fired = qe._lookup, []
+
+    def bad_lookup(state, q):
+        res = orig_lookup(state, q)
+        if not fired:                          # mid-lookup, exactly once
+            fired.append(1)
+            qe._trace("invalidate", "cache", "w", epoch=qe._epoch)
+            qe._hot.clear()                    # no epoch bump (the bug)
+        return res
+
+    qe._lookup = bad_lookup
+    st.query(np.arange(16))
+    qe._lookup = orig_lookup
+    out["stale_cache_insert"] = tr.check()
+    st.close()
+
+    want = {"invalidate_before_rebind": "unfenced-rebind",
+            "double_seal": "data-race",
+            "stale_cache_insert": "stale-cache-insert"}
+    for name, kind in want.items():
+        if [f.kind for f in out[name]] != [kind]:
+            fail(f"race: seeded {name}: expected one {kind}, got "
+                 + "\n".join(f.describe() for f in out[name]))
+    if {e.resource for e in out["double_seal"][0].events} != {"hr:inflight"}:
+        fail("race: the seeded double seal raced on another resource: "
+             + out["double_seal"][0].describe())
+    return {name: [f.kind for f in got] for name, got in out.items()}
+
+
+def traced_sharded(seed: int, dev) -> dict:
+    """The tiny-sharded geometry (4 shards, MDB-L) traced on ``dev``: a
+    ±Δ stream with overlapped drains and lookups must give no finding,
+    with ``state_rebind`` events and a seal and an in-flight clear of
+    every shard's H_R partition."""
+    import numpy as np
+    from repro_torch.analysis import race_harness as RH
+    rng = np.random.default_rng(seed)
+    store = sharded_store(TINY_SHARDED, dev, "MDB-L")
+    tracer = RH.attach(store)
+    keys = np.arange(6000)
+    for i in range(16):
+        store.update(rng.zipf(1.3, 1024) % 5000,
+                     rng.choice(np.array([1, 1, 2, -1]), 1024))
+        if i % 4 == 3:
+            store.drain(wait=False)
+        if i % 4 == 1:
+            store.query_batch(keys[:1024])
+    store.flush()
+    store.query_batch(keys)
+    store.close()
+    findings = tracer.check()
+    if findings:
+        fail("race: the traced sharded store: "
+             + "\n".join(f.describe() for f in findings))
+    events = tracer.events
+    rebinds = sum(e.kind == "state_rebind" for e in events)
+    parts = [f"hr:inflight[{p}]" for p in range(TINY_SHARDED["num_shards"])]
+    for kind in ("seal", "inflight_clear"):
+        got = {e.resource for e in events if e.kind == kind}
+        if not set(parts) <= got:
+            fail(f"race: the traced sharded store: {kind} on {sorted(got)}, "
+                 f"not on every shard's partition {parts}")
+    if rebinds == 0:
+        fail("race: the traced sharded store recorded no state_rebind")
+    return {"events": len(events), "state_rebinds": rebinds,
+            "findings": 0}
+
+
+def flashlint_check() -> dict:
+    """The port's flashlint over ``src/repro_torch``, the ``chip_*.py``
+    scripts and ``tests/test_torch_*.py``, in process: no violation."""
+    from repro_torch.analysis import flashlint
+    paths = ([SRC / "repro_torch"] + sorted(ROOT.glob("chip_*.py"))
+             + sorted((ROOT / "tests").glob("test_torch_*.py")))
+    t0 = time.perf_counter()
+    violations, n_files = flashlint.lint_paths(paths)
+    if n_files == 0 or violations:
+        fail(f"flashlint: {len(violations)} violation(s) in {n_files} "
+             "file(s):\n" + "\n".join(v.format() for v in violations))
+    return {"files": n_files, "violations": 0,
+            "seconds": time.perf_counter() - t0}
+
+
+def race_phase(seed: int, dev, geo: dict = FULL, doc_len: int = DOC_LEN,
+               plan: dict = RACE) -> dict:
+    """The race harness on the card. A store at ``geo`` with the race
+    tracer attached runs the main path's stream in ``plan["batches"]``
+    update calls with lookups, drains and flushes interleaved
+    (``race_run``); its log must check clean, every distinct key's count
+    must equal ``np.unique``'s, nothing dropped; all three hash kernels
+    launched under the tracer; the drain worker and the caller on one
+    CUDA stream. An untraced twin runs the same ops on a fresh store:
+    the same answers and wear. Then the seeded interleavings, the traced
+    sharded store and flashlint."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import race_harness as RH
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    t_phase = time.perf_counter()
+    batches = np.array_split(np.concatenate(make_docs(geo["tokens"], seed,
+                                                      doc_len)),
+                             plan["batches"])
+    keys, want, threshold = race_plan(batches, seed + 19, plan["queries"])
+
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    store = race_store(geo, dev, threshold)
+    tracer = RH.attach(store)
+    cuda = dev.type == "cuda"
+    caller = threading.get_ident()
+    streams = {torch.cuda.current_stream(dev).cuda_stream} if cuda else set()
+    disp = store._b._disp
+    submit = disp.submit
+    jobs = []                  # (thread, stream) at each drain/merge job's start
+
+    def sampling(fn, label=None):
+        def job():
+            jobs.append((threading.get_ident(),
+                         torch.cuda.current_stream(dev).cuda_stream
+                         if cuda else None))
+            fn()
+        submit(job, label=label)
+
+    disp.submit = sampling
+    traced = race_run(store, batches, keys, want, plan["flush_at"])
+    launches = {**K.LAUNCHES, **FK.LAUNCHES}
+    uniq, cnt = np.unique(np.concatenate(batches), return_counts=True)
+    t0 = time.perf_counter()
+    got = store.query_batch(uniq)
+    t_check = time.perf_counter() - t0
+    if not np.array_equal(got, cnt):
+        fail(f"race: {int((got != cnt).sum())} of {uniq.size} distinct keys' "
+             "counts differ from np.unique counts of the stream")
+    wear = store.wear()
+    store.close()
+    if wear["dropped"] != 0:
+        fail(f"race: entries dropped: {wear}")
+    worker_jobs = sum(t != caller for t, _ in jobs)
+    if worker_jobs == 0:
+        fail(f"race: no drain or merge job ran on the drain worker "
+             f"({len(jobs)} job(s), all on the caller)")
+    streams |= {st for _, st in jobs if st is not None}
+    if cuda and len(streams) != 1:
+        fail(f"race: the drain worker and the caller launched on "
+             f"different CUDA streams: {sorted(streams)}")
+    if cuda and min(launches[name] for name in K.LAUNCHES) <= 0:
+        fail(f"race: a kernel never launched under the tracer: {launches}")
+    if any(launches[name] for name in FK.LAUNCHES):
+        fail(f"race: attention launched in the hash store's run: {launches}")
+    no_baseline("race")
+    events = tracer.events
+    touched = sum(1 for e in events if e.resource is not None and e.rw)
+    if touched > RACE_TOUCHED_MAX:
+        fail(f"race: {touched} touched events, above the checker's "
+             f"{RACE_TOUCHED_MAX}")
+    t0 = time.perf_counter()
+    findings = tracer.check()
+    t_checker = time.perf_counter() - t0
+    if findings:
+        fail("race: the traced store's log: "
+             + "\n".join(f.describe() for f in findings[:10]))
+    kinds = {e.kind for e in events}
+    if not RACE_KINDS <= kinds:
+        fail(f"race: event kinds {sorted(RACE_KINDS - kinds)} missing")
+
+    store = race_store(geo, dev, threshold)
+    twin = race_run(store, batches, keys, want, plan["flush_at"])
+    twin_wear = store.wear()
+    store.close()
+    if any(not np.array_equal(a, b)
+           for a, b in zip(traced["answers"], twin["answers"])):
+        fail("race: the untraced twin's answers differ from the traced "
+             "store's")
+    if twin_wear != wear:
+        fail(f"race: wear traced {wear} != untraced {twin_wear}")
+
+    seeded = seeded_interleavings(dev)
+    sharded = traced_sharded(seed, dev)
+    lint = flashlint_check()
+    tokens = int(sum(b.size for b in batches))
+    out = {"q_log2": geo["q_log2"], "tokens": tokens,
+           "batches": plan["batches"], "flush_threshold": int(threshold),
+           "lookup_keys": int(keys.size), "distinct": int(uniq.size),
+           "events": len(events), "touched_events": touched,
+           "event_kinds": {k: sum(e.kind == k for e in events)
+                           for k in sorted(kinds)},
+           "checker_s": t_checker, "findings": 0,
+           "traced_mix_s": traced["mix_s"],
+           "traced_tokens_per_s": tokens / traced["mix_s"],
+           "untraced_mix_s": twin["mix_s"],
+           "untraced_tokens_per_s": tokens / twin["mix_s"],
+           "check_keys_per_s": uniq.size / t_check,
+           "jobs": len(jobs), "worker_jobs": worker_jobs,
+           "streams": len(streams), "launches": launches, "wear": wear,
+           "seeded": seeded, "sharded": sharded, "flashlint": lint,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"race MDB-L: {json.dumps(out)}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2119,6 +2476,14 @@ def main() -> int:
         print(f"wear {r['scheme']}: {json.dumps(r['wear'])}")
         print(f"ingest {r['scheme']}: {r['ingest_tokens_per_s']:.0f} tokens/s;"
               f" lookup: {r['lookup_keys_per_s']:.0f} keys/s")
+    race = race_phase(args.seed, dev)
+    print(f"race ({race['phase_s']:.1f} s): {race['events']} events "
+          f"({race['touched_events']} touched), checker "
+          f"{race['checker_s']:.3f} s, no finding; traced "
+          f"{race['traced_tokens_per_s']:.0f} tokens/s against the untraced "
+          f"twin's {race['untraced_tokens_per_s']:.0f}; launches under the "
+          f"tracer {json.dumps(race['launches'])}; seeded "
+          f"{json.dumps(race['seeded'])}; card {card}", flush=True)
     dur = durability_phase(args.seed, dev)
     print(f"durability ({dur['phase_s']:.1f} s): snapshot "
           f"{dur['snapshot_s']:.3f} s, "
@@ -2185,6 +2550,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CU,
             "replaces": REPLACES[name],
             "launches": main_run["launches"][name],
+            "race_launches": race["launches"][name],
             "train_launches": trained["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
@@ -2199,6 +2565,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
             "replaces": REPLACES["flash_attention"], "launches": launches,
+            "race_launches": race["launches"][name],
             "train_launches": trained["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],

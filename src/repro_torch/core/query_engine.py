@@ -91,7 +91,13 @@ class BatchedQueryEngine:
         # invalidation epoch: bumped on every invalidate(); lookups fence
         # their cache inserts on it
         self._epoch = 0
+        # opt-in happens-before recorder (analysis.race_harness.attach)
+        self.tracer = None
         self.stats = QueryEngineStats()
+
+    def _trace(self, kind: str, resource=None, rw=None, **meta) -> None:
+        if self.tracer is not None:
+            self.tracer.record(kind, resource=resource, rw=rw, **meta)
 
     # -- cache maintenance --------------------------------------------------
     def invalidate(self) -> None:
@@ -99,6 +105,7 @@ class BatchedQueryEngine:
         cache goes at once, and the epoch fence drops the inserts of a
         lookup racing this call."""
         self._epoch += 1
+        self._trace("invalidate", "cache", "w", epoch=self._epoch)
         if self._hot:
             self._hot.clear()
             self.stats.invalidations += 1
@@ -139,6 +146,7 @@ class BatchedQueryEngine:
             # cold cache (the steady state under interleaved writes)
             miss_idx = np.flatnonzero(uniq != tt.EMPTY).tolist()
         else:
+            self._trace("cache_read", "cache", "r")
             miss_idx = []
             for i, k in enumerate(uniq):
                 if k == tt.EMPTY:
@@ -151,6 +159,7 @@ class BatchedQueryEngine:
                     self.stats.cache_hits += 1
         if miss_idx:
             epoch = self._epoch          # fence: inserts only if unchanged
+            self._trace("lookup_begin", "state", "r", epoch=epoch)
             miss = uniq[miss_idx]
             step = self.chunk
             if self._filter is not None and miss.size:
@@ -168,9 +177,12 @@ class BatchedQueryEngine:
                     if epoch == self._epoch:
                         # negative entries are ordinary count-0 entries:
                         # the next invalidate() evicts them wholesale
+                        self._trace("cache_insert", "cache", "w",
+                                    epoch=epoch)
                         for k in neg:
                             self._remember(int(k), 0)
                     else:
+                        self._trace("lookup_fenced", epoch=self._epoch)
                         self.stats.fenced += neg.size
                     keep = np.flatnonzero(may)
                     miss_idx = [miss_idx[i] for i in keep]
@@ -194,11 +206,13 @@ class BatchedQueryEngine:
                                                int(dist.max()))
             ucnt[miss_idx] = got
             if epoch == self._epoch:
+                self._trace("cache_insert", "cache", "w", epoch=epoch)
                 for k, c in zip(miss, got):
                     self._remember(int(k), int(c))
             else:
                 # a drain invalidated mid-lookup: these counts may predate
                 # it, so they must not outlive the invalidation
+                self._trace("lookup_fenced", epoch=self._epoch)
                 self.stats.fenced += miss.size
         return ucnt[inv]
 

@@ -99,17 +99,25 @@ class FlushDispatcher:
 
     ``wait()`` is the barrier: it re-raises any drain exception in the
     caller.
+
+    ``tracer`` (set by :func:`repro_torch.analysis.race_harness.attach`)
+    records the happens-before edges of a traced run: job start and end
+    markers, the fork from ``submit`` into the job and the join from the
+    finished job back into ``wait()``. Untraced, each hook is one ``is
+    not None`` test.
     """
 
     def __init__(self, enabled: bool = True):
         self.enabled = bool(enabled)
         self.lock = threading.RLock()
         self.ledger = None            # WriteEngineStats sink (set by owner)
+        # opt-in happens-before recorder (analysis.race_harness.attach)
+        self.tracer = None
         self._pool = (ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="flashstore-drain")
             if self.enabled else None)
         self._future = None
-        self._job_info = None         # (job#, label)
+        self._job_info = None         # (done-snapshot holder, job#, label)
         self._jobs = 0
         self._closed = False
 
@@ -117,6 +125,11 @@ class FlushDispatcher:
         if self.ledger is not None:
             us = int((time.perf_counter() - t0) * 1e6)
             setattr(self.ledger, field, getattr(self.ledger, field) + us)
+
+    def trace(self, kind: str, resource=None, rw=None, **meta) -> None:
+        """Record one harness event; a no-op when no tracer is attached."""
+        if self.tracer is not None:
+            self.tracer.record(kind, resource=resource, rw=rw, **meta)
 
     @property
     def pending(self) -> bool:
@@ -134,21 +147,35 @@ class FlushDispatcher:
         job = self._jobs
         self._jobs += 1
         if not self.enabled:
+            self.trace("job_start", job=job, label=label)
             t0 = time.perf_counter()
             try:
                 with self.lock:
                     fn()
             finally:
+                self.trace("job_end", job=job)
                 self._charge("stall_us", t0)
             return
 
+        tr = self.tracer
+        snap = tr.fork() if tr is not None else None
+        done = {}
+
         def run():
+            if tr is not None:        # submit → job-start edge
+                tr.join(snap)
+                tr.record("job_start", job=job, label=label)
             t0 = time.perf_counter()
-            with self.lock:
-                fn()
+            try:
+                with self.lock:
+                    fn()
+            finally:
+                if tr is not None:
+                    tr.record("job_end", job=job)
+                    done["snap"] = tr.fork()
             self._charge("overlap_us", t0)
 
-        self._job_info = (job, label)
+        self._job_info = (done, job, label)
         self._future = self._pool.submit(run)
 
     def wait(self) -> None:
@@ -163,13 +190,15 @@ class FlushDispatcher:
         try:
             f.result()
         except Exception as exc:
-            job, label = info if info else ("?", None)
+            _done, job, label = info if info else ({}, "?", None)
             chunk = f" ({label})" if label else ""
             raise DrainError(
                 f"background drain job #{job}{chunk} failed: {exc}"
             ) from exc
         finally:
             self._charge("stall_us", t0)
+        if self.tracer is not None and info:
+            self.tracer.join(info[0].get("snap"))  # job-end → barrier edge
 
     def close(self) -> None:
         """Join the worker (completing any in-flight drain). Idempotent;
@@ -228,8 +257,15 @@ class SealedFront:
         self._wal_seqs: List[Optional[int]] = [None] * self.parts
         self.seals = 0
 
+    def _trace(self, kind: str, resource=None, rw=None, **meta) -> None:
+        """Record one harness event on the dispatcher's tracer, if any."""
+        d = self.dispatcher
+        if d is not None and d.tracer is not None:
+            d.tracer.record(kind, resource=resource, rw=rw, **meta)
+
     def _res(self, part: int) -> str:
-        """A part's in-flight overlay by name (the messages name it)."""
+        """A part's in-flight overlay by name (the messages and the race
+        harness's resources name it)."""
         return ("hr:inflight" if self.parts == 1
                 else f"hr:inflight[{part}]")
 
@@ -258,6 +294,7 @@ class SealedFront:
                     n_new += 1
                 elif opened < 0:
                     cancelled += 1
+        self._trace("hr_write", "hr:active", "w")
         return n_new, cancelled
 
     def part_len(self, part: int = 0) -> int:
@@ -313,6 +350,8 @@ class SealedFront:
             out[p] = (keys[order], dels[order])
             self._inflight[p] = b
             self._buf[p] = {}
+            self._trace("swap", "hr:active", "w")
+            self._trace("seal", self._res(p), "w", entries=keys.size)
             if self.wal is not None:
                 self._wal_seqs[p] = self.wal.append_seal(p, *out[p])
         self.seals += 1
@@ -326,6 +365,7 @@ class SealedFront:
         their overlays and log their commits."""
         for p in (range(self.parts) if parts is None else parts):
             self._inflight[p] = None
+            self._trace("inflight_clear", self._res(p), "w")
             if self.wal is not None and self._wal_seqs[p] is not None:
                 self.wal.append_commit(p, self._wal_seqs[p])
                 self._wal_seqs[p] = None
@@ -339,6 +379,10 @@ class SealedFront:
         the dispatcher lock (the worker clears in-flight slots under
         it)."""
         bufs, inf = self._buf, self._inflight
+        self._trace("hr_read", "hr:active", "r")
+        for p, b in enumerate(inf):
+            if b:
+                self._trace("hr_read", self._res(p), "r")
         if owners is None:
             buf, i0 = bufs[0], inf[0]
             if not buf and not i0:
@@ -550,6 +594,7 @@ class SimBackend:
         old = self._disp
         self._disp = FlushDispatcher(enabled=old.enabled)
         self._disp.ledger = self.stats_ledger
+        self._disp.tracer = old.tracer
         self.front.dispatcher = self._disp
         try:
             old.close()
@@ -788,6 +833,7 @@ class DeviceBackend:
         old = self._disp
         self._disp = FlushDispatcher(enabled=old.enabled)
         self._disp.ledger = self.writer.stats
+        self._disp.tracer = old.tracer
         self.writer.dispatcher = self._disp
         self.writer.front.dispatcher = self._disp
         try:
@@ -994,6 +1040,7 @@ class ShardedBackend:
                 [tuple(a[cut] for a in per_shard.get(s, none))
                  for s in self.group.local_shards])
         D.synchronize(self.state)     # durable, not merely queued
+        self._disp.trace("state_rebind", "state", "w")
         self._staged_dirty = True
         for ks, _vs in per_shard.values():
             led.dispatched_entries += ks.size
@@ -1023,6 +1070,7 @@ class ShardedBackend:
             D.assert_live(s)
         self.state = D.flush(self.cfg, self.state)
         D.synchronize(self.state)
+        self._disp.trace("state_rebind", "state", "w")
         self.stats_ledger.merges += 1
         self._staged_dirty = False
         if self._track_wear:
@@ -1098,6 +1146,7 @@ class ShardedBackend:
                   vs[lo + j * step:lo + (j + 1) * step])
                  for j in range(per)])
         D.synchronize(self.state)
+        self._disp.trace("state_rebind", "state", "w")
         if waves:
             # other ranks' entries may have landed in our shards' change
             # segments even when we sealed nothing
@@ -1282,6 +1331,7 @@ class ShardedBackend:
         old = self._disp
         self._disp = FlushDispatcher(enabled=old.enabled)
         self._disp.ledger = self.stats_ledger
+        self._disp.tracer = old.tracer
         self.front.dispatcher = self._disp
         try:
             old.close()

@@ -211,6 +211,13 @@ class BatchedWriteEngine:
         if self.dispatcher is not None:
             self.dispatcher.wait()
 
+    def _trace(self, kind: str, resource=None, rw=None, **meta) -> None:
+        """Happens-before harness event; a no-op unless a tracer is
+        attached to the dispatcher (analysis.race_harness)."""
+        d = self.dispatcher
+        if d is not None and d.tracer is not None:
+            d.tracer.record(kind, resource=resource, rw=rw, **meta)
+
     def _settle(self) -> None:
         """Wait out any in-flight work before sealing or taking a no-op
         decision (the double-buffer stall and the poison check live in
@@ -277,6 +284,7 @@ class BatchedWriteEngine:
             # The worker absorbs this wait; the sync baseline pays it
             # inline. Engines without a dispatcher dispatch and go.
             tt.synchronize(self.state)
+        self._trace("state_rebind", "state", "w")
         self.stats.dispatched_entries += keys.size
         self._staged_dirty = True
         self.front.mark_drained()
@@ -295,6 +303,7 @@ class BatchedWriteEngine:
         self.state = tt.flush(self.cfg, self.state)
         if self.dispatcher is not None:
             tt.synchronize(self.state)     # durable, not queued
+        self._trace("state_rebind", "state", "w")
         self.stats.merges += 1
         self._staged_dirty = False
         # conservative: the merge moves placement, not counts, but clear

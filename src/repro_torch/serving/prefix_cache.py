@@ -37,8 +37,13 @@ The scheduler's paged path (``lookup`` / ``acquire_blocks`` /
 The refcounts live in the port's ``FlashStore``. With the ``device``
 backend (the default) its table is on ``device`` (the card unless
 ``"cpu"`` is asked for, where the flash-hash kernels run as their plain
-versions); with ``sim`` it is the event-level simulator on the host, with
-no wear feed (``"wear"`` eviction degrades to first-fit order).
+versions); with ``sharded`` the table splits over shards as
+``FlashStore.open(backend="sharded")`` places them (one shard per
+device of ``device``), with the sharded store's trace-derived heat feed
+(it takes the table config and ignores the engine's ``chunk``, as the
+reference's does); with ``sim`` it is the event-level simulator on the
+host, with no wear feed (``"wear"`` eviction degrades to first-fit
+order).
 ``flush_threshold`` (default ``2 * capacity_blocks``, the reference's) is
 how many distinct buffered keys H_R holds before it drains into the
 table; a small one sends every pin and unpin through the flash-hash
@@ -82,7 +87,7 @@ class PrefixKVCache:
                  flush_threshold: Optional[int] = None):
         if eviction not in ("wear", "first_fit"):
             raise ValueError(f"unknown eviction policy {eviction!r}")
-        if backend not in ("device", "sim"):
+        if backend not in ("device", "sim", "sharded"):
             raise ValueError(f"unknown backend {backend!r}")
         self.block_tokens = block_tokens
         self.capacity = capacity_blocks

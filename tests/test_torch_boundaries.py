@@ -40,7 +40,8 @@ def _port_files():
             "configs/jamba15_large_398b.py", "optim/adamw.py",
             "optim/schedule.py", "optim/compress.py", "data/loader.py",
             "runtime/fault_tolerance.py", "launch/steps.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "analysis/flashlint.py",
+            "analysis/race_harness.py"} <= names
     return files
 
 

@@ -138,10 +138,14 @@ def test_refcounts_that_reach_the_device_table_match_reference():
 
 
 def test_prefix_cache_refuses_what_is_not_ported():
+    """What neither package has is refused. The sharded backend is
+    ported (``tests/test_torch_prefix_sharded.py`` holds it to the
+    reference)."""
     with pytest.raises(ValueError, match="eviction"):
         PrefixKVCache(eviction="lru", device="cpu")
     with pytest.raises(ValueError, match="backend"):
-        PrefixKVCache(backend="sharded", device="cpu")
+        PrefixKVCache(backend="tpu", device="cpu")
+    PrefixKVCache(backend="sharded", device="cpu", **GEOM).close()
 
 
 # ---------------------------------------------------------------------------

@@ -152,6 +152,8 @@ def test_consumed_state_is_refused():
     s0 = tt.init(tcfg, "cpu")
     s1 = tt.update(tcfg, s0, torch.arange(10, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="donated"):
+        # the consumed state, reused on purpose: it must be refused
+        # flashlint: disable=FL002
         tt.update(tcfg, s0, torch.arange(10, dtype=torch.int32))
     tt.assert_live(s1)
     cnt, _ = tt.lookup(tcfg, s1, torch.arange(12, dtype=torch.int32))
