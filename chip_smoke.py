@@ -201,12 +201,30 @@ fails (non-zero exit, no result line) without them. Phases:
    card. A fresh process (this script under ``--train-child``, reusing
    the kernels built above) resumes the llama twin's card checkpoint and
    trains step 3 again: its loss equals the card run's within 1e-5;
-18. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
-   line with the records of 16-17, a ``kernels`` JSON line (each hash
-   kernel's launches on the main path, as ``race_launches`` under the
-   race phase's tracer (0 for attention, checked) and, as
-   ``train_launches``, in phase 16), then the
-   card line, then the result line.
+18. the mesh phase: the dry-run (``launch/dryrun.py``, fake tensors over
+   a fake process group of 512, this process rank 0) of llama3.2-3b x
+   {train_4k, prefill_32k, decode_32k} and granite-moe-1b x decode_32k on
+   the 16x16 mesh, printing each cell's plan, microbatches, per-device dot
+   FLOPs, HBM bytes, collective bytes by kind, reckoned peak and trace
+   time; then rank 0's per-device programs of llama3.2-3b prefill_32k
+   (2 sequences of 32,768 tokens, 3 local query heads over 1 KV head,
+   ``flash_attn_wgmma_kernel`` on the local heads through ``local_map``)
+   and train_4k (one step, 4 microbatches of 4 x 4,096) run for real on
+   the card with production-shaped random local shards (collectives move
+   no data): their dot FLOPs (the op counter, FlopCounterMode's formulas)
+   must equal the dry-run's exactly, ``max_memory_allocated`` must come
+   within ``MESH_PEAK_TOL`` of the reckoned peak, the prefill must launch
+   the wgmma kernel once a layer a call and nothing else; then the TINY
+   f32 llama32 and granite sharded on a simulated 2x4 mesh
+   (``LocalTensorMode(8)``, shards on the card): two train steps and a
+   decode equal to the unsharded card run within 1e-5 and card == CPU
+   within 1e-4;
+19. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
+   line with the records of 16-17, a ``mesh`` JSON line with 18's, a
+   ``kernels`` JSON line (each hash kernel's launches on the main path, as
+   ``race_launches`` under the race phase's tracer (0 for attention,
+   checked), as ``train_launches`` in phase 16 and as ``mesh_launches``
+   in phase 18), then the card line, then the result line.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -362,6 +380,14 @@ RACE_SEEDED = dict(scheme="MDB-L", q_log2=8, r_log2=4, log_capacity=64,
                    cs_partitions=4, max_updates_per_block=32,
                    overflow_capacity=128, flush_threshold=10_000)
 RACE_TOUCHED_MAX = 5000          # the checker is quadratic in these
+#: the mesh phase: dry-run cells traced on the host (16×16), the rank-0
+#: programs run on the card, the simulated 2×4 TINY twins
+MESH_DRYRUN = (("llama32_3b", "train_4k"), ("llama32_3b", "prefill_32k"),
+               ("llama32_3b", "decode_32k"), ("granite_moe_1b", "decode_32k"))
+MESH_RUNS = ("prefill_32k", "train_4k")
+MESH_TINY = ("llama32_3b", "granite_moe_1b")
+#: a rank-0 run's max_memory_allocated against its dry-run's reckoned peak
+MESH_PEAK_TOL = 0.10
 RACE_KINDS = {"hr_write", "seal", "swap", "inflight_clear", "state_rebind",
               "invalidate", "cache_insert", "job_start", "job_end"}
 
@@ -2400,6 +2426,282 @@ def tiny_train_twins(seed: int, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase
+# ---------------------------------------------------------------------------
+def mesh_dryrun(workdir: Path) -> dict:
+    """``MESH_DRYRUN``'s cells traced by ``dryrun.dryrun_cell`` on the host
+    (fake tensors over the fake group of 512): per-device dot FLOPs, HBM
+    bytes, collective bytes by kind and the reckoned peaks."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape in MESH_DRYRUN:
+        rec = dryrun.dryrun_cell(arch, shape, False, workdir)
+        if not rec["flops"] > 0:
+            fail(f"mesh dry-run {arch} {shape}: no dot FLOPs")
+        coll = {k: v["bytes"] for k, v in rec["collectives"].items()
+                if isinstance(v, dict) and v["bytes"]}
+        print(f"mesh dry-run {arch} x {shape} x 16x16: plan "
+              f"(tp_kv, tp_g, tp_r) = ({rec['plan']['tp_kv']}, "
+              f"{rec['plan']['tp_g']}, {rec['plan']['tp_r']}), "
+              f"microbatches {rec['plan']['microbatches']}; dot FLOPs "
+              f"{rec['flops']:.6e}, HBM bytes upper "
+              f"{rec['bytes_accessed_upper']:.6e} / flashproj "
+              f"{rec['bytes_accessed_flashproj']:.6e}, collective bytes "
+              f"{json.dumps(coll)}, peak {rec['memory']['peak_bytes']} / "
+              f"flashproj {rec['memory']['peak_bytes_flashproj']} bytes; "
+              f"traced in {rec['trace_s']} s", flush=True)
+        out[f"{arch}:{shape}"] = rec
+    return out
+
+
+def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
+    """Rank 0's per-device program of llama3.2-3b's ``shape_name`` cell on
+    16×16, run for real on the card: the process is rank 0 of the fake
+    group, its local shards have the production shapes (random, from
+    ``seed``), and collectives complete without moving data (so values
+    are not checked here; the TINY twins check them). Run once under the
+    op counter (its dot FLOPs must equal the dry-run's exactly) and once
+    timed; ``max_memory_allocated`` over both must come within
+    ``MESH_PEAK_TOL`` of the dry-run's reckoned peak (flash-projected for
+    the prefill, which attends through the kernel)."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch import sharding as shd, steps
+    from repro_torch.launch.mesh import arch_mesh, make_production_mesh
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import adamw_init
+    shape = SHAPES[shape_name]
+    cfg, pp, plan = dryrun.cell_plan("llama32_3b", shape, False, False)
+    mesh = arch_mesh(make_production_mesh(device_type="cuda"), plan)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(s, dtype):
+        if dtype.is_floating_point:
+            return (torch.randn(s, generator=gen, device=dev) * 0.02).to(dtype)
+        return torch.randint(0, cfg.vocab_size, s, generator=gen,
+                             device=dev, dtype=dtype)
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mb = rec["plan"]["microbatches"]
+    with steps.sharded(mesh, shd.logical_rules(plan, pp)):
+        if shape.kind == "train":
+            model = shd.local_model(cfg, mesh,
+                                    shd.param_shardings(mesh, cfg, plan, pp),
+                                    make)
+            model.requires_grad_(True)
+            opt_cfg = AdamWConfig(m_dtype="bfloat16" if pp.fsdp
+                                  else "float32")
+            opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+            batch = shd.local_tree(ispec.train_specs(cfg, shape, mb), mesh,
+                                   shd.batch_shardings(mesh, cfg, plan,
+                                                       shape), make)
+            step = steps.make_train_step(cfg, opt_cfg, steps.TrainHyper())
+
+            def fn():
+                step(model, opt, batch)
+        else:
+            fn = dryrun.programs(cfg, shape, pp, plan, mesh, make)["step"][0]
+        local = sum(p.to_local().numel() for p in model.parameters()) \
+            if shape.kind == "train" else None
+        # the launches of both calls, the counted one and the timed one
+        torch.cuda.synchronize(dev)
+        zero_launches(FK.LAUNCHES, K.LAUNCHES)
+        counted = op_analysis.count(fn, shape.seq_len)
+        torch.cuda.synchronize(dev)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize(dev)
+    launches = {**FK.LAUNCHES, **K.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the prefill attends through the kernel (no score tensor), training
+    # through the dense _sdpa
+    want = rec["memory"]["peak_bytes_flashproj" if shape.kind == "prefill"
+                         else "peak_bytes"]
+    out = {"shape": shape_name, "ms": t0.elapsed_time(t1),
+           "dot_flops": counted["dot_flops"], "dryrun_flops": rec["flops"],
+           "collectives": {k: v["bytes"] for k, v in
+                           counted["collectives"].items()
+                           if isinstance(v, dict)},
+           "peak_gib": peak / 2 ** 30, "dryrun_peak_gib": want / 2 ** 30,
+           "launches": launches, "local_parameters": local,
+           "microbatches": mb}
+    if counted["dot_flops"] != rec["flops"]:
+        fail(f"mesh rank 0 {shape_name}: {counted['dot_flops']} dot FLOPs "
+             f"on the card, {rec['flops']} in the dry-run")
+    if abs(peak - want) > MESH_PEAK_TOL * want:
+        fail(f"mesh rank 0 {shape_name}: peak {peak} bytes on the card, "
+             f"{want} reckoned by the dry-run")
+    # once a layer in each of the two calls
+    want_fa = 2 * cfg.num_layers if shape.kind == "prefill" else 0
+    if launches[FK.WGMMA] != want_fa or launches[FK.SIMT] or \
+            any(launches[k] for k in K.LAUNCHES):
+        fail(f"mesh rank 0 {shape_name}: launches {launches}, expected "
+             f"{want_fa} of {FK.WGMMA} and nothing else")
+    return out
+
+
+def mesh_tiny(arch: str, dev, seed: int) -> dict:
+    """The CPU tests' simulated 2×4 mesh on the card: ``LocalTensorMode(8)``
+    over a fake group of 8 with every rank's shards on ``dev``. TINY f32
+    ``arch``, two train steps of two microbatches and a decode step,
+    sharded and unsharded on the card and unsharded on the CPU: losses,
+    grad norms, updated parameters and decode logits sharded == unsharded
+    within 1e-5 (norm-wise, as the tests), card == CPU within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.distributed._local_tensor import LocalTensorMode
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod, sharding as shd, steps
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import Model, init_caches
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import adamw_init
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    sh = ShapeConfig("tiny_train", 64, 8, "train")
+    shd_ = ShapeConfig("tiny_dec", 64, 8, "decode")
+    hyper = steps.TrainHyper(peak_lr=1e-3, warmup_steps=1, total_steps=100)
+    opt_cfg = AdamWConfig(eps=1e-6)
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 4, 64)),
+                           dtype=torch.int32)
+
+    def whole(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        t = t.reconcile() if hasattr(t, "reconcile") else t
+        return t.detach().double().cpu()
+
+    def rel(a, b):
+        a, b = whole(a), whole(b)
+        keep = b.abs() < 1e29
+        return float((a - b)[keep].norm() / b[keep].norm().clamp(min=1e-30))
+
+    def run(d, mesh=None, plan=None, pp=None):
+        model = Model(cfg, device=d, seed=0)
+        model.load_state_dict(weights)
+        model.requires_grad_(True)
+        batch = {"tokens": toks.to(d), "labels": toks.to(d)}
+        caches = init_caches(cfg, 8, 64, torch.float32, device=d)
+        ids = torch.arange(8, dtype=torch.int32, device=d)[:, None]
+        ctx = contextlib.nullcontext()
+        if mesh is not None:
+            shd.distribute_model(model, mesh,
+                                 shd.param_shardings(mesh, cfg, plan, pp))
+            batch = shd.distribute_tree(
+                batch, mesh, shd.batch_shardings(mesh, cfg, plan, sh))
+            caches = shd.distribute_tree(
+                caches, mesh, shd.cache_shardings(mesh, cfg, plan, pp, shd_))
+            ids = shd.distribute_tree(
+                ids, mesh, shd.placements_from_spec(mesh, ("data", None)))
+            ctx = steps.sharded(mesh, shd.logical_rules(plan, pp))
+        with ctx:
+            step = steps.make_train_step(cfg, opt_cfg, hyper)
+            opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+            _, opt, m1 = step(model, opt, batch)
+            _, opt, m2 = step(model, opt, batch)
+            logits, _, _ = steps.make_decode_step(cfg)(model, caches, ids, 3)
+        return ([m1, m2], dict(model.named_parameters()), logits)
+
+    weights = Model(cfg, device="cpu", seed=0).state_dict()
+    cpu = run(torch.device("cpu"))
+    card = run(dev)
+    t0 = time.perf_counter()
+    with LocalTensorMode(8):
+        plan = mesh_mod.plan_for(cfg, model_axis=4)
+        mesh = mesh_mod.arch_mesh(mesh_mod.small_mesh(
+            (2, 4), ("data", "model"), dev.type), plan)
+        pp = shd.ParallelPlan(microbatches=2)
+        sharded = run(dev, mesh, plan, pp)
+        worst = 0.0
+        for a, b in zip(sharded[0], card[0]):
+            for key in ("loss", "grad_norm"):
+                worst = max(worst, rel(a[key], b[key]))
+        for name, prm in sharded[1].items():
+            worst = max(worst, rel(prm, card[1][name]))
+        worst = max(worst, rel(sharded[2], card[2]))
+        losses = [float(whole(m["loss"])) for m in sharded[0]]
+    sharded_s = time.perf_counter() - t0
+    twin = max([rel(a["loss"], b["loss"]) for a, b in zip(card[0], cpu[0])]
+               + [rel(card[2], cpu[2])])
+    out = {"arch": cfg.name, "sharded_vs_card_rel": worst,
+           "card_vs_cpu_rel": twin, "losses": losses,
+           "sharded_s": sharded_s, "mesh": "2x4 (LocalTensorMode)"}
+    if worst > 1e-5:
+        fail(f"mesh tiny {arch}: sharded vs unsharded on the card {worst}")
+    if twin > 1e-4:
+        fail(f"mesh tiny {arch}: card vs CPU {twin}")
+    return out
+
+
+def mesh_phase(seed: int, dev, card: str) -> dict:
+    """The mesh, sharding and dry-run layer: the dry-run of ``MESH_DRYRUN``,
+    rank 0's programs of ``MESH_RUNS`` on the card (``rank0_run``), and the
+    TINY sharded twins (``mesh_tiny``). Returns the records and each
+    kernel's launches over the whole phase."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    dryrun.quiet()
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    total = {k: 0 for k in (*FK.LAUNCHES, *K.LAUNCHES)}
+    workdir = Path(tempfile.mkdtemp(prefix="flash-mesh-"))
+    try:
+        dryrun.ensure_world(dryrun.WORLD)
+        cells = mesh_dryrun(workdir)
+        runs = {}
+        for shape in MESH_RUNS:
+            r = rank0_run(shape, dev, seed, cells[f"llama32_3b:{shape}"])
+            runs[shape] = r
+            for k, v in r["launches"].items():
+                total[k] += v
+            print(f"mesh rank 0 llama3.2-3b {shape} on the card: "
+                  f"{r['ms']:.3f} ms a call, dot FLOPs {r['dot_flops']:.6e} "
+                  f"(dry-run {r['dryrun_flops']:.6e}), peak "
+                  f"{r['peak_gib']:.3f} GiB (dry-run "
+                  f"{r['dryrun_peak_gib']:.3f}), launches in the counted "
+                  f"and the timed call {json.dumps(r['launches'])}; card "
+                  f"{card}",
+                  flush=True)
+        dryrun.leave_world()
+        dryrun.ensure_world(8)
+        tiny = {}
+        for arch in MESH_TINY:
+            zero_launches(FK.LAUNCHES, K.LAUNCHES)
+            tiny[arch] = mesh_tiny(arch, dev, seed)
+            for k in total:
+                total[k] += {**FK.LAUNCHES, **K.LAUNCHES}[k]
+            print(f"mesh tiny {arch}: {json.dumps(tiny[arch])}", flush=True)
+    finally:
+        dryrun.leave_world()
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    no_baseline("mesh")
+    out = {"dryrun": {k: {f: v[f] for f in (
+        "plan", "flops", "bytes_accessed_upper", "bytes_accessed_flashproj",
+        "collectives", "memory", "trace_s", "ops_traced")}
+        for k, v in cells.items()},
+        "rank0": runs, "tiny": tiny, "launches": total,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"mesh phase ({out['phase_s']:.1f} s): launches "
+          f"{json.dumps(total)}; card {card}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2538,6 +2840,7 @@ def main() -> int:
     fam = families_phase(args.seed, dev, card)
     trained = train_phase(args.seed, dev, card)
     twins = tiny_train_twins(args.seed, dev)
+    mesh = mesh_phase(args.seed, dev, card)
     wgmma = served["launches"][FK.WGMMA] + sum(
         r["launches"][FK.WGMMA] for r in fam["serve"].values())
     simt = twin["attention_launches"][FK.SIMT] + sum(
@@ -2552,6 +2855,7 @@ def main() -> int:
             "launches": main_run["launches"][name],
             "race_launches": race["launches"][name],
             "train_launches": trained["launches"][name],
+            "mesh_launches": mesh["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2567,6 +2871,7 @@ def main() -> int:
             "replaces": REPLACES["flash_attention"], "launches": launches,
             "race_launches": race["launches"][name],
             "train_launches": trained["launches"][name],
+            "mesh_launches": mesh["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2574,6 +2879,7 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
     print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

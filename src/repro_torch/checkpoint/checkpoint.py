@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _is_namedtuple(x) -> bool:
@@ -92,7 +93,9 @@ def unflatten(flat: Dict[str, object]) -> Dict:
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """``(numpy array as stored, dtype name)``; bf16 (or another dtype
-    numpy lacks) as its bit pattern."""
+    numpy lacks) as its bit pattern. A DTensor is gathered whole."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -164,9 +167,10 @@ def _as_tensor(a: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
 
 
 def _fill(target, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
-          prefix: str):
+          prefix: str, placed=None):
     """``target``'s structure rebuilt from ``flat`` (names under
-    ``prefix``); each leaf in its target's type and place."""
+    ``prefix``); each leaf in its target's type and place, or
+    distributed on ``placed[name]`` (``(mesh, placements)``)."""
     if hasattr(target, "load_checkpoint_tree"):
         pre = prefix
         sub = {k[len(pre):]: _as_tensor(v, dtypes.get(k))
@@ -174,7 +178,8 @@ def _fill(target, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
         return target.load_checkpoint_tree(_lists(unflatten(sub)))
     kids = _children(target)
     if kids is not None:
-        got = {k: _fill(v, flat, dtypes, f"{prefix}{k}/") for k, v in kids}
+        got = {k: _fill(v, flat, dtypes, f"{prefix}{k}/", placed)
+               for k, v in kids}
         if isinstance(target, dict):
             return got
         if _is_namedtuple(target):
@@ -187,8 +192,11 @@ def _fill(target, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
     if tuple(arr.shape) != tuple(np.shape(target)):
         raise ValueError(f"{key}: shape {arr.shape} != {np.shape(target)}")
     if isinstance(target, torch.Tensor):
-        return _as_tensor(arr, dtypes.get(key)).to(
-            dtype=target.dtype, device=target.device)
+        t = _as_tensor(arr, dtypes.get(key)).to(dtype=target.dtype,
+                                                 device=target.device)
+        if placed and key in placed:
+            return distribute_tensor(t, *placed[key])
+        return t
     return np.asarray(arr).astype(np.asarray(target).dtype)
 
 
@@ -203,13 +211,17 @@ def _lists(tree):
     return out
 
 
-def restore_checkpoint(ckpt_dir, target=None, step: Optional[int] = None):
+def restore_checkpoint(ckpt_dir, target=None, step: Optional[int] = None,
+                       placements: Optional[Dict[str, tuple]] = None):
     """Checkpoint ``step`` (the latest by default) → ``(tree, meta)``.
 
     With ``target`` the tree has ``target``'s structure, each leaf cast to
     its target's dtype (and device, for a tensor); a missing name raises
     ``KeyError``, a different shape ``ValueError``. Without it, the tree
-    is the flat dict of the arrays as stored."""
+    is the flat dict of the arrays as stored. ``placements`` (leaf name,
+    as :func:`flatten` names it → ``(mesh, placements)``) restores those
+    leaves as DTensors on their target placements: the elastic reshard,
+    onto whatever mesh the placements name."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -221,7 +233,8 @@ def restore_checkpoint(ckpt_dir, target=None, step: Optional[int] = None):
         arrays = {k: data[k] for k in data.files}
     if target is None:
         return arrays, meta
-    return _fill(target, arrays, meta.get("dtypes", {}), ""), meta
+    return _fill(target, arrays, meta.get("dtypes", {}), "",
+                 placements), meta
 
 
 class CheckpointManager:

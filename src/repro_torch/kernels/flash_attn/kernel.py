@@ -20,8 +20,16 @@ reference's Pallas kernel have a backward; training attends through
   raises. Nothing falls back to the other kernel or to the plain version.
 
 ``LAUNCHES`` counts each kernel's CUDA launches; only a launch adds to it.
+``NOTE``, when set (``launch/op_analysis.OpCounter``), is told of every
+launch: a ctypes launch is no aten op a dispatch mode could count.
+``STANDIN`` is set while a dense stand-in computes what a launch would
+(a dry-run over fake tensors, which no kernel can read): what it
+allocates is the score traffic the kernel keeps on chip.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -32,6 +40,22 @@ WGMMA = "flash_attention_wgmma"
 SIMT = "flash_attention_simt"
 #: CUDA launches of each kernel (plain ints; reset by assigning 0)
 LAUNCHES = {WGMMA: 0, SIMT: 0}
+#: ``note(q, k, v, causal)`` called at each launch, or None
+NOTE: contextvars.ContextVar = contextvars.ContextVar("flash_attn_note",
+                                                      default=None)
+#: True while a dense stand-in of the kernel runs
+STANDIN: contextvars.ContextVar = contextvars.ContextVar(
+    "flash_attn_standin", default=False)
+
+
+@contextlib.contextmanager
+def standing_in():
+    """Mark a dense stand-in of a launch (see the module docstring)."""
+    token = STANDIN.set(True)
+    try:
+        yield
+    finally:
+        STANDIN.reset(token)
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the widest q/k (d) and v (dv) head the kernel takes
@@ -136,5 +160,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
         return ref.sdpa_ref(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    note = NOTE.get()
+    if note is not None:
+        note(q, k, v, causal)
     return launch(q, k, v, causal,
                   kernel_for(q.dtype, q.shape[3], v.shape[3]))

@@ -15,23 +15,70 @@ model and its AdamW state, saved in the reference's layout
 (``params/...``, ``opt/m/...``, ``opt/count``, layers stacked over the
 groups) so a train checkpoint of either package resumes in the other.
 
-The reference's per-architecture parallel plans (``PLANS``,
-``ParallelPlan``) come with its ``launch/sharding.py`` (ROADMAP.md,
-Queue 1 item 9).
+``PLANS`` / :func:`plan_of` are the reference's per-architecture
+parallel plans (microbatches sized for ≤ ~1 GB of f32 scores a device at
+train_4k; FSDP for the ≥ 40B architectures).
+
+Sharded steps: the same three steps run on a model whose parameters are
+DTensors (``sharding.distribute_model`` by ``param_shardings``), with
+batches placed by ``batch_shardings`` and moments that take their
+parameters' placements (``adamw_init`` allocates them ``zeros_like``).
+Run them under :func:`sharded`: the hint rules, and
+``implicit_replication`` for the plain tensors the modules build from
+global shapes (positions, RoPE angles, causal masks, lane and expert
+ranges, the step count and LR). Those constants hold the same value on
+every rank, which is what ``Replicate()`` means; turning each into a
+DTensor would change every module for no difference in value.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from .. import convert
+from ..models import model as M
 from ..models.config import ModelConfig
-from ..optim import AdamWConfig, adamw_update, cosine_schedule
+from ..models.sharding_hints import hint, use_hints
+from ..optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
 from ..optim.adamw import AdamWState
+from .sharding import ParallelPlan
 
 F32 = torch.float32
+
+PLANS: Dict[str, ParallelPlan] = {
+    "granite_moe_1b": ParallelPlan(microbatches=1),
+    "phi35_moe_42b": ParallelPlan(fsdp=True, microbatches=4),
+    "minicpm3_4b": ParallelPlan(microbatches=8),
+    "starcoder2_7b": ParallelPlan(microbatches=8),
+    "llama32_3b": ParallelPlan(microbatches=4),
+    "nemotron4_340b": ParallelPlan(fsdp=True, fsdp_pod=True, microbatches=8),
+    "llava_next_mistral_7b": ParallelPlan(microbatches=4),
+    "mamba2_2p7b": ParallelPlan(microbatches=1),
+    "musicgen_large": ParallelPlan(microbatches=2),
+    "jamba15_large_398b": ParallelPlan(fsdp=True, fsdp_pod=True,
+                                       microbatches=8),
+}
+
+
+def plan_of(arch: str) -> ParallelPlan:
+    return PLANS.get(arch, ParallelPlan())
+
+
+def abstract_opt_state(cfg: ModelConfig, opt_cfg: AdamWConfig) -> AdamWState:
+    """The AdamW state's shapes and dtypes on the ``meta`` device."""
+    return adamw_init(opt_cfg, M.abstract_params(cfg))
+
+
+@contextlib.contextmanager
+def sharded(mesh, rules, param_rules=None):
+    """The context of a sharded step: :func:`use_hints` on ``mesh`` and
+    ``implicit_replication`` (see the module docstring)."""
+    with use_hints(mesh, rules, param_rules), implicit_replication():
+        yield
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,38 +133,53 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     model's parameters and the moments change in place."""
 
     def train_step(model, opt_state: AdamWState, batch):
-        params = dict(model.named_parameters())
-        names = list(params)
-        leaves = [params[n] for n in names]
-        dev = leaves[0].device
-        gsum = {n: torch.zeros(p.shape, dtype=F32, device=dev)
-                for n, p in params.items()}
-        loss_sum = torch.zeros((), dtype=F32, device=dev)
-        n_mb = batch["tokens"].shape[0]
-        for i in range(n_mb):
-            loss, _ = model.loss_fn({k: v[i] for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            for n, g in zip(names, grads):
-                if g is not None:
-                    gsum[n].add_(g)
-            loss_sum = loss_sum + loss.detach()
-            del grads, loss
-        grads = {n: g.div_(n_mb) for n, g in gsum.items()}
-        lr = cosine_schedule(opt_state.count, peak_lr=hyper.peak_lr,
-                             warmup_steps=hyper.warmup_steps,
-                             total_steps=hyper.total_steps)
-        _, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state,
-                                           params, lr)
-        metrics = {"loss": loss_sum / n_mb, "grad_norm": gnorm, "lr": lr}
-        return model, opt_state, metrics
+        grads, loss_sum, n_mb = accumulate_grads(model, batch)
+        return apply_grads(model, opt_state, grads, loss_sum, n_mb, opt_cfg,
+                           hyper)
 
     return train_step
 
 
+def accumulate_grads(model, batch):
+    """Gradients summed over the batch's microbatches (leading axis) into
+    f32 accumulators → ``(grads by name, summed loss, microbatches)``."""
+    params = dict(model.named_parameters())
+    names = list(params)
+    leaves = [params[n] for n in names]
+    dev = leaves[0].device
+    gsum = {n: torch.zeros_like(p, dtype=F32) for n, p in params.items()}
+    loss_sum = torch.zeros((), dtype=F32, device=dev)
+    n_mb = batch["tokens"].shape[0]
+    for i in range(n_mb):
+        loss, _ = model.loss_fn({k: v[i] for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for n, g in zip(names, grads):
+            if g is not None:
+                gsum[n].add_(g)
+        loss_sum = loss_sum + loss.detach()
+        del grads, loss
+    return gsum, loss_sum, n_mb
+
+
+def apply_grads(model, opt_state: AdamWState, gsum, loss_sum, n_mb: int,
+                opt_cfg: AdamWConfig, hyper: TrainHyper):
+    """The mean gradient, the LR of ``opt_state.count`` and one
+    ``adamw_update`` → ``(model, opt_state, metrics)``."""
+    params = dict(model.named_parameters())
+    grads = {n: g.div_(n_mb) for n, g in gsum.items()}
+    lr = cosine_schedule(opt_state.count, peak_lr=hyper.peak_lr,
+                         warmup_steps=hyper.warmup_steps,
+                         total_steps=hyper.total_steps)
+    _, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state, params, lr)
+    metrics = {"loss": loss_sum / n_mb, "grad_norm": gnorm, "lr": lr}
+    return model, opt_state, metrics
+
+
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """``(model, batch) → (last-position logits, caches)``."""
+    """``(model, batch) → (last-position logits, caches)``, without
+    autograd (``no_grad``: DTensor caches refuse inference-mode views)."""
     def prefill_step(model, batch):
-        with torch.inference_mode():
+        with torch.no_grad():
             return model.prefill(batch["tokens"],
                                  batch.get("frontend_embeds"))
     return prefill_step
@@ -127,8 +189,10 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     """``(model, caches, tokens, index) → (logits, caches, next token)``:
     greedy (sampling lives in the serving loop)."""
     def decode_step(model, caches, tokens, index):
-        with torch.inference_mode():
+        with torch.no_grad():
             logits, caches = model.decode_step(tokens, caches, index)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # a vocab-split argmax is data-dependent: gather the vocab first
+        last = hint(logits[:, -1, :], "batch", None)
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
         return logits, caches, next_tok
     return decode_step

@@ -28,16 +28,27 @@ is not ported (no configuration sets it).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..kernels.flash_attn import kernel as flash_kernel
 from ..kernels.flash_attn.ops import flash_attention
 from ..kernels.flash_attn.ref import sdpa_ref
+from . import sharding_hints
+
+try:   # simulated ranks (LocalTensorMode) run a kernel once a rank
+    from torch.distributed._local_tensor import maybe_run_for_local_tensor
+except ImportError:                                  # pragma: no cover
+    def maybe_run_for_local_tensor(fn):
+        return fn
 from .config import ModelConfig
 from .layers import (F32, NEG, RMSNorm, apply_rope, dense_init_,
-                     matmul_heads, rmsnorm, _weight)
+                     matmul_heads, matmul_rows, rmsnorm, _weight)
 
 _LATER = "see ROADMAP.md, Queue 1 item 6"
 
@@ -59,9 +70,21 @@ class GQA(nn.Module):
             dense_init_(getattr(self, n), gen)
 
 
+def axes_gqa():
+    return {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # (b, s_max, kv, hd)
     v: torch.Tensor  # (b, s_max, kv, hd)
+
+
+def kv_cache_axes() -> KVCache:
+    return KVCache(k=("batch", "seq", "kv_heads", "head_dim"),
+                   v=("batch", "seq", "kv_heads", "head_dim"))
 
 
 def _qkv(p: GQA, cfg: ModelConfig, x, positions):
@@ -72,10 +95,9 @@ def _qkv(p: GQA, cfg: ModelConfig, x, positions):
 
 
 def _out(p, o: torch.Tensor, dtype) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd", o, wo)`` in the activations' type."""
-    h, hd, d = p.wo.shape
-    return torch.matmul(o.reshape(*o.shape[:-2], h * hd),
-                        p.wo.reshape(h * hd, d)).to(dtype)
+    """``einsum("bshk,hkd->bsd", o, wo)`` in the activations' type; with
+    DTensors, row-parallel on each rank's heads (``matmul_rows``)."""
+    return matmul_rows(o, p.wo).to(dtype)
 
 
 def _causal_mask(s: int, device) -> torch.Tensor:
@@ -150,12 +172,82 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
 def _attend(q, k, v, cfg: ModelConfig, train: bool) -> torch.Tensor:
     """Causal attention over the whole sequence: the flash-attention kernel
     for prefill; the reference's differentiable jnp functions, by
-    ``attn_impl``, for training."""
-    if not train:
-        return flash_attention(q, k, v, causal=True)
-    if cfg.attn_impl == "chunked":
-        return _sdpa_chunked(q, k, v, cfg)
-    return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device))
+    ``attn_impl``, for training. DTensor heads attend shard by shard
+    (:func:`_on_local_heads`)."""
+    return _on_local_heads(_attend_shard, q, k, v, cfg, train)
+
+
+def _attend_shard(q, k, v, cfg: ModelConfig, train: bool) -> torch.Tensor:
+    if train:
+        if cfg.attn_impl == "chunked":
+            return _sdpa_chunked(q, k, v, cfg)
+        return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device))
+    if is_fake(q):
+        # a dry-run traces fake tensors, which no kernel can read: it
+        # counts the dense attention the kernel computes (what that
+        # allocates is what its flash-projected bytes leave out)
+        with flash_kernel.standing_in():
+            return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device))
+    return _flash_shard(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+@maybe_run_for_local_tensor
+def _flash_shard(q, k, v):
+    # a simulated rank set (LocalTensorMode) launches the kernel once a rank
+    return flash_attention(q, k, v, causal=True)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: a local shard's
+    gradient goes back into a DTensor whose next backward op (a ``view``
+    in a matmul's backward) takes its global layout as the local one's."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _on_local_heads(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)`` (attention over (b, s, heads, dim) tensors);
+    with DTensor inputs, on each rank's local heads through ``local_map``:
+    q and the output split on heads by the hint rules' ``heads`` dims, k
+    and v on their own heads (``kv_heads``, or ``heads`` when every query
+    head has its own), the batch on ``batch``; a key axis split over
+    ranks (sequence-sharded decode caches) is gathered first. Each rank
+    then computes what the unsharded call computes on its heads: query
+    head j reads local KV head j // (local group), which is its global
+    KV head when a rank holds one KV head or the whole of each group
+    (``plan_for`` gives no other case). Plain tensors run ``fn`` as
+    they are."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, *args)
+    mesh = q.device_mesh
+    ctx = sharding_hints.active()
+    kv_name = "heads" if k.shape[2] == q.shape[2] else "kv_heads"
+    if ctx is None:
+        qp = kp = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    else:
+        qp = sharding_hints.fitting(q.shape, mesh, sharding_hints.placements_for(
+            mesh, ctx.rules, ("batch", None, "heads", None)))
+        kp = sharding_hints.fitting(k.shape, mesh, sharding_hints.placements_for(
+            mesh, ctx.rules, ("batch", None, kv_name, None)))
+    ways = [math.prod(mesh.size(i) for i, pl in enumerate(pls)
+                      if pl == Shard(2)) for pls in (qp, kp)]
+    if k.shape[2] // ways[1] > 1 and ways[0] != ways[1]:
+        raise ValueError(f"heads split {ways[0]} ways over {q.shape[2]} "
+                         f"query heads and {ways[1]} over {k.shape[2]} KV "
+                         f"heads: a rank's query heads would not read "
+                         f"their own KV heads")
+    def local(q, k, v, *a):
+        return fn(*(_ContiguousGrad.apply(t) for t in (q, k, v)), *a)
+
+    return sharding_hints.run_local(local, mesh, qp,
+                                    (qp, kp, kp) + (None,) * len(args),
+                                    q, k, v, *args)
 
 
 def gqa_full_kv(p: GQA, cfg: ModelConfig, x, positions, train: bool = False
@@ -177,6 +269,22 @@ def gqa_full(p: GQA, cfg: ModelConfig, x, positions,
     return gqa_full_kv(p, cfg, x, positions, train)[0]
 
 
+def _write_row(buf: torch.Tensor, row: torch.Tensor, index: int) -> None:
+    """``buf[:, index] = row[:, 0]``, in place. A DTensor cache split on
+    its sequence dim takes it as a masked copy: a slice write into it
+    does not land on the rank that holds the row."""
+    if not (isinstance(buf, DTensor) and Shard(1) in buf.placements):
+        buf[:, index:index + 1] = row
+        return
+    pos = torch.arange(buf.shape[1], device=buf.device)
+    at = (pos == index).reshape(1, -1, *([1] * (buf.ndim - 2)))
+    buf.copy_(torch.where(at, row, buf))
+
+
+def _masked(q, k, v, mask) -> torch.Tensor:
+    return sdpa_ref(q, k, v, causal=False, mask=mask)
+
+
 def gqa_decode(p: GQA, cfg: ModelConfig, x, cache: KVCache, index: int
                ) -> Tuple[torch.Tensor, KVCache]:
     """x: (b, 1, d); ``index``: the position being written. The new row
@@ -188,11 +296,11 @@ def gqa_decode(p: GQA, cfg: ModelConfig, x, cache: KVCache, index: int
                          f"{s_max} rows")
     pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, cfg, x, pos)
-    cache.k[:, index:index + 1] = k
-    cache.v[:, index:index + 1] = v
+    _write_row(cache.k, k, index)
+    _write_row(cache.v, v, index)
     kpos = torch.arange(s_max, device=x.device)[None, :]
     mask = torch.where(kpos <= index, 0.0, NEG).to(F32)
-    o = sdpa_ref(q, cache.k, cache.v, causal=False, mask=mask)
+    o = _on_local_heads(_masked, q, cache.k, cache.v, mask)
     return _out(p, o, x.dtype), cache
 
 
@@ -268,9 +376,25 @@ class MLA(nn.Module):
             dense_init_(getattr(self, n), gen)
 
 
+def axes_mla():
+    return {"wq_down": ("embed", "q_lora"),
+            "q_norm": {"scale": ("q_lora",)},
+            "wq_up": ("q_lora", "heads", "head_dim"),
+            "wkv_down": ("embed", "kv_lora_rope"),
+            "kv_norm": {"scale": ("kv_lora",)},
+            "wk_up": ("kv_lora", "heads", "head_dim"),
+            "wv_up": ("kv_lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
+
 class MLACache(NamedTuple):
     latent: torch.Tensor  # (b, s_max, kv_lora)
     k_rope: torch.Tensor  # (b, s_max, rope_dim)
+
+
+def mla_cache_axes() -> MLACache:
+    return MLACache(latent=("batch", "seq", "kv_lora"),
+                    k_rope=("batch", "seq", None))
 
 
 def _mla_qkv_full(p: MLA, cfg: ModelConfig, x, positions):
@@ -343,8 +467,8 @@ def mla_decode(p: MLA, cfg: ModelConfig, x, cache: MLACache, index: int
                          f"{s_max} rows")
     pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q_nope, q_rope, latent, k_rope = _mla_qkv_full(p, cfg, x, pos)
-    cache.latent[:, index:index + 1] = latent
-    cache.k_rope[:, index:index + 1] = k_rope[:, :, 0]
+    _write_row(cache.latent, latent, index)
+    _write_row(cache.k_rope, k_rope[:, :, 0], index)
     kpos = torch.arange(s_max, device=x.device)[None, :]
     mask = torch.where(kpos <= index, 0.0, NEG).to(F32)
     return _mla_absorbed_attend(p, cfg, q_nope, q_rope, cache.latent,

@@ -6,7 +6,8 @@ repeating *group* of layers (``layer_pattern``), each layer being an
 channel mixer (``ffn_pattern``). Homogeneous models use a group of size 1;
 Jamba's 1:7 attn:mamba interleave with MoE-every-other-layer uses a group of
 8. The schema keeps every field so configurations read the same in both
-packages.
+packages. :class:`ShapeConfig` names an input-shape cell (``SHAPES``;
+``shapes_for`` gives an architecture's), as the dry-run sweeps them.
 """
 from __future__ import annotations
 
@@ -152,3 +153,31 @@ class ModelConfig:
                 dead = (self.num_experts - self.experts_per_token)
                 total -= self.num_groups * dead * mats * self.d_model * self.d_ff
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a sequence length, a global batch and the
+    kind of step (``train`` | ``prefill`` | ``decode``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shapes_for(cfg: ModelConfig):
+    """The shape cells an architecture runs: ``long_500k`` only for a
+    sub-quadratic one."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        out.append(LONG_500K)
+    return out

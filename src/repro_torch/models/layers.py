@@ -5,7 +5,9 @@ reference's pytree leaves (``scale``, ``tokens``, ``w_gate``, ...), so a
 reference pytree maps onto a ``state_dict`` by name (``convert.py``).
 Each ``forward`` computes what the reference's function of the same name
 does, in the same precision steps: norms, RoPE and the softmax in f32,
-matrix products in the activations' type.
+matrix products in the activations' type. Every module's ``axes_*``
+sibling names the logical axis of each parameter dim (the reference's
+``axes_*``), which ``launch/sharding.py`` maps onto a device mesh.
 """
 from __future__ import annotations
 
@@ -13,7 +15,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+
 from .config import ModelConfig
+from .sharding_hints import column_parallel, row_parallel, run_local
 
 F32 = torch.float32
 NEG = -1e30
@@ -43,10 +49,35 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator,
 
 def matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...d,d...->...", x, w)``: contract x's last axis with w's
-    first, keeping w's other axes."""
+    first, keeping w's other axes. With a DTensor ``w``, column-parallel
+    on each rank's shard (``sharding_hints.column_parallel``)."""
+    if not isinstance(w, DTensor):
+        return _matmul_heads(x, w)
+    return column_parallel(_matmul_heads, x, w)
+
+
+def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Contract x's trailing axes with all of w's but its last
+    (``x @ w`` for a 2-D w, ``einsum("bshk,hkd->bsd")`` for a 3-D one).
+    With a DTensor ``w``, row-parallel on each rank's shard of the
+    contracted axes (``sharding_hints.row_parallel``)."""
+    if not isinstance(w, DTensor):
+        return _matmul_rows(x, w)
+    return row_parallel(_matmul_rows, x, w)
+
+
+def _matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     d = w.shape[0]
     return torch.matmul(x, w.reshape(d, -1)).reshape(*x.shape[:-1],
                                                      *w.shape[1:])
+
+
+def _matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if w.ndim == 2:               # no reshape: the unsharded ops stay as they were
+        return torch.matmul(x, w)
+    k = w.ndim - 1
+    return torch.matmul(x.reshape(*x.shape[:x.ndim - k], -1),
+                        w.reshape(-1, w.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +96,10 @@ def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
     """Mamba-2's output norm: RMSNorm(x · silu(gate)), the gate taken in
     f32 and cast to x's type before the product."""
     return rmsnorm(scale, x * F.silu(gate.to(F32)).to(x.dtype), eps)
+
+
+def axes_rmsnorm():
+    return {"scale": ("embed",)}
 
 
 class RMSNorm(nn.Module):
@@ -124,7 +159,41 @@ class Embed(nn.Module):
             dense_init_(self.head, gen)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.tokens, DTensor):
+            return _vocab_parallel_lookup(self.tokens, ids)
         return self.tokens[ids]
+
+
+def _vocab_parallel_lookup(table: DTensor, ids: torch.Tensor) -> DTensor:
+    """``table[ids]`` with the rows split over mesh dims, each rank on its
+    rows: a row it does not hold reads as 0, and the sum over those mesh
+    dims (one nonzero term) is the row. DTensor's own indexing gathers
+    the whole table first."""
+    mesh = table.device_mesh
+    rows = [Shard(0) if pl == Shard(0) else Replicate()
+            for pl in table.placements]
+    ip = tuple(pl if isinstance(pl, Shard) and not r == Shard(0)
+               else Replicate() for pl, r in zip(ids.placements, rows))
+    lanes = distribute_tensor(torch.arange(table.shape[0],
+                                           device=table.device), mesh, rows)
+    out = [Partial() if r == Shard(0) else pl for r, pl in zip(rows, ip)]
+
+    def local(t, i, lane):
+        n = t.shape[0]
+        lo = lane[:1]
+        at = i.long() - lo
+        hit = (at >= 0) & (at < n)
+        got = t[at.clamp(0, max(n - 1, 0))]
+        return got * hit[..., None].to(got.dtype)
+
+    return run_local(local, mesh, out, [rows, ip, rows], table, ids, lanes)
+
+
+def axes_embed(cfg: ModelConfig):
+    p = {"tokens": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["head"] = ("embed", "vocab")
+    return p
 
 
 def lm_logits(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -133,9 +202,13 @@ def lm_logits(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     The product runs in x's type and is then widened: in bf16 the logits
     carry bf16 rounding (the reference accumulates them into f32)."""
     w = embed.tokens.t() if cfg.tie_embeddings else embed.head
-    logits = torch.matmul(x, w).to(F32)
+    # a vocab-split head: column-parallel on each rank's lanes
+    mm = matmul_heads if isinstance(w, DTensor) else torch.matmul
+    logits = mm(x, w).to(F32)
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG
+        # out of place: a vocab-sharded DTensor has no in-place fill
+        lane = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(lane < cfg.vocab_size, logits, NEG)
     return logits
 
 
@@ -160,18 +233,32 @@ class FFN(nn.Module):
             dense_init_(getattr(self, n), gen)
 
 
-def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    dt = x.dtype
+def axes_ffn(cfg: ModelConfig):
     if cfg.ffn_act == "swiglu":
-        g = torch.matmul(x, p.w_gate).to(F32)
-        u = torch.matmul(x, p.w_up).to(F32)
+        return {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+                "w_down": ("ffn", "embed")}
+    return {"w_in": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+
+
+def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """With DTensor weights, Megatron's column- then row-parallel pair
+    (:func:`matmul_heads`, :func:`matmul_rows`) on each rank's ffn lanes:
+    a partial sum over the mesh dims that split them (DTensor's own
+    propagation may gather the whole weight)."""
+    dt = x.dtype
+    sharded = isinstance(p.w_down, DTensor)
+    col = matmul_heads if sharded else torch.matmul
+    row = matmul_rows if sharded else torch.matmul
+    if cfg.ffn_act == "swiglu":
+        g = col(x, p.w_gate).to(F32)
+        u = col(x, p.w_up).to(F32)
         h = (F.silu(g) * u).to(dt)
     else:
-        h = torch.matmul(x, p.w_in).to(F32)
+        h = col(x, p.w_in).to(F32)
         if cfg.ffn_act == "gelu":
             h = F.gelu(h, approximate="tanh").to(dt)
         elif cfg.ffn_act == "squared_relu":   # Nemotron-4 (Primer)
             h = torch.square(F.relu(h)).to(dt)
         else:
             raise ValueError(cfg.ffn_act)
-    return torch.matmul(h, p.w_down).to(dt)
+    return row(h, p.w_down).to(dt)

@@ -41,13 +41,26 @@ layers is recomputed in the backward pass
 group in ``jax.checkpoint(nothing_saveable)``. Parameters are created
 with ``requires_grad=False`` (serving builds no graph); a trainer calls
 ``model.requires_grad_(True)``.
+
+Sharding: :func:`param_axes` / :func:`cache_axes` name the logical axis
+of every parameter and cache dim, keyed like the ``state_dict`` and the
+caches (``launch/sharding.py`` maps them onto a mesh);
+:func:`abstract_params` / :func:`abstract_caches` are their shapes and
+dtypes on the ``meta`` device (``Model(cfg, device="meta")`` allocates
+nothing and draws no weights). With DTensor parameters every mode runs
+as it is; ``_group_train`` pins the residual stream and re-places the
+group's weights where the reference's ``hint`` calls do
+(``sharding_hints``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils.checkpoint import checkpoint
 
 from ..core.table_torch import resolve_device
@@ -55,8 +68,10 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import (F32, FFN, Embed, RMSNorm, ffn_apply, lm_logits,
-                     rmsnorm, torch_dtype)
+from .layers import (F32, FFN, Embed, RMSNorm, axes_embed, axes_ffn,
+                     axes_rmsnorm, ffn_apply, lm_logits, rmsnorm,
+                     torch_dtype)
+from .sharding_hints import active, hint, param_hint_tree, run_local
 MIXERS = ("attn", "ssm")
 FFNS = ("dense", "moe", "none")
 FRONTENDS = ("none", "vision_stub", "audio_stub")
@@ -118,7 +133,8 @@ class Model(nn.Module):
     reference's distributions (N(0, 1)/sqrt(fan_in) matrices, embedding
     N(0, 0.02²), norm scales 1, the SSM's own constants). The draws are
     not JAX's: parity with the reference goes through
-    ``load_state_dict(params_from_numpy(...))``."""
+    ``load_state_dict(params_from_numpy(...))``. On the ``meta`` device
+    nothing is drawn."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -132,6 +148,8 @@ class Model(nn.Module):
             Block(cfg, cfg.layer_pattern[i % G], cfg.ffn_pattern[i % G],
                   dtype, dev) for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.d_model, dtype, dev)
+        if dev.type == "meta":
+            return
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             self.embed.init_(gen)
@@ -161,7 +179,9 @@ class Model(nn.Module):
 
     def _embed(self, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.embed(tokens)
+        # a vocab-split lookup is a partial sum: reduce it once, in the
+        # table's dtype, before anything widens it
+        x = hint(self.embed(tokens), "batch", None, None)
         if self.cfg.frontend == "none":
             return x
         if frontend_embeds is None:
@@ -196,7 +216,8 @@ class Model(nn.Module):
             else:
                 mix, k, v = attn.gqa_full_kv(blk.mixer, cfg, h, positions)
                 cache = attn.KVCache(k, v)
-            x, _, _ = self._ffn(blk, x + mix)
+            x, _, _ = self._ffn(blk, hint(x + mix, "batch", None, None))
+            x = hint(x, "batch", None, None)
             per_slot[i % cfg.group_size].append(cache)
         x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
         logits = lm_logits(self.embed, cfg, x[:, -1:, :])
@@ -210,7 +231,7 @@ class Model(nn.Module):
         every position, caches)."""
         cfg = self.cfg
         G = cfg.group_size
-        x = self.embed(tokens)
+        x = hint(self.embed(tokens), "batch", None, None)
         for i, blk in enumerate(self.layers):
             c = caches[i % G]
             view = type(c)(*(t[i // G] for t in c))
@@ -220,7 +241,8 @@ class Model(nn.Module):
             else:
                 fn = mode.mla if cfg.attn_type == "mla" else mode.gqa
             mix, _ = fn(blk.mixer, cfg, h, view)
-            x, _, _ = self._ffn(blk, x + mix)
+            x, _, _ = self._ffn(blk, hint(x + mix, "batch", None, None))
+            x = hint(x, "batch", None, None)
         x = rmsnorm(self.final_norm.scale, x, cfg.norm_eps)
         return lm_logits(self.embed, cfg, x), caches
 
@@ -277,10 +299,17 @@ class Model(nn.Module):
         aux loss (f32), its expert counts (e,) int32 or None)."""
         cfg = self.cfg
         G = cfg.group_size
+        blocks = self.layers[g * G:(g + 1) * G]
+        with _regathered(cfg, blocks):
+            return self._group_body(blocks, hint(x, "batch", None, None),
+                                    positions)
+
+    def _group_body(self, blocks, x: torch.Tensor, positions: torch.Tensor):
+        cfg = self.cfg
         aux = torch.zeros((), dtype=F32, device=x.device)
         counts = (torch.zeros(cfg.num_experts, dtype=torch.int32,
                               device=x.device) if cfg.num_experts else None)
-        for blk in self.layers[g * G:(g + 1) * G]:
+        for blk in blocks:
             h = rmsnorm(blk.mixer_ln.scale, x, cfg.norm_eps)
             if blk.kind == "ssm":
                 mix = ssm_mod.ssd_full(blk.mixer, cfg, h)
@@ -288,7 +317,11 @@ class Model(nn.Module):
                 mix = attn.mla_full(blk.mixer, cfg, h, positions, train=True)
             else:
                 mix = attn.gqa_full(blk.mixer, cfg, h, positions, train=True)
-            x, a, c = self._ffn(blk, x + mix)
+            # the residual stream stays whole on the model dims: a mixer's
+            # or FFN's sum over its sharded heads / ffn lanes is reduced
+            # where it joins the stream (Megatron's all-reduce)
+            x, a, c = self._ffn(blk, hint(x + mix, "batch", None, None))
+            x = hint(x, "batch", None, None)
             if a is not None:
                 aux = aux + a
                 counts = counts + c
@@ -333,15 +366,150 @@ class Model(nn.Module):
         logits, aux, counts = self.forward_train(batch, remat)
         labels = batch["labels"].long()
         mask = (labels >= 0).to(F32)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.take_along_dim(logp, labels.clamp(min=0)[..., None],
-                                    -1)[..., 0]
+        if isinstance(logits, DTensor):
+            nll = _vocab_parallel_nll(logits, labels.clamp(min=0))
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.take_along_dim(logp, labels.clamp(min=0)[..., None],
+                                        -1)[..., 0]
         tokens = mask.sum()
         ce = (nll * mask).sum() / torch.clamp(tokens, min=1.0)
         metrics = {"ce": ce, "aux": aux, "tokens": tokens}
         if counts is not None:
             metrics["expert_counts"] = counts
         return ce + aux_coef * aux, metrics
+
+
+def _axes_slot(cfg: ModelConfig, kind: str, ffn_kind: str) -> Dict:
+    p: Dict = {"mixer_ln": axes_rmsnorm()}
+    if kind == "ssm":
+        p["mixer"] = ssm_mod.axes_ssm()
+    else:
+        p["mixer"] = (attn.axes_mla() if cfg.attn_type == "mla"
+                      else attn.axes_gqa())
+    if ffn_kind != "none":
+        p["ffn_ln"] = axes_rmsnorm()
+        p["ffn"] = (axes_ffn(cfg) if ffn_kind == "dense"
+                    else moe_mod.axes_moe(cfg))
+    return p
+
+
+def _flat(tree: Dict, prefix: str = "") -> Dict[str, tuple]:
+    out: Dict[str, tuple] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def is_axes_leaf(t) -> bool:
+    """A leaf of an axes tree: a plain tuple of logical names (or None)."""
+    return (type(t) is tuple
+            and all(isinstance(x, (str, type(None))) for x in t))
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each ``state_dict`` name → the logical names of its dims: the
+    reference's ``param_axes`` leaf without the leading ``layers`` entry
+    of its group stack (the port keeps one tensor a layer)."""
+    out = {f"embed.{k}": v for k, v in _flat(axes_embed(cfg)).items()}
+    for i in range(cfg.num_layers):
+        slot = i % cfg.group_size
+        out.update(_flat(_axes_slot(cfg, cfg.layer_pattern[slot],
+                                    cfg.ffn_pattern[slot]), f"layers.{i}."))
+    out.update({f"final_norm.{k}": v
+                for k, v in _flat(axes_rmsnorm()).items()})
+    return out
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """The logical names of every cache dim, one tuple per slot, with the
+    leading ``layers`` (group stack) entry the caches keep."""
+    out = []
+    for kind in cfg.layer_pattern:
+        if kind == "ssm":
+            c = ssm_mod.ssm_cache_axes()
+        elif cfg.attn_type == "mla":
+            c = attn.mla_cache_axes()
+        else:
+            c = attn.kv_cache_axes()
+        out.append(type(c)(*(("layers",) + t for t in c)))
+    return out
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The ``state_dict``'s shapes and dtypes as ``meta`` tensors (no
+    allocation)."""
+    return dict(Model(cfg, device="meta").state_dict())
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, s_max: int, dtype
+                    ) -> list:
+    """:func:`init_caches`' shapes and dtypes as ``meta`` tensors."""
+    return init_caches(cfg, batch, s_max, dtype, device="meta")
+
+
+@contextlib.contextmanager
+def _regathered(cfg: ModelConfig, blocks):
+    """The group's per-layer parameter re-gather point: under hints with
+    ``param_rules`` each block's parameters are swapped for their
+    re-placed copies (autograd flows through them to the originals) for
+    the body's duration; otherwise nothing happens."""
+    ctx = active()
+    if ctx is None or ctx.param_rules is None:
+        yield
+        return
+    saved = []
+    try:
+        for blk in blocks:
+            axes = _flat(_axes_slot(cfg, blk.kind, blk.ffn_kind))
+            params = dict(blk.named_parameters())
+            for name, t in param_hint_tree(params, axes).items():
+                path, _, leaf = name.rpartition(".")
+                sub = blk.get_submodule(path)
+                saved.append((sub, leaf, sub._parameters[leaf]))
+                sub._parameters[leaf] = t
+        yield
+    finally:
+        for sub, leaf, p in reversed(saved):
+            sub._parameters[leaf] = p
+
+
+def _vocab_parallel_nll(logits, labels) -> torch.Tensor:
+    """``-log_softmax(logits)[label]`` for DTensor logits, each rank on
+    its vocab lanes (Megatron's vocab-parallel cross entropy): the
+    row max and the exp-sum are reduced over the lanes' mesh dims, the
+    label's logit comes from the rank that holds it. DTensor's own
+    ``log_softmax`` / ``take_along_dim`` would gather the whole vocab of
+    every row."""
+    mesh = logits.device_mesh
+    v = logits.placements
+    lp = tuple(Shard(0) if pl == Shard(logits.ndim - 1) else Replicate()
+               for pl in v)
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim < logits.ndim - 1
+                 else Replicate() for pl in v)
+    lanes = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.device), mesh, lp)
+    red = [Partial("max") if pl == Shard(logits.ndim - 1) else r
+           for pl, r in zip(v, rows)]
+    m = run_local(lambda x: x.detach().amax(-1, keepdim=True), mesh, red,
+                  [v], logits).redistribute(mesh, rows)
+    red = tuple(Partial() if pl == Shard(logits.ndim - 1) else r
+                for pl, r in zip(v, rows))
+
+    def local(x, mx, lab, lane):
+        z = x - mx
+        hit = lab[..., None] == lane
+        return (torch.exp(z).sum(-1, keepdim=True),
+                torch.where(hit, z, 0.0).sum(-1))
+
+    sumexp, picked = run_local(local, mesh, (red, red), [v, rows, rows, lp],
+                               logits, m, labels, lanes)
+    rows2 = rows
+    return (torch.log(sumexp.redistribute(mesh, rows2))[..., 0]
+            - picked.redistribute(mesh, rows2))
 
 
 def zero_frontend_embeds(cfg: ModelConfig, model: Model

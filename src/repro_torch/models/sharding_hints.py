@@ -1,0 +1,224 @@
+"""Activation-sharding hints, mesh-agnostic.
+
+Model code runs unchanged without a mesh (every CPU test). Under
+:func:`use_hints` (set by the caller of a sharded step, with the rules of
+``launch/sharding.py``), ``hint(x, *logical_axes)`` redistributes a
+DTensor ``x`` to the placements its logical dim names map to: the port's
+``with_sharding_constraint``. The reference pins activations where
+GSPMD's propagation chooses badly (MoE routing and dispatch, the SSM
+projections, the residual stream of each group); DTensor propagates
+placements op by op, and the same calls fix the same layouts.
+
+A *spec* is the reference's ``PartitionSpec`` as a tuple, one entry per
+tensor dim: ``None`` (unsharded), a mesh-dim name, or a tuple of names
+(the dim split over several mesh dims, the first outermost).
+:func:`placements_from_spec` turns it into one DTensor placement per
+mesh dim: ``Shard(d)`` on every mesh dim that splits tensor dim ``d``,
+``Replicate()`` on the rest. DTensor splits a dim over several mesh dims
+in mesh order, so a multi-axis entry must list its names in mesh order.
+
+A mesh built by ``launch/mesh.arch_mesh`` leaves out its size-1
+sub-dims; a spec naming one of :data:`MESH_DIMS` that the mesh lacks
+splits nothing on it.
+
+A plain tensor, or any tensor outside a context, passes through
+unchanged: unsharded results do not move by a bit.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+Spec = Tuple[Any, ...]
+#: every mesh-dim name a rule may use; one a mesh lacks has size 1
+MESH_DIMS = ("pod", "data", "tp_kv", "tp_g", "tp_r")
+
+
+class _Hints(NamedTuple):
+    mesh: Any
+    rules: Dict[str, Any]
+    param_rules: Optional[Dict[str, Any]]
+
+
+#: the hint contexts entered, innermost last. A process-wide stack, not a
+#: context variable: a CUDA backward (and the recompute of a checkpointed
+#: group in it) runs on the autograd engine's own thread, which sees no
+#: context variable of the caller's
+_STACK: List[_Hints] = []
+
+
+@contextlib.contextmanager
+def use_hints(mesh, rules: Dict[str, Any],
+              param_rules: Optional[Dict[str, Any]] = None):
+    """Hint activations on ``mesh`` by ``rules`` (logical name → mesh-dim
+    names). ``param_rules``, when set, re-places each group's parameters
+    at the top of its body (:func:`param_hint_tree`): with TP-only rules
+    that all-gathers FSDP-sharded weights once a layer."""
+    _STACK.append(_Hints(mesh, rules, param_rules))
+    try:
+        yield
+    finally:
+        _STACK.pop()
+
+
+def active() -> Optional[_Hints]:
+    """The current ``(mesh, rules, param_rules)``, or None."""
+    return _STACK[-1] if _STACK else None
+
+
+def spec_from_axes(axes, rules: Dict[str, Any]) -> Spec:
+    """One tensor's logical dim names → its spec. A mesh dim appears once
+    per spec and earlier dims win (MoE ``(experts, embed, ffn)``: the
+    experts take the model dims, the per-expert ffn dim stays local)."""
+    parts = []
+    used = set()
+    for ax in axes:
+        r = rules.get(ax) if ax is not None else None
+        if r is None:
+            parts.append(None)
+            continue
+        r = r if isinstance(r, tuple) else (r,)
+        r = tuple(a for a in r if a not in used)
+        used.update(r)
+        parts.append(None if not r else (r[0] if len(r) == 1 else r))
+    return tuple(parts)
+
+
+def placements_from_spec(mesh, spec: Spec) -> tuple:
+    """``spec`` on ``mesh`` → one placement per mesh dim."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = []
+        for a in axes:
+            if a in names:
+                idx.append(names.index(a))
+            elif a not in MESH_DIMS:
+                raise ValueError(f"spec {spec}: {a!r} is not a dim of the "
+                                 f"mesh {tuple(names)}")
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {d} lists {axes}, not in "
+                             f"the mesh's order {tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def placements_for(mesh, rules: Dict[str, Any], logical_axes) -> tuple:
+    return placements_from_spec(mesh, spec_from_axes(logical_axes, rules))
+
+
+def _place(x, mesh, want):
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def hint(x, *logical_axes):
+    """Constrain a DTensor's placements by logical dim names (None =
+    unsharded); the identity on a plain tensor and outside a context. A
+    dim its mesh dims do not divide (long_500k's batch of 1 over 16) stays
+    whole: GSPMD would pad it, and a local region's output would take the
+    padded size for the global one."""
+    ctx = active()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    return _place(x, ctx.mesh, fitting(
+        x.shape, ctx.mesh, placements_for(ctx.mesh, ctx.rules, logical_axes)))
+
+
+def fitting(shape, mesh, placements) -> tuple:
+    """``placements`` with every split of a dim its mesh dims do not
+    divide dropped (that dim stays whole)."""
+    ways = {}
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            ways[pl.dim] = ways.get(pl.dim, 1) * mesh.size(i)
+    return tuple(Replicate() if isinstance(pl, Shard)
+                 and shape[pl.dim] % ways[pl.dim] else pl
+                 for pl in placements)
+
+
+def param_hint_tree(params: Dict[str, Any], axes: Dict[str, tuple]
+                    ) -> Dict[str, Any]:
+    """Re-place a group's parameters (``name → tensor``, ``axes`` keyed
+    alike) by the context's ``param_rules``; ``params`` unchanged unless
+    the context carries param rules."""
+    ctx = active()
+    if ctx is None or ctx.param_rules is None:
+        return params
+    return {k: (_place(p, ctx.mesh, placements_for(ctx.mesh,
+                                                   ctx.param_rules, axes[k]))
+                if isinstance(p, DTensor) else p)
+            for k, p in params.items()}
+
+
+def column_parallel(fn, x, w):
+    """``fn(x, w)``, a product contracting x's last dim with w's first, on
+    each rank's shard of w's other dims: x whole on its last dim, w whole
+    on its first (an FSDP split there is gathered); the result keeps x's
+    leading splits and splits w's other dims as w does (DTensor's own
+    reshape of a dim split over two mesh dims is not to be trusted)."""
+    xp, wp, yp = [], [], []
+    for a, b in zip(x.placements, w.placements):
+        a = a if isinstance(a, Shard) and a.dim < x.ndim - 1 else Replicate()
+        b = b if (isinstance(b, Shard) and b.dim > 0
+                  and not isinstance(a, Shard)) else Replicate()
+        xp.append(a)
+        wp.append(b)
+        yp.append(a if isinstance(a, Shard) else
+                  Shard(x.ndim + b.dim - 2) if isinstance(b, Shard)
+                  else Replicate())
+    return run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
+
+
+def row_parallel(fn, x, w):
+    """``fn(x, w)``, a product contracting x's trailing dims with all of
+    w's but its last, on each rank's shard of the first contracted dim:
+    where x and w split it over the same mesh dims the result is a
+    partial sum there (Megatron's row-parallel half); any other split of
+    w is gathered, x's leading splits are kept."""
+    first = x.ndim - (w.ndim - 1)
+    xp, wp, yp = [], [], []
+    for a, b in zip(x.placements, w.placements):
+        rows = a == Shard(first) and b == Shard(0)
+        a = a if rows or (isinstance(a, Shard) and a.dim < first) \
+            else Replicate()
+        xp.append(a)
+        wp.append(b if rows else Replicate())
+        yp.append(Partial() if rows else a)
+    return run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
+
+
+def run_local(fn, mesh, out_placements, in_placements, *args):
+    """``fn(*args)`` on each rank's local shards (``local_map``): every
+    DTensor argument is first redistributed to its ``in_placements``
+    entry (None for the other arguments), the result takes
+    ``out_placements`` (a tuple of them for a tuple of results). Each rank's gradient of an argument it holds
+    whole on a mesh dim that another argument splits covers only that
+    rank's part of the work: it is ``Partial`` there."""
+    dims = range(len(mesh.mesh_dim_names))
+
+    def grad_pl(pl):
+        if pl is None:
+            return None
+        return tuple(
+            Partial() if pl[i] == Replicate() and any(
+                o is not None and isinstance(o[i], Shard)
+                for o in in_placements) else pl[i]
+            for i in dims)
+
+    outs = (tuple(tuple(o) for o in out_placements)
+            if isinstance(out_placements[0], (tuple, list))
+            else (tuple(out_placements),))
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=tuple(grad_pl(p)
+                                              for p in in_placements),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)

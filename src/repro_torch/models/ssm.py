@@ -17,14 +17,19 @@ the activations' type where the reference rounds them.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from .config import ModelConfig
-from .layers import F32, RMSNorm, dense_init_, gated_rmsnorm, _weight
+from .layers import (F32, RMSNorm, dense_init_, gated_rmsnorm, matmul_heads,
+                     matmul_rows, _weight)
+from .sharding_hints import hint, run_local
 
 
 class SSM(nn.Module):
@@ -66,9 +71,24 @@ class SSM(nn.Module):
         self.dt_bias.zero_()
 
 
+def axes_ssm():
+    return {"wz": ("embed", "inner"), "wx": ("embed", "inner"),
+            "wb": ("embed", None), "wc": ("embed", None),
+            "wdt": ("embed", None),
+            "conv_w": (None, "conv_chan"), "conv_b": ("conv_chan",),
+            "a_log": (None,), "d_skip": (None,), "dt_bias": (None,),
+            "out_norm": {"scale": ("inner",)},
+            "w_out": ("inner", "embed")}
+
+
 class SSMCache(NamedTuple):
     conv: torch.Tensor   # (b, conv_width - 1, d_inner + 2·d_state)
     state: torch.Tensor  # (b, heads, headdim, d_state) f32
+
+
+def ssm_cache_axes() -> SSMCache:
+    return SSMCache(conv=("batch", None, "conv_chan"),
+                    state=("batch", "ssm_heads", None, None))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype,
@@ -91,25 +111,26 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return out.masked_fill(~keep, float("-inf"))
 
 
-def _conv_taps(window: torch.Tensor, p: SSM, n: int) -> torch.Tensor:
+def _conv_taps(window: torch.Tensor, conv_w, conv_b, n: int) -> torch.Tensor:
     """Σ_i window[:, i:i+n] · conv_w[i], summed in the reference's order,
     then the bias, SiLU in f32, and back to the window's type."""
-    out = window[:, 0:n] * p.conv_w[0]
-    for i in range(1, p.conv_w.shape[0]):
-        out = out + window[:, i:i + n] * p.conv_w[i]
-    return F.silu((out + p.conv_b).to(F32)).to(window.dtype)
+    out = window[:, 0:n] * conv_w[0]
+    for i in range(1, conv_w.shape[0]):
+        out = out + window[:, i:i + n] * conv_w[i]
+    return F.silu((out + conv_b).to(F32)).to(window.dtype)
 
 
-def _conv_full(p: SSM, xbc: torch.Tensor) -> torch.Tensor:
+def _conv_full(conv_w, conv_b, xbc: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv1d over the sequence; xbc: (b, l, c)."""
-    cw = p.conv_w.shape[0]
+    cw = conv_w.shape[0]
     pad = F.pad(xbc, (0, 0, cw - 1, 0))
-    return _conv_taps(pad, p, xbc.shape[1])
+    return _conv_taps(pad, conv_w, conv_b, xbc.shape[1])
 
 
 def _project(p: SSM, u: torch.Tensor):
-    """→ z, x, B, C in u's type and the raw dt in f32."""
-    mm = torch.matmul
+    """→ z, x, B, C in u's type and the raw dt in f32 (with DTensor
+    weights, each on its rank's columns: ``layers.matmul_heads``)."""
+    mm = matmul_heads if isinstance(p.wz, DTensor) else torch.matmul
     dt_raw = mm(u.to(F32), p.wdt.to(F32))
     return mm(u, p.wz), mm(u, p.wx), mm(u, p.wb), mm(u, p.wc), dt_raw
 
@@ -117,7 +138,7 @@ def _project(p: SSM, u: torch.Tensor):
 def _finish(p: SSM, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor
             ) -> torch.Tensor:
     y = gated_rmsnorm(p.out_norm.scale, y, z, cfg.norm_eps)
-    return torch.matmul(y, p.w_out)
+    return matmul_rows(y, p.w_out)
 
 
 def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
@@ -125,21 +146,48 @@ def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
     """u: (b, l, d) → (b, l, d); ``l`` must be a multiple of
     ``min(ssm_chunk, l)``. With ``return_cache``, also returns the
     :class:`SSMCache` (the conv tail and the terminal state) that decode
-    continues from."""
+    continues from. With DTensor weights the scan runs on each rank's
+    heads (:func:`_scan_sharded`)."""
     b, l, _ = u.shape
-    nh, hd, ds = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    ds = cfg.ssm_state
     cs = min(cfg.ssm_chunk, l)
     if l % cs:
         raise ValueError(f"seq {l} not a multiple of chunk {cs}")
-    nc = l // cs
-    dt_ = u.dtype
     z, x, bmat, cmat, dt_raw = _project(p, u)
+    # the reference's pins: x / z split on the inner dim, the small B / C
+    # / dt streams whole
+    z = hint(z, "batch", None, "inner")
+    x = hint(x, "batch", None, "inner")
+    bmat, cmat, dt_raw = (hint(t, "batch", None, None)
+                          for t in (bmat, cmat, dt_raw))
     xbc_raw = torch.cat([x, bmat, cmat], -1)
-    xbc = _conv_full(p, xbc_raw)
-    x, bmat, cmat = torch.split(xbc, [cfg.d_inner, ds, ds], dim=-1)
+    if isinstance(x, DTensor):
+        y, carry = _scan_sharded(p, cfg, x, bmat, cmat, dt_raw)
+    else:
+        xbc = _conv_full(p.conv_w, p.conv_b, xbc_raw)
+        x, bmat, cmat = torch.split(xbc, [cfg.d_inner, ds, ds], dim=-1)
+        y, carry = _scan(cfg, x, bmat, cmat, dt_raw, p.a_log, p.d_skip,
+                         p.dt_bias)
+    out = _finish(p, cfg, y, z)
+    if return_cache:
+        cw = cfg.conv_width
+        return out, SSMCache(conv=xbc_raw[:, l - (cw - 1):, :], state=carry)
+    return out
 
-    dt = F.softplus(dt_raw + p.dt_bias)                       # (b,l,h) f32
-    a = -torch.exp(p.a_log)                                   # (h,)
+
+def _scan(cfg: ModelConfig, x, bmat, cmat, dt_raw, a_log, d_skip, dt_bias):
+    """The chunked SSD scan over the conv'ed streams: x (b, l, heads ·
+    headdim), B / C (b, l, d_state), the raw dt (b, l, heads) → (y (b, l,
+    heads · headdim), terminal state (b, heads, headdim, d_state) f32).
+    Heads are independent: any subset of them scans alone."""
+    b, l, di = x.shape
+    hd, ds = cfg.ssm_headdim, cfg.ssm_state
+    nh = di // hd
+    cs = min(cfg.ssm_chunk, l)
+    nc = l // cs
+    dt_ = x.dtype
+    dt = F.softplus(dt_raw + dt_bias)                         # (b,l,h) f32
+    a = -torch.exp(a_log)                                     # (h,)
     x = x.reshape(b, l, nh, hd)
     xc = x.reshape(b, nc, cs, nh, hd)
     bc = bmat.reshape(b, nc, cs, ds).to(F32)
@@ -163,7 +211,7 @@ def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
 
     # 3) inter-chunk recurrence
     chunk_decay = torch.exp(da_cum[:, :, -1, :])              # (b,nc,h)
-    carry = torch.zeros((b, nh, hd, ds), dtype=F32, device=u.device)
+    carry = torch.zeros((b, nh, hd, ds), dtype=F32, device=x.device)
     prev = []
     for c in range(nc):
         prev.append(carry)
@@ -177,12 +225,46 @@ def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
     y_off = (y_off * state_decay.to(dt_).to(F32)[..., None]).to(dt_)
 
     y = (y_diag + y_off).reshape(b, l, nh, hd)
-    y = y + (p.d_skip[:, None] * x).to(dt_)
-    out = _finish(p, cfg, y.reshape(b, l, cfg.d_inner), z)
-    if return_cache:
-        cw = cfg.conv_width
-        return out, SSMCache(conv=xbc_raw[:, l - (cw - 1):, :], state=carry)
-    return out
+    y = y + (d_skip[:, None] * x).to(dt_)
+    return y.reshape(b, l, di), carry
+
+
+def _scan_sharded(p: SSM, cfg: ModelConfig, x, bmat, cmat, dt_raw):
+    """:func:`_scan` after the conv, on each rank's heads: the depthwise
+    conv runs per stream (x on its inner shard, B and C whole; per
+    channel it is the same arithmetic as over the concatenation), the
+    heads split by the ``inner`` rule when they divide, else whole."""
+    mesh = x.device_mesh
+    di, ds = cfg.d_inner, cfg.ssm_state
+    inner = tuple(x.placements)
+    ways = math.prod(mesh.size(i) for i, pl in enumerate(inner)
+                     if pl == Shard(2))
+    if cfg.ssm_heads % ways:
+        inner = tuple(Replicate() if pl == Shard(2) else pl for pl in inner)
+    batch = tuple(Replicate() if pl == Shard(2) else pl for pl in inner)
+    rep = tuple(Replicate() for _ in inner)
+
+    def on(pl, d):
+        return tuple(Shard(d) if q == Shard(2) else
+                     (Replicate() if isinstance(q, Shard) else q)
+                     for q in pl)
+
+    cw, cb = p.conv_w, p.conv_b
+    args = (x, bmat, cmat, dt_raw,
+            cw[:, :di], cb[:di], cw[:, di:di + ds], cb[di:di + ds],
+            cw[:, di + ds:], cb[di + ds:], p.a_log, p.d_skip, p.dt_bias)
+    heads = on(inner, 0)
+    pls = (inner, batch, batch, inner, on(inner, 1), heads,
+           rep, rep, rep, rep, heads, heads, heads)
+    state = tuple(Shard(1) if q == Shard(2) else q for q in inner)
+
+    def local(x, bmat, cmat, dt_raw, wx, bx, wb, bb, wc, bc, a_log, d_skip,
+              dt_bias):
+        return _scan(cfg, _conv_full(wx, bx, x), _conv_full(wb, bb, bmat),
+                     _conv_full(wc, bc, cmat), dt_raw, a_log, d_skip,
+                     dt_bias)
+
+    return run_local(local, mesh, (inner, state), pls, *args)
 
 
 def ssd_decode(p: SSM, cfg: ModelConfig, u: torch.Tensor, cache: SSMCache
@@ -196,7 +278,7 @@ def ssd_decode(p: SSM, cfg: ModelConfig, u: torch.Tensor, cache: SSMCache
     z, x, bmat, cmat, dt_raw = _project(p, u)
     xbc = torch.cat([x, bmat, cmat], -1)                      # (b,1,c)
     conv = torch.cat([cache.conv, xbc], 1)                    # (b,cw,c)
-    out = _conv_taps(conv, p, 1)[:, 0]                        # (b,c)
+    out = _conv_taps(conv, p.conv_w, p.conv_b, 1)[:, 0]                        # (b,c)
     x, bmat, cmat = torch.split(out, [cfg.d_inner, ds, ds], dim=-1)
 
     dt = F.softplus(dt_raw[:, 0] + p.dt_bias)                 # (b,h)

@@ -46,9 +46,10 @@ class AdamWState(NamedTuple):
 
 def adamw_init(cfg: AdamWConfig, params: Mapping[str, torch.Tensor]
                ) -> AdamWState:
-    m = {k: torch.zeros(p.shape, dtype=_DTYPES[cfg.m_dtype], device=p.device)
+    # zeros_like: a DTensor parameter's moments take its placements
+    m = {k: torch.zeros_like(p, dtype=_DTYPES[cfg.m_dtype])
          for k, p in params.items()}
-    v = {k: torch.zeros(p.shape, dtype=_DTYPES[cfg.v_dtype], device=p.device)
+    v = {k: torch.zeros_like(p, dtype=_DTYPES[cfg.v_dtype])
          for k, p in params.items()}
     dev = next(iter(params.values())).device if params else "cpu"
     return AdamWState(m=m, v=v,

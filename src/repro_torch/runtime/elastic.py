@@ -1,4 +1,11 @@
-"""Hand a departed store's sealed H_R chunks to the surviving stores.
+"""Elastic scaling: replan the mesh when the device pool changes, and
+hand a departed store's sealed H_R chunks to the surviving stores.
+
+:func:`plan_mesh_shape` picks the largest (data, model) grid that fits
+the pool, keeps the model dim at the architecture's TP width and keeps
+the global batch divisible. :func:`remesh_shardings` puts the same specs
+on the new mesh; ``checkpoint.restore_checkpoint(..., placements=)``
+against them is the reshard itself.
 
 When a node leaves, its store's sealed-but-undrained chunks are exactly
 the records of its write-ahead log after its last snapshot.
@@ -7,13 +14,47 @@ own owner routing re-partitions every entry over the surviving shards.
 With a survivor that spans several processes, every surviving process
 calls it with the same log and replays a disjoint round-robin-by-seq
 slice of the records, so each chunk lands exactly once.
-
-The mesh re-planning of the training runtime (``plan_mesh_shape``,
-``remesh_shardings``) comes with the training slice of the port.
 """
 from __future__ import annotations
 
 from typing import Tuple
+
+from torch.distributed.tensor import Replicate
+
+
+def plan_mesh_shape(available_devices: int, model_width: int,
+                    global_batch: int) -> Tuple[int, int]:
+    """→ (data, model) using as many devices as possible."""
+    if available_devices < model_width:
+        raise ValueError(
+            f"need ≥{model_width} devices for TP, have {available_devices}")
+    data = available_devices // model_width
+    # keep the batch divisible (drop to the nearest divisor)
+    while data > 1 and global_batch % data != 0:
+        data -= 1
+    return data, model_width
+
+
+def remesh_shardings(old_shardings, old_mesh, new_mesh):
+    """The same specs on ``new_mesh``: each placements tuple (per mesh
+    dim of ``old_mesh``) of a tree (dicts, lists, NamedTuples) re-laid
+    over ``new_mesh``'s dims by name; a dim the old mesh lacks is
+    replicated."""
+    old = list(old_mesh.mesh_dim_names)
+
+    def one(pl):
+        return tuple(pl[old.index(n)] if n in old else Replicate()
+                     for n in new_mesh.mesh_dim_names)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list) or hasattr(t, "_fields"):
+            items = [walk(v) for v in t]
+            return type(t)(*items) if hasattr(t, "_fields") else items
+        return one(t)
+
+    return walk(old_shardings)
 
 
 def _survivor_processes(survivor) -> Tuple[int, int]:
@@ -59,4 +100,4 @@ def handoff_hr_partitions(wal_path, survivor, shards=None,
     return n_rec, n_ent
 
 
-__all__ = ["handoff_hr_partitions"]
+__all__ = ["plan_mesh_shape", "remesh_shardings", "handoff_hr_partitions"]

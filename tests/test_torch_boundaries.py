@@ -4,7 +4,8 @@ package, and its entry points run on the card unless told otherwise.
 The port's test helpers (``tests/helpers/torch_chaos_store_main.py``,
 ``tests/helpers/torch_multihost_main.py``) are held to the same rule.
 ``tests/helpers/torch_sharded_ref_main.py`` is exempt: it is the
-reference's side of the sharded parity tests and runs the JAX package."""
+reference's side of the sharded parity tests and runs the JAX package.
+The example twins (``examples/torch_*.py``) are held to the rule too."""
 import ast
 import os
 import subprocess
@@ -23,6 +24,7 @@ PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 HELPER = REPO / "tests" / "helpers" / "torch_chaos_store_main.py"
 MH_HELPER = REPO / "tests" / "helpers" / "torch_multihost_main.py"
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 
 
 def _port_files():
@@ -30,7 +32,8 @@ def _port_files():
                                           REPO / "chip_trace.py",
                                           REPO / "chip_serve_ab.py",
                                           REPO / "chip_tfidf_ab.py",
-                                          HELPER, MH_HELPER]
+                                          REPO / "chip_phase_times.py",
+                                          HELPER, MH_HELPER] + EXAMPLES
     names = {p.relative_to(PORT).as_posix() for p in files
              if PORT in p.parents}
     assert {"core/wal.py", "core/table_sim.py", "core/flash_model.py",
@@ -41,7 +44,13 @@ def _port_files():
             "optim/schedule.py", "optim/compress.py", "data/loader.py",
             "runtime/fault_tolerance.py", "launch/steps.py",
             "launch/train.py", "analysis/flashlint.py",
-            "analysis/race_harness.py"} <= names
+            "analysis/race_harness.py", "launch/mesh.py",
+            "launch/sharding.py", "launch/input_specs.py",
+            "launch/op_analysis.py", "launch/dryrun.py",
+            "models/sharding_hints.py"} <= names
+    assert {p.name for p in EXAMPLES} == {
+        "torch_quickstart.py", "torch_serve_lm.py", "torch_serve_quickstart.py",
+        "torch_tfidf_pipeline.py", "torch_train_lm.py"}
     return files
 
 
@@ -96,6 +105,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.data.loader, repro_torch.runtime.fault_tolerance\n"
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.checkpoint.checkpoint\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
+        "import repro_torch.launch.input_specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.op_analysis\n"
+        "import repro_torch.models.sharding_hints\n"
         f"spec = importlib.util.spec_from_file_location('m', {str(MH_HELPER)!r})\n"
         "mh = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(mh)\n"
