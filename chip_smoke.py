@@ -108,7 +108,21 @@ fails (non-zero exit, no result line) without them. Phases:
    phase;
 8. a small ±Δ stream through a 4-shard store on the card and on the CPU,
    MB, MDB and MDB-L: identical global state arrays and answers;
-9. the serving path at full width: llama3.2-3b (28 layers, bf16, weights
+9. the products' result types at llama3.2-3b's shapes
+   (``precision_phase``, under 20 s): the f32-result product of bf16
+   operands that the port's FFN gate / up / in and logits take
+   (``layers.matmul_f32``: ``mm.dtype`` on the card) against the upcast
+   form (both operands widened to f32, then an f32 product) in two
+   cases, the decode logits (1 x 3,072 by the tied 3,072 x 128,256 head,
+   its transposed table as the path reads it) and a prefill FFN gate
+   (512 x 3,072 by 3,072 x 8,192): max relative error (max |diff| /
+   max |upcast|) within ``PRECISION_TOL``, the memory the call allocates
+   beyond its result under ``PRECISION_SLACK`` (no f32 copy of the
+   weight), and the backward of the autograd wrapper (``mm.dtype`` has no
+   derivative) on the FFN case against the upcast form's; prints each
+   case's error and the device times of the f32-result product, the
+   upcast form and the bf16 product;
+   then the serving path at full width: llama3.2-3b (28 layers, bf16, weights
    drawn from ``--seed`` on the card) behind ``ServeEngine`` with a
    ``PrefixKVCache(block_tokens=8, capacity_blocks=64)`` whose refcounts
    live in the port's device ``FlashStore``. Eight requests of 512-token
@@ -214,7 +228,12 @@ fails (non-zero exit, no result line) without them. Phases:
    no data): their dot FLOPs (the op counter, FlopCounterMode's formulas)
    must equal the dry-run's exactly, ``max_memory_allocated`` must come
    within ``MESH_PEAK_TOL`` of the reckoned peak, the prefill must launch
-   the wgmma kernel once a layer a call and nothing else; then the TINY
+   the wgmma kernel once a layer a call and nothing else; rank 0's
+   train_4k runs once more with the ``--opt`` program
+   (``opt_bf16_grads``, ``opt_conv_split``: ``dryrun.cell_plan(...,
+   opt=True)``), printing its step ms, its peak and both programs'
+   all-reduce bytes by dtype (the ``--opt`` program must move more of
+   them in bf16: its three ``pet`` products reduce in bf16); then the TINY
    f32 llama32 and granite sharded on a simulated 2x4 mesh
    (``LocalTensorMode(8)``, shards on the card): two train steps and a
    decode equal to the unsharded card run within 1e-5 and card == CPU
@@ -232,6 +251,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -313,10 +333,14 @@ TINY_CONTINUOUS = dict(max_slots=3, max_context=96, capacity_blocks=16,
                                   suffix_tokens=(16, 40), max_new_tokens=8))
 TINY_CONTINUOUS_DRAINED = dict(TINY_CONTINUOUS, flush_threshold=1)
 #: the other families at full width, served as llama3.2-3b is (SERVE):
-#: (arch, layers kept or None for all); nemotron-4-340b keeps 2 of its 96
-#: layers (16.4B parameters, ~33 GB in bf16; its widths are never cut)
-FAMILY_SERVES = (("minicpm3_4b", None), ("granite_moe_1b", None),
-                 ("mamba2_2p7b", None), ("nemotron4_340b", 2))
+#: (arch, layers kept or None for all). Widths are never cut; depth is,
+#: to keep the smoke well inside its time limit: an eager decode step is
+#: host-bound, so a family's serve time grows with its layers (at full
+#: depth minicpm3's 62 and granite's 24 took 114-200 s each).
+#: nemotron-4-340b keeps 2 of its 96 layers (16.4B parameters, ~33 GB in
+#: bf16)
+FAMILY_SERVES = (("minicpm3_4b", 8), ("granite_moe_1b", 6),
+                 ("mamba2_2p7b", 16), ("nemotron4_340b", 2))
 #: every architecture served here besides llama3.2-3b, as TINY f32
 #: card-vs-CPU twins of the serial engine; the first two of the
 #: continuous ones run the paged path, the last two the whole-prompt
@@ -386,6 +410,17 @@ MESH_DRYRUN = (("llama32_3b", "train_4k"), ("llama32_3b", "prefill_32k"),
                ("llama32_3b", "decode_32k"), ("granite_moe_1b", "decode_32k"))
 MESH_RUNS = ("prefill_32k", "train_4k")
 MESH_TINY = ("llama32_3b", "granite_moe_1b")
+#: the precision check's cases at llama3.2-3b's shapes: (name, rows,
+#: d_model, columns, the weight read transposed as the tied head is)
+PRECISION_CASES = (("decode_logits", 1, 3072, 128256, True),
+                   ("prefill_ffn_gate", 512, 3072, 8192, False))
+#: max |f32-result product - upcast form| / max |upcast form|: both sum
+#: the same exact products of bf16 values in f32, in other orders (about
+#: sqrt(3072) x 2**-24 a sum, 3e-6)
+PRECISION_TOL = 1e-5
+#: bytes the f32-result product may allocate beyond its result (an f32
+#: copy of the tied head would be 1.58e9)
+PRECISION_SLACK = 64 << 20
 #: a rank-0 run's max_memory_allocated against its dry-run's reckoned peak
 MESH_PEAK_TOL = 0.10
 RACE_KINDS = {"hr_write", "seal", "swap", "inflight_clear", "state_rebind",
@@ -1677,6 +1712,94 @@ def decode_ops(model, dev) -> int:
     return count.n
 
 
+def precision_phase(seed: int, dev, card: str, reps: int = 20) -> dict:
+    """``PRECISION_CASES`` on the card (see the module docstring, 9):
+    the port's f32-result product of bf16 operands against the upcast
+    form, the memory it allocates, its backward, and the device times of
+    the f32-result product, the upcast form and the bf16 product (CUDA
+    events around ``reps`` calls each, in turns)."""
+    import torch
+    from repro_torch.models import layers as L
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, m, d, n, tied in PRECISION_CASES:
+        x = (torch.randn(m, d, generator=gen, device=dev)).bfloat16()
+        if tied:                 # the table (V, d), read as its transpose
+            w = (torch.randn(n, d, generator=gen, device=dev)
+                 * 0.02).bfloat16().t()
+        else:
+            w = (torch.randn(d, n, generator=gen, device=dev)
+                 / d ** 0.5).bfloat16()
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = L.matmul_f32(x, w)
+        torch.cuda.synchronize(dev)
+        extra = torch.cuda.max_memory_allocated(dev) - base - \
+            got.numel() * got.element_size()
+        want = x.float() @ w.float()
+        err = float((got - want).abs().max() / want.abs().max())
+        bf16_err = float((x @ w).float().sub(want).abs().max()
+                         / want.abs().max())
+        if got.dtype != torch.float32 or not torch.isfinite(got).all():
+            fail(f"precision {name}: result {got.dtype}, not finite f32")
+        if err > PRECISION_TOL:
+            fail(f"precision {name}: max relative error {err} against the "
+                 f"upcast form, over {PRECISION_TOL}")
+        if extra > PRECISION_SLACK:
+            fail(f"precision {name}: the f32-result product allocated "
+                 f"{extra} bytes beyond its result")
+        calls = {"f32_result": lambda: L.matmul_f32(x, w),
+                 "upcast": lambda: x.float() @ w.float(),
+                 "bf16": lambda: x @ w}
+        ms = {k: [] for k in calls}
+        for _ in range(3):                      # in turns
+            for k, fn in calls.items():
+                fn()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(reps):
+                    fn()
+                t1.record()
+                torch.cuda.synchronize(dev)
+                ms[k].append(t0.elapsed_time(t1) / reps)
+        rec = {"shape": [m, d, n], "max_rel_err": err,
+               "bf16_max_rel_err": bf16_err, "extra_bytes": extra,
+               **{f"{k}_ms": min(v) for k, v in ms.items()}}
+        if not tied:
+            # the backward: x's gradient an f32-result product of the
+            # bf16-rounded cotangent, handed on in x's type; w's in w's
+            xg = x.clone().requires_grad_(True)
+            wg = w.clone().requires_grad_(True)
+            g = torch.randn(m, n, generator=gen, device=dev)
+            L.matmul_f32(xg, wg).backward(g)
+            gb = g.bfloat16().float()
+            gx = gb @ w.float().t()
+            gw = x.float().t() @ gb
+            rec["grad_x_rel_err"] = float(
+                (xg.grad.float() - gx).abs().max() / gx.abs().max())
+            rec["grad_w_rel_err"] = float(
+                (wg.grad.float() - gw).abs().max() / gw.abs().max())
+            if xg.grad.dtype != torch.bfloat16 or \
+                    wg.grad.dtype != torch.bfloat16:
+                fail(f"precision {name}: gradients in {xg.grad.dtype} / "
+                     f"{wg.grad.dtype}, not the operands' bf16")
+            # both rounded once to bf16 (2**-8 relative at most)
+            if max(rec["grad_x_rel_err"], rec["grad_w_rel_err"]) > 2 ** -8:
+                fail(f"precision {name}: gradients {rec}")
+        out[name] = rec
+        print(f"precision {name}: {json.dumps(rec)}; card {card}",
+              flush=True)
+        del x, w, got, want
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"precision ({out['phase_s']:.1f} s): torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    return out
+
+
 def serve_phase(seed: int, dev):
     """llama3.2-3b at full width; the flash-attention launches are counted
     over this run alone."""
@@ -2455,7 +2578,8 @@ def mesh_dryrun(workdir: Path) -> dict:
     return out
 
 
-def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
+def rank0_run(shape_name: str, dev, seed: int, rec, opt: bool = False
+              ) -> dict:
     """Rank 0's per-device program of llama3.2-3b's ``shape_name`` cell on
     16×16, run for real on the card: the process is rank 0 of the fake
     group, its local shards have the production shapes (random, from
@@ -2464,7 +2588,9 @@ def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
     op counter (its dot FLOPs must equal the dry-run's exactly) and once
     timed; ``max_memory_allocated`` over both must come within
     ``MESH_PEAK_TOL`` of the dry-run's reckoned peak (flash-projected for
-    the prefill, which attends through the kernel)."""
+    the prefill, which attends through the kernel). With ``opt``, the
+    ``--opt`` program (``dryrun.cell_plan``), held to no dry-run (``rec``
+    None)."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
@@ -2476,7 +2602,7 @@ def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import adamw_init
     shape = SHAPES[shape_name]
-    cfg, pp, plan = dryrun.cell_plan("llama32_3b", shape, False, False)
+    cfg, pp, plan = dryrun.cell_plan("llama32_3b", shape, False, opt)
     mesh = arch_mesh(make_production_mesh(device_type="cuda"), plan)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -2486,10 +2612,13 @@ def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
         return torch.randint(0, cfg.vocab_size, s, generator=gen,
                              device=dev, dtype=dtype)
 
+    # the previous run's model and optimizer state go before the peak is
+    # reset (DTensor parameters can sit in reference cycles)
+    gc.collect()
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    mb = rec["plan"]["microbatches"]
+    mb = pp.microbatches if rec is None else rec["plan"]["microbatches"]
     with steps.sharded(mesh, shd.logical_rules(plan, pp)):
         if shape.kind == "train":
             model = shd.local_model(cfg, mesh,
@@ -2498,14 +2627,14 @@ def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
             model.requires_grad_(True)
             opt_cfg = AdamWConfig(m_dtype="bfloat16" if pp.fsdp
                                   else "float32")
-            opt = adamw_init(opt_cfg, dict(model.named_parameters()))
+            state = adamw_init(opt_cfg, dict(model.named_parameters()))
             batch = shd.local_tree(ispec.train_specs(cfg, shape, mb), mesh,
                                    shd.batch_shardings(mesh, cfg, plan,
                                                        shape), make)
             step = steps.make_train_step(cfg, opt_cfg, steps.TrainHyper())
 
             def fn():
-                step(model, opt, batch)
+                step(model, state, batch)
         else:
             fn = dryrun.programs(cfg, shape, pp, plan, mesh, make)["step"][0]
         local = sum(p.to_local().numel() for p in model.parameters()) \
@@ -2523,18 +2652,22 @@ def rank0_run(shape_name: str, dev, seed: int, rec: dict) -> dict:
         torch.cuda.synchronize(dev)
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
+    out = {"shape": shape_name, "opt": opt, "ms": t0.elapsed_time(t1),
+           "dot_flops": counted["dot_flops"],
+           "collectives": {k: v["bytes"] for k, v in
+                           counted["collectives"].items()
+                           if isinstance(v, dict)},
+           "all_reduce_by_dtype":
+               counted["collectives"]["all-reduce"]["by_dtype"],
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "local_parameters": local, "microbatches": mb}
+    if rec is None:
+        return out
     # the prefill attends through the kernel (no score tensor), training
     # through the dense _sdpa
     want = rec["memory"]["peak_bytes_flashproj" if shape.kind == "prefill"
                          else "peak_bytes"]
-    out = {"shape": shape_name, "ms": t0.elapsed_time(t1),
-           "dot_flops": counted["dot_flops"], "dryrun_flops": rec["flops"],
-           "collectives": {k: v["bytes"] for k, v in
-                           counted["collectives"].items()
-                           if isinstance(v, dict)},
-           "peak_gib": peak / 2 ** 30, "dryrun_peak_gib": want / 2 ** 30,
-           "launches": launches, "local_parameters": local,
-           "microbatches": mb}
+    out.update(dryrun_flops=rec["flops"], dryrun_peak_gib=want / 2 ** 30)
     if counted["dot_flops"] != rec["flops"]:
         fail(f"mesh rank 0 {shape_name}: {counted['dot_flops']} dot FLOPs "
              f"on the card, {rec['flops']} in the dry-run")
@@ -2673,10 +2806,31 @@ def mesh_phase(seed: int, dev, card: str) -> dict:
                   f"{r['ms']:.3f} ms a call, dot FLOPs {r['dot_flops']:.6e} "
                   f"(dry-run {r['dryrun_flops']:.6e}), peak "
                   f"{r['peak_gib']:.3f} GiB (dry-run "
-                  f"{r['dryrun_peak_gib']:.3f}), launches in the counted "
-                  f"and the timed call {json.dumps(r['launches'])}; card "
-                  f"{card}",
+                  f"{r['dryrun_peak_gib']:.3f}), all-reduce bytes by dtype "
+                  f"{json.dumps(r['all_reduce_by_dtype'])}, launches in the "
+                  f"counted and the timed call {json.dumps(r['launches'])}; "
+                  f"card {card}",
                   flush=True)
+        # the --opt program's train step: its three pet products reduce
+        # in bf16, so more of its all-reduce bytes are bf16
+        r = rank0_run("train_4k", dev, seed, None, opt=True)
+        runs["train_4k_opt"] = r
+        for k, v in r["launches"].items():
+            total[k] += v
+        base = runs["train_4k"]["all_reduce_by_dtype"]
+        got = r["all_reduce_by_dtype"]
+        print(f"mesh rank 0 llama3.2-3b train_4k --opt on the card: "
+              f"{r['ms']:.3f} ms a call (default "
+              f"{runs['train_4k']['ms']:.3f}), peak {r['peak_gib']:.3f} GiB "
+              f"(default {runs['train_4k']['peak_gib']:.3f}), all-reduce "
+              f"bytes by dtype {json.dumps(got)} (default "
+              f"{json.dumps(base)}); card {card}", flush=True)
+        if not (got.get("bfloat16", 0) > base.get("bfloat16", 0)
+                and got.get("float32", 0) < base.get("float32", 0)):
+            fail(f"mesh --opt: all-reduce bytes by dtype {got}, default "
+                 f"{base}: the pet products did not reduce in bf16")
+        if any(r["launches"].values()):
+            fail(f"mesh --opt: launches {r['launches']}, expected none")
         dryrun.leave_world()
         dryrun.ensure_world(8)
         tiny = {}
@@ -2821,6 +2975,7 @@ def main() -> int:
               f"{r['waves']} waves, launches {json.dumps(r['launches'])}"
               for r in two["ranks"]) + f"; card {card}", flush=True)
     tiny_sharded_card_vs_cpu(args.seed, dev)
+    precision_phase(args.seed, dev, card)
     served, model = serve_phase(args.seed, dev)
     print(f"serve: prefill ms {[round(t, 3) for t in served['prefill_ms']]};"
           f" decode {served['decode_ms_per_token']:.3f} ms/token (median of "

@@ -106,12 +106,13 @@ def quiet() -> None:
 
 
 def cell_plan(arch: str, shape: ShapeConfig, multi_pod: bool, opt: bool):
+    """→ (config, parallel plan, mesh plan) of a cell; ``opt`` is the
+    reference's ``--opt``: its ``optimized_config`` and plan overrides."""
     cfg = get_config(arch)
     pp = steps_mod.plan_of(arch)
     if opt:
-        # the reference's --opt also sets opt_bf16_grads, which no
-        # configuration of the port runs (forward_train refuses it)
-        cfg = dataclasses.replace(cfg, opt_conv_split=True)
+        cfg = dataclasses.replace(cfg, opt_conv_split=True,
+                                  opt_bf16_grads=True)
         if arch in OPT_PLAN_OVERRIDES:
             pp = dataclasses.replace(pp,
                                      microbatches=OPT_PLAN_OVERRIDES[arch])

@@ -26,7 +26,9 @@ Per device:
   when attention runs as the fused kernel, whose score tiles never reach
   memory;
 * ``collectives`` — operand bytes and counts by kind (``all-gather``,
-  ``reduce-scatter``, ``all-reduce``, ``all-to-all``, ...);
+  ``reduce-scatter``, ``all-reduce``, ``all-to-all``, ...), and each
+  kind's bytes by operand type (``by_dtype``: ``{"float32": n,
+  "bfloat16": n, ...}``), which tells an f32 reduction from a bf16 one;
 * ``peak_bytes`` / ``peak_bytes_flashproj`` — the peak of live tensor
   storage (fake or real) over the run, from allocations the counter
   sees plus the ``initial`` trees (parameters, moments, caches, batch),
@@ -91,7 +93,8 @@ class OpCounter(TorchDispatchMode):
         self.score_bytes = 0
         self.transcendentals = 0
         self.ops_traced = 0
-        self.collectives = {k: {"bytes": 0, "count": 0} for k in COLLECTIVES}
+        self.collectives = {k: {"bytes": 0, "count": 0, "by_dtype": {}}
+                            for k in COLLECTIVES}
         self._live: Dict[int, int] = {}
         self._scores: Dict[int, int] = {}
         self._live_bytes = self._score_live = 0
@@ -160,13 +163,18 @@ class OpCounter(TorchDispatchMode):
             return
         name = func.__name__.split(".")[0]
         self.ops_traced += 1
-        ins = list(_tensors((args, kwargs)))
+        # an ``out=`` tensor is the result, counted once
+        ins = list(_tensors((args, {k: v for k, v in kwargs.items()
+                                    if k != "out"})))
         if func.namespace == "_c10d_functional":
             kind = next((k for frag, k in _KIND if frag in name), None)
             if kind is not None:
                 c = self.collectives[kind]
                 c["bytes"] += sum(_nbytes(t) for t in ins)
                 c["count"] += 1
+                for t in ins:
+                    dt = str(t.dtype).removeprefix("torch.")
+                    c["by_dtype"][dt] = c["by_dtype"].get(dt, 0) + _nbytes(t)
         packet = func._overloadpacket
         if packet in flop_registry:
             self.dot_flops += int(flop_registry[packet](*args, **kwargs,
@@ -227,8 +235,8 @@ class OpCounter(TorchDispatchMode):
                                        - self.score_bytes),
             "score_bytes": int(self.score_bytes),
             "transcendentals": int(self.transcendentals),
-            "collectives": dict({k: dict(v) for k, v in
-                                 self.collectives.items()},
+            "collectives": dict({k: dict(v, by_dtype=dict(v["by_dtype"]))
+                                 for k, v in self.collectives.items()},
                                 total_bytes=int(total)),
             "peak_bytes": int(self.peak_bytes),
             "peak_bytes_flashproj": int(self.peak_bytes_flashproj),
@@ -245,12 +253,16 @@ def count(fn, seq_len: int = 0, initial=()) -> dict:
 
 
 def combine(*terms) -> dict:
-    """``Σ coef · summary`` over ``(coef, summary)`` pairs of equal-keyed
-    (nested) summaries."""
+    """``Σ coef · summary`` over ``(coef, summary)`` pairs of (nested)
+    summaries; a key one of them lacks (a dtype in ``by_dtype``) counts
+    0 there."""
     def go(vals):
-        c0, v0 = vals[0]
-        if isinstance(v0, dict):
-            return {k: go([(c, v[k]) for c, v in vals]) for k in v0}
+        dicts = [v for _, v in vals if isinstance(v, dict)]
+        if dicts:
+            keys = list(dict.fromkeys(k for d in dicts for k in d))
+            return {k: go([(c, v.get(k, 0)) for c, v in vals])
+                    for k in keys}
+        v0 = vals[0][1]
         return type(v0)(sum(c * v for c, v in vals))
     return go(list(terms))
 

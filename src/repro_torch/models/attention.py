@@ -24,7 +24,15 @@ GQA caches (k, v); MLA caches the normed latent and the shared roped key
 space (``_mla_absorbed_attend``). The three cache modes are plain torch,
 as the reference computes them with jnp outside any Pallas kernel; GQA's
 go through ``sdpa_ref`` with an additive mask. Sliding-window attention
-is not ported (no configuration sets it).
+is not ported yet (``_LATER``): the flash-attention kernel that prefill
+runs has no window, and the reference's decode modes ignore it.
+
+The head projections run in the activations' type (the reference's f32
+result, cast at once). The output projection ``wo`` sums in f32 before
+its cast (row-parallel partials too), except ``gqa_full``'s under
+``opt_bf16_grads``, which the reference takes in the activations' type;
+the decode, packed, chunk and MLA modes keep f32 there, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -47,10 +55,12 @@ except ImportError:                                  # pragma: no cover
     def maybe_run_for_local_tensor(fn):
         return fn
 from .config import ModelConfig
-from .layers import (F32, NEG, RMSNorm, apply_rope, dense_init_,
-                     matmul_heads, matmul_rows, rmsnorm, _weight)
+from .layers import (F32, NEG, RMSNorm, apply_rope, bf16_grad_boundary,
+                     dense_init_, matmul_heads, matmul_rows, rmsnorm,
+                     _weight)
+from .sharding_hints import grad_in_f32
 
-_LATER = "see ROADMAP.md, Queue 1 item 6"
+_LATER = "see ROADMAP.md, Queue 1 item 5, \"Sliding-window attention\""
 
 
 class GQA(nn.Module):
@@ -88,16 +98,20 @@ def kv_cache_axes() -> KVCache:
 
 
 def _qkv(p: GQA, cfg: ModelConfig, x, positions):
+    if not cfg.opt_bf16_grads:
+        x = grad_in_f32(x)
     q = apply_rope(matmul_heads(x, p.wq), positions, cfg.rope_theta)
     k = apply_rope(matmul_heads(x, p.wk), positions, cfg.rope_theta)
     v = matmul_heads(x, p.wv)
     return q, k, v
 
 
-def _out(p, o: torch.Tensor, dtype) -> torch.Tensor:
+def _out(p, o: torch.Tensor, dtype, reduce_f32: bool = True
+         ) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd", o, wo)`` in the activations' type; with
-    DTensors, row-parallel on each rank's heads (``matmul_rows``)."""
-    return matmul_rows(o, p.wo).to(dtype)
+    DTensors, row-parallel on each rank's heads (``matmul_rows``), the
+    partials summed in f32 unless ``reduce_f32`` is off."""
+    return matmul_rows(o, p.wo, reduce_f32).to(dtype)
 
 
 def _causal_mask(s: int, device) -> torch.Tensor:
@@ -109,17 +123,19 @@ def _causal_mask(s: int, device) -> torch.Tensor:
 def _sdpa(q, k, v, mask) -> torch.Tensor:
     """The reference's dense ``_sdpa``, differentiable: q (b, s, h, dq),
     k (b, t, kvh, dq), v (b, t, kvh, dv), ``mask`` additive f32 (s, t) →
-    (b, s, h, dv) in ``v.dtype``. Scores from the inputs' products summed
-    in f32, the softmax in f32, probabilities cast to ``v.dtype``, the PV
-    product summed in f32."""
+    (b, s, h, dv) in ``q.dtype``. Scores from the inputs' products summed
+    in f32, the softmax in f32, probabilities cast to ``q.dtype``, the PV
+    product summed in f32. k and v may come widened to f32 (holding
+    q-type values, :func:`_on_local_heads`): their gradients then stay
+    f32."""
     b, s, h, dq = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     qr = q.reshape(b, s, kvh, h // kvh, dq)
     scale = 1.0 / torch.sqrt(torch.tensor(dq, dtype=F32))
     scores = torch.einsum("bskgd,btkd->bkgst", qr.to(F32), k.to(F32))
-    probs = torch.softmax(scores * scale + mask, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores * scale + mask, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(F32), v.to(F32))
-    return out.reshape(b, s, h, dv).to(v.dtype)
+    return out.reshape(b, s, h, dv).to(q.dtype)
 
 
 def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -160,12 +176,12 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
             alpha = torch.exp(m - m_new)
             l = l * alpha + pr.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqt,btkd->bkgqd", pr.to(v.dtype).to(F32),
+                "bkgqt,btkd->bkgqd", pr.to(q.dtype).to(F32),
                 vr[:, ki].to(F32))
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         chunks.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, h, dv)
-                      .to(v.dtype))
+                      .to(q.dtype))
     return torch.cat(chunks, dim=1)
 
 
@@ -221,8 +237,12 @@ def _on_local_heads(fn, q, k, v, *args):
     then computes what the unsharded call computes on its heads: query
     head j reads local KV head j // (local group), which is its global
     KV head when a rank holds one KV head or the whole of each group
-    (``plan_for`` gives no other case). Plain tensors run ``fn`` as
-    they are."""
+    (``plan_for`` gives no other case). Where a KV head is whole on ranks
+    that split its query heads, K's and V's gradients are partial sums
+    over those ranks: K and V enter widened (``grad_in_f32``), so the
+    sums are taken in f32, as the reference sums the transposes of its
+    f32-result score and PV products. Plain tensors run ``fn`` as they
+    are."""
     if not isinstance(q, DTensor):
         return fn(q, k, v, *args)
     mesh = q.device_mesh
@@ -242,6 +262,9 @@ def _on_local_heads(fn, q, k, v, *args):
                          f"query heads and {ways[1]} over {k.shape[2]} KV "
                          f"heads: a rank's query heads would not read "
                          f"their own KV heads")
+    if any(b == Replicate() and isinstance(a, Shard)
+           for a, b in zip(qp, kp)):
+        k, v = grad_in_f32(k), grad_in_f32(v)
     def local(q, k, v, *a):
         return fn(*(_ContiguousGrad.apply(t) for t in (q, k, v)), *a)
 
@@ -257,9 +280,11 @@ def gqa_full_kv(p: GQA, cfg: ModelConfig, x, positions, train: bool = False
     if cfg.sliding_window:
         raise NotImplementedError(
             f"sliding-window attention is not ported yet ({_LATER})")
+    if cfg.opt_bf16_grads:
+        x = bf16_grad_boundary(x)
     q, k, v = _qkv(p, cfg, x, positions)
     o = _attend(q, k, v, cfg, train)
-    return _out(p, o, x.dtype), k, v
+    return _out(p, o, x.dtype, not cfg.opt_bf16_grads), k, v
 
 
 def gqa_full(p: GQA, cfg: ModelConfig, x, positions,
@@ -402,7 +427,7 @@ def _mla_qkv_full(p: MLA, cfg: ModelConfig, x, positions):
     (b, s, kv_lora) normed, k_rope (b, s, 1, rope) roped)."""
     nope, kr = cfg.qk_nope_dim, cfg.kv_lora_rank
     ql = rmsnorm(p.q_norm.scale, torch.matmul(x, p.wq_down), cfg.norm_eps)
-    q = matmul_heads(ql, p.wq_up)
+    q = matmul_heads(grad_in_f32(ql), p.wq_up)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     kvl = torch.matmul(x, p.wkv_down)
@@ -420,8 +445,9 @@ def mla_full_cache(p: MLA, cfg: ModelConfig, x, positions,
     b, s, _ = x.shape
     h, rope = cfg.num_heads, cfg.qk_rope_dim
     q_nope, q_rope, latent, k_rope = _mla_qkv_full(p, cfg, x, positions)
-    k_nope = matmul_heads(latent, p.wk_up)
-    v = matmul_heads(latent, p.wv_up)
+    lat = grad_in_f32(latent)
+    k_nope = matmul_heads(lat, p.wk_up)
+    v = matmul_heads(lat, p.wv_up)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
     o = _attend(q, k, v, cfg, train)

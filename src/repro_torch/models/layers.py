@@ -4,10 +4,15 @@ Weights live in ``nn.Module``s whose parameter names and shapes are the
 reference's pytree leaves (``scale``, ``tokens``, ``w_gate``, ...), so a
 reference pytree maps onto a ``state_dict`` by name (``convert.py``).
 Each ``forward`` computes what the reference's function of the same name
-does, in the same precision steps: norms, RoPE and the softmax in f32,
-matrix products in the activations' type. Every module's ``axes_*``
-sibling names the logical axis of each parameter dim (the reference's
-``axes_*``), which ``launch/sharding.py`` maps onto a device mesh.
+does, in the same precision steps: norms, RoPE and the softmax in f32;
+a matrix product whose result the reference keeps in f32 (the FFN's
+gate / up / in, the logits) gives an f32 result from operands in the
+activations' type (:func:`matmul_f32`), one it casts at once runs in the
+activations' type, which rounds the f32 sum once as the cast does; a
+row-parallel product's partial sums are reduced in f32 and cast after
+(:func:`matmul_rows`). Every module's ``axes_*`` sibling names the
+logical axis of each parameter dim (the reference's ``axes_*``), which
+``launch/sharding.py`` maps onto a device mesh.
 """
 from __future__ import annotations
 
@@ -15,13 +20,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from .config import ModelConfig
-from .sharding_hints import column_parallel, row_parallel, run_local
+from .sharding_hints import (column_parallel, grad_in_f32, row_parallel,
+                             run_local)
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 NEG = -1e30
 
 
@@ -47,37 +55,150 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator,
     w.copy_(draw.mul_(1.0 / fan_in ** 0.5))    # one f32 temporary, not two
 
 
-def matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+class _BF16GradBoundary(torch.autograd.Function):
+    """The identity, whose backward hands on the gradient in bf16: the
+    reference's ``bf16_grad_boundary`` (``opt_bf16_grads``), placed where
+    a residual-stream gradient crosses a reduction, so that reduction
+    moves half the bytes."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(BF16)
+
+
+def bf16_grad_boundary(x: torch.Tensor) -> torch.Tensor:
+    return _BF16GradBoundary.apply(x)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """``a @ b`` (2-D, one type) with an f32 result (into ``out`` if
+    given). On a card (and on the dry-run's fake tensors, which stand for
+    the card's) ``mm.dtype``: the f32 accumulator is the result, and no
+    operand is widened in memory. The CPU has no kernel for it; there the
+    operands are widened, which forms the same exact products of their
+    values."""
+    if a.is_cuda or a.device.type == "meta" or is_fake(a):
+        return torch.mm(a, b, out_dtype=F32, out=out)
+    return torch.mm(a.to(F32), b.to(F32), out=out)
+
+
+class _F32Product(torch.autograd.Function):
+    """The gradient of ``x @ w`` (x (n, k), w (k, m)) with an f32 result
+    from operands in w's type (x is cast to it: an f32 x holds w-type
+    values, see :func:`sharding_hints.grad_in_f32`); ``mm.dtype`` has no
+    derivative. x's gradient is again an f32-result product (the
+    reference's transpose of an f32-result einsum), handed on in x's
+    type; w's a product in w's type (the f32 sum rounded once). The
+    forward only saves x and w and allocates the result, which
+    :func:`_product_f32` fills after: the inputs are packed before the
+    product runs, as aten's own products pack theirs, so the recompute
+    of a checkpointed group stops before a product at its end."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.new_empty((x.shape[0], w.shape[1]), dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        gx = _mm_f32(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = (torch.mm(_as(x, w.dtype).t(), g) if ctx.needs_input_grad[1]
+              else None)
+        return gx, gw
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t.to(dtype)``, without the op when t has it already (a decode
+    step's ops are its host cost)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def _product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) @ w (k, m) → (..., m) in f32 (:func:`matmul_f32`)."""
+    if x.dtype == F32 and w.dtype == F32:
+        return torch.matmul(x, w)
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _F32Product.apply(x2, w)
+        with torch.no_grad():
+            _mm_f32(_as(x2, w.dtype), w, out=y)
+    else:
+        y = _mm_f32(_as(x2, w.dtype), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with an f32 result (the reference's
+    ``preferred_element_type=jnp.float32``), x's last axis contracted with
+    w's first: the exact products of the operands summed in f32, with no
+    f32 copy of w on a card. f32 operands take the plain product. With a
+    DTensor ``w``, column-parallel (:func:`matmul_heads`)."""
+    return matmul_heads(x, w, f32=True)
+
+
+def matmul_heads(x: torch.Tensor, w: torch.Tensor,
+                 f32: bool = False) -> torch.Tensor:
     """``einsum("...d,d...->...", x, w)``: contract x's last axis with w's
-    first, keeping w's other axes. With a DTensor ``w``, column-parallel
-    on each rank's shard (``sharding_hints.column_parallel``)."""
+    first, keeping w's other axes; in x's type, or in f32 with ``f32``.
+    With a DTensor ``w``, column-parallel on each rank's shard
+    (``sharding_hints.column_parallel``); an f32 ``x`` over a lower-type
+    ``w`` (:func:`sharding_hints.grad_in_f32`) is taken as w's type and
+    gets its gradient as an f32-result product."""
     if not isinstance(w, DTensor):
-        return _matmul_heads(x, w)
-    return column_parallel(_matmul_heads, x, w)
+        return _matmul_heads(x, w, f32)
+    if f32 or x.dtype == w.dtype:
+        return column_parallel(lambda a, b: _matmul_heads(a, b, f32), x, w)
+    # x widened by grad_in_f32: the f32-result product, cast at once
+    return column_parallel(lambda a, b: _matmul_heads(a, b, True, b.dtype),
+                           x, w)
 
 
-def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_rows(x: torch.Tensor, w: torch.Tensor,
+                reduce_f32: bool = True) -> torch.Tensor:
     """Contract x's trailing axes with all of w's but its last
-    (``x @ w`` for a 2-D w, ``einsum("bshk,hkd->bsd")`` for a 3-D one).
-    With a DTensor ``w``, row-parallel on each rank's shard of the
-    contracted axes (``sharding_hints.row_parallel``)."""
+    (``x @ w`` for a 2-D w, ``einsum("bshk,hkd->bsd")`` for a 3-D one),
+    in x's type. With a DTensor ``w``, row-parallel on each rank's shard
+    of the contracted axes (``sharding_hints.row_parallel``): with
+    ``reduce_f32`` each rank's partial sum is an f32 result, the partials
+    are summed in f32 and the sum is cast to x's type (the reference's
+    f32-result einsum, cast after); without it the partials are taken and
+    summed in x's type (its ``preferred_element_type=None``)."""
     if not isinstance(w, DTensor):
         return _matmul_rows(x, w)
-    return row_parallel(_matmul_rows, x, w)
+    if not reduce_f32 or x.dtype == F32:
+        return row_parallel(_matmul_rows, x, w)
+    return row_parallel(lambda a, b: _matmul_rows(a, b, True), x, w,
+                        reduce_to=x.dtype)
 
 
-def _matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _matmul_heads(x: torch.Tensor, w: torch.Tensor, f32: bool = False,
+                  cast=None) -> torch.Tensor:
+    if f32:
+        if w.ndim == 2:           # no reshape: as few ops as torch.matmul
+            y = _product_f32(x, w)
+        else:
+            y = _product_f32(x, w.reshape(w.shape[0], -1)).reshape(
+                *x.shape[:-1], *w.shape[1:])
+        return y if cast is None else y.to(cast)
     d = w.shape[0]
     return torch.matmul(x, w.reshape(d, -1)).reshape(*x.shape[:-1],
                                                      *w.shape[1:])
 
 
-def _matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _matmul_rows(x: torch.Tensor, w: torch.Tensor,
+                 f32: bool = False) -> torch.Tensor:
+    mm = _product_f32 if f32 else torch.matmul
     if w.ndim == 2:               # no reshape: the unsharded ops stay as they were
-        return torch.matmul(x, w)
+        return mm(x, w)
     k = w.ndim - 1
-    return torch.matmul(x.reshape(*x.shape[:x.ndim - k], -1),
-                        w.reshape(-1, w.shape[-1]))
+    return mm(x.reshape(*x.shape[:x.ndim - k], -1),
+              w.reshape(-1, w.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +320,12 @@ def axes_embed(cfg: ModelConfig):
 def lm_logits(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) → (..., padded_vocab) f32 logits; padding lanes masked.
 
-    The product runs in x's type and is then widened: in bf16 the logits
-    carry bf16 rounding (the reference accumulates them into f32)."""
+    The product's result is f32 (:func:`matmul_f32`), as the reference's:
+    the logits carry no rounding to x's type. A vocab-split head runs
+    column-parallel on each rank's lanes (no reduction); x's gradient,
+    summed over those ranks, is summed in f32."""
     w = embed.tokens.t() if cfg.tie_embeddings else embed.head
-    # a vocab-split head: column-parallel on each rank's lanes
-    mm = matmul_heads if isinstance(w, DTensor) else torch.matmul
-    logits = mm(x, w).to(F32)
+    logits = matmul_f32(grad_in_f32(x), w)
     if cfg.padded_vocab != cfg.vocab_size:
         # out of place: a vocab-sharded DTensor has no in-place fill
         lane = torch.arange(cfg.padded_vocab, device=logits.device)
@@ -241,24 +362,31 @@ def axes_ffn(cfg: ModelConfig):
 
 
 def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """With DTensor weights, Megatron's column- then row-parallel pair
+    """The gate / up / in products give f32 results into the activation,
+    as the reference's; ``w_down`` is cast after its sum, which
+    ``opt_bf16_grads`` takes in x's type (the reference's ``pet``). With
+    DTensor weights, Megatron's column- then row-parallel pair
     (:func:`matmul_heads`, :func:`matmul_rows`) on each rank's ffn lanes:
     a partial sum over the mesh dims that split them (DTensor's own
-    propagation may gather the whole weight)."""
+    propagation may gather the whole weight), reduced in f32 unless
+    ``opt_bf16_grads``; x's gradient is summed over those dims in f32
+    unless ``opt_bf16_grads``, which takes it in bf16."""
     dt = x.dtype
-    sharded = isinstance(p.w_down, DTensor)
-    col = matmul_heads if sharded else torch.matmul
-    row = matmul_rows if sharded else torch.matmul
+    if cfg.opt_bf16_grads:
+        x = bf16_grad_boundary(x)
+    else:
+        x = grad_in_f32(x)
     if cfg.ffn_act == "swiglu":
-        g = col(x, p.w_gate).to(F32)
-        u = col(x, p.w_up).to(F32)
+        g = matmul_f32(x, p.w_gate)
+        u = matmul_f32(x, p.w_up)
         h = (F.silu(g) * u).to(dt)
     else:
-        h = col(x, p.w_in).to(F32)
+        h = matmul_f32(x, p.w_in)
         if cfg.ffn_act == "gelu":
             h = F.gelu(h, approximate="tanh").to(dt)
         elif cfg.ffn_act == "squared_relu":   # Nemotron-4 (Primer)
             h = torch.square(F.relu(h)).to(dt)
         else:
             raise ValueError(cfg.ffn_act)
-    return row(h, p.w_down).to(dt)
+    return matmul_rows(h, p.w_down,
+                       reduce_f32=not cfg.opt_bf16_grads).to(dt)

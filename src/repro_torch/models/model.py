@@ -336,11 +336,6 @@ class Model(nn.Module):
         None). With ``remat`` each group is recomputed in the backward
         pass instead of keeping its activations."""
         cfg = self.cfg
-        if cfg.opt_bf16_grads:
-            raise NotImplementedError(
-                "opt_bf16_grads (bf16 cotangents at the reference's "
-                "all-to-all boundaries) is not ported: no configuration "
-                "sets it")
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]

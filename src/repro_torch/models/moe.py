@@ -12,7 +12,10 @@ combine. The router stays f32 in a bf16 model.
 
 ``moe_apply`` also returns the Switch load-balancing loss and the
 per-expert assignment counts (before the capacity drop), which the
-reference feeds to its counting table.
+reference feeds to its counting table. Under ``opt_bf16_grads`` the slot
+buffer and the experts' output hand their gradients on in bf16
+(``layers.bf16_grad_boundary``), where the reference puts its boundary:
+across the token↔expert all-to-alls.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .config import ModelConfig
-from .layers import F32, dense_init_, _weight
+from .layers import F32, bf16_grad_boundary, dense_init_, _weight
 from .sharding_hints import hint, run_local
 
 
@@ -131,9 +134,13 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     count_frac = counts.to(F32)
     aux = e * torch.mean(probs_all.mean((0, 1)) * (count_frac / (b * s * k)))
     buf, slot_of_assign, fp = _dispatch(cfg, x, top_p, top_i)
-    out_buf = _experts(p, cfg, buf)
+    out_buf = _boundary(cfg, _experts(p, cfg, _boundary(cfg, buf)))
     y = _combine(cfg, out_buf, slot_of_assign, fp)
     return y, aux, counts.to(torch.int32)
+
+
+def _boundary(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    return bf16_grad_boundary(t) if cfg.opt_bf16_grads else t
 
 
 def _route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
@@ -229,8 +236,9 @@ def _moe_sharded(p: MoE, cfg: ModelConfig, x):
     buf, slot, fp, psum, counts = run_local(
         route, mesh, (rows, rows, rows, summed, summed), (rows, rep),
         x, p.router)
-    buf = hint(buf, "batch", "experts", None, None)
-    out_buf = hint(_experts(p, cfg, buf), "batch", "experts", None, None)
+    buf = hint(_boundary(cfg, buf), "batch", "experts", None, None)
+    out_buf = hint(_boundary(cfg, _experts(p, cfg, buf)), "batch",
+                   "experts", None, None)
     out_buf = hint(out_buf, "batch", None, None, None)
     y = run_local(lambda o, sl, w: _combine(cfg, o, sl, w), mesh, rows,
                   (rows, rows, rows), out_buf, slot, fp)

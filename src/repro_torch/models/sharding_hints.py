@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -178,12 +179,15 @@ def column_parallel(fn, x, w):
     return run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
 
 
-def row_parallel(fn, x, w):
+def row_parallel(fn, x, w, reduce_to=None):
     """``fn(x, w)``, a product contracting x's trailing dims with all of
     w's but its last, on each rank's shard of the first contracted dim:
     where x and w split it over the same mesh dims the result is a
     partial sum there (Megatron's row-parallel half); any other split of
-    w is gathered, x's leading splits are kept."""
+    w is gathered, x's leading splits are kept. With ``reduce_to`` (a
+    dtype) the partial sums are reduced at once, in ``fn``'s result type,
+    and the sum is cast to it: DTensor casts a ``Partial`` tensor
+    partial by partial, which would sum the rounded partials."""
     first = x.ndim - (w.ndim - 1)
     xp, wp, yp = [], [], []
     for a, b in zip(x.placements, w.placements):
@@ -193,7 +197,49 @@ def row_parallel(fn, x, w):
         xp.append(a)
         wp.append(b if rows else Replicate())
         yp.append(Partial() if rows else a)
-    return run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
+    y = run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
+    if reduce_to is None:
+        return y
+    return _reduced(y).to(reduce_to)
+
+
+def _reduced(t: DTensor) -> DTensor:
+    """``t`` with every ``Partial`` placement summed (``Replicate``)."""
+    if not any(isinstance(pl, Partial) for pl in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if isinstance(pl, Partial) else pl
+        for pl in t.placements))
+
+
+class _GradInF32(torch.autograd.Function):
+    """x widened to f32; its gradient summed where it is partial, in f32,
+    then cast to x's type once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            g = _reduced(g)
+        return g.to(ctx.dtype)
+
+
+def grad_in_f32(x):
+    """A DTensor ``x`` of a lower type than f32, which a column-parallel
+    product will contract with weights split where x is whole: x widened
+    to f32 (it holds the same values), so that each rank's share of x's
+    gradient stays an f32 result and the shares are summed in f32 and cast
+    once, as the reference sums the transpose of an f32-result einsum.
+    The products take the widened x as the weights' type. Any other x,
+    or x needing no gradient, is returned as it is."""
+    if (not isinstance(x, DTensor) or x.dtype == torch.float32
+            or not (torch.is_grad_enabled() and x.requires_grad)):
+        return x
+    return _GradInF32.apply(x)
 
 
 def run_local(fn, mesh, out_placements, in_placements, *args):

@@ -10,7 +10,9 @@ convolution runs over the concatenated (x, B, C) stream (its
 apart here).
 
 Precision follows the reference: projections in the activations' type
-(``dt`` in f32), ``a_log``, ``d_skip`` and ``dt_bias`` in f32, the
+(``dt`` in f32), ``w_out`` summed in f32 before its cast (in the
+activations' type in ``ssd_full`` under ``opt_bf16_grads``, the
+reference's ``pet``), ``a_log``, ``d_skip`` and ``dt_bias`` in f32, the
 recurrent state in f32. The reference's 3- and 4-operand einsums are
 written out as two-operand products, taken in f32 over operands rounded to
 the activations' type where the reference rounds them.
@@ -27,9 +29,9 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .config import ModelConfig
-from .layers import (F32, RMSNorm, dense_init_, gated_rmsnorm, matmul_heads,
-                     matmul_rows, _weight)
-from .sharding_hints import hint, run_local
+from .layers import (F32, RMSNorm, bf16_grad_boundary, dense_init_,
+                     gated_rmsnorm, matmul_heads, matmul_rows, _weight)
+from .sharding_hints import grad_in_f32, hint, run_local
 
 
 class SSM(nn.Module):
@@ -127,18 +129,21 @@ def _conv_full(conv_w, conv_b, xbc: torch.Tensor) -> torch.Tensor:
     return _conv_taps(pad, conv_w, conv_b, xbc.shape[1])
 
 
-def _project(p: SSM, u: torch.Tensor):
+def _project(p: SSM, cfg: ModelConfig, u: torch.Tensor):
     """→ z, x, B, C in u's type and the raw dt in f32 (with DTensor
-    weights, each on its rank's columns: ``layers.matmul_heads``)."""
+    weights, each on its rank's columns: ``layers.matmul_heads``; u's
+    gradient summed in f32 unless ``opt_bf16_grads``)."""
+    if not cfg.opt_bf16_grads:
+        u = grad_in_f32(u)
     mm = matmul_heads if isinstance(p.wz, DTensor) else torch.matmul
     dt_raw = mm(u.to(F32), p.wdt.to(F32))
     return mm(u, p.wz), mm(u, p.wx), mm(u, p.wb), mm(u, p.wc), dt_raw
 
 
-def _finish(p: SSM, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor
-            ) -> torch.Tensor:
+def _finish(p: SSM, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+            reduce_f32: bool = True) -> torch.Tensor:
     y = gated_rmsnorm(p.out_norm.scale, y, z, cfg.norm_eps)
-    return matmul_rows(y, p.w_out)
+    return matmul_rows(y, p.w_out, reduce_f32)
 
 
 def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
@@ -153,7 +158,9 @@ def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
     cs = min(cfg.ssm_chunk, l)
     if l % cs:
         raise ValueError(f"seq {l} not a multiple of chunk {cs}")
-    z, x, bmat, cmat, dt_raw = _project(p, u)
+    if cfg.opt_bf16_grads:
+        u = bf16_grad_boundary(u)
+    z, x, bmat, cmat, dt_raw = _project(p, cfg, u)
     # the reference's pins: x / z split on the inner dim, the small B / C
     # / dt streams whole
     z = hint(z, "batch", None, "inner")
@@ -168,7 +175,7 @@ def ssd_full(p: SSM, cfg: ModelConfig, u: torch.Tensor,
         x, bmat, cmat = torch.split(xbc, [cfg.d_inner, ds, ds], dim=-1)
         y, carry = _scan(cfg, x, bmat, cmat, dt_raw, p.a_log, p.d_skip,
                          p.dt_bias)
-    out = _finish(p, cfg, y, z)
+    out = _finish(p, cfg, y, z, not cfg.opt_bf16_grads)
     if return_cache:
         cw = cfg.conv_width
         return out, SSMCache(conv=xbc_raw[:, l - (cw - 1):, :], state=carry)
@@ -275,7 +282,7 @@ def ssd_decode(p: SSM, cfg: ModelConfig, u: torch.Tensor, cache: SSMCache
     b = u.shape[0]
     nh, hd, ds = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     dt_ = u.dtype
-    z, x, bmat, cmat, dt_raw = _project(p, u)
+    z, x, bmat, cmat, dt_raw = _project(p, cfg, u)
     xbc = torch.cat([x, bmat, cmat], -1)                      # (b,1,c)
     conv = torch.cat([cache.conv, xbc], 1)                    # (b,cw,c)
     out = _conv_taps(conv, p.conv_w, p.conv_b, 1)[:, 0]                        # (b,c)

@@ -124,6 +124,35 @@ def test_production_cell_matches_the_reference_dry_run(tmp_path):
     assert rec["ops_traced"] > 0 and rec["memory"]["peak_bytes"] > 0
 
 
+def test_opt_cell_plan_is_the_reference_optimized_config(tmp_path):
+    """``--opt``: every architecture's config is the reference's
+    ``optimized_config`` (``opt_conv_split`` and ``opt_bf16_grads`` set,
+    nothing else changed) and its microbatches the reference's
+    overrides. The reference's module sets XLA's device count on import,
+    so it is read in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jax_cache"))
+    code = ("import dataclasses, json\n"
+            "from repro.configs import ARCH_IDS, get_config\n"
+            "from repro.launch.dryrun import OPT_PLAN_OVERRIDES, "
+            "optimized_config\n"
+            "print(json.dumps({'cfg': {a: dataclasses.asdict("
+            "optimized_config(get_config(a))) for a in ARCH_IDS}, "
+            "'mb': OPT_PLAN_OVERRIDES}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    ref = json.loads(out.stdout.splitlines()[-1])
+    shape = ShapeConfig("train_4k", 4096, 256, "train")
+    for arch, want in ref["cfg"].items():
+        cfg, pp, _ = dryrun.cell_plan(arch, shape, False, True)
+        assert cfg.opt_bf16_grads and cfg.opt_conv_split, arch
+        got = json.loads(json.dumps(dataclasses.asdict(cfg)))
+        assert got == want, arch
+        base = dryrun.cell_plan(arch, shape, False, False)[1]
+        assert pp.microbatches == ref["mb"].get(arch, base.microbatches)
+
+
 def test_cli_fails_on_a_failing_cell(world, tmp_path, monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("no strategy")
