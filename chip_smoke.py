@@ -40,7 +40,14 @@ fails (non-zero exit, no result line) without them. Phases:
    (f32) with TF32 off, with CUDA-event medians timed in turns: the
    kernel, the CUDA-core kernel (bf16 cases), one
    ``scaled_dot_product_attention`` call (timed only, never on the path)
-   and the plain version, and the first three's device times;
+   and the plain version, and the first three's device times. The
+   sliding-window cases, each held against ``sdpa_ref(window=)``:
+   starcoder2-7b's heads at s = 8,192 with its 4,096-token window, llama's
+   at a ragged 1,000 with w = 100 and at 512 with w = 1 (bf16, the
+   tensor-core kernel), f32 at 512 with w = 77 and the windowed tiny
+   twin's prefill (s = 40, w = 8; the CUDA-core kernel); each prints
+   beside its times the same kernel's causal launch at the same s, the
+   windowed FLOP bound, and SDPA under the dense boolean band mask;
 3. the TF-IDF path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
    MDB-L at the paper's table size (2**24 slots in blocks of 1024, a
    2**21-entry change segment) on a seeded 2**25-token stream of
@@ -169,7 +176,17 @@ fails (non-zero exit, no result line) without them. Phases:
    stack registers only whole prompts) and nemotron-4-340b (2 of its 96
    layers, full width). Every prefill of every attention layer must run
    the tensor-core flash-attention kernel (and none the CUDA-core one);
-   init, prefill, decode, tokens/s and the phase's peak are printed. The
+   init, prefill, decode, tokens/s and the phase's peak are printed.
+   Then starcoder2-7b at full width (all 32 layers, 36 / 4 heads of 128,
+   bf16) with its published 4,096-token sliding window, served by the
+   same engine over a 1,280-block pool of 16 tokens: four 8,192-token
+   prompts (#1 shares #0's first 8,176 tokens: 511 blocks hit, its last
+   16 prompt tokens decoded against a cache twice the window; #3 evicts),
+   32 new tokens each. Checks as above (cached ``[0, 8176, 0, 0]``, 3 x
+   32 tensor-core launches), and that the window reaches decode: #1's
+   first-token logits from the hit path within ``WINDOW_LOGIT_TOL`` of
+   the largest logit of a fresh windowed prefill of its prompt, and the
+   same hit path with the window out of decode outside it. The
    attention phase (2) holds the kernel at these families' head shapes
    too: MLA (h = kvh = 40, d 96, dv 64; s = 512 and a ragged 1000),
    granite (16, 8, 64, 64), starcoder2 (36, 4, 128, 128), nemotron (96, 8,
@@ -179,13 +196,14 @@ fails (non-zero exit, no result line) without them. Phases:
    and hybrid stacks) with identical outputs, cached prefixes and stats,
    every attention prefill on the CUDA-core kernel; MLA again with a
    flush threshold of 1 (all three hash kernels launched on the card);
+   llama32's twin again with a sliding window of 8;
 15. continuous twins of minicpm3, granite, mamba2 and jamba on the card
    and on the CPU: identical outputs, cached prefixes and stats; the
    paged path for MLA and MoE (``TINY_CONTINUOUS``), the whole-prompt
    fallback (no chunk call) for the SSM and hybrid stacks on the
    reference scheduler test's prompts; outputs equal to the serial
    engine's except on the paged MoE stack, whose 16-token chunks route
-   with their own expert capacity;
+   with their own expert capacity; llama32's with a window of 8;
 16. training at full width: ``repro_torch.launch.train`` (in this
    process) trains llama3.2-3b (28 layers, bf16, random weights from
    ``--seed``) for 8 steps behind the flash-hash TF-IDF document filter
@@ -207,7 +225,8 @@ fails (non-zero exit, no result line) without them. Phases:
    step (forward, backward and AdamW, counted as ``decode_ops`` counts a
    decode step) and the phase's peak memory;
 17. train twins: the TINY f32 llama32, granite-moe-1b (MoE), minicpm3
-   (MLA) and mamba2 (SSM), each trained 4 steps by the train CLI on the card
+   (MLA), mamba2 (SSM) and llama32 with a sliding window of 8, each
+   trained 4 steps by the train CLI on the card
    and on the CPU with the same weights, checkpointing every 2 steps,
    with a failure injected at step 3 (a restart from step 2's
    checkpoint): equal reports, losses within 1e-4 relative, the same
@@ -240,7 +259,10 @@ fails (non-zero exit, no result line) without them. Phases:
    within 1e-4;
 19. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
    line with the records of 16-17, a ``mesh`` JSON line with 18's, a
-   ``kernels`` JSON line (each hash kernel's launches on the main path, as
+   ``kernels`` JSON line (each hash kernel's launches on the main path,
+   each attention kernel's also with a window (``window_launches``: the
+   windowed starcoder2 serve's, the windowed f32 twin's) beside its
+   windowed case's error, device time, bound and SDPA time, as
    ``race_launches`` under the race phase's tracer (0 for attention,
    checked), as ``train_launches`` in phase 16 and as ``mesh_launches``
    in phase 18), then the card line, then the result line.
@@ -289,8 +311,12 @@ MLA_HEADS = (40, 40, 96, 64)
 GRANITE_HEADS = (16, 8, 64, 64)
 STARCODER2_HEADS = (36, 4, 128, 128)
 NEMOTRON_HEADS = (96, 8, 192, 192)
-#: flash attention cases: (name, s, dtype, causal, heads, q/k scale); the
-#: tiny twin's prefill is its 40-token prompt
+#: flash attention cases: (name, s, dtype, causal, heads, q/k scale[,
+#: sliding window]); the tiny twin's prefill is its 40-token prompt. The
+#: windowed cases: starcoder2-7b's published window (4,096) over twice its
+#: length, a window no multiple of a tile over a ragged length, a window
+#: of one key, and the CUDA-core kernel's f32 at llama's heads and at the
+#: windowed tiny twin's prefill (40 tokens, w = 8)
 ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("long", 4096, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("ragged", 1000, "bfloat16", True, LLAMA_HEADS, 1.0),
@@ -302,7 +328,17 @@ ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("mla_ragged", 1000, "bfloat16", True, MLA_HEADS, 1.0),
               ("granite", 512, "bfloat16", True, GRANITE_HEADS, 1.0),
               ("starcoder2", 512, "bfloat16", True, STARCODER2_HEADS, 1.0),
-              ("nemotron", 512, "bfloat16", True, NEMOTRON_HEADS, 1.0)]
+              ("nemotron", 512, "bfloat16", True, NEMOTRON_HEADS, 1.0),
+              ("starcoder2_window", 8192, "bfloat16", True,
+               STARCODER2_HEADS, 1.0, 4096),
+              ("window_ragged", 1000, "bfloat16", True, LLAMA_HEADS, 1.0,
+               100),
+              ("window_1", 512, "bfloat16", True, LLAMA_HEADS, 1.0, 1),
+              ("f32_window", 512, "float32", True, LLAMA_HEADS, 1.0, 77),
+              ("tiny_f32_window", 40, "float32", True, TINY_HEADS, 1.0, 8)]
+#: attention cases longer than this are timed over 3 rounds (the plain
+#: version and the CUDA-core kernel take tens of ms a call there)
+ATTN_LONG = 4096
 #: the serve phase's traffic (full width) and its scaled-down twin (TINY)
 SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
              capacity_blocks=64)
@@ -350,6 +386,22 @@ FAMILY_TWINS = ("granite_moe_1b", "phi35_moe_42b", "minicpm3_4b",
                 "mamba2_2p7b", "musicgen_large", "jamba15_large_398b")
 FAMILY_CONTINUOUS = ("minicpm3_4b", "granite_moe_1b", "mamba2_2p7b",
                      "jamba15_large_398b")
+#: the windowed serve at full width: starcoder2-7b with its published
+#: 4,096-token window (arXiv:2402.19173; bigcode/starcoder2-7b's
+#: config.json), four 8,192-token prompts (twice the window): #0 its own,
+#: #1 #0's first 8,176 tokens (511 blocks: a hit that decodes its last 16
+#: prompt tokens against a cache twice the window) plus 16 of its own,
+#: #2 and #3 fresh; 32 new tokens each; 1,280 blocks of 16 tokens (1.25
+#: GiB of KV at 64 KiB a token), so #3 evicts. All 32 layers: the phase
+#: takes ~15 s
+WINDOW_SERVE = dict(arch="starcoder2_7b", window=4096,
+                    prompt_len=8192, shared=8176, max_new=32,
+                    block_tokens=16, capacity_blocks=1280)
+#: max |hit-path logits - fresh prefill's| / max |fresh prefill's| the
+#: windowed hit path may show (see ``window_serve_phase``)
+WINDOW_LOGIT_TOL = 0.05
+#: the windowed TINY twins: llama32 with a window of 8 (40-token prompts)
+TINY_WINDOW = 8
 #: the SSM and hybrid stacks' TINY serial order: 32-token prompts (their
 #: TINY chunk), 16 shared
 TINY_SERVE_SSM = dict(TINY_SERVE, prompt_len=32)
@@ -364,6 +416,8 @@ TINY_SSM_CONTINUOUS = dict(max_slots=2, max_context=64, capacity_blocks=32,
 TINY_TRAIN = dict(steps=4, ckpt_every=2, fail_at=3)
 TINY_TRAIN_ARCHS = ("llama32_3b", "granite_moe_1b", "minicpm3_4b",
                     "mamba2_2p7b")
+#: windowed train twins: (arch, sliding window)
+TINY_TRAIN_WINDOWED = (("llama32_3b", TINY_WINDOW),)
 #: the durability run: FULL's stream in 16 batches, a snapshot after
 #: batch 4, the child killed at the seal of batch 8
 DURABILITY = dict(batches=16, snap_at=4, kill_at=8)
@@ -702,11 +756,14 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
     from repro_torch.kernels.flash_attn import check as FC
     from repro_torch.kernels.flash_attn import kernel as FK
     res = {}
-    for name, s, dtype, causal, (h, kvh, d, dv), qk_scale in cases:
+    for name, s, dtype, causal, (h, kvh, d, dv), qk_scale, *w in cases:
         dt = getattr(torch, dtype)
+        window = w[0] if w else 0
         r = FC.check_flash_attention(1, s, h, kvh, d, dv, dt, causal,
-                                     seed + s, dev, reps=reps,
-                                     qk_scale=qk_scale)
+                                     seed + s, dev,
+                                     reps=min(reps, 3) if s > ATTN_LONG
+                                     else reps,
+                                     qk_scale=qk_scale, window=window)
         print(f"kernel flash_attention {name}: {json.dumps(r)}", flush=True)
         want = FK.kernel_for(dt, d, dv) if dev.type == "cuda" else "plain"
         if r["kernel"] != want:
@@ -723,8 +780,15 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
             f"bound)" for k in ("device_ms", "ms", "simt_device_ms",
                                 "simt_ms", "library_device_ms", "library_ms",
                                 "plain_ms") if r.get(k))
+        causal_note = (
+            f"; window {window}: causal launch at the same s "
+            f"{r['causal_device_ms']:.5g} ms ({r['causal_device_bound_share']:.1%}"
+            f" of its bound {r['causal_bound_ms']:.5g} ms), windowed / causal "
+            f"{r['device_ms'] / r['causal_device_ms']:.3f}"
+            if r.get("causal_device_ms") else "")
         print(f"flash_attention {name} ({r['kernel']}): {shares}; bound "
-              f"{r['bound_ms']:.5g} ms ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.5g} ms ({r['bound_by']}){causal_note}",
+              flush=True)
         res[name] = r
     return res
 
@@ -2000,15 +2064,17 @@ def continuous_phase(seed: int, dev, model, serial_tokens_per_s: float):
     return out
 
 
-def tiny_models(seed: int, dev, arch: str = "llama32_3b"):
-    """``arch``'s TINY in f32 with the same weights on ``dev`` and on the
-    CPU → (cfg, models by device type)."""
+def tiny_models(seed: int, dev, arch: str = "llama32_3b", window: int = 0):
+    """``arch``'s TINY in f32 (with a sliding ``window`` if > 0) with the
+    same weights on ``dev`` and on the CPU → (cfg, models by device
+    type)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32",
+                              sliding_window=window)
     cpu = torch.device("cpu")
     weights = Model(cfg, device=cpu, seed=seed).state_dict()
     models = {}
@@ -2019,21 +2085,23 @@ def tiny_models(seed: int, dev, arch: str = "llama32_3b"):
 
 
 def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
-                     drained: bool = True) -> dict:
+                     drained: bool = True, window: int = 0) -> dict:
     """``arch``'s TINY in f32, the same weights on the card and on the CPU:
     identical outputs, cached prefixes, prefix-cache stats and refcounts,
     first as the serial engine leaves them, then (``drained``) drained
     into the device table (every flash-hash kernel launched on the card).
     Every prefill on the card runs the CUDA-core flash-attention kernel
-    in each attention layer. Returns the first run's record and its
+    in each attention layer. ``window`` > 0 serves the twin with that
+    sliding window. Returns the first run's record and its
     flash-attention launches."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models.model import has_ssm
-    cfg, models = tiny_models(seed, dev, arch)
+    cfg, models = tiny_models(seed, dev, arch, window)
     cpu = torch.device("cpu")
-    label = "tiny" if arch == "llama32_3b" else f"tiny {arch}"
+    label = ("tiny" if arch == "llama32_3b" else f"tiny {arch}") + (
+        f" window {window}" if window else "")
     base = TINY_SERVE_SSM if has_ssm(cfg) else TINY_SERVE
     geos = [(label, base)]
     if drained:
@@ -2082,7 +2150,7 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
 
 
 def tiny_continuous(seed: int, dev, arch: str = "llama32_3b",
-                    drained: bool = True) -> dict:
+                    drained: bool = True, window: int = 0) -> dict:
     """The continuous run on ``arch``'s TINY twin, on the card and on the
     CPU: identical outputs, cached prefixes, prefix-cache stats and
     refcounts, and the serial engine's outputs; then (``drained``) drained
@@ -2093,16 +2161,18 @@ def tiny_continuous(seed: int, dev, arch: str = "llama32_3b",
     each 16-token chunk with its own expert capacity, so its outputs are
     held to the card's and the CPU's, not to the serial engine's (the
     reference's scheduler departs from its serial engine the same way).
-    Returns the first run's record."""
+    ``window`` > 0 runs the twin with that sliding window. Returns the
+    first run's record."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models.model import has_ssm
     from repro_torch.serving import Request, ServeEngine, make_trace
-    cfg, models = tiny_models(seed, dev, arch)
+    cfg, models = tiny_models(seed, dev, arch, window)
     cpu = torch.device("cpu")
     label = ("tiny continuous" if arch == "llama32_3b"
-             else f"tiny continuous {arch}")
+             else f"tiny continuous {arch}") + (
+                 f" window {window}" if window else "")
     if has_ssm(cfg):
         geo = TINY_SSM_CONTINUOUS
         prompts = whole_prompt_requests(seed, cfg.vocab_size, geo)
@@ -2218,10 +2288,167 @@ def family_serve_phase(seed: int, dev, arch: str, layers=None) -> dict:
     return out
 
 
+def window_prompts(seed: int, vocab: int, geo: dict):
+    """``WINDOW_SERVE``'s four prompts: #0 of its own, #1 sharing #0's
+    first ``shared`` tokens, #2 and #3 fresh."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, shared = geo["prompt_len"], geo["shared"]
+    fresh = lambda k: rng.integers(0, vocab, k).tolist()
+    p0 = fresh(n)
+    return [p0, p0[:shared] + fresh(n - shared), fresh(n), fresh(n)]
+
+
+def logit_gap(got, want, vocab: int) -> float:
+    """max |got - want| / max |want| over the vocabulary's lanes."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def window_serve_phase(seed: int, dev, card: str,
+                       geo: dict = WINDOW_SERVE) -> dict:
+    """starcoder2-7b at full width in bf16 with its published sliding
+    window, random weights from ``seed``, served by ``ServeEngine`` over a
+    device ``PrefixKVCache`` (:func:`window_prompts`). Checks outputs,
+    cached prefixes ``[0, shared, 0, 0]``, hits, evictions, refcounts,
+    nothing dropped, finite logits, and 3 prefills x its layers launches
+    of the tensor-core kernel (none of the CUDA-core one). Then that the
+    window reaches decode: #1's first-token logits from the hit path
+    (the cached rows decoded under the window) against a fresh windowed
+    prefill of #1's prompt, within ``WINDOW_LOGIT_TOL`` of its largest
+    logit, and the same hit path with the window taken out of decode
+    only (``sliding_window=0`` while the 16 prompt tokens past the prefix
+    decode) outside it. Both paths attend over the same keys in bf16 and
+    differ only in rounding: the kernel rounds P to bf16 a 64-key tile at
+    a time, decode a whole row at once, and the projections of the
+    decoded rows round in another batch shape; without the window in
+    decode the last 16 positions attend over 8,176 + keys instead of
+    4,096, which moves every logit. The model is freed before it
+    returns."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models import model as M
+    from repro_torch.serving import PrefixKVCache, Request, ServeEngine
+    cfg = dataclasses.replace(get_config(geo["arch"]),
+                              sliding_window=geo["window"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    model = M.Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t_phase
+    params = sum(p.numel() for p in model.parameters())
+    prompts = window_prompts(seed, cfg.vocab_size, geo)
+    shared, max_new = geo["shared"], geo["max_new"]
+    cache = PrefixKVCache(block_tokens=geo["block_tokens"],
+                          capacity_blocks=geo["capacity_blocks"],
+                          backend="device", device=dev)
+    engine = ServeEngine(cfg, model, prefix_cache=cache)
+    first = []                  # each request's first-token logits
+    prefill_one = engine._prefill_one
+
+    def keep_first(prompt):
+        out = prefill_one(prompt)
+        first.append(out[0][0, -1].float().clone())
+        return out
+    engine._prefill_one = keep_first
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    with watched(model, ("prefill", "decode_step"), dev, True) as (
+            times, finite):
+        t0 = time.perf_counter()
+        done = engine.serve([Request(prompt=p, max_new_tokens=max_new)
+                             for p in prompts])
+        wall = time.perf_counter() - t0
+    launches = {**FK.LAUNCHES, **K.LAUNCHES}
+    no_baseline(f"serve {cfg.name} window")
+    outputs = [r.output for r in done]
+    cached = [r.cached_tokens for r in done]
+    cache._refs.flush()
+    stats = cache.stats()
+    refs = cache._count(list(cache.store)).tolist()
+    cache.close()
+    name = f"serve {cfg.name} window {geo['window']}"
+    if any(len(o) != max_new or min(o) < 0 or max(o) >= cfg.vocab_size
+           for o in outputs):
+        fail(f"{name}: outputs are not {max_new} ids below "
+             f"{cfg.vocab_size}: {outputs}")
+    if cached != [0, shared, 0, 0]:
+        fail(f"{name}: cached prefixes {cached}, expected "
+             f"{[0, shared, 0, 0]}")
+    if (stats["hits"], stats["misses"]) != (1, 3) or stats["evictions"] <= 0:
+        fail(f"{name}: hits/misses/evictions {stats}")
+    if stats["dropped"] != 0 or any(refs):
+        fail(f"{name}: dropped {stats['dropped']}, refcounts after release "
+             f"{refs}")
+    if not all(bool(f) for f in finite):
+        fail(f"{name}: non-finite logits")
+    want = {FK.WGMMA: 3 * attn_layers(cfg), FK.SIMT: 0}
+    if {k: launches[k] for k in want} != want:
+        fail(f"{name}: flash-attention launches {launches}, expected "
+             f"{want} (3 prefills x {attn_layers(cfg)} layers)")
+    # the window reaches decode: the hit path against a fresh prefill,
+    # and the hit path with the window out of decode
+    tok = lambda p: torch.tensor([p], dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        fresh = model.prefill(tok(prompts[1]))[0][0, -1].float()
+        _, caches = model.prefill(tok(prompts[0]))
+        caches = M.pad_caches(cfg, [type(c)(*(x[:, :, :shared] for x in c))
+                                    for c in caches], geo["prompt_len"])
+        model.cfg = dataclasses.replace(cfg, sliding_window=0)
+        try:
+            for i, t in enumerate(prompts[1][shared:]):
+                logits, caches = model.decode_step(tok([t]), caches,
+                                                   shared + i)
+        finally:
+            model.cfg = cfg
+        del caches
+    gap = logit_gap(first[1], fresh, cfg.vocab_size)
+    gap_unwindowed = logit_gap(logits[0, -1], fresh, cfg.vocab_size)
+    if not (gap <= WINDOW_LOGIT_TOL < gap_unwindowed):
+        fail(f"{name}: #1's hit-path logits are {gap:.4g} of the largest "
+             f"off a fresh windowed prefill's (at most {WINDOW_LOGIT_TOL}), "
+             f"the hit path without the window in decode {gap_unwindowed:.4g}"
+             f" (must be above it)")
+    decode = times["decode_step"]
+    out = {"arch": cfg.name, "window": cfg.sliding_window,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "parameters": params, "init_s": t_init,
+           "prompt_len": geo["prompt_len"], "cached_tokens": cached,
+           "prefill_ms": times["prefill"], "decode_steps": len(decode),
+           "decode_ms_per_token": statistics.median(decode),
+           "generated_tokens": sum(map(len, outputs)), "wall_s": wall,
+           "tokens_per_s": sum(map(len, outputs)) / wall,
+           "hit_logit_gap": gap, "unwindowed_logit_gap": gap_unwindowed,
+           "greedy_equal": int(first[1][:cfg.vocab_size].argmax())
+           == int(fresh[:cfg.vocab_size].argmax()),
+           "launches": launches, "prefix_cache": stats,
+           "phase_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "decode_ops": decode_ops(model, dev)}
+    del model, logits
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{name}: {json.dumps(out)}", flush=True)
+    print(f"{name} ({out['layers']} layers, {params} parameters; {out['phase_s']:.1f} s): prefill ms "
+          f"{[round(t, 3) for t in out['prefill_ms']]}, decode "
+          f"{out['decode_ms_per_token']:.3f} ms/token (median of "
+          f"{len(decode)}; {out['decode_ops']} ops a step), "
+          f"{out['tokens_per_s']:.1f} generated tokens/s, peak "
+          f"{out['phase_peak_gib']:.2f} GiB; hit path {gap:.4g} of the "
+          f"largest logit off a fresh prefill, {gap_unwindowed:.4g} without "
+          f"the window in decode; card {card}", flush=True)
+    return out
+
+
 def families_phase(seed: int, dev, card: str) -> dict:
-    """The other families: each full-width serve (``FAMILY_SERVES``), each
-    TINY card-vs-CPU serial twin (``FAMILY_TWINS``; MLA again drained into
-    the device table), each continuous twin (``FAMILY_CONTINUOUS``).
+    """The other families: each full-width serve (``FAMILY_SERVES``), the
+    windowed starcoder2-7b serve (``WINDOW_SERVE``), each TINY card-vs-CPU
+    serial twin (``FAMILY_TWINS``; MLA again drained into the device
+    table), each continuous twin (``FAMILY_CONTINUOUS``), and llama32's
+    TINY twins with a window (``TINY_WINDOW``), serial and continuous.
     Returns their records."""
     rec = {"serve": {}, "tiny": {}, "tiny_continuous": {}}
     for arch, layers in FAMILY_SERVES:
@@ -2236,6 +2463,7 @@ def families_phase(seed: int, dev, card: str) -> dict:
               f"{r['tokens_per_s']:.1f} generated tokens/s, peak "
               f"{r['phase_peak_gib']:.2f} GiB; card {card}",
               flush=True)
+    rec["window_serve"] = window_serve_phase(seed, dev, card)
     t0 = time.perf_counter()
     for arch in FAMILY_TWINS:
         rec["tiny"][arch] = tiny_card_vs_cpu(seed, dev, arch,
@@ -2243,6 +2471,11 @@ def families_phase(seed: int, dev, card: str) -> dict:
     for arch in FAMILY_CONTINUOUS:
         rec["tiny_continuous"][arch] = tiny_continuous(seed, dev, arch,
                                                        drained=False)
+    windowed = f"llama32_3b window {TINY_WINDOW}"
+    rec["tiny"][windowed] = tiny_card_vs_cpu(seed, dev, drained=False,
+                                             window=TINY_WINDOW)
+    rec["tiny_continuous"][windowed] = tiny_continuous(
+        seed, dev, drained=False, window=TINY_WINDOW)
     rec["twins_s"] = time.perf_counter() - t0
     return rec
 
@@ -2414,17 +2647,20 @@ def train_phase(seed: int, dev, card: str) -> dict:
     return out
 
 
-def tiny_train_cfg(arch: str):
+def tiny_train_cfg(arch: str, window: int = 0):
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    return dataclasses.replace(get_config(arch, tiny=True), dtype="float32",
+                               sliding_window=window)
 
 
-def tiny_train(seed: int, dev, arch: str, ckpt_dir: Path, weights) -> dict:
-    """``arch``'s TINY in f32 with ``weights`` trained 4 steps by the train
-    CLI on ``dev``, checkpointing every 2 steps, with a failure
-    injected at step 3 (a restart from step 2's checkpoint follows).
-    Returns its report, losses, kept documents and corpus counts."""
+def tiny_train(seed: int, dev, arch: str, ckpt_dir: Path, weights,
+               window: int = 0) -> dict:
+    """``arch``'s TINY in f32 (with a sliding ``window`` if > 0) with
+    ``weights`` trained 4 steps by the train CLI on ``dev``, checkpointing
+    every 2 steps, with a failure injected at step 3 (a restart from step
+    2's checkpoint follows). Returns its report, losses, kept documents
+    and corpus counts."""
     import dataclasses
 
     import numpy as np
@@ -2432,7 +2668,7 @@ def tiny_train(seed: int, dev, arch: str, ckpt_dir: Path, weights) -> dict:
     args = train.parse_args(train_argv(arch, TINY_TRAIN["steps"], ckpt_dir,
                                        seed, TINY_TRAIN["ckpt_every"], dev,
                                        tiny=True))
-    run = train.run(args, cfg=tiny_train_cfg(arch),
+    run = train.run(args, cfg=tiny_train_cfg(arch, window),
                     on_built=lambda r: r.state.model.load_state_dict(weights),
                     inject_failure_at=TINY_TRAIN["fail_at"])
     keep = run.stats.doc_filter(0.0)
@@ -2471,8 +2707,9 @@ def train_child(workdir: Path, dev) -> None:
 
 
 def tiny_train_twins(seed: int, dev) -> dict:
-    """``TINY_TRAIN_ARCHS`` trained on the card and on the CPU with the
-    same weights (``tiny_train``): equal reports, losses within 1e-4
+    """``TINY_TRAIN_ARCHS`` and ``TINY_TRAIN_WINDOWED`` trained on the
+    card and on the CPU with the same weights (``tiny_train``): equal
+    reports, losses within 1e-4
     relative (the CPU tests' tolerance for the train step), the same
     kept documents and corpus counts; the llama twin's checkpoint is
     restored by a fresh process on the card, whose step 3 loss must be
@@ -2486,42 +2723,46 @@ def tiny_train_twins(seed: int, dev) -> dict:
     out = {}
     workdir = Path(tempfile.mkdtemp(prefix="flash-train-twins-"))
     try:
-        for arch in TINY_TRAIN_ARCHS:
-            weights = Model(tiny_train_cfg(arch), device=cpu,
+        twins = ([(arch, arch, 0) for arch in TINY_TRAIN_ARCHS]
+                 + [(f"{arch} window {w}", arch, w)
+                    for arch, w in TINY_TRAIN_WINDOWED])
+        for label, arch, window in twins:
+            weights = Model(tiny_train_cfg(arch, window), device=cpu,
                             seed=seed).state_dict()
             runs = {}
             for d in (dev, cpu):
                 zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
-                runs[d.type] = tiny_train(seed, d, arch,
-                                          workdir / arch / d.type, weights)
+                runs[d.type] = tiny_train(
+                    seed, d, arch, workdir / label.replace(" ", "_") / d.type,
+                    weights, window)
                 if d.type == "cuda":
                     launches = dict(K.LAUNCHES)
-            no_baseline(f"train twin {arch}")
+            no_baseline(f"train twin {label}")
             a, b = runs["cuda"], runs["cpu"]
             ra, rb = dict(a["report"]), dict(b["report"])
             la, lb = ra.pop("final_loss"), rb.pop("final_loss")
             ra.pop("stragglers")
             rb.pop("stragglers")
             if ra != rb or ra["restarts"] != 1 or ra["steps_done"] != 4:
-                fail(f"train twin {arch}: reports differ or are off: "
+                fail(f"train twin {label}: reports differ or are off: "
                      f"{a['report']} / {b['report']}")
             if a["steps"] != b["steps"] or any(
                     not math.isclose(x, y, rel_tol=1e-4)
                     for x, y in zip(a["losses"] + [la], b["losses"] + [lb])):
-                fail(f"train twin {arch}: losses differ: {a['losses']} / "
+                fail(f"train twin {label}: losses differ: {a['losses']} / "
                      f"{b['losses']}")
             for k in ("kept", "counts", "stats"):
                 if a[k] != b[k]:
-                    fail(f"train twin {arch}: {k} differ on the card and "
+                    fail(f"train twin {label}: {k} differ on the card and "
                          f"the CPU")
             if dev.type == "cuda" and min(launches.values()) <= 0:
-                fail(f"train twin {arch}: a hash kernel never launched on "
+                fail(f"train twin {label}: a hash kernel never launched on "
                      f"the card: {launches}")
-            out[arch] = {"report": a["report"], "losses": a["losses"],
-                         "cpu_losses": b["losses"], "steps": a["steps"],
-                         "kept": sum(a["kept"]), "launches": launches}
-            print(f"train twin {arch} card == cpu: "
-                  f"{json.dumps(out[arch])}", flush=True)
+            out[label] = {"report": a["report"], "losses": a["losses"],
+                          "cpu_losses": b["losses"], "steps": a["steps"],
+                          "kept": sum(a["kept"]), "launches": launches}
+            print(f"train twin {label} card == cpu: "
+                  f"{json.dumps(out[label])}", flush=True)
         # a fresh process resumes the llama twin's card checkpoints
         child_dir = workdir / "child"
         shutil.copytree(workdir / "llama32_3b" / dev.type, child_dir / "ck")
@@ -2996,8 +3237,10 @@ def main() -> int:
     trained = train_phase(args.seed, dev, card)
     twins = tiny_train_twins(args.seed, dev)
     mesh = mesh_phase(args.seed, dev, card)
+    window_serve = fam["window_serve"]["launches"]
     wgmma = served["launches"][FK.WGMMA] + sum(
-        r["launches"][FK.WGMMA] for r in fam["serve"].values())
+        r["launches"][FK.WGMMA] for r in fam["serve"].values()) + (
+            window_serve[FK.WGMMA])
     simt = twin["attention_launches"][FK.SIMT] + sum(
         r["attention_launches"][FK.SIMT] for r in fam["tiny"].values())
     kernels = []
@@ -3017,10 +3260,15 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None})
     # each flash-attention kernel at the shape of the path that runs it:
     # the serve prefill (bf16) and the f32 twin's prefill; launches over
-    # every family's serve (bf16) and every twin's serial run (f32)
-    for name, case, launches in ((FK.WGMMA, "serve", wgmma),
-                                 (FK.SIMT, "tiny_f32", simt)):
-        r = attn[case]
+    # every family's serve (bf16) and every twin's serial run (f32); with
+    # a window, starcoder2-7b's serve and the windowed f32 twin
+    window_twin = fam["tiny"][f"llama32_3b window {TINY_WINDOW}"]
+    for name, case, launches, w_case, w_launches in (
+            (FK.WGMMA, "serve", wgmma, "starcoder2_window",
+             window_serve[FK.WGMMA]),
+            (FK.SIMT, "tiny_f32", simt, "tiny_f32_window",
+             window_twin["attention_launches"][FK.SIMT])):
+        r, rw = attn[case], attn[w_case]
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
             "replaces": REPLACES["flash_attention"], "launches": launches,
@@ -3030,7 +3278,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "window_launches": w_launches,
+            "window_max_abs_err": rw["max_abs_err"],
+            "window_device_ms": rw["device_ms"],
+            "window_bound_ms": rw["bound_ms"],
+            "window_library_ms": rw["library_ms"]})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
     print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))

@@ -16,14 +16,18 @@ the same function (``scaled_dot_product_attention``, timed only: the
 port never calls it) and the plain version; and the device times of the
 kernel, the CUDA-core kernel and the library call with no Python between
 launches (``device_ms``, ``simt_device_ms``, ``library_device_ms``:
-graph replays, :func:`..flash_hash.check.device_ms`).
+graph replays, :func:`..flash_hash.check.device_ms`). With a sliding
+``window`` the kernel, the CUDA-core kernel and the plain version take it,
+the library call takes the dense boolean band mask, and the same kernel's
+causal launch at the same shape is timed beside it (``causal_ms``,
+``causal_device_ms``).
 
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
 v and o (each read or written once) over the card's memory rate, and the
 FLOPs of the two products over the pairs the mask keeps (2 (d + dv) per
-(query, key, head)) over the card's dense peak for the type: the tensor
-cores' bf16 rate for bf16, the f32 rate outside the tensor cores for f32
-(TF32 would not give the reference's precision).
+(query, key, head); :func:`kept_pairs`) over the card's dense peak for the
+type: the tensor cores' bf16 rate for bf16, the f32 rate outside the
+tensor cores for f32 (TF32 would not give the reference's precision).
 """
 from __future__ import annotations
 
@@ -41,18 +45,28 @@ H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 
+def kept_pairs(s: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs the mask keeps over ``s`` positions: all s², the
+    causal s (s + 1) / 2, or with a window w the first m = min(w, s) rows'
+    m (m + 1) / 2 plus w for each row after."""
+    if not causal:
+        return s * s
+    m = min(window, s) if window else s
+    return m * (m + 1) // 2 + (s - m) * window
+
+
 def attention_bound(b: int, s: int, h: int, kvh: int, d: int, dv: int,
-                    dtype, causal: bool) -> Dict:
+                    dtype, causal: bool, window: int = 0) -> Dict:
     """Least time of one forward: bytes of q, k, v, o at the memory rate
     against FLOPs of the kept pairs at the type's peak."""
     item = torch.tensor([], dtype=dtype).element_size()
     n_bytes = item * b * s * (h * d + kvh * d + kvh * dv + h * dv)
-    pairs = s * (s + 1) // 2 if causal else s * s
+    pairs = kept_pairs(s, causal, window)
     flops = 2 * b * h * (d + dv) * pairs
     by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     by_flops = flops / H100_PEAK_FLOPS[dtype] * 1e3
     return {"bound_ms": max(by_bytes, by_flops), "bound_bytes": n_bytes,
-            "bound_flops": flops, "peak_flops_per_s": H100_PEAK_FLOPS[dtype],
+            "bound_pairs": pairs, "bound_flops": flops, "peak_flops_per_s": H100_PEAK_FLOPS[dtype],
             "peak_bytes_per_s": H100_BYTES_PER_S,
             "bound_by": "bytes" if by_bytes >= by_flops else "operations"}
 
@@ -67,13 +81,20 @@ def make_inputs(b, s, h, kvh, d, dv, dtype, seed: int, device,
             draw((b, s, kvh, dv)))
 
 
-def library_call(q, k, v, causal: bool):
+def library_call(q, k, v, causal: bool, window: int = 0):
     """``scaled_dot_product_attention`` on (b, h, s, d) copies: the same
-    function as the kernel (the yardstick, never used by the port)."""
+    function as the kernel (the yardstick, never used by the port); with
+    a window, under the dense boolean band mask (s, s)."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    band = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
+        qt, kt, vt, attn_mask=band, enable_gqa=True)
 
 
 def _error(got, want, tol) -> Dict:
@@ -86,44 +107,55 @@ def _error(got, want, tol) -> Dict:
 
 def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
                           dtype, causal: bool, seed: int, device,
-                          reps: int = 10, qk_scale: float = 1.0) -> Dict:
+                          reps: int = 10, qk_scale: float = 1.0,
+                          window: int = 0) -> Dict:
     """The kernel against the plain version on one seeded case."""
     q, k, v = make_inputs(b, s, h, kvh, d, dv, dtype, seed, device,
                           qk_scale)
     name = K.kernel_for(dtype, d, dv)
     tol = TOLERANCE[dtype]
     before = dict(K.LAUNCHES)    # comparison launches are not the path's
-    got = K.flash_attention_fwd(q, k, v, causal=causal)
-    want = ref.sdpa_ref(q, k, v, causal=causal)
+    got = K.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = ref.sdpa_ref(q, k, v, causal=causal, window=window)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
     out = {"shape": [b, s, h, kvh, d, dv], "dtype": str(dtype).split(".")[-1],
-           "causal": causal, "qk_scale": qk_scale,
+           "causal": causal, "window": window, "qk_scale": qk_scale,
            "kernel": name if cuda else "plain", "tolerance": tol,
            **_error(got, want, tol)}
     if cuda:
-        fns = {"ms": lambda _: K.launch(q, k, v, causal, name)}
+        fns = {"ms": lambda _: K.launch(q, k, v, causal, name, window)}
         if name != K.SIMT:
-            simt = K.launch(q, k, v, causal, K.SIMT)
+            simt = K.launch(q, k, v, causal, K.SIMT, window)
             torch.cuda.synchronize(device)
             err = _error(simt, want, tol)
             out.update({f"simt_{key}": val for key, val in err.items()})
-            fns["simt_ms"] = lambda _: K.launch(q, k, v, causal, K.SIMT)
-        library = library_call(q, k, v, causal)
+            fns["simt_ms"] = lambda _: K.launch(q, k, v, causal, K.SIMT,
+                                                window)
+        if window:
+            fns["causal_ms"] = lambda _: K.launch(q, k, v, True, name)
+        library = library_call(q, k, v, causal, window)
         fns["library_ms"] = lambda _: library()
         on_device = {key[:-2] + "device_ms": fn for key, fn in fns.items()}
-        fns["plain_ms"] = lambda _: ref.sdpa_ref(q, k, v, causal)
+        fns["plain_ms"] = lambda _: ref.sdpa_ref(q, k, v, causal,
+                                                 window=window)
         out.update(in_turns(fns, reps, device))
         out.update(device_ms(on_device, reps, device))
     else:
-        out["ms"] = time_ms(lambda: K.flash_attention_fwd(q, k, v, causal),
-                            reps)
-        out["plain_ms"] = time_ms(lambda: ref.sdpa_ref(q, k, v, causal),
-                                  reps)
+        out["ms"] = time_ms(lambda: K.flash_attention_fwd(
+            q, k, v, causal, window), reps)
+        out["plain_ms"] = time_ms(lambda: ref.sdpa_ref(
+            q, k, v, causal, window=window), reps)
         out["library_ms"] = None
     K.LAUNCHES.update(before)
-    out.update(attention_bound(b, s, h, kvh, d, dv, dtype, causal))
+    out.update(attention_bound(b, s, h, kvh, d, dv, dtype, causal, window))
+    if window:
+        out["causal_bound_ms"] = attention_bound(b, s, h, kvh, d, dv, dtype,
+                                                 True)["bound_ms"]
+        if out.get("causal_device_ms"):
+            out["causal_device_bound_share"] = (out["causal_bound_ms"]
+                                                / out["causal_device_ms"])
     for key in ("ms", "simt_ms", "library_ms", "plain_ms", "device_ms",
                 "simt_device_ms", "library_device_ms"):
         if out.get(key):

@@ -20,6 +20,23 @@
 // keys past s are masked, query rows past s are not written (the
 // reference asserts s % block == 0 instead).
 //
+// Sliding window (window > 0, causal only; the reference computes it in
+// src/repro/models/attention.py: _causal_mask and _sdpa_chunked, not in
+// its Pallas kernel): query i keeps key j iff i - window < j <= i. Both
+// kernels start at the first key tile that holds some row's lower edge,
+// t0 = floor((q0 - window + 1) / BK) clamped at 0, so the key tiles wholly
+// before every row's window are neither loaded nor computed: O(s w) work
+// instead of O(s^2). The lower edge is masked on each tile it crosses
+// (two tiles where window is no multiple of the tile). A row can find
+// every key of its first tile masked (its edge lies in the next tile):
+// the CUDA-core kernel then does the reference's arithmetic (max -1e30,
+// p = exp(0) = 1, cleared by the next tile's alpha = exp(-1e30 - m) = 0,
+// exactly); the tensor-core kernel, whose exp2 of a fused multiply-add
+// would see the rounding error of -1e30 x scale, takes no shift for a
+// row whose max is still -1e30, so its p are exp2(-huge) = 0 and its l
+// and acc stay 0 until a kept key arrives (the same result: 0 against
+// x * 0).
+//
 // Bound on the card: at serving shapes (d = 128, bf16) the FLOPs of the
 // two products bound it from s of about 1,000 up (4 h d flops per
 // (query, key) pair the mask keeps, at the tensor cores' bf16 peak); below
@@ -50,7 +67,8 @@
 //   - Online softmax in registers: a row's 64 scores lie in the 4 lanes
 //     of a quad (two shuffles per reduction); the causal mask is applied
 //     on the diagonal tile only, the key mask on the tile that holds s,
-//     and tiles the mask empties are never loaded.
+//     (and the window's lower edge on each tile it crosses), and tiles the
+//     mask empties are never loaded.
 //   - O += P V: P's f32 accumulator fragment is rounded in place into the
 //     bf16 A fragment (registers), V is the MN-major B operand from shared
 //     memory (the transpose bit); O is rescaled by alpha before.
@@ -65,8 +83,8 @@
 //   out TF32), and bf16 heads whose d or dv is not a multiple of 8.
 //   One CTA of four warps per (b*h, 32-row query tile). The scaled query
 //   tile is staged in shared memory in f32; the CTA walks 32-key K/V tiles
-//   up to the causal limit, skipping the tiles the mask empties as the
-//   reference does. Each warp owns 8 query rows. For the scores a lane
+//   from the window's first tile up to the causal limit, skipping the
+//   tiles the mask empties as the reference does. Each warp owns 8 query rows. For the scores a lane
 //   owns one key of the tile (float4 reads of its K row against broadcast
 //   reads of the query rows); the running max and denominator come from
 //   warp shuffles; for the PV product a lane owns the output dims
@@ -125,7 +143,8 @@ template <typename T, int NDIM>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, int s,
-                      int h, int kvh, int d, int dv, float scale, int causal) {
+                      int h, int kvh, int d, int dv, float scale, int causal,
+                      int window) {
   extern __shared__ __align__(16) float smem[];
   const int ldq = d + PAD;
   const int ldv = dv + PAD;
@@ -169,9 +188,11 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int n_tiles = (s + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
+  const int lo = q0 - window + 1;  // the lowest row's first kept key
+  const int t0 = window > 0 && lo > 0 ? lo / BK : 0;
   const float* q_rows = Qs + warp * ROWS * ldq;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile is consumed (and Q is staged)
     for (int i = tid; i < BK * d; i += WARPS * 32) {
@@ -208,7 +229,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int qpos = q0 + warp * ROWS + r;
-      const bool keep = kpos < s && (!causal || kpos <= qpos);
+      const bool keep = kpos < s && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
       const float x = keep ? sc[r] : NEG;
       const float m_new = fmaxf(m[r], warp_max(x));
       const float p = expf(x - m_new);
@@ -253,7 +275,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NDIM>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
-           int h, int kvh, int d, int dv, float scale, int causal,
+           int h, int kvh, int d, int dv, float scale, int causal, int window,
            cudaStream_t stream) {
   const size_t smem =
       (size_t)((BQ + BK) * (d + PAD) + BK * (dv + PAD)) * sizeof(float);
@@ -265,18 +287,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
   kern<<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s, h, kvh, d, dv, scale,
-      causal);
+      causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int s, int h, int kvh, int d, int dv, float scale, int causal,
-             cudaStream_t st) {
-  if (dv <= 32) return launch<T, 1>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, st);
-  if (dv <= 64) return launch<T, 2>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, st);
-  if (dv <= 128) return launch<T, 4>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, st);
-  return launch<T, 8>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, st);
+             int window, cudaStream_t st) {
+  if (dv <= 32) return launch<T, 1>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
+  if (dv <= 64) return launch<T, 2>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
+  if (dv <= 128) return launch<T, 4>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
+  return launch<T, 8>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
 }
 
 }  // namespace
@@ -315,7 +337,8 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         __nv_bfloat16* __restrict__ o, int s, int h, int kvh,
-                        int d, int dv, float scale_log2, int causal) {
+                        int d, int dv, float scale_log2, int causal,
+                        int window) {
   using L = Smem<P>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align every box to it
@@ -333,6 +356,9 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   int n_tiles = (s + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
+  const int lo = q0 - window + 1;  // the lowest row's first kept key
+  const int t0 = window > 0 && lo > 0 ? lo / BK : 0;
+  const bool windowed = window > 0;
   const int qk_chunks = (d + CHUNK - 1) / CHUNK;   // boxes that hold data
   const int v_chunks = (dv + CHUNK - 1) / CHUNK;
 
@@ -351,11 +377,12 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::mbar_arrive_expect_tx(bar_q, qk_chunks * BOX);
       for (int c = 0; c < qk_chunks; ++c)
         hopper::tma_load_4d(sq + c * BOX, &tm_q, bar_q, c * CHUNK, hq, q0, bi);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % STAGES;
+      for (int t = t0; t < n_tiles; ++t) {
+        const int j = t - t0;  // ring slot and phase count from t0
+        const int st = j % STAGES;
         const uint32_t full = bar_full + 8 * st;
         const uint32_t sk = skv + st * L::kStage;
-        hopper::mbar_wait(bar_empty + 8 * st, ((t / STAGES) & 1) ^ 1);
+        hopper::mbar_wait(bar_empty + 8 * st, ((j / STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(full, (qk_chunks + v_chunks) * BOX);
         for (int c = 0; c < qk_chunks; ++c)
           hopper::tma_load_4d(sk + c * BOX, &tm_k, full, c * CHUNK, kh,
@@ -382,11 +409,12 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
 
   hopper::mbar_wait(bar_q, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % STAGES;
+  for (int t = t0; t < n_tiles; ++t) {
+    const int j = t - t0;
+    const int st = j % STAGES;
     const uint32_t sk = skv + st * L::kStage;
     const uint32_t sv = sk + L::kTile;
-    hopper::mbar_wait(bar_full + 8 * st, (t / STAGES) & 1);
+    hopper::mbar_wait(bar_full + 8 * st, (j / STAGES) & 1);
 
     // S = Q K^T (f32)
     float sc[BK / 2];
@@ -406,14 +434,18 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::wgmma_wait_all();
     hopper::fence_regs(sc);
 
-    // masks: the causal one on the diagonal tile, the key one past s
+    // masks: the causal one on the diagonal tile, the key one past s,
+    // the window's lower edge on every tile that holds some row's edge
     const int k0 = t * BK;
-    if (k0 + BK > s || (causal && k0 + BK - 1 > q0)) {
+    if (k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
+        (windowed && k0 <= q0 + BQ - 1 - window)) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int row = q0 + r_lo + 8 * ((i >> 1) & 1);
         const int col = k0 + 8 * (i >> 2) + c_in + (i & 1);
-        if (col >= s || (causal && col > row)) sc[i] = NEG;
+        if (col >= s || (causal && col > row) ||
+            (windowed && col <= row - window))
+          sc[i] = NEG;
       }
     }
 
@@ -428,7 +460,9 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
       alpha[r] = exp2f((m[r] - mx[r]) * scale_log2);
-      shift[r] = mx[r] * scale_log2;
+      // a row with no kept key yet (its window starts in a later tile)
+      // takes no shift: its p are then exp2(-1e30 x scale) = 0
+      shift[r] = mx[r] == NEG ? 0.f : mx[r] * scale_log2;
       m[r] = mx[r];
     }
 #pragma unroll
@@ -532,7 +566,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
 template <int P, int MIN_BLOCKS>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            void* o, int b, int s, int h, int kvh, int d, int dv,
-           float scale_log2, int causal, cudaStream_t stream) {
+           float scale_log2, int causal, int window, cudaStream_t stream) {
   const int smem = Smem<P>::kBytes;
   auto kern = flash_attn_wgmma_kernel<P, MIN_BLOCKS>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -541,7 +575,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   const dim3 grid(b * h, (s + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv,
                                         static_cast<__nv_bfloat16*>(o), s, h,
-                                        kvh, d, dv, scale_log2, causal);
+                                        kvh, d, dv, scale_log2, causal,
+                                        window);
   return (int)cudaGetLastError();
 }
 
@@ -552,30 +587,33 @@ extern "C" {
 // q, k, v, o: device pointers of contiguous (b, s, h|kvh, d|dv) tensors,
 // all float32 (is_bf16 = 0) or all bfloat16 (is_bf16 = 1). The wrapper
 // checks d, dv in [4, 256] and multiples of 4, h % kvh == 0, b*h <= 65535.
+// window: 0 (none) or the sliding window's width (causal only).
 int fa_forward(const void* q, const void* k, const void* v, void* o, int b,
                int s, int h, int kvh, int d, int dv, float scale, int causal,
-               int is_bf16, void* stream) {
+               int window, int is_bf16, void* stream) {
   if (d <= 0 || d > 256 || d % 4 || dv <= 0 || dv > 256 || dv % 4 ||
-      kvh <= 0 || h % kvh)
+      kvh <= 0 || h % kvh || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, kvh, d, dv, scale,
-                                   causal, st);
-  return dispatch<float>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, st);
+                                   causal, window, st);
+  return dispatch<float>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal,
+                         window, st);
 }
 
 // The tensor-core kernel. q, k, v, o: device pointers of contiguous
 // bfloat16 (b, s, h|kvh, d|dv) tensors, each 16-byte aligned. The wrapper
 // checks d, dv in [8, 256] and multiples of 8, h % kvh == 0, and
-// ceil(s / 64) <= 65535. Returns cudaErrorInvalidValue where
-// cuTensorMapEncodeTiled refuses a tensor map.
+// ceil(s / 64) <= 65535; window as fa_forward's. Returns
+// cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a tensor map.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                      int b, int s, int h, int kvh, int d, int dv, float scale,
-                     int causal, void* stream) {
+                     int causal, int window, void* stream) {
   if (d < 8 || d > 256 || d % 8 || dv < 8 || dv > 256 || dv % 8 ||
-      kvh <= 0 || h % kvh || (s + wg::BQ - 1) / wg::BQ > 65535)
+      kvh <= 0 || h % kvh || (s + wg::BQ - 1) / wg::BQ > 65535 ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   CUtensorMap tq, tk, tv;
@@ -587,12 +625,12 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
   const int p = d > dv ? d : dv;
   if (p <= 64)
     return wg::launch<64, 3>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
-                             causal, st);
+                             causal, window, st);
   if (p <= 128)
     return wg::launch<128, 2>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
-                              causal, st);
+                              causal, window, st);
   return wg::launch<256, 1>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
-                            causal, st);
+                            causal, window, st);
 }
 
 }  // extern "C"

@@ -19,9 +19,14 @@ reference's Pallas kernel have a backward; training attends through
 * for CUDA tensors, launches the chosen kernel on the current stream, or
   raises. Nothing falls back to the other kernel or to the plain version.
 
+Both kernels take a sliding window (``window`` > 0, causal only: query i
+keeps key j iff ``i - window < j <= i``) and skip the key tiles wholly
+before it; ``window=0`` is the unwindowed launch.
+
 ``LAUNCHES`` counts each kernel's CUDA launches; only a launch adds to it.
 ``NOTE``, when set (``launch/op_analysis.OpCounter``), is told of every
-launch: a ctypes launch is no aten op a dispatch mode could count.
+launch (``note(q, k, v, causal, window)``): a ctypes launch is no aten op
+a dispatch mode could count.
 ``STANDIN`` is set while a dense stand-in computes what a launch would
 (a dry-run over fake tensors, which no kernel can read): what it
 allocates is the score traffic the kernel keeps on chip.
@@ -40,7 +45,7 @@ WGMMA = "flash_attention_wgmma"
 SIMT = "flash_attention_simt"
 #: CUDA launches of each kernel (plain ints; reset by assigning 0)
 LAUNCHES = {WGMMA: 0, SIMT: 0}
-#: ``note(q, k, v, causal)`` called at each launch, or None
+#: ``note(q, k, v, causal, window)`` called at each launch, or None
 NOTE: contextvars.ContextVar = contextvars.ContextVar("flash_attn_note",
                                                       default=None)
 #: True while a dense stand-in of the kernel runs
@@ -108,10 +113,11 @@ def _lib():
     return load()
 
 
-def launch(q, k, v, causal: bool, name: str):
+def launch(q, k, v, causal: bool, name: str, window: int = 0):
     """Launch kernel ``name`` on checked CUDA tensors; returns o. The
     wrapper's own path is :func:`flash_attention_fwd`; ``check.py`` also
     times the CUDA-core kernel at bf16 shapes through here."""
+    ref.check_window(causal, window)
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     if name == WGMMA:
@@ -127,7 +133,8 @@ def launch(q, k, v, causal: bool, name: str):
     if o.numel():
         lib = _lib()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-                h, kvh, d, dv, 1.0 / (d ** 0.5), int(bool(causal)))
+                h, kvh, d, dv, 1.0 / (d ** 0.5), int(bool(causal)),
+                int(window))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if name == WGMMA:
             err = lib.fa_forward_wgmma(*args, stream)
@@ -141,14 +148,16 @@ def launch(q, k, v, causal: bool, name: str):
     return o
 
 
-def flash_attention_fwd(q, k, v, causal: bool = True):
+def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
     """q: (b, s, h, d); k/v: (b, s, kvh, d/dv) → o: (b, s, h, dv) in
-    ``v.dtype``. Query head ``hq`` reads KV head ``hq // (h // kvh)``.
+    ``v.dtype``. Query head ``hq`` reads KV head ``hq // (h // kvh)``;
+    ``window`` > 0 attends each query to its last ``window`` keys.
 
     Forward only: with grad mode on and any input requiring grad it
     raises rather than hand back an output autograd would treat as a
     constant."""
     _check(q, k, v)
+    ref.check_window(causal, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention_fwd has no backward: an input requires grad. "
@@ -157,11 +166,11 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
             "under torch.no_grad() or torch.inference_mode()")
     dev = q.device
     if dev.type == "cpu":
-        return ref.sdpa_ref(q, k, v, causal=causal)
+        return ref.sdpa_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     note = NOTE.get()
     if note is not None:
-        note(q, k, v, causal)
+        note(q, k, v, causal, window)
     return launch(q, k, v, causal,
-                  kernel_for(q.dtype, q.shape[3], v.shape[3]))
+                  kernel_for(q.dtype, q.shape[3], v.shape[3]), window)

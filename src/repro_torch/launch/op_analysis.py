@@ -192,8 +192,9 @@ class OpCounter(TorchDispatchMode):
             self._track(t)
         self.score_bytes += sum(_nbytes(t) for t in moved if self._scored(t))
 
-    def _note_flash(self, q, k, v, causal) -> None:
-        """A flash-attention launch, as the dense attention it computes."""
+    def _note_flash(self, q, k, v, causal, window) -> None:
+        """A flash-attention launch, as the dense attention it computes
+        (the reference's count, whatever its mask or window keeps)."""
         b, s, h, d = q.shape
         t, dv = k.shape[1], v.shape[3]
         self.dot_flops += 2 * b * h * s * t * (d + dv)

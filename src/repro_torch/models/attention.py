@@ -1,5 +1,5 @@
-"""Attention token mixers: GQA (+RoPE) and MLA (MiniCPM3 / DeepSeek
-latent attention, with absorbed-projection decode).
+"""Attention token mixers: GQA (+RoPE, optional sliding window) and MLA
+(MiniCPM3 / DeepSeek latent attention, with absorbed-projection decode).
 
 * ``gqa_full`` / ``mla_full`` — the whole sequence (causal). For prefill
   its attention is the flash-attention kernel (``kernels/flash_attn``)
@@ -23,9 +23,23 @@ GQA caches (k, v); MLA caches the normed latent and the shared roped key
 (``kv_lora + rope_dim`` a token, not ``2·kvh·hd``) and attends in latent
 space (``_mla_absorbed_attend``). The three cache modes are plain torch,
 as the reference computes them with jnp outside any Pallas kernel; GQA's
-go through ``sdpa_ref`` with an additive mask. Sliding-window attention
-is not ported yet (``_LATER``): the flash-attention kernel that prefill
-runs has no window, and the reference's decode modes ignore it.
+go through ``sdpa_ref`` with an additive mask.
+
+Sliding window (``cfg.sliding_window = w > 0``, GQA): query i keeps key j
+iff ``i - w < j <= i``, the reference's ``_causal_mask(s, s, 0, w)``. It
+is a mask over the reference's cache layout (``(b, s_max, kv, hd)``, every
+row kept), not a rolling cache. Prefill launches the kernel with the
+window (which skips the key tiles wholly before it), training takes it
+in ``_sdpa`` / ``_sdpa_chunked`` as the reference's ``gqa_full`` does, and
+every cache mode masks it too: decode at position t equals row t of the
+reference's windowed ``gqa_full`` over tokens 0..t. The reference's own
+decode, packed and chunk modes mask only ``kpos <= index`` and so attend
+past the window its prefill keeps; the port departs from them there
+(ROADMAP, Queue 3), and with ``w = 0`` every mode is the reference's.
+MLA has no window in any mode, as the reference's dense ``mla_full`` and
+its MLA cache modes have none (its chunked ``mla_full`` reads the window
+through ``_sdpa_chunked``; the port follows the dense form, so a
+windowed MLA stack prefills and decodes alike).
 
 The head projections run in the activations' type (the reference's f32
 result, cast at once). The output projection ``wo`` sums in f32 before
@@ -45,7 +59,6 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.flash_attn import kernel as flash_kernel
-from ..kernels.flash_attn.ops import flash_attention
 from ..kernels.flash_attn.ref import sdpa_ref
 from . import sharding_hints
 
@@ -59,9 +72,6 @@ from .layers import (F32, NEG, RMSNorm, apply_rope, bf16_grad_boundary,
                      dense_init_, matmul_heads, matmul_rows, rmsnorm,
                      _weight)
 from .sharding_hints import grad_in_f32
-
-_LATER = "see ROADMAP.md, Queue 1 item 5, \"Sliding-window attention\""
-
 
 class GQA(nn.Module):
     """``wq`` (d, h, hd), ``wk``/``wv`` (d, kv, hd), ``wo`` (h, hd, d)."""
@@ -114,10 +124,27 @@ def _out(p, o: torch.Tensor, dtype, reduce_f32: bool = True
     return matmul_rows(o, p.wo, reduce_f32).to(dtype)
 
 
-def _causal_mask(s: int, device) -> torch.Tensor:
-    """(s, s) additive f32 mask: 0 where key ≤ query, else ``NEG``."""
+def _keep(kpos, qpos, window: int = 0) -> torch.Tensor:
+    """Whether a query at ``qpos`` attends to a key at ``kpos``
+    (broadcast): ``qpos - window < kpos <= qpos``, with no lower edge
+    when ``window`` is 0."""
+    ok = kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def _mask(kpos, qpos, window: int = 0) -> torch.Tensor:
+    """:func:`_keep` as an additive f32 mask: 0 or ``NEG``."""
+    return torch.where(_keep(kpos, qpos, window), 0.0, NEG).to(F32)
+
+
+def _causal_mask(s: int, device, window: int = 0) -> torch.Tensor:
+    """(s, s) additive f32 mask: 0 where ``query - window < key <=
+    query``, else ``NEG``: the reference's ``_causal_mask(s, s, 0,
+    window)``."""
     pos = torch.arange(s, device=device)
-    return torch.where(pos[None, :] <= pos[:, None], 0.0, NEG).to(F32)
+    return _mask(pos[None, :], pos[:, None], window)
 
 
 def _sdpa(q, k, v, mask) -> torch.Tensor:
@@ -138,12 +165,18 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     return out.reshape(b, s, h, dv).to(q.dtype)
 
 
-def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, window: int = 0
+                  ) -> torch.Tensor:
     """The reference's ``_sdpa_chunked``, differentiable: causal attention
-    by online softmax over (``attn_q_chunk`` x ``attn_kv_chunk``) tiles,
-    with :func:`_sdpa`'s rounding steps. A key tile wholly after a query
-    tile is skipped: in the reference it adds exactly 0 (its
-    probabilities are ``exp(-1e30 - m) = 0`` and its rescale 1)."""
+    (within ``window`` keys when it is > 0) by online softmax over
+    (``attn_q_chunk`` x ``attn_kv_chunk``) tiles, with :func:`_sdpa`'s
+    rounding steps. A key tile wholly after a query tile is skipped: in
+    the reference it adds exactly 0 (its probabilities are
+    ``exp(-1e30 - m) = 0`` and its rescale 1). So is a key tile wholly
+    before every row's window: in the reference such a tile finds each
+    row's running max still at -1e30 and adds p = 1 a key, which the
+    first tile with a kept key wipes out exactly (its rescale is
+    ``exp(-1e30 - m) = 0``)."""
     b, s, h, dq = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     g = h // kvh
@@ -160,16 +193,19 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     for qi in range(s // qc):
         q_last = (qi + 1) * qc - 1
         q_pos = pos[qi * qc:q_last + 1]
+        q_first = qi * qc
         m = torch.full((b, kvh, g, qc), NEG, dtype=F32, device=q.device)
         l = torch.zeros((b, kvh, g, qc), dtype=F32, device=q.device)
         acc = torch.zeros((b, kvh, g, qc, dv), dtype=F32, device=q.device)
         for ki in range(s // kc):
             if ki * kc > q_last:
                 break
+            if window and (ki + 1) * kc - 1 <= q_first - window:
+                continue
             k_pos = pos[ki * kc:(ki + 1) * kc]
             scores = torch.einsum("bqkgd,btkd->bkgqt", qr[:, qi],
                                   kr[:, ki]) * scale
-            ok = k_pos[None, :] <= q_pos[:, None]
+            ok = _keep(k_pos[None, :], q_pos[:, None], window)
             scores = torch.where(ok, scores, NEG)
             m_new = torch.maximum(m, scores.amax(-1))
             pr = torch.exp(scores - m_new[..., None])
@@ -185,32 +221,40 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     return torch.cat(chunks, dim=1)
 
 
-def _attend(q, k, v, cfg: ModelConfig, train: bool) -> torch.Tensor:
-    """Causal attention over the whole sequence: the flash-attention kernel
-    for prefill; the reference's differentiable jnp functions, by
-    ``attn_impl``, for training. DTensor heads attend shard by shard
+def _attend(q, k, v, cfg: ModelConfig, train: bool, window: int = 0
+            ) -> torch.Tensor:
+    """Causal attention over the whole sequence (within ``window`` keys
+    when it is > 0): the flash-attention kernel for prefill; the
+    reference's differentiable jnp functions, by ``attn_impl``, for
+    training. DTensor heads attend shard by shard
     (:func:`_on_local_heads`)."""
-    return _on_local_heads(_attend_shard, q, k, v, cfg, train)
+    return _on_local_heads(_attend_shard, q, k, v, cfg, train, window)
 
 
-def _attend_shard(q, k, v, cfg: ModelConfig, train: bool) -> torch.Tensor:
+def _attend_shard(q, k, v, cfg: ModelConfig, train: bool, window: int
+                  ) -> torch.Tensor:
     if train:
         if cfg.attn_impl == "chunked":
-            return _sdpa_chunked(q, k, v, cfg)
-        return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device))
+            return _sdpa_chunked(q, k, v, cfg, window)
+        return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device, window))
     if is_fake(q):
         # a dry-run traces fake tensors, which no kernel can read: it
         # counts the dense attention the kernel computes (what that
         # allocates is what its flash-projected bytes leave out)
         with flash_kernel.standing_in():
-            return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device))
-    return _flash_shard(q.contiguous(), k.contiguous(), v.contiguous())
+            return _sdpa(q, k, v, _causal_mask(q.shape[1], q.device,
+                                               window))
+    return _flash_shard(q.contiguous(), k.contiguous(), v.contiguous(),
+                        window)
 
 
 @maybe_run_for_local_tensor
-def _flash_shard(q, k, v):
-    # a simulated rank set (LocalTensorMode) launches the kernel once a rank
-    return flash_attention(q, k, v, causal=True)
+def _flash_shard(q, k, v, window):
+    # a simulated rank set (LocalTensorMode) launches the kernel once a
+    # rank; the reference's ops.flash_attention has no window, so the
+    # windowed launch goes through the kernel's wrapper
+    return flash_kernel.flash_attention_fwd(q, k, v, causal=True,
+                                            window=window)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -277,20 +321,18 @@ def gqa_full_kv(p: GQA, cfg: ModelConfig, x, positions, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`gqa_full` that also returns the roped K and V it attended
     over (prefill keeps them as the cache)."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"sliding-window attention is not ported yet ({_LATER})")
     if cfg.opt_bf16_grads:
         x = bf16_grad_boundary(x)
     q, k, v = _qkv(p, cfg, x, positions)
-    o = _attend(q, k, v, cfg, train)
+    o = _attend(q, k, v, cfg, train, cfg.sliding_window)
     return _out(p, o, x.dtype, not cfg.opt_bf16_grads), k, v
 
 
 def gqa_full(p: GQA, cfg: ModelConfig, x, positions,
              train: bool = False) -> torch.Tensor:
-    """x: (b, s, d) → (b, s, d); causal full-sequence attention (the
-    training form with ``train=True``)."""
+    """x: (b, s, d) → (b, s, d); causal full-sequence attention, within
+    ``cfg.sliding_window`` keys when it is > 0 (the training form with
+    ``train=True``)."""
     return gqa_full_kv(p, cfg, x, positions, train)[0]
 
 
@@ -324,7 +366,7 @@ def gqa_decode(p: GQA, cfg: ModelConfig, x, cache: KVCache, index: int
     _write_row(cache.k, k, index)
     _write_row(cache.v, v, index)
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = torch.where(kpos <= index, 0.0, NEG).to(F32)
+    mask = _mask(kpos, index, cfg.sliding_window)
     o = _on_local_heads(_masked, q, cache.k, cache.v, mask)
     return _out(p, o, x.dtype), cache
 
@@ -345,7 +387,7 @@ def gqa_decode_packed(p: GQA, cfg: ModelConfig, x, cache: KVCache,
     cache.k[rows, indices] = k[:, 0]
     cache.v[rows, indices] = v[:, 0]
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = torch.where(kpos <= indices[:, None], 0.0, NEG).to(F32)
+    mask = _mask(kpos, indices[:, None], cfg.sliding_window)
     o = sdpa_ref(q, cache.k, cache.v, causal=False,
                  mask=mask[:, None, None, None, :])
     return _out(p, o, x.dtype), cache
@@ -368,7 +410,7 @@ def gqa_chunk_append(p: GQA, cfg: ModelConfig, x, cache: KVCache,
     cache.k[:, start:start + c] = k
     cache.v[:, start:start + c] = v
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = torch.where(kpos <= pos[:, None], 0.0, NEG).to(F32)
+    mask = _mask(kpos, pos[:, None], cfg.sliding_window)
     o = sdpa_ref(q, cache.k, cache.v, causal=False, mask=mask)
     return _out(p, o, x.dtype), cache
 
@@ -458,7 +500,8 @@ def mla_full(p: MLA, cfg: ModelConfig, x, positions,
              train: bool = False) -> torch.Tensor:
     """x: (b, s, d) → (b, s, d); the latent expanded to per-head K/V and
     attended causally by the flash-attention kernel (by the training
-    attention with ``train=True``)."""
+    attention with ``train=True``); no sliding window (see the module
+    docstring)."""
     return mla_full_cache(p, cfg, x, positions, train)[0]
 
 
@@ -496,9 +539,8 @@ def mla_decode(p: MLA, cfg: ModelConfig, x, cache: MLACache, index: int
     _write_row(cache.latent, latent, index)
     _write_row(cache.k_rope, k_rope[:, :, 0], index)
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = torch.where(kpos <= index, 0.0, NEG).to(F32)
     return _mla_absorbed_attend(p, cfg, q_nope, q_rope, cache.latent,
-                                cache.k_rope, mask), cache
+                                cache.k_rope, _mask(kpos, index)), cache
 
 
 def mla_decode_packed(p: MLA, cfg: ModelConfig, x, cache: MLACache,
@@ -515,9 +557,9 @@ def mla_decode_packed(p: MLA, cfg: ModelConfig, x, cache: MLACache,
     cache.latent[rows, indices] = latent[:, 0]
     cache.k_rope[rows, indices] = k_rope[:, 0, 0]
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = torch.where(kpos <= indices[:, None], 0.0, NEG).to(F32)
+    mask = _mask(kpos, indices[:, None])[:, None, None, :]
     return _mla_absorbed_attend(p, cfg, q_nope, q_rope, cache.latent,
-                                cache.k_rope, mask[:, None, None, :]), cache
+                                cache.k_rope, mask), cache
 
 
 def mla_chunk_append(p: MLA, cfg: ModelConfig, x, cache: MLACache,
@@ -537,6 +579,5 @@ def mla_chunk_append(p: MLA, cfg: ModelConfig, x, cache: MLACache,
     cache.latent[:, start:start + c] = latent
     cache.k_rope[:, start:start + c] = k_rope[:, :, 0]
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = torch.where(kpos <= pos[:, None], 0.0, NEG).to(F32)
     return _mla_absorbed_attend(p, cfg, q_nope, q_rope, cache.latent,
-                                cache.k_rope, mask), cache
+                                cache.k_rope, _mask(kpos, pos[:, None])), cache

@@ -179,3 +179,29 @@ def test_window_sectors_wrap_around_the_row():
     # 32 slots = 4 sectors: slots 30..33 wrap to 30, 31, 0, 1
     got = C.window_sectors(home, dist, 32)
     assert got.tolist() == [[True, False, False, True]]
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (1, True, 0), (64, False, 0), (1000, True, 0), (1, True, 1),
+    (65, True, 1), (1000, True, 17), (1000, True, 64), (1000, True, 4096),
+    (8192, True, 4096)])
+def test_attention_bound_counts_the_pairs_the_mask_keeps(s, causal, window):
+    """The attention bound's (query, key) pairs and FLOPs against a count
+    of the plain version's mask, and the windowed serve's predicted pair
+    counts (s = 8,192: causal 33,558,528, w = 4,096: 25,167,872)."""
+    from repro_torch.kernels.flash_attn import check as FC
+    pos = torch.arange(s)
+    keep = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        keep = pos[None, :] <= pos[:, None]
+        if window:
+            keep &= pos[None, :] > pos[:, None] - window
+    pairs = int(keep.sum())
+    assert FC.kept_pairs(s, causal, window) == pairs
+    b = FC.attention_bound(1, s, 36, 4, 128, 64, torch.bfloat16, causal,
+                           window)
+    assert b["bound_pairs"] == pairs
+    assert b["bound_flops"] == 2 * 36 * (128 + 64) * pairs
+    if (s, window) == (8192, 4096):
+        assert pairs == 25_167_872
+        assert FC.kept_pairs(s, True) == 33_558_528

@@ -7,7 +7,8 @@ Flash attention: both kernels within the reference's tolerances (2e-5
 f32, 2e-2 bf16, TF32 off) from tiny heads to llama3.2-3b's, ragged lengths
 included, each call counted under the kernel the dtype/shape split picks;
 the tensor-core kernel at every tile boundary, GQA ratio, head width and
-with q and k scaled x8; and the serving path on the card against the
+with q and k scaled x8; both with a sliding window at tile edges, every
+GQA ratio and head width; and the serving path on the card against the
 CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
@@ -353,6 +354,53 @@ def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
     name = _check_and_count(cuda, b, s, h, kvh, d, dv, torch.bfloat16,
                             causal, qk_scale)
     assert name == FK.WGMMA
+
+
+WINDOW_S = [1, 63, 64, 65, 1000, 8192]
+WINDOW_W = [1, 17, 63, 64, 65, 4096]
+
+
+def _check_window(cuda, b, s, h, kvh, d, dv, dtype, window):
+    """Each kernel that takes the case (the tensor-core one for bf16 widths
+    that are multiples of 8, the CUDA-core one always) against
+    ``sdpa_ref(window=)`` within the reference's tolerance; one call of
+    the wrapper counts one launch, of the kernel the split picks."""
+    q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, s + window, cuda)
+    want = FC.ref.sdpa_ref(q, k, v, window=window)
+    name = FK.kernel_for(dtype, d, dv)
+    before = dict(FK.LAUNCHES)
+    for kern in {name, FK.SIMT}:
+        got = FK.launch(q, k, v, True, kern, window)
+        torch.cuda.synchronize(cuda)
+        err = FC._error(got, want, FC.TOLERANCE[dtype])
+        assert err["finite"] and err["within_tolerance"], (kern, err)
+    FK.LAUNCHES.update(before)
+    FK.flash_attention_fwd(q, k, v, window=window)
+    assert FK.LAUNCHES == {**before, name: before[name] + 1}
+
+
+@pytest.mark.parametrize("w", WINDOW_W)
+@pytest.mark.parametrize("s", WINDOW_S)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_flash_attention_matches_plain(cuda, s, w, dtype):
+    """A sliding window at tile edges (63, 64, 65 keys; 1 and 17 inside
+    a tile, 4,096 past most lengths), over lengths at tile edges, ragged
+    and long; d = dv = 128, GQA 4."""
+    _check_window(cuda, 1, s, 4, 1, 128, 128, dtype, w)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,w", [
+    (1, 1000, 4, 4, 64, 64, 65),        # MHA, narrow heads
+    (2, 1000, 9, 1, 64, 64, 100),       # GQA 9, two rows
+    (1, 65, 4, 4, 256, 256, 63),        # the widest heads
+    (1, 1000, 9, 1, 256, 256, 17),      # widest, GQA 9
+    (1, 8192, 36, 4, 128, 128, 4096),   # starcoder2-7b's heads and window
+    (1, 1000, 8, 2, 64, 128, 77),       # d < dv
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_flash_attention_heads(cuda, b, s, h, kvh, d, dv, w,
+                                        dtype):
+    _check_window(cuda, b, s, h, kvh, d, dv, dtype, w)
 
 
 def test_flash_attention_refuses_mixed_devices(cuda):

@@ -86,15 +86,6 @@ def test_gqa_full_matches_reference(attn_impl):
                                atol=F32_TOL)
 
 
-def test_sliding_window_is_not_ported_yet():
-    _, cfg = _cfgs(sliding_window=8)
-    model = M.Model(cfg, device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    pos = torch.arange(4)[None, :]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.gqa_full(model.layers[0].mixer, cfg, x, pos)
-
-
 def _decode_both(rcfg, params, cfg, model, toks, steps):
     """Prefill ``toks`` in both packages, then ``steps`` greedy decode
     steps. Returns per-step (reference logits, port logits) and the
