@@ -128,7 +128,16 @@ fails (non-zero exit, no result line) without them. Phases:
    weight), and the backward of the autograd wrapper (``mm.dtype`` has no
    derivative) on the FFN case against the upcast form's; prints each
    case's error and the device times of the f32-result product, the
-   upcast form and the bf16 product;
+   upcast form and the bf16 product; then the bf16 products where
+   cuBLAS may split the inner dim (``PRECISION_BF16``: decode's and
+   prefill's FFN down-products of llama3.2-3b and starcoder2-7b, and a
+   weight gradient over rank 0's 16,384 train_4k tokens), each with
+   ``allow_bf16_reduced_precision_reduction`` on and off against the f32
+   sum rounded once (the lanes that differ, the largest difference in
+   bf16 ulps) and the exact sum (the largest error in ulps over the lanes
+   whose f32 rounding noise is under a quarter ulp), and the device
+   times; with the port's setting (off: every ``Model`` clears it) no
+   such lane may be more than one ulp off;
    then the serving path at full width: llama3.2-3b (28 layers, bf16, weights
    drawn from ``--seed`` on the card) behind ``ServeEngine`` with a
    ``PrefixKVCache(block_tokens=8, capacity_blocks=64)`` whose refcounts
@@ -252,11 +261,15 @@ fails (non-zero exit, no result line) without them. Phases:
    (``opt_bf16_grads``, ``opt_conv_split``: ``dryrun.cell_plan(...,
    opt=True)``), printing its step ms, its peak and both programs'
    all-reduce bytes by dtype (the ``--opt`` program must move more of
-   them in bf16: its three ``pet`` products reduce in bf16); then the TINY
+   them in bf16: its three ``pet`` products reduce in bf16); the dry-run
+   writes each cell's op listing (``--save-hlo``), whose lines must sum
+   to the traced program's dot FLOPs; then the TINY
    f32 llama32 and granite sharded on a simulated 2x4 mesh
    (``LocalTensorMode(8)``, shards on the card): two train steps and a
    decode equal to the unsharded card run within 1e-5 and card == CPU
-   within 1e-4;
+   within 1e-4; and TINY bf16 llama32's weight gradients (2
+   microbatches) sharded against unsharded on the card, each weight's
+   relative error printed, the worst within ``MESH_BF16_GRAD_TOL``;
 19. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
    line with the records of 16-17, a ``mesh`` JSON line with 18's, a
    ``kernels`` JSON line (each hash kernel's launches on the main path,
@@ -475,6 +488,24 @@ PRECISION_TOL = 1e-5
 #: bytes the f32-result product may allocate beyond its result (an f32
 #: copy of the tied head would be 1.58e9)
 PRECISION_SLACK = 64 << 20
+#: bf16-result products with a long inner dim, where cuBLAS may reduce
+#: split-K partials in bf16: (name, rows, inner, columns, the first
+#: operand a transposed view). Decode's and prefill's FFN down-products
+#: of llama3.2-3b (d_ff 8,192 → 3,072; its serve's 512-token prompts)
+#: and starcoder2-7b (18,432 → 4,608; its windowed serve's 8,192-token
+#: prompts), and w_down's gradient h^T g on rank 0's train_4k shard
+#: (16x16: 4 sequences of 4,096 tokens a microbatch, 512 of its ffn
+#: lanes)
+PRECISION_BF16 = (("decode_down_llama3.2-3b", 1, 8192, 3072, False),
+                  ("decode_down_starcoder2-7b", 1, 18432, 4608, False),
+                  ("prefill_down_llama3.2-3b", 512, 8192, 3072, False),
+                  ("prefill_down_starcoder2-7b", 8192, 18432, 4608, False),
+                  ("wgrad_down_train_4k_rank0", 512, 16384, 3072, True))
+#: TINY bf16 llama32's weight gradients, sharded (2x4) against unsharded
+#: on the card: max relative error (norm-wise) over the weights. Both sum
+#: each product in f32 and round once, the forward's activations may
+#: round apart by one bf16 ulp (2**-8)
+MESH_BF16_GRAD_TOL = 2e-2
 #: a rank-0 run's max_memory_allocated against its dry-run's reckoned peak
 MESH_PEAK_TOL = 0.10
 RACE_KINDS = {"hr_write", "seal", "swap", "inflight_clear", "state_rebind",
@@ -1857,10 +1888,99 @@ def precision_phase(seed: int, dev, card: str, reps: int = 20) -> dict:
         print(f"precision {name}: {json.dumps(rec)}; card {card}",
               flush=True)
         del x, w, got, want
+    out["bf16"] = bf16_products(seed, dev, card, reps)
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"precision ({out['phase_s']:.1f} s): torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    return out
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps, lane by lane (bf16 tensors): the distance
+    between their bit patterns on a line ordered like the values."""
+    import torch
+
+    def key(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (key(a) - key(b)).abs()
+
+
+def bf16_products(seed: int, dev, card: str, reps: int = 20) -> dict:
+    """``PRECISION_BF16`` on the card: each bf16 product with cuBLAS's
+    reduced-precision split-K reduction allowed and cleared. Against the
+    f32 sum rounded once (the f32 product of the same values, TF32 off):
+    the lanes that differ and the largest difference in bf16 ulps; two
+    f32 sums in other orders differ by their rounding noise, which on a
+    lane whose terms nearly cancel is many of that lane's ulps. So
+    against the exact sum (f64): the largest error in ulps of the exact
+    value over the lanes where that noise is under a quarter ulp
+    (``sqrt(inner) · 2**-23 · (|x| @ |w|)``: ``conditioned``), which one
+    rounding keeps within half an ulp and more roundings need not; and
+    the device times (CUDA events around ``reps`` calls, in turns). Fails
+    if, with the flag cleared (the port's setting), a conditioned lane is
+    more than one ulp off."""
+    import torch
+    mm = torch.backends.cuda.matmul
+    tf32 = mm.allow_tf32
+    mm.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {}
+    try:
+        for name, m, k, n, xt in PRECISION_BF16:
+            if xt:
+                x = torch.randn(k, m, generator=gen, device=dev).bfloat16().t()
+            else:
+                x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+            w = (torch.randn(k, n, generator=gen, device=dev)
+                 / k ** 0.5).bfloat16()
+            ref = (x.float() @ w.float()).bfloat16()
+            exact = x.double() @ w.double()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                exact.abs().clamp(min=2.0 ** -120))) - 7)
+            noise = (x.double().abs() @ w.double().abs()) * (k ** 0.5
+                                                             * 2.0 ** -23)
+            keep = noise < 0.25 * ulp
+            del noise
+            rec = {"shape": [m, k, n], "lanes": m * n,
+                   "conditioned_lanes": int(keep.sum())}
+            ms = {}
+            for label, flag in (("on", True), ("off", False)):
+                mm.allow_bf16_reduced_precision_reduction = flag
+                got = x @ w
+                u = bf16_ulps(got, ref)
+                rec[f"lanes_off_{label}"] = int((u > 0).sum())
+                rec[f"max_ulps_{label}"] = int(u.max())
+                err = ((got.double() - exact).abs() / ulp)[keep]
+                rec[f"max_err_ulps_{label}"] = float(err.max())
+                ms[label] = []
+                del got, u, err
+            for _ in range(3):                  # in turns
+                for label, flag in (("on", True), ("off", False)):
+                    mm.allow_bf16_reduced_precision_reduction = flag
+                    x @ w
+                    t0 = torch.cuda.Event(enable_timing=True)
+                    t1 = torch.cuda.Event(enable_timing=True)
+                    t0.record()
+                    for _ in range(reps):
+                        x @ w
+                    t1.record()
+                    torch.cuda.synchronize(dev)
+                    ms[label].append(t0.elapsed_time(t1) / reps)
+            rec.update({f"ms_{k_}": min(v) for k_, v in ms.items()})
+            out[name] = rec
+            print(f"precision bf16 {name}: {json.dumps(rec)}; card {card}",
+                  flush=True)
+            if rec["max_err_ulps_off"] > 1:
+                fail(f"precision bf16 {name}: a conditioned lane "
+                     f"{rec['max_err_ulps_off']} ulps off the exact sum with "
+                     f"the flag cleared")
+            del x, w, ref, exact, ulp, keep
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = False
+        mm.allow_tf32 = tf32
     return out
 
 
@@ -2800,9 +2920,11 @@ def mesh_dryrun(workdir: Path) -> dict:
     from repro_torch.launch import dryrun
     out = {}
     for arch, shape in MESH_DRYRUN:
-        rec = dryrun.dryrun_cell(arch, shape, False, workdir)
+        rec = dryrun.dryrun_cell(arch, shape, False, workdir, save_hlo=True)
         if not rec["flops"] > 0:
             fail(f"mesh dry-run {arch} {shape}: no dot FLOPs")
+        rec["ops_listing"] = ops_listing(
+            workdir / f"{arch}__{shape}__16_16.ops.txt")
         coll = {k: v["bytes"] for k, v in rec["collectives"].items()
                 if isinstance(v, dict) and v["bytes"]}
         print(f"mesh dry-run {arch} x {shape} x 16x16: plan "
@@ -2814,8 +2936,32 @@ def mesh_dryrun(workdir: Path) -> dict:
               f"{rec['bytes_accessed_flashproj']:.6e}, collective bytes "
               f"{json.dumps(coll)}, peak {rec['memory']['peak_bytes']} / "
               f"flashproj {rec['memory']['peak_bytes_flashproj']} bytes; "
-              f"traced in {rec['trace_s']} s", flush=True)
+              f"traced in {rec['trace_s']} s; op listing "
+              f"{json.dumps(rec['ops_listing'])}", flush=True)
         out[f"{arch}:{shape}"] = rec
+    return out
+
+
+def ops_listing(path: Path) -> dict:
+    """A dry-run op listing (``--save-hlo``): its lines, and their dot
+    FLOPs summed (a ``# fb xN`` part N times) against the header's."""
+    lines = path.read_text().splitlines()
+    head = dict(f.split("=") for f in lines[0].split() if "=" in f)
+    total = ops = 0
+    times = 1
+    for ln in lines[1:]:
+        if ln.startswith("#"):
+            times = int(ln.split(" x")[1]) if " x" in ln else 1
+            continue
+        ops += 1
+        total += times * int(next(f for f in ln.split("\t")
+                                  if f.startswith("flops="))[6:])
+    out = {"op_lines": ops, "dot_flops": total, "depth": int(head["depth"]),
+           "header_dot_flops": int(head["dot_flops"]), "bytes":
+           path.stat().st_size}
+    if total != out["header_dot_flops"]:
+        fail(f"mesh dry-run listing {path.name}: its lines sum to {total} "
+             f"dot FLOPs, the trace to {head['dot_flops']}")
     return out
 
 
@@ -3020,6 +3166,67 @@ def mesh_tiny(arch: str, dev, seed: int) -> dict:
     return out
 
 
+def mesh_tiny_bf16_grads(arch: str, dev, seed: int) -> dict:
+    """TINY bf16 ``arch``: the weight gradients of two microbatches
+    (``steps.accumulate_grads``) sharded on the simulated 2x4 mesh
+    against unsharded on the card, each weight's relative error
+    (norm-wise); the sharded step sums every data-parallel partial in
+    the reference's type (``PERF.md`` §3)."""
+    import numpy as np
+    import torch
+    from torch.distributed._local_tensor import LocalTensorMode
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod, sharding as shd, steps
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import Model
+    cfg = get_config(arch, tiny=True)
+    sh = ShapeConfig("tiny_train", 64, 8, "train")
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 4, 64)),
+                           dtype=torch.int32)
+    weights = Model(cfg, device="cpu", seed=0).state_dict()
+
+    def grads(mesh=None, plan=None, pp=None):
+        model = Model(cfg, device=dev, seed=0)
+        model.load_state_dict(weights)
+        model.requires_grad_(True)
+        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        ctx = contextlib.nullcontext()
+        if mesh is not None:
+            shd.distribute_model(model, mesh,
+                                 shd.param_shardings(mesh, cfg, plan, pp))
+            batch = shd.distribute_tree(
+                batch, mesh, shd.batch_shardings(mesh, cfg, plan, sh))
+            ctx = steps.sharded(mesh, shd.logical_rules(plan, pp))
+        with ctx:
+            return steps.accumulate_grads(model, batch)[0]
+
+    def whole(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        t = t.reconcile() if hasattr(t, "reconcile") else t
+        return t.detach().double().cpu()
+
+    card = grads()
+    with LocalTensorMode(8):
+        plan = mesh_mod.plan_for(cfg, model_axis=4)
+        mesh = mesh_mod.arch_mesh(mesh_mod.small_mesh(
+            (2, 4), ("data", "model"), dev.type), plan)
+        sharded = grads(mesh, plan, shd.ParallelPlan(microbatches=2))
+        rel = {}
+        for name, g in sharded.items():
+            a, b = whole(g), whole(card[name])
+            rel[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    worst = max(rel.values())
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "grad_rel": rel,
+           "worst_grad_rel": worst, "mesh": "2x4 (LocalTensorMode)"}
+    if worst > MESH_BF16_GRAD_TOL:
+        fail(f"mesh tiny bf16 {arch}: weight gradients sharded vs "
+             f"unsharded {worst}")
+    return out
+
+
 def mesh_phase(seed: int, dev, card: str) -> dict:
     """The mesh, sharding and dry-run layer: the dry-run of ``MESH_DRYRUN``,
     rank 0's programs of ``MESH_RUNS`` on the card (``rank0_run``), and the
@@ -3081,6 +3288,14 @@ def mesh_phase(seed: int, dev, card: str) -> dict:
             for k in total:
                 total[k] += {**FK.LAUNCHES, **K.LAUNCHES}[k]
             print(f"mesh tiny {arch}: {json.dumps(tiny[arch])}", flush=True)
+        zero_launches(FK.LAUNCHES, K.LAUNCHES)
+        tiny["llama32_3b bf16"] = r = mesh_tiny_bf16_grads("llama32_3b",
+                                                           dev, seed)
+        for k in total:
+            total[k] += {**FK.LAUNCHES, **K.LAUNCHES}[k]
+        print(f"mesh tiny bf16 llama32_3b: weight gradients sharded vs "
+              f"unsharded, worst relative error {r['worst_grad_rel']:.3e} "
+              f"{json.dumps(r)}; card {card}", flush=True)
     finally:
         dryrun.leave_world()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3088,7 +3303,7 @@ def mesh_phase(seed: int, dev, card: str) -> dict:
     no_baseline("mesh")
     out = {"dryrun": {k: {f: v[f] for f in (
         "plan", "flops", "bytes_accessed_upper", "bytes_accessed_flashproj",
-        "collectives", "memory", "trace_s", "ops_traced")}
+        "collectives", "memory", "trace_s", "ops_traced", "ops_listing")}
         for k, v in cells.items()},
         "rank0": runs, "tiny": tiny, "launches": total,
         "phase_s": time.perf_counter() - t_phase}

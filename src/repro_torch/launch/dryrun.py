@@ -22,7 +22,10 @@ count (the optimizer update, traced alone, counts once).
 Artifacts: ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json`` with
 the reference's keys where a key has a counterpart (``hlo_lines`` →
 ``ops_traced``; no XLA memory analysis → ``memory`` holds the reckoned
-peaks).
+peaks). ``--save-hlo`` (the reference's flag, which writes its HLO) also
+writes ``<arch>__<shape>__<mesh>.ops.txt``: a header line (arch, shape,
+mesh, the traced depth, that trace's op count and dot FLOPs), then rank
+0's traced program at that depth, one line an op.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama32_3b \\
@@ -165,9 +168,13 @@ def programs(cfg: ModelConfig, shape: ShapeConfig, pp, plan, mesh,
 
 
 def trace(cfg: ModelConfig, shape: ShapeConfig, pp, plan, mesh,
-          device_type: str, mb: int, param_rules=None) -> dict:
+          device_type: str, mb: int, param_rules=None,
+          listing=None) -> dict:
     """One trace of the cell at ``cfg``'s depth over fake local shards →
-    the op summary of the whole step with ``mb`` microbatches."""
+    the op summary of the whole step with ``mb`` microbatches. With a
+    ``listing`` list, each part's op lines (``op_analysis.OpCounter``)
+    are appended to it after a ``# <part>`` line (``# fb x<mb>``: a
+    train step runs that part once a microbatch)."""
     rules = shd.logical_rules(plan, pp)
     with FakeTensorMode(allow_non_fake_inputs=False):
         def make(s, dtype):
@@ -177,7 +184,11 @@ def trace(cfg: ModelConfig, shape: ShapeConfig, pp, plan, mesh,
             parts = programs(cfg, shape, pp, plan, mesh, make, mb)
             sums = {}
             for name, (fn, initial) in parts.items():
-                sums[name] = op_analysis.count(fn, shape.seq_len, initial)
+                if listing is not None:
+                    listing.append(f"# {name}"
+                                   + (f" x{mb}" if name == "fb" else ""))
+                sums[name] = op_analysis.count(fn, shape.seq_len, initial,
+                                               listing)
     if shape.kind != "train":
         return sums["step"]
     # mb × (forward + backward) + one update; the peak is one
@@ -190,7 +201,11 @@ def trace(cfg: ModelConfig, shape: ShapeConfig, pp, plan, mesh,
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
                 out_dir: Path, opt: bool = False,
-                device_type: str = "cpu") -> dict:
+                device_type: str = "cpu", save_hlo: bool = False) -> dict:
+    """Trace one cell, write its record ``<arch>__<shape>__<mesh>.json``
+    into ``out_dir`` and return it; with ``save_hlo`` also
+    ``<...>.ops.txt``, rank 0's traced program at the traced depth, one
+    line an op (the reference writes its HLO there)."""
     quiet()
     ensure_world(WORLD)
     shape = SHAPES[shape_name]
@@ -205,8 +220,10 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.time()
     G = cfg.group_size
     depth = 2 if cfg.num_groups >= 3 else 1
+    listing = [] if save_hlo else None
     at, after = (trace(dataclasses.replace(cfg, num_layers=n * G), shape,
-                       pp, plan, mesh, device_type, mb, param_rules)
+                       pp, plan, mesh, device_type, mb, param_rules,
+                       listing if n == depth else None)
                  for n in (depth, depth + 1))
     ana = op_analysis.weighted(at, after, cfg.num_groups, depth)
     t_trace = time.time() - t0
@@ -240,6 +257,12 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
     out_dir.mkdir(parents=True, exist_ok=True)
     name = f"{arch}__{shape_name}__{rec['mesh'].replace('x', '_')}"
     (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=2))
+    if save_hlo:
+        head = (f"# {arch} {shape_name} mesh={rec['mesh']} depth={depth} "
+                f"of {cfg.num_groups} groups: ops={at['ops_traced']} "
+                f"dot_flops={at['dot_flops']}")
+        (out_dir / f"{name}.ops.txt").write_text(
+            "\n".join([head] + listing) + "\n")
     return rec
 
 
@@ -251,6 +274,9 @@ def main(argv=None) -> None:
                     default="single")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=OUT)
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="write rank 0's traced op listing beside each "
+                         "record (<cell>.ops.txt)")
     ap.add_argument("--opt", action="store_true",
                     help="the reference's optimized variant (tuned "
                          "microbatches, per-layer FSDP gathers)")
@@ -270,7 +296,7 @@ def main(argv=None) -> None:
                 tag = f"{arch} × {shape_name} × {'2x16x16' if mp else '16x16'}"
                 try:
                     rec = dryrun_cell(arch, shape_name, mp, out_dir,
-                                      opt=args.opt)
+                                      opt=args.opt, save_hlo=args.save_hlo)
                     print(f"[OK] {tag}: flops={rec['flops']:.3e} "
                           f"coll={rec['collectives']['total_bytes']:.3e}B "
                           f"trace={rec['trace_s']}s", flush=True)

@@ -35,6 +35,12 @@ Per device:
   and the same without score tensors;
 * ``ops_traced`` — the local ops counted (``hlo_lines``' stand-in).
 
+With a ``listing`` list the counter also appends one line for each op
+it counts, in order (the dry-run's ``--save-hlo``): the op, its local
+operand and result types and shapes, its dot FLOPs and bytes as counted
+above, and for a collective its kind and group size; a flash-attention
+launch as its wrapper notes it.
+
 DTensor computes each op's global output shape by running it on fake
 tensors first (``ShardingPropagator._propagate_tensor_meta_non_cached``);
 while a counter is active that method is wrapped so those global-shape
@@ -46,6 +52,7 @@ import weakref
 from typing import Dict, Iterable
 
 import torch
+import torch.distributed.distributed_c10d as dist_c10d
 import torch.utils._pytree as pytree
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -79,15 +86,43 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+_SHORT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+          "float64": "f64", "int64": "s64", "int32": "s32", "int16": "s16",
+          "int8": "s8", "uint8": "u8", "bool": "pred"}
+
+
+def _sig(ts) -> str:
+    """``bf16[2,64]`` for each tensor, comma-separated."""
+    out = []
+    for t in ts:
+        dt = str(t.dtype).removeprefix("torch.")
+        out.append(f"{_SHORT.get(dt, dt)}[{','.join(map(str, t.shape))}]")
+    return ", ".join(out)
+
+
+def _group_size(func, args, kwargs):
+    """The size of a functional collective's process group, or None."""
+    names = [a.name for a in func._schema.arguments]
+    if "group_name" not in names:
+        return None
+    i = names.index("group_name")
+    name = kwargs.get("group_name", args[i] if i < len(args) else None)
+    try:
+        return dist_c10d._resolve_process_group(name).size()
+    except (RuntimeError, ValueError, TypeError):
+        return None
+
+
 class OpCounter(TorchDispatchMode):
     """Count rank 0's local ops while active (see the module docstring).
     ``seq_len`` names the score tensors' ``(S, S)`` tail; ``initial``
     holds the trees that are live before the run (their storage counts
-    toward the peaks)."""
+    toward the peaks); ``listing``, a list, takes one line an op."""
 
-    def __init__(self, seq_len: int = 0, initial=()):
+    def __init__(self, seq_len: int = 0, initial=(), listing=None):
         super().__init__()
         self.seq_len = seq_len
+        self.listing = listing
         self.dot_flops = 0
         self.hbm_bytes_upper = 0
         self.score_bytes = 0
@@ -166,6 +201,7 @@ class OpCounter(TorchDispatchMode):
         # an ``out=`` tensor is the result, counted once
         ins = list(_tensors((args, {k: v for k, v in kwargs.items()
                                     if k != "out"})))
+        note = ""
         if func.namespace == "_c10d_functional":
             kind = next((k for frag, k in _KIND if frag in name), None)
             if kind is not None:
@@ -175,32 +211,47 @@ class OpCounter(TorchDispatchMode):
                 for t in ins:
                     dt = str(t.dtype).removeprefix("torch.")
                     c["by_dtype"][dt] = c["by_dtype"].get(dt, 0) + _nbytes(t)
+                note = f"\t{kind} group={_group_size(func, args, kwargs)}"
+        flops = moved = 0
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.dot_flops += int(flop_registry[packet](*args, **kwargs,
-                                                        out_val=out))
+            flops = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.dot_flops += flops
         if name in _TRANSCENDENTAL:
             self.transcendentals += sum(t.numel() for t in outs)
         if func.is_view or name in _NO_TRAFFIC:
             if name.startswith("empty") or name.startswith("new_empty"):
                 for t in outs:
                     self._track(t)
-            return
-        moved = ins + outs
-        self.hbm_bytes_upper += sum(_nbytes(t) for t in moved)
-        for t in outs:
-            self._track(t)
-        self.score_bytes += sum(_nbytes(t) for t in moved if self._scored(t))
+        else:
+            both = ins + outs
+            moved = sum(_nbytes(t) for t in both)
+            self.hbm_bytes_upper += moved
+            for t in outs:
+                self._track(t)
+            self.score_bytes += sum(_nbytes(t) for t in both
+                                    if self._scored(t))
+        if self.listing is not None:
+            self.listing.append(f"{func}\t{_sig(ins)} -> {_sig(outs)}"
+                                f"\tflops={flops}\tbytes={moved}{note}")
 
     def _note_flash(self, q, k, v, causal, window) -> None:
         """A flash-attention launch, as the dense attention it computes
         (the reference's count, whatever its mask or window keeps)."""
         b, s, h, d = q.shape
         t, dv = k.shape[1], v.shape[3]
-        self.dot_flops += 2 * b * h * s * t * (d + dv)
+        flops = 2 * b * h * s * t * (d + dv)
+        self.dot_flops += flops
         self.ops_traced += 1
         o_bytes = b * s * h * dv * v.element_size()
-        self.hbm_bytes_upper += sum(_nbytes(x) for x in (q, k, v)) + o_bytes
+        moved = sum(_nbytes(x) for x in (q, k, v)) + o_bytes
+        self.hbm_bytes_upper += moved
+        if self.listing is not None:
+            out = _sig([q]).split("[")[0] + f"[{b},{s},{h},{dv}]"
+            self.listing.append(
+                f"flash_attention_fwd(causal={causal}, window={window})"
+                f"\t{_sig((q, k, v))} -> {out}\tflops={flops}"
+                f"\tbytes={moved}")
 
     # -- entering / leaving -----------------------------------------------
     def __enter__(self):
@@ -245,9 +296,10 @@ class OpCounter(TorchDispatchMode):
         }
 
 
-def count(fn, seq_len: int = 0, initial=()) -> dict:
-    """Run ``fn()`` under an :class:`OpCounter` → its summary."""
-    counter = OpCounter(seq_len, initial)
+def count(fn, seq_len: int = 0, initial=(), listing=None) -> dict:
+    """Run ``fn()`` under an :class:`OpCounter` → its summary (and its
+    op lines appended to ``listing``, if given)."""
+    counter = OpCounter(seq_len, initial, listing)
     with counter:
         fn()
     return counter.summary()

@@ -144,21 +144,32 @@ def accumulate_grads(model, batch):
     """Gradients summed over the batch's microbatches (leading axis) into
     f32 accumulators → ``(grads by name, summed loss, microbatches)``."""
     params = dict(model.named_parameters())
-    names = list(params)
-    leaves = [params[n] for n in names]
-    dev = leaves[0].device
+    dev = next(iter(params.values())).device
     gsum = {n: torch.zeros_like(p, dtype=F32) for n, p in params.items()}
     loss_sum = torch.zeros((), dtype=F32, device=dev)
     n_mb = batch["tokens"].shape[0]
     for i in range(n_mb):
         loss, _ = model.loss_fn({k: v[i] for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for n, g in zip(names, grads):
-            if g is not None:
-                gsum[n].add_(g)
+        add_grads(gsum, params, loss)
         loss_sum = loss_sum + loss.detach()
-        del grads, loss
+        del loss
     return gsum, loss_sum, n_mb
+
+
+def add_grads(gsum, params, loss) -> None:
+    """One microbatch's backward: the gradients of ``loss`` by the
+    parameters (``name → tensor``), added into the f32 sums ``gsum``. In
+    a sharded step every data-parallel reduction of a weight's gradient
+    runs here: in f32 where the reference sums in f32 (inside the
+    backward, ``sharding_hints.f32_grad_operand`` / ``weight_in_f32``),
+    in the weight's type where it sums in that type (a gradient left
+    ``Partial`` is reduced as it is added)."""
+    names = list(params)
+    grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                allow_unused=True)
+    for n, g in zip(names, grads):
+        if g is not None:
+            gsum[n].add_(g)
 
 
 def apply_grads(model, opt_state: AdamWState, gsum, loss_sum, n_mb: int,

@@ -468,11 +468,14 @@ def _mla_qkv_full(p: MLA, cfg: ModelConfig, x, positions):
     """→ (q_nope (b, s, h, nope), q_rope (b, s, h, rope) roped, latent
     (b, s, kv_lora) normed, k_rope (b, s, 1, rope) roped)."""
     nope, kr = cfg.qk_nope_dim, cfg.kv_lora_rank
-    ql = rmsnorm(p.q_norm.scale, torch.matmul(x, p.wq_down), cfg.norm_eps)
+    # with DTensor weights the down projections too take their weights'
+    # gradients as the reference does (matmul_heads)
+    down = matmul_heads if isinstance(p.wq_down, DTensor) else torch.matmul
+    ql = rmsnorm(p.q_norm.scale, down(x, p.wq_down), cfg.norm_eps)
     q = matmul_heads(grad_in_f32(ql), p.wq_up)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
-    kvl = torch.matmul(x, p.wkv_down)
+    kvl = down(x, p.wkv_down)
     latent = rmsnorm(p.kv_norm.scale, kvl[..., :kr], cfg.norm_eps)
     k_rope = apply_rope(kvl[..., None, kr:], positions, cfg.rope_theta)
     return q_nope, q_rope, latent, k_rope

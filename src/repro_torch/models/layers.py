@@ -10,7 +10,10 @@ gate / up / in, the logits) gives an f32 result from operands in the
 activations' type (:func:`matmul_f32`), one it casts at once runs in the
 activations' type, which rounds the f32 sum once as the cast does; a
 row-parallel product's partial sums are reduced in f32 and cast after
-(:func:`matmul_rows`). Every module's ``axes_*`` sibling names the
+(:func:`matmul_rows`); in a sharded step each weight's gradient is
+summed over the ranks in the type of the reference's transpose (f32 for
+an f32-result product and a weight it widens) and cast once. Every
+module's ``axes_*`` sibling names the
 logical axis of each parameter dim (the reference's ``axes_*``), which
 ``launch/sharding.py`` maps onto a device mesh.
 """
@@ -26,7 +29,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
 
 from .config import ModelConfig
 from .sharding_hints import (column_parallel, grad_in_f32, row_parallel,
-                             run_local)
+                             run_local, wants_f32_grad, weight_in_f32)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -92,25 +95,37 @@ class _F32Product(torch.autograd.Function):
     values, see :func:`sharding_hints.grad_in_f32`); ``mm.dtype`` has no
     derivative. x's gradient is again an f32-result product (the
     reference's transpose of an f32-result einsum), handed on in x's
-    type; w's a product in w's type (the f32 sum rounded once). The
-    forward only saves x and w and allocates the result, which
+    type; w's a product in w's type (the f32 sum rounded once), or, with
+    ``grad_to`` (a sharded step's weight: ``sharding_hints._run_product``),
+    its f32 result summed over the ranks before the one rounding: by
+    ``grad_to`` itself if it is a function (autograd then casts the sum
+    to w's type), else by the carrier it is, which takes it. The forward
+    only saves x and w and allocates the result, which
     :func:`_product_f32` fills after: the inputs are packed before the
     product runs, as aten's own products pack theirs, so the recompute
     of a checkpointed group stops before a product at its end."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, grad_to=None):
         ctx.save_for_backward(x, w)
+        ctx.sum = grad_to if callable(grad_to) else None
         return x.new_empty((x.shape[0], w.shape[1]), dtype=F32)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g = g.to(w.dtype)
-        gx = _mm_f32(g, w.t()) if ctx.needs_input_grad[0] else None
-        gw = (torch.mm(_as(x, w.dtype).t(), g) if ctx.needs_input_grad[1]
-              else None)
-        return gx, gw
+        need = ctx.needs_input_grad
+        gx = _mm_f32(g, w.t()) if need[0] else None
+        xt = _as(x, w.dtype).t()
+        gw = gc = None
+        if need[1] and ctx.sum is not None:
+            gw = ctx.sum(_mm_f32(xt, g))
+        elif need[1]:
+            gw = torch.mm(xt, g)
+        if need[2]:
+            gc = _mm_f32(xt, g)
+        return gx, gw, gc
 
 
 def _as(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -119,13 +134,16 @@ def _as(t: torch.Tensor, dtype) -> torch.Tensor:
     return t if t.dtype == dtype else t.to(dtype)
 
 
-def _product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., k) @ w (k, m) → (..., m) in f32 (:func:`matmul_f32`)."""
+def _product_f32(x: torch.Tensor, w: torch.Tensor,
+                 grad_to=None) -> torch.Tensor:
+    """x (..., k) @ w (k, m) → (..., m) in f32 (:func:`matmul_f32`); w's
+    gradient as ``grad_to`` says (:class:`_F32Product`)."""
     if x.dtype == F32 and w.dtype == F32:
         return torch.matmul(x, w)
     x2 = x.reshape(-1, x.shape[-1])
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        y = _F32Product.apply(x2, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or grad_to is not None):
+        y = _F32Product.apply(x2, w, grad_to)
         with torch.no_grad():
             _mm_f32(_as(x2, w.dtype), w, out=y)
     else:
@@ -149,9 +167,18 @@ def matmul_heads(x: torch.Tensor, w: torch.Tensor,
     With a DTensor ``w``, column-parallel on each rank's shard
     (``sharding_hints.column_parallel``); an f32 ``x`` over a lower-type
     ``w`` (:func:`sharding_hints.grad_in_f32`) is taken as w's type and
-    gets its gradient as an f32-result product."""
+    gets its gradient as an f32-result product. A DTensor ``w`` whose
+    gradient this pass computes takes it as the reference does, summed
+    over the ranks in f32 and cast once (``sharding_hints._run_product``;
+    the product then runs as an f32 result, and a result in x's type is
+    that f32 sum rounded once, as a product in that type gives it)."""
     if not isinstance(w, DTensor):
         return _matmul_heads(x, w, f32)
+    if wants_f32_grad(w):
+        cast = None if f32 else w.dtype
+        return column_parallel(
+            lambda a, b, c: _matmul_heads(a, b, True, cast, c), x, w,
+            f32_grad=True)
     if f32 or x.dtype == w.dtype:
         return column_parallel(lambda a, b: _matmul_heads(a, b, f32), x, w)
     # x widened by grad_in_f32: the f32-result product, cast at once
@@ -168,22 +195,27 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor,
     ``reduce_f32`` each rank's partial sum is an f32 result, the partials
     are summed in f32 and the sum is cast to x's type (the reference's
     f32-result einsum, cast after); without it the partials are taken and
-    summed in x's type (its ``preferred_element_type=None``)."""
+    summed in x's type (its ``preferred_element_type=None``); w's
+    gradient in the same type as the sum (:func:`matmul_heads`)."""
     if not isinstance(w, DTensor):
         return _matmul_rows(x, w)
     if not reduce_f32 or x.dtype == F32:
         return row_parallel(_matmul_rows, x, w)
+    if wants_f32_grad(w):
+        return row_parallel(lambda a, b, c: _matmul_rows(a, b, True, c),
+                            x, w, reduce_to=x.dtype, f32_grad=True)
     return row_parallel(lambda a, b: _matmul_rows(a, b, True), x, w,
                         reduce_to=x.dtype)
 
 
 def _matmul_heads(x: torch.Tensor, w: torch.Tensor, f32: bool = False,
-                  cast=None) -> torch.Tensor:
+                  cast=None, grad_to=None) -> torch.Tensor:
     if f32:
         if w.ndim == 2:           # no reshape: as few ops as torch.matmul
-            y = _product_f32(x, w)
+            y = _product_f32(x, w, grad_to)
         else:
-            y = _product_f32(x, w.reshape(w.shape[0], -1)).reshape(
+            w2 = w.reshape(w.shape[0], -1)
+            y = _product_f32(x, w2, _like(grad_to, w2)).reshape(
                 *x.shape[:-1], *w.shape[1:])
         return y if cast is None else y.to(cast)
     d = w.shape[0]
@@ -192,13 +224,22 @@ def _matmul_heads(x: torch.Tensor, w: torch.Tensor, f32: bool = False,
 
 
 def _matmul_rows(x: torch.Tensor, w: torch.Tensor,
-                 f32: bool = False) -> torch.Tensor:
-    mm = _product_f32 if f32 else torch.matmul
-    if w.ndim == 2:               # no reshape: the unsharded ops stay as they were
-        return mm(x, w)
-    k = w.ndim - 1
-    return mm(x.reshape(*x.shape[:x.ndim - k], -1),
-              w.reshape(-1, w.shape[-1]))
+                 f32: bool = False, grad_to=None) -> torch.Tensor:
+    if w.ndim > 2:        # a 2-D w: the unsharded ops stay as they were
+        x = x.reshape(*x.shape[:x.ndim - (w.ndim - 1)], -1)
+        w = w.reshape(-1, w.shape[-1])
+        grad_to = _like(grad_to, w)
+    if f32 or grad_to is not None:
+        return _product_f32(x, w, grad_to)
+    return torch.matmul(x, w)
+
+
+def _like(grad_to, w: torch.Tensor):
+    """A weight's carrier reshaped as the weight is for its 2-D product
+    (a 0-stride carrier reshapes as a view); a function as it is."""
+    if isinstance(grad_to, torch.Tensor):
+        return grad_to.reshape(w.shape)
+    return grad_to
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +250,7 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(F32)).to(dt)
+    return (y * weight_in_f32(scale)).to(dt)
 
 
 def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,

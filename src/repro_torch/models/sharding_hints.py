@@ -27,9 +27,11 @@ unchanged: unsharded results do not move by a bit.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -154,18 +156,31 @@ def param_hint_tree(params: Dict[str, Any], axes: Dict[str, tuple]
     ctx = active()
     if ctx is None or ctx.param_rules is None:
         return params
-    return {k: (_place(p, ctx.mesh, placements_for(ctx.mesh,
-                                                   ctx.param_rules, axes[k]))
+    return {k: (_regather(p, ctx.mesh, placements_for(ctx.mesh,
+                                                      ctx.param_rules,
+                                                      axes[k]))
                 if isinstance(p, DTensor) else p)
             for k, p in params.items()}
 
 
-def column_parallel(fn, x, w):
+def _regather(p, mesh, want):
+    """``p`` re-placed at ``want``; the copy remembers ``p`` so that a
+    product's f32 weight gradient (:func:`f32_grad_operand`) is summed
+    onto p's own placements (a reduce-scatter onto an FSDP shard), not
+    onto the copy's."""
+    t = _place(p, mesh, want)
+    if t is not p:
+        t._regathered_from = p
+    return t
+
+
+def column_parallel(fn, x, w, f32_grad: bool = False):
     """``fn(x, w)``, a product contracting x's last dim with w's first, on
     each rank's shard of w's other dims: x whole on its last dim, w whole
     on its first (an FSDP split there is gathered); the result keeps x's
     leading splits and splits w's other dims as w does (DTensor's own
-    reshape of a dim split over two mesh dims is not to be trusted)."""
+    reshape of a dim split over two mesh dims is not to be trusted). With
+    ``f32_grad``, ``fn(x, w, grad_to)`` (:func:`_run_product`)."""
     xp, wp, yp = [], [], []
     for a, b in zip(x.placements, w.placements):
         a = a if isinstance(a, Shard) and a.dim < x.ndim - 1 else Replicate()
@@ -176,10 +191,43 @@ def column_parallel(fn, x, w):
         yp.append(a if isinstance(a, Shard) else
                   Shard(x.ndim + b.dim - 2) if isinstance(b, Shard)
                   else Replicate())
-    return run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
+    return _run_product(fn, yp, xp, wp, x, w, f32_grad)
 
 
-def row_parallel(fn, x, w, reduce_to=None):
+def _run_product(fn, yp, xp, wp, x, w, f32_grad: bool):
+    """``fn(x, w)`` on local shards; with ``f32_grad``, ``fn(x, w,
+    grad_to)``, where the product hands w's f32 gradient (see
+    :func:`f32_grad_operand`). Where w is whole on every mesh dim that
+    splits its gradient into partial sums, ``grad_to`` sums it there in
+    f32 inside the local backward (one all-reduce a dim, which a
+    ``Partial`` gradient would cost anyway), before autograd casts it
+    to w's type; elsewhere (an FSDP shard, a re-placed copy) it is a
+    carrier, whose gradient DTensor sums onto w's own placements (a
+    reduce-scatter onto an FSDP shard)."""
+    mesh = w.device_mesh
+    if not f32_grad:
+        return run_local(fn, mesh, yp, (xp, wp), x, w)
+    split = [i for i in range(len(wp))
+             if wp[i] == Replicate() and isinstance(xp[i], Shard)]
+    if getattr(w, "_regathered_from", None) is None and all(
+            w.placements[i] == Replicate() for i in split):
+        red = functools.partial(_sum_over, mesh, split)
+        return run_local(lambda a, b: fn(a, b, red), mesh, yp, (xp, wp),
+                         x, w, grad_placements=(None, wp))
+    w, carrier = f32_grad_operand(w, tuple(wp))
+    return run_local(fn, mesh, yp, (xp, wp, wp), x, w, carrier)
+
+
+def _sum_over(mesh, dims, t: torch.Tensor) -> torch.Tensor:
+    """A local tensor summed over the ranks of each of ``mesh``'s
+    ``dims`` in its own type, one dim at a time (as DTensor reduces a
+    ``Partial``)."""
+    for i in dims:               # waited on where it is next used
+        t = funcol.all_reduce(t, "sum", (mesh, i))
+    return t
+
+
+def row_parallel(fn, x, w, reduce_to=None, f32_grad: bool = False):
     """``fn(x, w)``, a product contracting x's trailing dims with all of
     w's but its last, on each rank's shard of the first contracted dim:
     where x and w split it over the same mesh dims the result is a
@@ -187,7 +235,8 @@ def row_parallel(fn, x, w, reduce_to=None):
     w is gathered, x's leading splits are kept. With ``reduce_to`` (a
     dtype) the partial sums are reduced at once, in ``fn``'s result type,
     and the sum is cast to it: DTensor casts a ``Partial`` tensor
-    partial by partial, which would sum the rounded partials."""
+    partial by partial, which would sum the rounded partials. With
+    ``f32_grad``, ``fn(x, w, grad_to)`` (:func:`_run_product`)."""
     first = x.ndim - (w.ndim - 1)
     xp, wp, yp = [], [], []
     for a, b in zip(x.placements, w.placements):
@@ -197,7 +246,7 @@ def row_parallel(fn, x, w, reduce_to=None):
         xp.append(a)
         wp.append(b if rows else Replicate())
         yp.append(Partial() if rows else a)
-    y = run_local(fn, w.device_mesh, yp, (xp, wp), x, w)
+    y = _run_product(fn, yp, xp, wp, x, w, f32_grad)
     if reduce_to is None:
         return y
     return _reduced(y).to(reduce_to)
@@ -213,19 +262,22 @@ def _reduced(t: DTensor) -> DTensor:
 
 
 class _GradInF32(torch.autograd.Function):
-    """x widened to f32; its gradient summed where it is partial, in f32,
-    then cast to x's type once."""
+    """x (or ``use``, a re-placed copy of it) widened to f32; its gradient
+    summed where it is partial, in f32, then cast to x's type once. With
+    ``own``, summed onto x's own placements (a weight: an all-reduce
+    where x is whole, a reduce-scatter where FSDP splits it)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, own=False, use=None):
         ctx.dtype = x.dtype
-        return x.to(torch.float32)
+        ctx.own = (x.device_mesh, tuple(x.placements)) if own else None
+        return (x if use is None else use).to(torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         if isinstance(g, DTensor):
-            g = _reduced(g)
-        return g.to(ctx.dtype)
+            g = _reduced(g) if ctx.own is None else g.redistribute(*ctx.own)
+        return g.to(ctx.dtype), None, None
 
 
 def grad_in_f32(x):
@@ -236,24 +288,89 @@ def grad_in_f32(x):
     once, as the reference sums the transpose of an f32-result einsum.
     The products take the widened x as the weights' type. Any other x,
     or x needing no gradient, is returned as it is."""
-    if (not isinstance(x, DTensor) or x.dtype == torch.float32
-            or not (torch.is_grad_enabled() and x.requires_grad)):
+    if not wants_f32_grad(x):
         return x
     return _GradInF32.apply(x)
 
 
-def run_local(fn, mesh, out_placements, in_placements, *args):
+def wants_f32_grad(t) -> bool:
+    """Whether ``t`` is a DTensor of a lower type than f32 whose gradient
+    this pass computes: one the reference sums in f32 where it is
+    partial, and casts once."""
+    return (isinstance(t, DTensor) and t.dtype != torch.float32
+            and torch.is_grad_enabled() and t.requires_grad)
+
+
+def weight_in_f32(w):
+    """``w.to(f32)``, for a weight the reference widens before use (a
+    norm scale, the SSM's ``wdt``): with a DTensor weight that needs a
+    gradient, that gradient is summed onto w's placements in f32 and
+    cast once (DTensor casts a ``Partial`` gradient partial by partial);
+    a :func:`param_hint_tree` copy's onto its parameter's."""
+    if not wants_f32_grad(w):
+        return w.to(torch.float32)
+    src = getattr(w, "_regathered_from", None)
+    if src is None:
+        return _GradInF32.apply(w, True)
+    return _GradInF32.apply(src, True, w.detach())
+
+
+class _F32Carrier(torch.autograd.Function):
+    """An f32 tensor of ``use``'s shape and placements that allocates one
+    element (every stride 0): a local product of ``use`` hands its f32
+    weight gradient to it, and its backward sums that onto ``w``'s own
+    placements in f32, then casts it to w's type once."""
+
+    @staticmethod
+    def forward(ctx, w, use):
+        ctx.own = (w.device_mesh, tuple(w.placements))
+        ctx.dtype = w.dtype
+        loc = use.to_local()
+        # its values are never read: one element, every stride 0
+        zero = torch.empty_strided(loc.shape, (0,) * loc.ndim,
+                                   dtype=torch.float32, device=loc.device)
+        return DTensor.from_local(zero, use.device_mesh, use.placements,
+                                  run_check=False, shape=use.shape,
+                                  stride=use.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.own).to(ctx.dtype), None
+
+
+def f32_grad_operand(w, placements):
+    """A product weight ``w`` (a DTensor of a lower type than f32) →
+    ``(w at placements, carrying no gradient; its carrier)``. The
+    reference's weight gradient is the transpose of an f32-result
+    product: an f32 result, its data-parallel partials summed in f32
+    (GSPMD reduces the dot's result before its cast), cast to w's type
+    after. Autograd casts a gradient to its input's type where it leaves
+    a node, so the local product gives the f32 result to the carrier (an
+    f32 input, :class:`_F32Carrier`), which sums it onto w's placements
+    and casts it once. No f32 copy of w is made, kept or saved. A copy
+    that :func:`param_hint_tree` re-placed hands the gradient on to the
+    parameter it came from."""
+    src = getattr(w, "_regathered_from", w)
+    with torch.no_grad():
+        use = _place(w.detach(), w.device_mesh, tuple(placements))
+    return use, _F32Carrier.apply(src, use)
+
+
+def run_local(fn, mesh, out_placements, in_placements, *args,
+              grad_placements=None):
     """``fn(*args)`` on each rank's local shards (``local_map``): every
     DTensor argument is first redistributed to its ``in_placements``
     entry (None for the other arguments), the result takes
     ``out_placements`` (a tuple of them for a tuple of results). Each rank's gradient of an argument it holds
     whole on a mesh dim that another argument splits covers only that
-    rank's part of the work: it is ``Partial`` there."""
+    rank's part of the work: it is ``Partial`` there, unless a
+    ``grad_placements`` entry (None: as said) gives its placements (fn's
+    backward summed it already)."""
     dims = range(len(mesh.mesh_dim_names))
 
-    def grad_pl(pl):
-        if pl is None:
-            return None
+    def grad_pl(pl, given=None):
+        if pl is None or given is not None:
+            return given
         return tuple(
             Partial() if pl[i] == Replicate() and any(
                 o is not None and isinstance(o[i], Shard)
@@ -263,8 +380,9 @@ def run_local(fn, mesh, out_placements, in_placements, *args):
     outs = (tuple(tuple(o) for o in out_placements)
             if isinstance(out_placements[0], (tuple, list))
             else (tuple(out_placements),))
+    given = grad_placements or (None,) * len(in_placements)
     return local_map(fn, out_placements=outs,
                      in_placements=tuple(in_placements),
-                     in_grad_placements=tuple(grad_pl(p)
-                                              for p in in_placements),
+                     in_grad_placements=tuple(
+                         grad_pl(p, g) for p, g in zip(in_placements, given)),
                      device_mesh=mesh, redistribute_inputs=True)(*args)

@@ -31,7 +31,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from .config import ModelConfig
 from .layers import (F32, RMSNorm, bf16_grad_boundary, dense_init_,
                      gated_rmsnorm, matmul_heads, matmul_rows, _weight)
-from .sharding_hints import grad_in_f32, hint, run_local
+from .sharding_hints import grad_in_f32, hint, run_local, weight_in_f32
 
 
 class SSM(nn.Module):
@@ -136,7 +136,7 @@ def _project(p: SSM, cfg: ModelConfig, u: torch.Tensor):
     if not cfg.opt_bf16_grads:
         u = grad_in_f32(u)
     mm = matmul_heads if isinstance(p.wz, DTensor) else torch.matmul
-    dt_raw = mm(u.to(F32), p.wdt.to(F32))
+    dt_raw = mm(u.to(F32), weight_in_f32(p.wdt))
     return mm(u, p.wz), mm(u, p.wx), mm(u, p.wb), mm(u, p.wc), dt_raw
 
 

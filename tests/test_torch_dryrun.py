@@ -98,7 +98,9 @@ def test_production_cell_matches_the_reference_dry_run(tmp_path):
     """llama3.2-3b × decode_32k on 16×16, each package's CLI in a process
     of its own: the port's per-device dot FLOPs equal the reference's (its
     HLO parse), and its JSON carries the reference's keys where they have
-    a counterpart."""
+    a counterpart. The port's run takes the reference's ``--save-hlo``:
+    its op listing's lines sum to the traced program's dot FLOPs and op
+    count, which its header line states."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
                JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jax_cache"))
@@ -107,8 +109,10 @@ def test_production_cell_matches_the_reference_dry_run(tmp_path):
         out = subprocess.run(
             [sys.executable, "-m", f"{pkg}.launch.dryrun", "--arch",
              "llama32_3b", "--shape", "decode_32k", "--mesh", "single",
-             "--out", str(tmp_path / pkg)], capture_output=True, text=True,
-            env=env, timeout=600, cwd=tmp_path)
+             "--out", str(tmp_path / pkg)]
+            + (["--save-hlo"] if pkg == "repro_torch" else []),
+            capture_output=True, text=True, env=env, timeout=600,
+            cwd=tmp_path)
         assert out.returncode == 0, out.stderr[-2000:]
         recs[pkg] = json.loads((tmp_path / pkg /
                                 "llama32_3b__decode_32k__16_16.json"
@@ -122,6 +126,17 @@ def test_production_cell_matches_the_reference_dry_run(tmp_path):
     assert set(ref["collectives"]) - set(rec["collectives"]) == \
         {"ragged-all-to-all"}
     assert rec["ops_traced"] > 0 and rec["memory"]["peak_bytes"] > 0
+    lines = (tmp_path / "repro_torch" / "llama32_3b__decode_32k__16_16"
+             ".ops.txt").read_text().splitlines()
+    head = dict(f.split("=") for f in lines[0].split() if "=" in f)
+    assert lines[0].startswith("# llama32_3b decode_32k ")
+    assert head["mesh"] == "16x16" and int(head["depth"]) == 2
+    ops = [ln for ln in lines[1:] if not ln.startswith("#")]
+    flops = [int(f.removeprefix("flops=")) for ln in ops
+             for f in ln.split("\t") if f.startswith("flops=")]
+    assert len(flops) == len(ops) == int(head["ops"])
+    assert sum(flops) == int(head["dot_flops"]) > 0
+    assert any("all-reduce group=" in ln for ln in ops)
 
 
 def test_opt_cell_plan_is_the_reference_optimized_config(tmp_path):
