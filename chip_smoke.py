@@ -31,23 +31,27 @@ fails (non-zero exit, no result line) without them. Phases:
    included) in turns of 10 calls between two events; the plain version
    over single calls. The query kernels' cold device times at the path's
    layout are taken again from a ``torch.profiler`` trace (a cross
-   check). The two flash-attention kernels against their plain version at
-   llama3.2-3b's attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16
+   check). The three flash-attention kernels against their plain version
+   at llama3.2-3b's attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16
    causal at s=512 (the serve phase's prefill), 4096 and a ragged 1000,
-   non-causal and with q and k scaled x8 at 512 (the tensor-core kernel,
-   and the CUDA-core kernel at the same shapes), f32 at 512 and at the
-   tiny twin's prefill (the CUDA-core kernel), within 2e-2 (bf16) / 2e-5
-   (f32) with TF32 off, with CUDA-event medians timed in turns: the
-   kernel, the CUDA-core kernel (bf16 cases), one
-   ``scaled_dot_product_attention`` call (timed only, never on the path)
-   and the plain version, and the first three's device times. The
-   sliding-window cases, each held against ``sdpa_ref(window=)``:
-   starcoder2-7b's heads at s = 8,192 with its 4,096-token window, llama's
-   at a ragged 1,000 with w = 100 and at 512 with w = 1 (bf16, the
-   tensor-core kernel), f32 at 512 with w = 77 and the windowed tiny
-   twin's prefill (s = 40, w = 8; the CUDA-core kernel); each prints
-   beside its times the same kernel's causal launch at the same s, the
-   windowed FLOP bound, and SDPA under the dense boolean band mask;
+   non-causal and with q and k scaled x8 at 512 (the bf16 tensor-core
+   kernel), f32 at 512 (the f32 serve's prefill), at 4096 and at the tiny
+   twin's prefill (the f32 tensor-core kernel: three TF32 passes), and
+   starcoder2 TINY's heads (6 / 2 of d = 12) in bf16 at 512 (the
+   CUDA-core kernel, which no path runs), within 2e-2 (bf16) / 2e-5 (f32)
+   with PyTorch's TF32 off; each case's one wrapper call must launch the
+   kernel the split names and no other. CUDA-event medians timed in
+   turns: the kernel, the CUDA-core kernel at the tensor-core kernels'
+   shapes (the "before"), one ``scaled_dot_product_attention`` call
+   (timed only, never on the path; at f32 512 and 4096 the profiler's
+   names of the kernels it runs are printed) and the plain version, and
+   the first three's device times. The sliding-window cases, each held
+   against ``sdpa_ref(window=)``: starcoder2-7b's heads at s = 8,192 with
+   its 4,096-token window, llama's at a ragged 1,000 with w = 100 and at
+   512 with w = 1 (bf16), f32 at 512 with w = 77 and the windowed tiny
+   twin's prefill (s = 40, w = 8); each prints beside its times the same
+   kernel's causal launch at the same s, the windowed FLOP bound, and
+   SDPA under the dense boolean band mask;
 3. the TF-IDF path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
    MDB-L at the paper's table size (2**24 slots in blocks of 1024, a
    2**21-entry change segment) on a seeded 2**25-token stream of
@@ -146,8 +150,8 @@ fails (non-zero exit, no result line) without them. Phases:
    share its first 256 tokens (prefix hits, the rest decoded token by
    token), requests 4-7 are fresh and evict. Outputs, cached prefixes,
    hits, misses, evictions, refcounts after release and 5 x 28
-   launches of the tensor-core flash-attention kernel (and none of the
-   CUDA-core one) are checked;
+   launches of the bf16 tensor-core flash-attention kernel (and no other
+   attention kernel) are checked;
 10. continuous batching at the same width on the same model:
    ``ContinuousBatchingScheduler`` (4 packed slots, 496 rows of context,
    one 16-token prefill chunk a tick) over a ``PrefixKVCache(block_tokens=
@@ -160,7 +164,15 @@ fails (non-zero exit, no result line) without them. Phases:
    chunk calls, decode steps, median chunk and packed-decode ms (a sync
    around each), wall time, tokens/s, latencies, hit rate, wear, the
    hash kernels' launches and the phase's peak memory, beside the serial
-   phase's tokens/s;
+   phase's tokens/s. Then llama3.2-3b at full width in f32 (its CONFIG
+   with ``dtype="float32"``, ~12.8 GB of random weights from ``--seed``):
+   the serve run's order with 8 new tokens (``F32_SERVE``) and one
+   4,096-token prefill; every prefill must launch the f32 tensor-core
+   flash-attention kernel once a layer (28) and no other, and its greedy
+   id and last-position logits must agree with the same prefill's with
+   attention by the plain version on the card (``plain_attention``),
+   within ``F32_LOGIT_TOL`` of the largest logit; it prints prefill times
+   of both routes, the gaps and the decode time;
 11. the same request order scaled down on llama32 TINY in f32, served on
    the card and on the CPU with the same weights: outputs, cached
    prefixes and cache stats must be identical. The serial engine's pins
@@ -169,8 +181,8 @@ fails (non-zero exit, no result line) without them. Phases:
    table), reading each request's refcounts while it holds its pins: the
    refcounts read back from the table must agree too, and every
    flash-hash kernel must have launched on the card; every prefill of
-   the f32 twin runs the CUDA-core flash-attention kernel (and none the
-   tensor-core one);
+   the f32 twin runs the f32 tensor-core flash-attention kernel (and no
+   other);
 12. the continuous run scaled down on the same TINY twin (3 slots, a
    16-block pool, an 8-request trace of 3 users), on the card and on the
    CPU, then again with a flush threshold of 1: outputs, cached prefixes,
@@ -184,7 +196,7 @@ fails (non-zero exit, no result line) without them. Phases:
    top-8, all 24), mamba2-2.7b (SSM, all 64; nothing cached, since an SSM
    stack registers only whole prompts) and nemotron-4-340b (2 of its 96
    layers, full width). Every prefill of every attention layer must run
-   the tensor-core flash-attention kernel (and none the CUDA-core one);
+   the bf16 tensor-core flash-attention kernel (and no other);
    init, prefill, decode, tokens/s and the phase's peak are printed.
    Then starcoder2-7b at full width (all 32 layers, 36 / 4 heads of 128,
    bf16) with its published 4,096-token sliding window, served by the
@@ -203,7 +215,7 @@ fails (non-zero exit, no result line) without them. Phases:
 14. TINY f32 card-vs-CPU twins of the nine other architectures, the same
    weights on both: the serial engine (40-token prompts, 32 for the SSM
    and hybrid stacks) with identical outputs, cached prefixes and stats,
-   every attention prefill on the CUDA-core kernel; MLA again with a
+   every attention prefill on the f32 tensor-core kernel; MLA again with a
    flush threshold of 1 (all three hash kernels launched on the card);
    llama32's twin again with a sliding window of 8;
 15. continuous twins of minicpm3, granite, mamba2 and jamba on the card
@@ -273,9 +285,12 @@ fails (non-zero exit, no result line) without them. Phases:
 19. a ``families`` JSON line with every record of 13-15, a ``train`` JSON
    line with the records of 16-17, a ``mesh`` JSON line with 18's, a
    ``kernels`` JSON line (each hash kernel's launches on the main path,
-   each attention kernel's also with a window (``window_launches``: the
-   windowed starcoder2 serve's, the windowed f32 twin's) beside its
-   windowed case's error, device time, bound and SDPA time, as
+   each attention kernel's on the paths that run it: bf16 every family's
+   serve, f32 the f32 serve and every f32 twin, the CUDA-core kernel its
+   ``bf16_d12`` case's one call, as the line says; each also with a
+   window (``window_launches``: the windowed starcoder2 serve's, the
+   windowed f32 twin's) beside its windowed case's error, device time,
+   bound and SDPA time, as
    ``race_launches`` under the race phase's tracer (0 for attention,
    checked), as ``train_launches`` in phase 16 and as ``mesh_launches``
    in phase 18), then the card line, then the result line.
@@ -317,9 +332,11 @@ CHUNK = 1 << 16
 #: attention heads (h, kvh, d, dv) of llama3.2-3b and of its TINY twin,
 #: and of the other families' prefills: minicpm3's MLA (the latent
 #: expanded to 40 heads of nope 64 + rope 32, values of 64),
-#: granite-moe-1b, starcoder2-7b (h/kvh = 9) and nemotron-4-340b
+#: granite-moe-1b, starcoder2-7b (h/kvh = 9) and nemotron-4-340b; and
+#: starcoder2's TINY twin (d = 12: no multiple of 8)
 LLAMA_HEADS = (24, 8, 128, 128)
 TINY_HEADS = (4, 2, 16, 16)
+STARCODER2_TINY_HEADS = (6, 2, 12, 12)
 MLA_HEADS = (40, 40, 96, 64)
 GRANITE_HEADS = (16, 8, 64, 64)
 STARCODER2_HEADS = (36, 4, 128, 128)
@@ -328,12 +345,16 @@ NEMOTRON_HEADS = (96, 8, 192, 192)
 #: sliding window]); the tiny twin's prefill is its 40-token prompt. The
 #: windowed cases: starcoder2-7b's published window (4,096) over twice its
 #: length, a window no multiple of a tile over a ragged length, a window
-#: of one key, and the CUDA-core kernel's f32 at llama's heads and at the
-#: windowed tiny twin's prefill (40 tokens, w = 8)
+#: of one key, and the f32 kernel at llama's heads and at the windowed
+#: tiny twin's prefill (40 tokens, w = 8). The f32 cases run the f32
+#: tensor-core kernel (the CUDA-core one timed beside it as the "before");
+#: ``bf16_d12`` (starcoder2 TINY's heads in bf16) is the only one that
+#: runs the CUDA-core kernel as the split picks it
 ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("long", 4096, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("ragged", 1000, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("f32", 512, "float32", True, LLAMA_HEADS, 1.0),
+              ("f32_long", 4096, "float32", True, LLAMA_HEADS, 1.0),
               ("non_causal", 512, "bfloat16", False, LLAMA_HEADS, 1.0),
               ("qk_x8", 512, "bfloat16", True, LLAMA_HEADS, 8.0),
               ("tiny_f32", 40, "float32", True, TINY_HEADS, 1.0),
@@ -348,15 +369,25 @@ ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
                100),
               ("window_1", 512, "bfloat16", True, LLAMA_HEADS, 1.0, 1),
               ("f32_window", 512, "float32", True, LLAMA_HEADS, 1.0, 77),
-              ("tiny_f32_window", 40, "float32", True, TINY_HEADS, 1.0, 8)]
-#: attention cases longer than this are timed over 3 rounds (the plain
-#: version and the CUDA-core kernel take tens of ms a call there)
+              ("tiny_f32_window", 40, "float32", True, TINY_HEADS, 1.0, 8),
+              ("bf16_d12", 512, "bfloat16", True, STARCODER2_TINY_HEADS,
+               1.0)]
+#: attention cases longer than this (f32: this long) are timed over 3
+#: rounds (the plain version, the CUDA-core kernel and SDPA take ~10 ms a
+#: call there)
 ATTN_LONG = 4096
 #: the serve phase's traffic (full width) and its scaled-down twin (TINY)
 SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
              capacity_blocks=64)
 TINY_SERVE = dict(prompt_len=40, shared=16, max_new=16, block_tokens=8,
                   capacity_blocks=5)
+#: llama3.2-3b in f32 at full width: the serve run's order with 8 new
+#: tokens, then one prefill of ``F32_LONG`` tokens; each prefill's
+#: last-position logits must sit within ``F32_LOGIT_TOL`` of the largest
+#: logit of the same model's with attention by the plain version
+F32_SERVE = dict(SERVE, max_new=8)
+F32_LONG = 4096
+F32_LOGIT_TOL = 1e-3
 #: the twin again with every pin and unpin drained into the device table
 #: (the serial engine's pins otherwise cancel in H_R), each request's
 #: refcounts read back while it holds them
@@ -574,8 +605,8 @@ def kernel_name(mangled: str) -> str:
 def kernel_report(lib) -> dict:
     """Each kernel of a built library: its static SASS counts of HGMMA,
     UTMALDG, UBLKCP, SYNCS and LDG and its registers and spills from
-    ``ptxas``. Fails if an instance of the tensor-core attention kernel has
-    no HGMMA, or one of the merge kernel no bulk copy."""
+    ``ptxas``. Fails if an instance of a tensor-core attention kernel (bf16
+    or f32) has no HGMMA, or one of the merge kernel no bulk copy."""
     from repro_torch.kernels import nvcc
     ptxas = nvcc.ptxas_report(lib.last_build["log"])
     out = {}
@@ -583,7 +614,7 @@ def kernel_report(lib) -> dict:
             .items():
         name = kernel_name(mangled)
         out[name] = {**counts, **ptxas.get(mangled, {})}
-        if "wgmma" in name and counts["HGMMA"] == 0:
+        if ("wgmma" in name or "tf32x3" in name) and counts["HGMMA"] == 0:
             fail(f"{name}: no HGMMA instruction in its SASS")
         if name.startswith("merge_dirty_kernel") and counts["UBLKCP"] == 0:
             fail(f"{name}: no bulk copy (UBLKCP) in its SASS")
@@ -780,9 +811,17 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     return out
 
 
+def attention_only(name: str, n: int) -> dict:
+    """The flash-attention launch counts of a run that launched kernel
+    ``name`` ``n`` times and no other attention kernel."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    return {k: n if k == name else 0 for k in FK.LAUNCHES}
+
+
 def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
     """The flash-attention kernels against their plain version; each case
-    must run the kernel the dtype/shape split names for it."""
+    must run (one wrapper call, one launch) the kernel the dtype/shape
+    split names for it."""
     import torch
     from repro_torch.kernels.flash_attn import check as FC
     from repro_torch.kernels.flash_attn import kernel as FK
@@ -790,15 +829,22 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
     for name, s, dtype, causal, (h, kvh, d, dv), qk_scale, *w in cases:
         dt = getattr(torch, dtype)
         window = w[0] if w else 0
+        long = s > ATTN_LONG or (dtype == "float32" and s == ATTN_LONG)
         r = FC.check_flash_attention(1, s, h, kvh, d, dv, dt, causal,
                                      seed + s, dev,
-                                     reps=min(reps, 3) if s > ATTN_LONG
-                                     else reps,
+                                     reps=min(reps, 3) if long else reps,
                                      qk_scale=qk_scale, window=window)
+        if dtype == "float32" and dev.type == "cuda" and name in (
+                "f32", "f32_long"):
+            # which kernels the library call runs (the profiler's names)
+            r["library_kernels"] = FC.library_kernels(
+                1, s, h, kvh, d, dv, dt, causal, seed + s, dev, window)
         print(f"kernel flash_attention {name}: {json.dumps(r)}", flush=True)
         want = FK.kernel_for(dt, d, dv) if dev.type == "cuda" else "plain"
-        if r["kernel"] != want:
-            fail(f"flash_attention {name} ran {r['kernel']}, not {want}")
+        if r["kernel"] != want or (dev.type == "cuda" and r["launches"] !=
+                                   attention_only(want, 1)):
+            fail(f"flash_attention {name} ran {r['kernel']} (launches "
+                 f"{r['launches']}), not {want}")
         for who in ("", "simt_"):
             if who + "max_abs_err" in r and not (
                     r[who + "finite"] and r[who + "within_tolerance"]):
@@ -2007,7 +2053,7 @@ def serve_phase(seed: int, dev):
     rec = serve(cfg, model, dev, seed, SERVE, timed=True)
     no_baseline("serve")
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
-    want = {FK.WGMMA: 5 * cfg.num_layers, FK.SIMT: 0}
+    want = attention_only(FK.WGMMA, 5 * cfg.num_layers)
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"serve: flash-attention launches {got}, expected {want} (5 "
@@ -2029,6 +2075,138 @@ def serve_phase(seed: int, dev):
                before, torch.cuda.max_memory_allocated(dev)) / 2 ** 30}
     print(f"serve {cfg.name}: {json.dumps(out)}", flush=True)
     return out, model
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """For the block, every ``flash_attention_fwd`` call computes attention
+    with the plain version (``ref.sdpa_ref``) on the tensors' own device
+    instead of launching a kernel: the f32 phase's reference route. The
+    package's own route is restored after."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref
+    fwd = FK.flash_attention_fwd
+    FK.flash_attention_fwd = lambda q, k, v, causal=True, window=0: \
+        ref.sdpa_ref(q, k, v, causal=causal, window=window)
+    try:
+        yield
+    finally:
+        FK.flash_attention_fwd = fwd
+
+
+def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
+                    long_len: int = F32_LONG) -> dict:
+    """llama3.2-3b's CONFIG at full width in f32 (``dtype="float32"``: 28
+    layers, d 3,072, 24 / 8 heads of 128; random weights from ``seed``,
+    ~12.8 GB), served by ``ServeEngine`` over a device ``PrefixKVCache``
+    in the serve run's order (``geo``: 8 new tokens), then one
+    ``long_len``-token prefill. Every prefill must launch the f32
+    tensor-core flash-attention kernel once a layer and no other attention
+    kernel. Then each prefill runs again on the same inputs with attention
+    by the plain version on the card (:func:`plain_attention`, which
+    launches nothing): the greedy id and the last-position logits must
+    agree, within ``F32_LOGIT_TOL`` of the largest logit. The model is
+    freed before it returns."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("llama32_3b"), dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    model = M.Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t_phase
+    params = sum(p.numel() for p in model.parameters())
+    runs = []          # each prefill: its inputs, last logits, launches
+    prefill = model.prefill
+
+    def kept(tokens, *args):
+        before = dict(FK.LAUNCHES)
+        out = prefill(tokens, *args)
+        runs.append({"tokens": tokens, "args": args,
+                     "logits": out[0][0, -1].float().clone(),
+                     "launches": {k: FK.LAUNCHES[k] - before[k]
+                                  for k in FK.LAUNCHES}})
+        return out
+    model.prefill = kept     # the serve's timer wraps it and removes both
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    rec = serve(cfg, model, dev, seed, geo, timed=True)
+    no_baseline(f"serve {cfg.name} f32")
+    rng = np.random.default_rng(seed + long_len)
+    tok = torch.tensor([rng.integers(0, cfg.vocab_size, long_len).tolist()],
+                       dtype=torch.int64, device=dev)
+    model.prefill = kept
+    with torch.inference_mode():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        model.prefill(tok, M.zero_frontend_embeds(cfg, model))
+        torch.cuda.synchronize(dev)
+        long_ms = (time.perf_counter() - t0) * 1e3
+    del model.prefill
+    launches = {**FK.LAUNCHES, **K.LAUNCHES}
+    name = f"serve {cfg.name} f32"
+    want = attention_only(FK.TF32X3, attn_layers(cfg))
+    for i, r in enumerate(runs):
+        if r["launches"] != want:
+            fail(f"{name}: prefill {i} ({r['tokens'].shape[1]} tokens) "
+                 f"launched {r['launches']}, expected {want}")
+    if len(runs) != rec["stats"]["misses"] + 1:
+        fail(f"{name}: {len(runs)} prefills, expected "
+             f"{rec['stats']['misses']} misses and the long one")
+    # the same prefills with attention by the plain version on the card
+    gaps, greedy, plain_ms = [], [], []
+    with torch.inference_mode(), plain_attention():
+        before = dict(FK.LAUNCHES)
+        for r in runs:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            want_logits = model.prefill(r["tokens"], *r["args"])[0][0, -1]
+            torch.cuda.synchronize(dev)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            want_logits = want_logits.float()
+            gaps.append(logit_gap(r["logits"], want_logits, cfg.vocab_size))
+            greedy.append(
+                int(r["logits"][:cfg.vocab_size].argmax())
+                == int(want_logits[:cfg.vocab_size].argmax()))
+        if FK.LAUNCHES != before:
+            fail(f"{name}: the plain route launched {FK.LAUNCHES}")
+    if not all(greedy) or max(gaps) > F32_LOGIT_TOL:
+        fail(f"{name}: the kernel's prefills against the plain route: "
+             f"greedy ids equal {greedy}, logit gaps {gaps} (at most "
+             f"{F32_LOGIT_TOL} of the largest logit)")
+    decode = rec["decode_ms"]
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "parameters": params, "init_s": t_init,
+           "cached_tokens": rec["cached_tokens"],
+           "prefill_ms": rec["prefill_ms"], "long_prefill_tokens": long_len,
+           "long_prefill_ms": long_ms, "plain_prefill_ms": plain_ms,
+           "logit_gaps": gaps, "greedy_equal": greedy,
+           "decode_steps": len(decode),
+           "decode_ms_per_token": statistics.median(decode),
+           "generated_tokens": rec["tokens"], "wall_s": rec["wall_s"],
+           "tokens_per_s": rec["tokens"] / rec["wall_s"],
+           "launches": launches, "prefix_cache": rec["stats"],
+           "phase_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del model, runs
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{name}: {json.dumps(out)}", flush=True)
+    print(f"{name} ({params} parameters; {out['phase_s']:.1f} s): prefill "
+          f"ms {[round(x, 3) for x in out['prefill_ms']]}, {long_len} "
+          f"tokens {long_ms:.3f} ms (plain route "
+          f"{[round(x, 3) for x in plain_ms]}); largest logit gap "
+          f"{max(gaps):.4g} of the largest logit, greedy ids equal; decode "
+          f"{out['decode_ms_per_token']:.3f} ms/token; "
+          f"{FK.LAUNCHES[FK.TF32X3]} launches of {FK.TF32X3}; peak "
+          f"{out['phase_peak_gib']:.2f} GiB; card {card}", flush=True)
+    return out
 
 
 def continuous(cfg, model, dev, seed: int, geo: dict, timed: bool = False):
@@ -2210,8 +2388,8 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
     identical outputs, cached prefixes, prefix-cache stats and refcounts,
     first as the serial engine leaves them, then (``drained``) drained
     into the device table (every flash-hash kernel launched on the card).
-    Every prefill on the card runs the CUDA-core flash-attention kernel
-    in each attention layer. ``window`` > 0 serves the twin with that
+    Every prefill on the card runs the f32 tensor-core flash-attention
+    kernel in each attention layer. ``window`` > 0 serves the twin with that
     sliding window. Returns the first run's record and its
     flash-attention launches."""
     import torch
@@ -2244,7 +2422,7 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
                 attn = dict(FK.LAUNCHES)
         # every miss prefills the whole prompt
         prefills = rec["stats"]["misses"]
-        want = {FK.SIMT: prefills * attn_layers(cfg), FK.WGMMA: 0}
+        want = attention_only(FK.TF32X3, prefills * attn_layers(cfg))
         if dev.type == "cuda" and attn != want:
             fail(f"serve {name}: flash-attention launches {attn}, expected "
                  f"{want} ({prefills} f32 prefills x {attn_layers(cfg)} "
@@ -2382,7 +2560,7 @@ def family_serve_phase(seed: int, dev, arch: str, layers=None) -> dict:
     no_baseline(f"serve {cfg.name}")
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
     prefills = rec["stats"]["misses"]
-    want = {FK.WGMMA: prefills * attn_layers(cfg), FK.SIMT: 0}
+    want = attention_only(FK.WGMMA, prefills * attn_layers(cfg))
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"serve {cfg.name}: flash-attention launches {got}, expected "
@@ -2432,7 +2610,7 @@ def window_serve_phase(seed: int, dev, card: str,
     device ``PrefixKVCache`` (:func:`window_prompts`). Checks outputs,
     cached prefixes ``[0, shared, 0, 0]``, hits, evictions, refcounts,
     nothing dropped, finite logits, and 3 prefills x its layers launches
-    of the tensor-core kernel (none of the CUDA-core one). Then that the
+    of the bf16 tensor-core kernel (no other attention kernel). Then that the
     window reaches decode: #1's first-token logits from the hit path
     (the cached rows decoded under the window) against a fresh windowed
     prefill of #1's prompt, within ``WINDOW_LOGIT_TOL`` of its largest
@@ -2507,7 +2685,7 @@ def window_serve_phase(seed: int, dev, card: str,
              f"{refs}")
     if not all(bool(f) for f in finite):
         fail(f"{name}: non-finite logits")
-    want = {FK.WGMMA: 3 * attn_layers(cfg), FK.SIMT: 0}
+    want = attention_only(FK.WGMMA, 3 * attn_layers(cfg))
     if {k: launches[k] for k in want} != want:
         fail(f"{name}: flash-attention launches {launches}, expected "
              f"{want} (3 prefills x {attn_layers(cfg)} layers)")
@@ -3063,8 +3241,8 @@ def rank0_run(shape_name: str, dev, seed: int, rec, opt: bool = False
              f"{want} reckoned by the dry-run")
     # once a layer in each of the two calls
     want_fa = 2 * cfg.num_layers if shape.kind == "prefill" else 0
-    if launches[FK.WGMMA] != want_fa or launches[FK.SIMT] or \
-            any(launches[k] for k in K.LAUNCHES):
+    if {k: launches[k] for k in FK.LAUNCHES} != attention_only(
+            FK.WGMMA, want_fa) or any(launches[k] for k in K.LAUNCHES):
         fail(f"mesh rank 0 {shape_name}: launches {launches}, expected "
              f"{want_fa} of {FK.WGMMA} and nothing else")
     return out
@@ -3439,6 +3617,7 @@ def main() -> int:
           f"{served['tokens_per_s']:.1f} generated tokens/s", flush=True)
     cont = continuous_phase(args.seed, dev, model, served["tokens_per_s"])
     del model
+    f32 = f32_serve_phase(args.seed, dev, card)
     print(f"serve continuous ({cont['phase_s']:.1f} s): {cont['ticks']} "
           f"ticks, chunk {cont['chunk_ms_median']:.3f} ms, packed decode "
           f"{cont['decode_ms_median']:.3f} ms (medians); "
@@ -3456,8 +3635,8 @@ def main() -> int:
     wgmma = served["launches"][FK.WGMMA] + sum(
         r["launches"][FK.WGMMA] for r in fam["serve"].values()) + (
             window_serve[FK.WGMMA])
-    simt = twin["attention_launches"][FK.SIMT] + sum(
-        r["attention_launches"][FK.SIMT] for r in fam["tiny"].values())
+    twin_f32 = twin["attention_launches"][FK.TF32X3] + sum(
+        r["attention_launches"][FK.TF32X3] for r in fam["tiny"].values())
     kernels = []
     for name in K.LAUNCHES:
         # the lookup kernels at the layout the path launches them on
@@ -3474,16 +3653,37 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     # each flash-attention kernel at the shape of the path that runs it:
-    # the serve prefill (bf16) and the f32 twin's prefill; launches over
-    # every family's serve (bf16) and every twin's serial run (f32); with
-    # a window, starcoder2-7b's serve and the windowed f32 twin
+    # bf16, the serve prefill, launched by every family's serve, and with a
+    # window starcoder2-7b's serve; f32, the f32 serve's 512-token prefill,
+    # launched by the f32 serve (its 4,096-token prefill too) and every f32
+    # twin, and with a window the windowed f32 twin; the CUDA-core kernel,
+    # which no path runs (no shipped bf16 head is narrower than a multiple
+    # of 8), at its ``bf16_d12`` case, whose one wrapper call is its launch
     window_twin = fam["tiny"][f"llama32_3b window {TINY_WINDOW}"]
-    for name, case, launches, w_case, w_launches in (
+    for name, case, launches, w_case, w_launches, extra in (
             (FK.WGMMA, "serve", wgmma, "starcoder2_window",
-             window_serve[FK.WGMMA]),
-            (FK.SIMT, "tiny_f32", simt, "tiny_f32_window",
-             window_twin["attention_launches"][FK.SIMT])):
+             window_serve[FK.WGMMA], {}),
+            (FK.TF32X3, "f32",
+             f32["launches"][FK.TF32X3] + twin_f32, "tiny_f32_window",
+             window_twin["attention_launches"][FK.TF32X3],
+             {"f32_serve_launches": f32["launches"][FK.TF32X3],
+              "twin_launches": twin_f32,
+              "simt_device_ms": attn["f32"]["simt_device_ms"],
+              "long_device_ms": attn["f32_long"]["device_ms"],
+              "long_simt_device_ms": attn["f32_long"]["simt_device_ms"],
+              "long_library_device_ms":
+                  attn["f32_long"]["library_device_ms"],
+              "long_bound_ms": attn["f32_long"]["bound_ms"],
+              "tiny_device_ms": attn["tiny_f32"]["device_ms"],
+              "f32_serve_logit_gap": max(f32["logit_gaps"])}),
+            (FK.SIMT, "bf16_d12", attn["bf16_d12"]["launches"][FK.SIMT],
+             "f32_window", 0,
+             {"launches_from": "the bf16_d12 attention case's wrapper "
+                               "call: no path runs this kernel",
+              "window_from": "the f32_window case, timed as the f32 "
+                             "kernel's before"})):
         r, rw = attn[case], attn[w_case]
+        who = "simt_" if name == FK.SIMT else ""
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
             "replaces": REPLACES["flash_attention"], "launches": launches,
@@ -3494,10 +3694,10 @@ def main() -> int:
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "window_launches": w_launches,
-            "window_max_abs_err": rw["max_abs_err"],
-            "window_device_ms": rw["device_ms"],
+            "window_max_abs_err": rw[who + "max_abs_err"],
+            "window_device_ms": rw[who + "device_ms"],
             "window_bound_ms": rw["bound_ms"],
-            "window_library_ms": rw["library_ms"]})
+            "window_library_ms": rw["library_ms"], **extra})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
     print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))

@@ -19,7 +19,9 @@ LIBRARY = CudaLibrary(
     {"fa_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                     _I, _I, _I, _P],
      "fa_forward_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _I, _I, _P]})
+                          ctypes.c_float, _I, _I, _P],
+     "fa_forward_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           ctypes.c_float, _I, _I, _P]})
 build = LIBRARY.build
 load = LIBRARY.load
 last_build = LIBRARY.last_build

@@ -10,9 +10,9 @@ output keep their size. :func:`check_flash_attention` runs the wrapper
 plain version, and returns the largest absolute difference, whether it
 is within the stated tolerance, the least time the card could take, and
 CUDA-event medians timed in turns within one call: the kernel, the
-CUDA-core kernel at the same shape where the tensor-core kernel took the
-call (the "before"; its error is held too), one library call computing
-the same function (``scaled_dot_product_attention``, timed only: the
+CUDA-core kernel at the same shape where a tensor-core kernel took the
+call (the "before", bf16 or f32; its error is held too), one library
+call computing the same function (``scaled_dot_product_attention``, timed only: the
 port never calls it) and the plain version; and the device times of the
 kernel, the CUDA-core kernel and the library call with no Python between
 launches (``device_ms``, ``simt_device_ms``, ``library_device_ms``:
@@ -25,9 +25,12 @@ causal launch at the same shape is timed beside it (``causal_ms``,
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
 v and o (each read or written once) over the card's memory rate, and the
 FLOPs of the two products over the pairs the mask keeps (2 (d + dv) per
-(query, key, head); :func:`kept_pairs`) over the card's dense peak for the
-type: the tensor cores' bf16 rate for bf16, the f32 rate outside the
-tensor cores for f32 (TF32 would not give the reference's precision).
+(query, key, head); :func:`kept_pairs`) at the card's dense peak for the
+type. For bf16 that is the tensor cores' bf16 rate. For f32 it is the
+faster of two ways to the reference's precision: the CUDA cores' f32
+rate, or three TF32 passes on the tensor cores (one TF32 pass would not
+hold 2e-5), so 3 x the FLOPs at the TF32 rate; ``bound_peak`` names the
+one taken.
 """
 from __future__ import annotations
 
@@ -41,6 +44,10 @@ from . import ref
 
 #: published dense peaks of an H100 SXM (NVIDIA's data sheet), op/s
 H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the tensor cores' dense TF32 peak, op/s, and the passes an f32 product
+#: takes there at the reference's precision (hi hi + hi lo + lo hi)
+H100_TF32_FLOPS = 494.7e12
+TF32_PASSES = 3
 #: the tolerances of the reference's kernel tests (tests/test_flash_attn.py)
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
@@ -64,9 +71,15 @@ def attention_bound(b: int, s: int, h: int, kvh: int, d: int, dv: int,
     pairs = kept_pairs(s, causal, window)
     flops = 2 * b * h * (d + dv) * pairs
     by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    by_flops = flops / H100_PEAK_FLOPS[dtype] * 1e3
+    peaks = {"bf16 tensor cores": H100_PEAK_FLOPS[dtype]}
+    if dtype == torch.float32:
+        peaks = {"f32 CUDA cores": H100_PEAK_FLOPS[dtype],
+                 "tf32 x3 tensor cores": H100_TF32_FLOPS / TF32_PASSES}
+    peak = min(peaks, key=lambda k: flops / peaks[k])
+    by_flops = flops / peaks[peak] * 1e3
     return {"bound_ms": max(by_bytes, by_flops), "bound_bytes": n_bytes,
-            "bound_pairs": pairs, "bound_flops": flops, "peak_flops_per_s": H100_PEAK_FLOPS[dtype],
+            "bound_pairs": pairs, "bound_flops": flops,
+            "peak_flops_per_s": peaks[peak], "bound_peak": peak,
             "peak_bytes_per_s": H100_BYTES_PER_S,
             "bound_by": "bytes" if by_bytes >= by_flops else "operations"}
 
@@ -82,19 +95,61 @@ def make_inputs(b, s, h, kvh, d, dv, dtype, seed: int, device,
 
 
 def library_call(q, k, v, causal: bool, window: int = 0):
-    """``scaled_dot_product_attention`` on (b, h, s, d) copies: the same
-    function as the kernel (the yardstick, never used by the port); with
-    a window, under the dense boolean band mask (s, s)."""
+    """``scaled_dot_product_attention`` on (b, h, s, d) copies made before
+    the call: the same function as the kernel (the yardstick, never used
+    by the port); with a window, under the dense boolean band mask (s, s).
+    bf16 goes with ``enable_gqa`` (its flash route takes GQA). In f32 no
+    fused route takes ``enable_gqa`` (the call falls to the math route's
+    f32 GEMMs, 2.6-4x slower on an H100), so K and V are copied out to
+    every query head and the memory-efficient route takes the call."""
     import torch.nn.functional as F
+    gqa = q.dtype != torch.float32
+    if not gqa:
+        g = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if not window:
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa)
     pos = torch.arange(q.shape[1], device=q.device)
     band = ((pos[None, :] <= pos[:, None])
             & (pos[None, :] > pos[:, None] - window))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=band, enable_gqa=True)
+        qt, kt, vt, attn_mask=band, enable_gqa=gqa)
+
+
+def library_kernels(b: int, s: int, h: int, kvh: int, d: int, dv: int,
+                    dtype, causal: bool, seed: int, device,
+                    window: int = 0, calls: int = 5) -> Dict[str, float]:
+    """The device kernels :func:`library_call` runs on one seeded case, by
+    name, with their mean device microseconds a call, from a
+    ``torch.profiler`` (CUPTI) trace of ``calls`` calls after a warm-up:
+    which route the library takes (its f32 attention, for one). Raises
+    without CUDA."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+    if device.type != "cuda":
+        raise RuntimeError("library_kernels needs a CUDA device")
+    q, k, v = make_inputs(b, s, h, kvh, d, dv, dtype, seed, device)
+    fn = library_call(q, k, v, causal, window)
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+    with warnings.catch_warnings():   # one profiling cycle: nothing dropped
+        warnings.simplefilter("ignore", UserWarning)
+        events = prof.key_averages()
+    out = {}
+    for e in events:
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            out[e.key] = us / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def _error(got, want, tol) -> Dict:
@@ -116,14 +171,15 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
     tol = TOLERANCE[dtype]
     before = dict(K.LAUNCHES)    # comparison launches are not the path's
     got = K.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    launched = {key: K.LAUNCHES[key] - before[key] for key in K.LAUNCHES}
     want = ref.sdpa_ref(q, k, v, causal=causal, window=window)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
     out = {"shape": [b, s, h, kvh, d, dv], "dtype": str(dtype).split(".")[-1],
            "causal": causal, "window": window, "qk_scale": qk_scale,
-           "kernel": name if cuda else "plain", "tolerance": tol,
-           **_error(got, want, tol)}
+           "kernel": name if cuda else "plain", "launches": launched,
+           "tolerance": tol, **_error(got, want, tol)}
     if cuda:
         fns = {"ms": lambda _: K.launch(q, k, v, causal, name, window)}
         if name != K.SIMT:

@@ -6,7 +6,7 @@
 // allocates nothing, and returns the first CUDA error (cudaGetLastError()
 // after the launch) so that a refused launch surfaces in the wrapper.
 //
-// Both kernels replace src/repro/kernels/flash_attn/kernel.py:
+// All three kernels replace src/repro/kernels/flash_attn/kernel.py:
 // flash_attention_fwd (body _fwd_kernel): causal or non-causal GQA
 // attention with an online softmax. q (b, s, h, d), k (b, s, kvh, d),
 // v (b, s, kvh, dv) and the output o (b, s, h, dv) keep that layout in
@@ -22,7 +22,7 @@
 //
 // Sliding window (window > 0, causal only; the reference computes it in
 // src/repro/models/attention.py: _causal_mask and _sdpa_chunked, not in
-// its Pallas kernel): query i keeps key j iff i - window < j <= i. Both
+// its Pallas kernel): query i keeps key j iff i - window < j <= i. All
 // kernels start at the first key tile that holds some row's lower edge,
 // t0 = floor((q0 - window + 1) / BK) clamped at 0, so the key tiles wholly
 // before every row's window are neither loaded nor computed: O(s w) work
@@ -31,8 +31,8 @@
 // every key of its first tile masked (its edge lies in the next tile):
 // the CUDA-core kernel then does the reference's arithmetic (max -1e30,
 // p = exp(0) = 1, cleared by the next tile's alpha = exp(-1e30 - m) = 0,
-// exactly); the tensor-core kernel, whose exp2 of a fused multiply-add
-// would see the rounding error of -1e30 x scale, takes no shift for a
+// exactly); the tensor-core kernels, whose exp2 of a fused multiply-add
+// would see the rounding error of -1e30 x scale, take no shift for a
 // row whose max is still -1e30, so its p are exp2(-huge) = 0 and its l
 // and acc stay 0 until a kept key arrives (the same result: 0 against
 // x * 0).
@@ -40,7 +40,8 @@
 // Bound on the card: at serving shapes (d = 128, bf16) the FLOPs of the
 // two products bound it from s of about 1,000 up (4 h d flops per
 // (query, key) pair the mask keeps, at the tensor cores' bf16 peak); below
-// that the bytes of q, k, v and o do.
+// that the bytes of q, k, v and o do. In f32 the FLOPs bound it from s of
+// about 300 up, at a third of the tensor cores' TF32 peak (three passes).
 //
 // ---------------------------------------------------------------------------
 // flash_attn_wgmma_kernel: bf16 with d and dv multiples of 8, at most 256
@@ -79,8 +80,52 @@
 //     warpgroups per CTA sharing each K/V tile, and FlashAttention-3's
 //     overlap of one tile's softmax with the previous tile's PV product.
 //
-// flash_attn_fwd_kernel: f32 (the reference's f32 tolerance of 2e-5 rules
-//   out TF32), and bf16 heads whose d or dv is not a multiple of 8.
+// flash_attn_tf32x3_kernel: f32, d and dv multiples of 4 (16-byte rows,
+//   so TMA takes every f32 shape the wrapper does). Both products run on
+//   the tensor cores in tf32 in three passes: x = hi + lo, where hi is x
+//   as the tensor core reads an f32 operand (its low 13 bits dropped:
+//   measured on an H100, where a lo taken against cvt.rna's rounding
+//   instead left errors of 2.8e-3) and lo = tf32(x - hi) (cvt.rna.tf32),
+//   and a b ~ hi_a lo_b + lo_a hi_b + hi_a hi_b, the small terms summed
+//   first into the same f32 accumulator. Each product keeps about 20 bits
+//   of its operands (lo_a lo_b, under 2^-20 of it, is dropped): the
+//   reference's f32 tolerance of 2e-5 rules out one tf32 pass (10 bits:
+//   70-132x over it on the reference's f32 sweep), not three. So hi is the
+//   operand as it lies: Q and K go to the tensor cores as TMA wrote them,
+//   V^T and P as they are, and only lo is formed on the CUDA cores.
+//   - Work split, producer warp, consumer warpgroup, heaviest tiles first,
+//     window tiles skipped: as the bf16 kernel. Q, K and V arrive by TMA
+//     in boxes of 32 f32 columns (128 bytes, the swizzle's width; narrower
+//     heads are zero-filled in the box); K and V have one buffer each with
+//     full / empty mbarriers of their own.
+//   - tf32 wgmma (m64nNk8) has no transpose bit: both operands are
+//     K-major. Q and K are as they lie; the consumers write each one's lo
+//     part beside it. V (keys x dv, dv contiguous) is MN-major, so the
+//     consumers write V^T and its lo part (dv rows of keys) into tiles of
+//     their own with the same 128-byte swizzle, 16-byte reads and writes
+//     at the least wavefronts.
+//   - P from registers: in the S accumulator a thread holds keys (2c,
+//     2c+1) of each 8 for rows r and r+8; the tf32 A fragment wants columns
+//     (c, c+4). Since PV sums over keys, V^T's keys of each 8 are written
+//     in the order 0 2 4 6 1 3 5 7, and the S registers are P's fragment as
+//     they lie: no shuffle.
+//   - Overlap inside one warpgroup: S is issued, V's transposition runs
+//     while the tensor cores compute it, then the softmax; PV is issued and
+//     the next tile's K is split while it runs. They hide in part: copies
+//     without the transposition or without the split ran 24-26% and 16%
+//     faster on an H100 (chip_attn_ab.py; the split then still wrote hi
+//     back, 4% of the time). Every wgmma group is
+//     retired inside its tile: a group left running across the loop's back
+//     edge made ptxas serialise every wgmma (C7514 / C7515): 1.6x slower
+//     on an H100.
+//   - 64-key tiles at P = 64 and 128 (224 KB at P = 128: one CTA an SM);
+//     at P = 256 32-key tiles, and V^T goes over K's tiles (the split-out
+//     tiles would not fit beside a 256-column Q), so that instance runs
+//     the phases in turn. O is a stack of m64n64 products, so dv = 256 is
+//     128 accumulator registers a thread, with no spill.
+//
+// flash_attn_fwd_kernel: bf16 heads whose d or dv is not a multiple of 8
+//   (and, through kernel.launch, the f32 "before" that check.py times).
 //   One CTA of four warps per (b*h, 32-row query tile). The scaled query
 //   tile is staged in shared memory in f32; the CTA walks 32-key K/V tiles
 //   from the window's first tile up to the causal limit, skipping the
@@ -304,6 +349,62 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // ---------------------------------------------------------------------------
+// Tensor maps (host): both tensor-core kernels load q, k, v by TMA
+// ---------------------------------------------------------------------------
+namespace tma {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), found through the
+// runtime so that the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a contiguous (b, s, heads, width) tensor of `elem`-byte
+// elements, in boxes of `box_rows` positions x `box_cols` columns of one
+// head (box_cols x elem = 128 bytes), 128-byte swizzled. Elements outside
+// the tensor arrive as zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
+              const void* ptr, int b, int s, int heads, int width,
+              int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = (cuuint64_t)width * elem;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tma
+
+// ---------------------------------------------------------------------------
 // flash_attn_wgmma_kernel (design in the note at the top)
 // ---------------------------------------------------------------------------
 namespace wg {
@@ -518,49 +619,12 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda entry point), found through the
-// runtime so that the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // Tensor map over a contiguous bf16 (b, s, heads, width) tensor, in boxes
 // of 64 positions x 64 columns of one head, 128-byte swizzled.
 bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
               int width) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t row = (cuuint64_t)width * 2;
-  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
-                              (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
-  const cuuint32_t box[4] = {CHUNK, 1, 64, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, b, s,
+                       heads, width, CHUNK, 64);
 }
 
 template <int P, int MIN_BLOCKS>
@@ -582,10 +646,392 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// flash_attn_tf32x3_kernel (design in the note at the top)
+// ---------------------------------------------------------------------------
+namespace tf {
+
+constexpr int BQ = 64;                   // query rows per CTA: wgmma's M
+constexpr int CONSUMERS = 128;           // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int CHUNK = 32;                // f32 columns of one 128-byte box
+constexpr int QBOX = BQ * 128;           // bytes of one Q box
+constexpr float NEG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared memory of one CTA for heads padded to P columns and BK-key tiles:
+// Q, Q's lo part, K's lo part, K and V as TMA writes them, V^T and its lo
+// part, then the barriers (q, k full, k empty, v full, v empty). Where
+// V^T's two tiles do not fit beside the rest (P = 256), they lie over K's
+// tile and K's lo part instead (`kAlias`), and the transposition waits for
+// the S product. Every piece is a multiple of 1024 bytes.
+template <int P, int BK>
+struct Smem {
+  static constexpr int kChunks = P / CHUNK;
+  static constexpr int kKBox = BK * 128;         // one K or V box
+  static constexpr int kQ = kChunks * QBOX;
+  static constexpr int kTile = kChunks * kKBox;  // = P x BK x 4: V^T too
+  static constexpr int kBarBytes = 8 * 5;
+  static constexpr bool kAlias =
+      1024 + 2 * kQ + 5 * kTile + kBarBytes > 232448;
+  static constexpr int kKlo = 2 * kQ;
+  static constexpr int kK = kKlo + kTile;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kVThi = kAlias ? kK : kV + kTile;
+  static constexpr int kVTlo = kAlias ? kKlo : kVThi + kTile;
+  static constexpr int kBars = kAlias ? kV + kTile : kVTlo + kTile;
+  static constexpr int kBytes = 1024 + kBars + kBarBytes;
+};
+
+// Writes the lo part of n float4 units at `x` to `lo` at the same offsets:
+// the layout, swizzle included, is kept. Each consumer thread takes every
+// 128th unit.
+__device__ __forceinline__ void split(const uint8_t* x, uint8_t* lo, int n,
+                                      int tid) {
+  const float4* xs = reinterpret_cast<const float4*>(x);
+  float4* ls = reinterpret_cast<float4*>(lo);
+  for (int i = tid; i < n; i += CONSUMERS) {
+    const float4 v = xs[i];
+    ls[i] = make_float4(hopper::tf32_lo(v.x), hopper::tf32_lo(v.y),
+                        hopper::tf32_lo(v.z), hopper::tf32_lo(v.w));
+  }
+}
+
+// V (BK keys x 32-column boxes, as TMA wrote it) into V^T and its lo
+// tile, K-major for the PV product (P rows of BK keys, 32-key chunks),
+// the keys of each 8 in the order 0 2 4 6 1 3 5 7 (see the note at the
+// top). A lane writes one 16-byte unit u of V^T (4 consecutive columns of
+// V^T: keys 8 (u / 2) + u % 2 + {0, 2, 4, 6}) in 4 rows: 4 16-byte reads
+// of V's rows, a 4 x 4 transpose in registers, 8 16-byte writes. The 8
+// lanes of a unit group take the units of one key chunk; the 4 groups of a
+// warp take column groups 2 apart, so reads and writes both run at 4
+// wavefronts a warp instruction (the least for 512 bytes).
+template <int P, int BK>
+__device__ __forceinline__ void transpose_v(const uint8_t* v, uint8_t* vt_hi,
+                                            uint8_t* vt_lo, int v_chunks,
+                                            int warp, int lane) {
+  const int u = lane & 7;
+  const int lg = lane >> 3;
+  const int key0 = 8 * (u >> 1) + (u & 1);
+  const int steps = (BK / 32) * v_chunks * 2;  // (key chunk, box, parity)
+  for (int w = warp; w < steps; w += CONSUMERS / 32) {
+    const int par = w & 1;
+    const int box = (w >> 1) % v_chunks;
+    const int kc = (w >> 1) / v_chunks;
+    const int g = par + 2 * lg;  // the column group in the box: 4 g..4 g+3
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = kc * 32 + key0 + 2 * i;
+      const float4 r = *reinterpret_cast<const float4*>(
+          v + box * (BK * 128) + key * 128 + ((g ^ (key & 7)) << 4));
+      x[i][0] = r.x;
+      x[i][1] = r.y;
+      x[i][2] = r.z;
+      x[i][3] = r.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = box * CHUNK + 4 * g + e;
+      const int off = kc * (P * 128) + row * 128 + ((u ^ (row & 7)) << 4);
+      *reinterpret_cast<float4*>(vt_hi + off) =
+          make_float4(x[0][e], x[1][e], x[2][e], x[3][e]);
+      *reinterpret_cast<float4*>(vt_lo + off) =
+          make_float4(hopper::tf32_lo(x[0][e]), hopper::tf32_lo(x[1][e]),
+                      hopper::tf32_lo(x[2][e]), hopper::tf32_lo(x[3][e]));
+    }
+  }
+}
+
+template <int P, int BK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         float* __restrict__ o, int s, int h, int kvh, int d,
+                         int dv, float scale_log2, int causal, int window) {
+  using L = Smem<P, BK>;
+  static_assert(BK == 32 || BK == 64, "S is one m64n32 or m64n64 product");
+  static_assert(P % 64 == 0, "O is a stack of m64n64 products");
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align every box to it
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_kfull = bar_q + 8, bar_kempty = bar_q + 16;
+  const uint32_t bar_vfull = bar_q + 24, bar_vempty = bar_q + 32;
+
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.x / h;
+  const int hq = blockIdx.x % h;
+  const int kh = hq / (h / kvh);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  int n_tiles = (s + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
+  const int lo = q0 - window + 1;  // the lowest row's first kept key
+  const int t0 = window > 0 && lo > 0 ? lo / BK : 0;
+  const bool windowed = window > 0;
+  const int qk_chunks = (d + CHUNK - 1) / CHUNK;   // boxes that hold data
+  const int v_chunks = (dv + CHUNK - 1) / CHUNK;
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_q, 1);
+    hopper::mbar_init(bar_kfull, 1);
+    hopper::mbar_init(bar_kempty, CONSUMERS);
+    hopper::mbar_init(bar_vfull, 1);
+    hopper::mbar_init(bar_vempty, CONSUMERS);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane issues every copy
+    if (tid == CONSUMERS) {
+      hopper::mbar_arrive_expect_tx(bar_q, qk_chunks * QBOX);
+      for (int c = 0; c < qk_chunks; ++c)
+        hopper::tma_load_4d(base + c * QBOX, &tm_q, bar_q, c * CHUNK, hq, q0,
+                            bi);
+      for (int t = t0; t < n_tiles; ++t) {
+        const int par = ((t - t0) & 1) ^ 1;  // phases count from t0
+        hopper::mbar_wait(bar_kempty, par);
+        hopper::mbar_arrive_expect_tx(bar_kfull, qk_chunks * L::kKBox);
+        for (int c = 0; c < qk_chunks; ++c)
+          hopper::tma_load_4d(base + L::kK + c * L::kKBox, &tm_k, bar_kfull,
+                              c * CHUNK, kh, t * BK, bi);
+        hopper::mbar_wait(bar_vempty, par);
+        hopper::mbar_arrive_expect_tx(bar_vfull, v_chunks * L::kKBox);
+        for (int c = 0; c < v_chunks; ++c)
+          hopper::tma_load_4d(base + L::kV + c * L::kKBox, &tm_v, bar_vfull,
+                              c * CHUNK, kh, t * BK, bi);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup ----
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r_lo = warp * 16 + (lane >> 2);  // this thread's rows: r_lo, +8
+  const int c_in = 2 * (lane & 3);           // its columns in each 8-block
+  const int k_steps = (d + 7) / 8;           // k8 steps of S that see data
+  const int v_slices = (dv + 63) / 64;       // n64 slices of O that do
+  // descriptors of each operand's first k8 step (a step adds 32 bytes, a
+  // box QBOX or BK x 128, a 64-row slice of V^T 8 KB: >> 4 in the address)
+  const uint64_t desc_q = hopper::smem_desc(base, 16, 1024);
+  const uint64_t desc_ql = hopper::smem_desc(base + L::kQ, 16, 1024);
+  const uint64_t desc_k = hopper::smem_desc(base + L::kK, 16, 1024);
+  const uint64_t desc_kl = hopper::smem_desc(base + L::kKlo, 16, 1024);
+  const uint64_t desc_vh = hopper::smem_desc(base + L::kVThi, 16, 1024);
+  const uint64_t desc_vl = hopper::smem_desc(base + L::kVTlo, 16, 1024);
+
+  float acc[P / 2];
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P's A fragments, hi and lo
+
+  // Every wgmma group is committed and retired within one tile: a product
+  // left running across the loop's back edge makes ptxas serialise them
+  // all (the loop-carried accumulators are copied at the back edge).
+  const int k_units = qk_chunks * L::kKBox / 16;
+  hopper::mbar_wait(bar_q, 0);
+  split(sm, sm + L::kQ, qk_chunks * QBOX / 16, tid);
+  hopper::mbar_wait(bar_kfull, 0);
+  split(sm + L::kK, sm + L::kKlo, k_units, tid);
+  for (int t = t0; t < n_tiles; ++t) {
+    const int par = (t - t0) & 1;
+    hopper::fence_proxy_async();
+    hopper::bar_sync(1, CONSUMERS);  // the lo parts of Q and K are written
+
+    // S = Q K^T (f32) in three tf32 passes, the small terms first; the
+    // first product overwrites S. The descriptors are rebuilt each tile
+    // (kept in registers across the loop, 64 of them would crowd out the
+    // accumulators)
+    uint64_t dq = desc_q, dql = desc_ql, dk = desc_k, dkl = desc_kl;
+    asm volatile("" : "+l"(dq), "+l"(dql), "+l"(dk), "+l"(dkl));
+    float sc[BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint64_t a = pass == 1 ? dql : dq;   // Q hi, Q lo, Q hi
+      const uint64_t b = pass == 0 ? dkl : dk;   // K lo, K hi, K hi
+#pragma unroll
+      for (int kc = 0; kc < P / 8; ++kc) {
+        if (kc < k_steps)
+          hopper::wgmma_tf32_ss(sc, a + (kc / 4) * (QBOX >> 4) + (kc % 4) * 2,
+                                b + (kc / 4) * (L::kKBox >> 4) + (kc % 4) * 2,
+                                pass + kc > 0);
+      }
+    }
+    hopper::wgmma_commit();
+    if (L::kAlias) {  // V^T goes over K's tiles: S must have read them
+      hopper::wgmma_wait<0>();
+      hopper::bar_sync(1, CONSUMERS);
+    }
+
+    // V^T (while the tensor cores compute S, unless aliased)
+    hopper::mbar_wait(bar_vfull, par);
+    transpose_v<P, BK>(sm + L::kV, sm + L::kVThi, sm + L::kVTlo, v_chunks,
+                       warp, lane);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(bar_vempty);  // V may be refilled
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::bar_sync(1, CONSUMERS);  // S is read out, V^T is written
+    if (!L::kAlias) hopper::mbar_arrive(bar_kempty);  // K may be refilled
+
+    // masks: the causal one on the diagonal tiles, the key one past s,
+    // the window's lower edge on every tile that holds some row's edge
+    const int k0 = t * BK;
+    if (k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
+        (windowed && k0 <= q0 + BQ - 1 - window)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int row = q0 + r_lo + 8 * ((i >> 1) & 1);
+        const int col = k0 + 8 * (i >> 2) + c_in + (i & 1);
+        if (col >= s || (causal && col > row) ||
+            (windowed && col <= row - window))
+          sc[i] = NEG;
+      }
+    }
+
+    // online softmax; sc becomes p (f32), summed unrounded into l
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], shift[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = exp2f((m[r] - mx[r]) * scale_log2);
+      // a row with no kept key yet (its window starts in a later tile)
+      // takes no shift: its p are then exp2(-1e30 x scale) = 0
+      shift[r] = mx[r] == NEG ? 0.f : mx[r] * scale_log2;
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -shift[r]));
+      rs[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+
+    // P's A fragments, p and its lo part: registers 4kk..4kk+3 of the S
+    // accumulator are rows (r, r, r+8, r+8) at keys (2c, 2c+1, 2c, 2c+1) of
+    // the kk-th 8 keys; the fragment wants rows (r, r+8, r, r+8) at its
+    // columns (c, c, c+4, c+4), so column c is key 2c and c+4 is key 2c+1
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const float pv[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                           sc[4 * kk + 3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // p cut as the tensor core would read it, in a register of its own:
+        // with the S accumulator's own register as the A fragment the
+        // kernel ran 1.8-1.9x slower on an H100 (chip_attn_ab.py; ptxas
+        // printed no serialisation note, the cause is not traced)
+        ph[kk][e] = __float_as_uint(hopper::tf32_trunc(pv[e]));
+        pl[kk][e] = __float_as_uint(hopper::tf32_lo(pv[e]));
+      }
+    }
+
+    // O = alpha O + P V in three tf32 passes (P hi V lo, P lo V hi, P hi
+    // V hi), one m64n64 product per 64 columns that hold data
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    hopper::fence_regs(acc);
+    uint64_t dvh = desc_vh, dvl = desc_vl;
+    asm volatile("" : "+l"(dvh), "+l"(dvl));
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint64_t b = pass == 0 ? dvl : dvh;   // V^T lo, hi, hi
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+#pragma unroll
+        for (int ns = 0; ns < P / 64; ++ns) {
+          if (ns < v_slices)
+            hopper::wgmma_tf32_rs(
+                reinterpret_cast<float(&)[32]>(acc[32 * ns]),
+                pass == 1 ? pl[kk] : ph[kk],
+                b + (kk / 4) * (P * 128 >> 4) + (kk % 4) * 2 +
+                    ns * (64 * 128 >> 4),
+                1);
+        }
+      }
+    }
+    hopper::wgmma_commit();
+    if (!L::kAlias && t + 1 < n_tiles) {
+      // the next tile's K is split while the tensor cores compute PV
+      hopper::mbar_wait(bar_kfull, par ^ 1);
+      split(sm + L::kK, sm + L::kKlo, k_units, tid);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (L::kAlias) {
+      hopper::bar_sync(1, CONSUMERS);  // PV has read V^T: K's tiles are free
+      hopper::mbar_arrive(bar_kempty);
+      if (t + 1 < n_tiles) {
+        hopper::mbar_wait(bar_kfull, par ^ 1);
+        split(sm + L::kK, sm + L::kKlo, k_units, tid);
+      }
+    }
+  }
+
+  // epilogue: acc / max(l, 1e-30), rows below s, columns below dv
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+  const long o_row = (long)h * dv;
+  float* ob = o + (long)bi * s * o_row + (long)hq * dv;
+#pragma unroll
+  for (int i = 0; i < P / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = q0 + r_lo + 8 * r;
+    const int col = 8 * (i >> 2) + c_in;
+    if (row < s && col < dv)
+      *reinterpret_cast<float2*>(ob + row * o_row + col) =
+          make_float2(acc[i] / den[r], acc[i + 1] / den[r]);
+  }
+}
+
+template <int P, int BK, int MIN_BLOCKS>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           void* o, int b, int s, int h, int kvh, int d, int dv,
+           float scale_log2, int causal, int window, cudaStream_t stream) {
+  const int smem = Smem<P, BK>::kBytes;
+  auto kern = flash_attn_tf32x3_kernel<P, BK, MIN_BLOCKS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * h, (s + BQ - 1) / BQ);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o),
+                                        s, h, kvh, d, dv, scale_log2, causal,
+                                        window);
+  return (int)cudaGetLastError();
+}
+
+// The key-tile length for heads padded to P columns: 64, or 32 where the
+// 256-column tiles would not fit in shared memory beside Q.
+template <int P>
+constexpr int tile_keys() { return P <= 128 ? 64 : 32; }
+
+}  // namespace tf
+
 extern "C" {
 
-// q, k, v, o: device pointers of contiguous (b, s, h|kvh, d|dv) tensors,
-// all float32 (is_bf16 = 0) or all bfloat16 (is_bf16 = 1). The wrapper
+// The CUDA-core kernel. q, k, v, o: device pointers of contiguous (b, s,
+// h|kvh, d|dv) tensors, all float32 (is_bf16 = 0) or all bfloat16
+// (is_bf16 = 1). The wrapper
 // checks d, dv in [4, 256] and multiples of 4, h % kvh == 0, b*h <= 65535.
 // window: 0 (none) or the sliding window's width (causal only).
 int fa_forward(const void* q, const void* k, const void* v, void* o, int b,
@@ -631,6 +1077,39 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                               causal, window, st);
   return wg::launch<256, 1>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
                             causal, window, st);
+}
+
+// The tf32 tensor-core kernel. q, k, v, o: device pointers of contiguous
+// float32 (b, s, h|kvh, d|dv) tensors, each 16-byte aligned. The wrapper
+// checks d, dv in [4, 256] and multiples of 4, h % kvh == 0, and
+// ceil(s / 64) <= 65535; window as fa_forward's. Returns
+// cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a tensor map.
+int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
+                      int b, int s, int h, int kvh, int d, int dv,
+                      float scale, int causal, int window, void* stream) {
+  if (d < 4 || d > 256 || d % 4 || dv < 4 || dv > 256 || dv % 4 ||
+      kvh <= 0 || h % kvh || (s + tf::BQ - 1) / tf::BQ > 65535 ||
+      window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || s == 0 || h == 0) return 0;
+  const int p = d > dv ? d : dv;
+  const int bk = p <= 128 ? tf::tile_keys<128>() : tf::tile_keys<256>();
+  CUtensorMap tq, tk, tv;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!tma::make_map(&tq, f32, 4, q, b, s, h, d, tf::CHUNK, tf::BQ) ||
+      !tma::make_map(&tk, f32, 4, k, b, s, kvh, d, tf::CHUNK, bk) ||
+      !tma::make_map(&tv, f32, 4, v, b, s, kvh, dv, tf::CHUNK, bk))
+    return (int)cudaErrorInvalidValue;
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p <= 64)
+    return tf::launch<64, tf::tile_keys<64>(), 1>(
+        tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2, causal, window, st);
+  if (p <= 128)
+    return tf::launch<128, tf::tile_keys<128>(), 1>(
+        tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2, causal, window, st);
+  return tf::launch<256, tf::tile_keys<256>(), 1>(
+      tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2, causal, window, st);
 }
 
 }  // extern "C"

@@ -6,6 +6,14 @@
 // operand tile in shared memory is a stack of 64-element (128-byte) column
 // chunks, each chunk `rows` x 128 B, written by one TMA box with the
 // 128-byte swizzle and starting on a 1024-byte boundary.
+//
+// Its tf32 twin: the same stack of 128-byte chunks, but a chunk is 32 f32
+// columns, and a k8 step of a tf32 wgmma is 8 columns, again 32 bytes, so
+// the descriptors and the start-address step are the bf16 ones. Element
+// (row r, column c) of a chunk lies at byte r * 128 + (((c / 4) ^ (r % 8))
+// * 16) + (c % 4) * 4: the 16-byte unit is XORed with the row's place in
+// its 1024-byte group. A tile that threads write themselves (the kernel's
+// transposed V) follows the same rule, so TMA and threads share one layout.
 #pragma once
 
 #include <cuda.h>
@@ -96,6 +104,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Returns once at most N of this warp's committed wgmma groups are pending
+// (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving register traffic across a wgmma boundary.
@@ -277,5 +291,111 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "r"(scale_d));
 }
 
+// ---- tf32 ------------------------------------------------------------------
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero) as
+// an f32 whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// x as a tf32 wgmma reads an f32 operand on an H100: its low 13 bits
+// dropped (measured: an f32 passed as it is multiplies as this, not as
+// tf32_round(x)).
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & ~0x1FFFu);
+}
+
+// The small part of an f32 operand passed as it is: x - tf32_trunc(x)
+// (exact), rounded to tf32.
+__device__ __forceinline__ float tf32_lo(float x) {
+  return tf32_round(x - tf32_trunc(x));
+}
+
+// Named barrier `id` over `threads` threads (a warpgroup without the
+// producer warp; barrier 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Orders this thread's shared-memory writes (generic proxy) before later
+// reads and writes of the async proxy: wgmma operands, TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// tf32 wgmma has no transpose bit: both operands are K-major. The A
+// fragment of an m64k8 tf32 slice, thread t of the warpgroup (warp w =
+// t / 32, lane l): registers 0..3 hold (row, column) (16 w + l / 4, l % 4),
+// (+8, l % 4), (16 w + l / 4, l % 4 + 4), (+8, l % 4 + 4).
+
+// D (64 x 64, f32) (+)= A (64 x 8, tf32, shared, K-major) * B^T
+// (B: 64 x 8, tf32, shared, K-major). scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, f32) (+)= A (64 x 8, tf32, shared, K-major) * B^T
+// (B: 32 x 8, tf32, shared, K-major).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 8, tf32, registers) * B^T (B: 64 x 8, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
 
 }  // namespace hopper

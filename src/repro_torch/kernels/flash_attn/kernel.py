@@ -1,13 +1,16 @@
 """Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``).
 
-Two kernels compute the same function; :func:`kernel_for` picks one from
-the dtype and the head widths alone:
+Three kernels compute the same function; :func:`kernel_for` picks one
+from the dtype and the head widths alone:
 
 * ``flash_attention_wgmma``: bf16 with ``d`` and ``dv`` multiples of 8
   (TMA needs 16-byte strides), on the tensor cores with TMA loads (the
   serve prefill);
-* ``flash_attention_simt``: f32 (whose 2e-5 tolerance rules out TF32) and
-  bf16 heads of other widths, on the CUDA cores.
+* ``flash_attention_tf32x3``: f32 (any width the wrapper takes: a
+  multiple of 4 floats is 16 bytes), on the tensor cores in three TF32
+  passes (the f32 tolerance of 2e-5 rules out one TF32 pass, not three);
+* ``flash_attention_simt``: bf16 heads of other widths, on the CUDA
+  cores.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
 refuses inputs that need a gradient (neither the kernels nor the
@@ -17,9 +20,9 @@ reference's Pallas kernel have a backward; training attends through
 * for tensors on the CPU, runs the kernels' plain version
   (:func:`.ref.sdpa_ref`; the CPU tests' path);
 * for CUDA tensors, launches the chosen kernel on the current stream, or
-  raises. Nothing falls back to the other kernel or to the plain version.
+  raises. Nothing falls back to another kernel or to the plain version.
 
-Both kernels take a sliding window (``window`` > 0, causal only: query i
+Every kernel takes a sliding window (``window`` > 0, causal only: query i
 keeps key j iff ``i - window < j <= i``) and skip the key tiles wholly
 before it; ``window=0`` is the unwindowed launch.
 
@@ -40,11 +43,14 @@ import torch
 
 from . import ref
 
-#: the two kernels, by the names their launches are counted under
+#: the three kernels, by the names their launches are counted under
 WGMMA = "flash_attention_wgmma"
+TF32X3 = "flash_attention_tf32x3"
 SIMT = "flash_attention_simt"
+#: the tensor-core kernels, by their C entry points
+ENTRIES = {WGMMA: "fa_forward_wgmma", TF32X3: "fa_forward_tf32x3"}
 #: CUDA launches of each kernel (plain ints; reset by assigning 0)
-LAUNCHES = {WGMMA: 0, SIMT: 0}
+LAUNCHES = {WGMMA: 0, TF32X3: 0, SIMT: 0}
 #: ``note(q, k, v, causal, window)`` called at each launch, or None
 NOTE: contextvars.ContextVar = contextvars.ContextVar("flash_attn_note",
                                                       default=None)
@@ -103,7 +109,9 @@ def kernel_for(dtype, d: int, dv: int) -> str:
     """The kernel that takes q/k of width ``d`` and v of width ``dv`` in
     ``dtype`` (widths the wrapper accepts): fixed by dtype and shape,
     never by a failure."""
-    if dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0:
+    if dtype == torch.float32:
+        return TF32X3
+    if d % 8 == 0 and dv % 8 == 0:
         return WGMMA
     return SIMT
 
@@ -116,15 +124,16 @@ def _lib():
 def launch(q, k, v, causal: bool, name: str, window: int = 0):
     """Launch kernel ``name`` on checked CUDA tensors; returns o. The
     wrapper's own path is :func:`flash_attention_fwd`; ``check.py`` also
-    times the CUDA-core kernel at bf16 shapes through here."""
+    times the CUDA-core kernel at the tensor-core kernels' shapes (bf16
+    and f32) through here."""
     ref.check_window(causal, window)
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
-    if name == WGMMA:
-        if kernel_for(q.dtype, d, dv) != WGMMA or any(
+    if name in ENTRIES:
+        if kernel_for(q.dtype, d, dv) != name or any(
                 t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError(f"{WGMMA} takes 16-byte aligned bf16 heads of "
-                             f"widths that are multiples of 8, got "
+            raise ValueError(f"{name} takes 16-byte aligned heads of the "
+                             f"dtype and widths kernel_for gives it, got "
                              f"{q.dtype} d={d} dv={dv}")
         if s > 65535 * 64:
             raise ValueError(f"s={s} exceeds the grid's 65535 query tiles")
@@ -136,8 +145,8 @@ def launch(q, k, v, causal: bool, name: str, window: int = 0):
                 h, kvh, d, dv, 1.0 / (d ** 0.5), int(bool(causal)),
                 int(window))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if name == WGMMA:
-            err = lib.fa_forward_wgmma(*args, stream)
+        if name in ENTRIES:
+            err = getattr(lib, ENTRIES[name])(*args, stream)
         else:
             err = lib.fa_forward(*args, int(q.dtype == torch.bfloat16),
                                  stream)

@@ -181,14 +181,23 @@ def test_window_sectors_wrap_around_the_row():
     assert got.tolist() == [[True, False, False, True]]
 
 
-@pytest.mark.parametrize("s,causal,window", [
-    (1, True, 0), (64, False, 0), (1000, True, 0), (1, True, 1),
-    (65, True, 1), (1000, True, 17), (1000, True, 64), (1000, True, 4096),
-    (8192, True, 4096)])
-def test_attention_bound_counts_the_pairs_the_mask_keeps(s, causal, window):
+@pytest.mark.parametrize("s,causal,window,f32", [
+    (1, True, 0, None), (64, False, 0, None), (1000, True, 0, None),
+    (1, True, 1, None), (65, True, 1, None), (1000, True, 17, None),
+    (1000, True, 64, None), (1000, True, 4096, None),
+    (8192, True, 4096, None),
+    # the f32 cases at llama3.2-3b's heads: (bound ms, bound_by)
+    (512, True, 0, (0.009786285, "operations")),
+    (512, True, 77, (0.005008124, "bytes")),
+    (4096, True, 0, (0.625253978, "operations"))])
+def test_attention_bound_counts_the_pairs_the_mask_keeps(s, causal, window,
+                                                         f32):
     """The attention bound's (query, key) pairs and FLOPs against a count
     of the plain version's mask, and the windowed serve's predicted pair
-    counts (s = 8,192: causal 33,558,528, w = 4,096: 25,167,872)."""
+    counts (s = 8,192: causal 33,558,528, w = 4,096: 25,167,872). In f32
+    the FLOPs go at the faster of the CUDA cores' 67 TFLOP/s and three
+    TF32 passes at 494.7: always the latter (s = 512 causal: 1.614e9
+    FLOPs, 0.0098 ms against 0.0241)."""
     from repro_torch.kernels.flash_attn import check as FC
     pos = torch.arange(s)
     keep = torch.ones((s, s), dtype=torch.bool)
@@ -205,3 +214,16 @@ def test_attention_bound_counts_the_pairs_the_mask_keeps(s, causal, window):
     if (s, window) == (8192, 4096):
         assert pairs == 25_167_872
         assert FC.kept_pairs(s, True) == 33_558_528
+    if f32 is not None:
+        fb = FC.attention_bound(1, s, 24, 8, 128, 128, torch.float32, causal,
+                                window)
+        flops = 2 * 24 * 256 * pairs
+        assert fb["bound_flops"] == flops
+        assert fb["bound_bytes"] == 4 * s * 8192
+        assert fb["bound_peak"] == "tf32 x3 tensor cores"
+        by_ops = 3 * flops / 494.7e12 * 1e3
+        assert by_ops < flops / 67e12 * 1e3
+        assert fb["bound_ms"] == pytest.approx(
+            max(by_ops, fb["bound_bytes"] / 3.35e12 * 1e3), rel=1e-12)
+        assert (fb["bound_ms"], fb["bound_by"]) == (pytest.approx(
+            f32[0], rel=1e-6), f32[1])

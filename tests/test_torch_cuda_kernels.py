@@ -3,13 +3,15 @@
 Flash-hash kernels: exact equality at several geometries (blocks narrower
 than a warp up to 2048-slot blocks) and at the main path's shapes, plus
 the table driven on the card against the same table driven on the CPU.
-Flash attention: both kernels within the reference's tolerances (2e-5
-f32, 2e-2 bf16, TF32 off) from tiny heads to llama3.2-3b's, ragged lengths
-included, each call counted under the kernel the dtype/shape split picks;
-the tensor-core kernel at every tile boundary, GQA ratio, head width and
-with q and k scaled x8; both with a sliding window at tile edges, every
-GQA ratio and head width; and the serving path on the card against the
-CPU. Needs a CUDA card:
+Flash attention: the three kernels within the reference's tolerances
+(2e-5 f32, 2e-2 bf16, TF32 off in PyTorch's own products) from tiny heads
+to llama3.2-3b's, ragged lengths included, each call counted under the
+kernel the dtype/shape split picks; the bf16 tensor-core kernel at every
+tile boundary, GQA ratio, head width and with q and k scaled x8; the f32
+one (three TF32 passes) on every lane of its own (lengths at tile edges,
+GQA ratios, head widths, d != dv, two rows, non-causal, windows at tile
+edges); each with a sliding window at tile edges, every GQA ratio and head
+width; and the serving path on the card against the CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
 import numpy as np
@@ -319,7 +321,7 @@ def _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal, qk_scale=1.0):
                                    cuda, reps=1, qk_scale=qk_scale)
     assert res["kernel"] == name
     assert res["finite"] and res["within_tolerance"], res
-    if name == FK.WGMMA:    # the CUDA-core kernel, timed as the "before"
+    if name != FK.SIMT:     # the CUDA-core kernel, timed as the "before"
         assert res["simt_finite"] and res["simt_within_tolerance"], res
     assert FK.LAUNCHES == before   # checks do not count
     q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, 1, cuda, qk_scale)
@@ -356,13 +358,47 @@ def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
     assert name == FK.WGMMA
 
 
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,causal,w", [
+    (1, 1, 4, 4, 128, 128, True, 0),       # one position, MHA
+    (1, 63, 6, 2, 64, 64, True, 0),        # GQA 3, below one tile
+    (1, 64, 8, 2, 128, 128, True, 0),      # GQA 4, one whole tile
+    (1, 65, 8, 2, 128, 128, True, 0),      # one key past a tile
+    (1, 1000, 24, 8, 128, 128, True, 0),   # llama3.2-3b's heads, ragged
+    (2, 1000, 24, 8, 128, 128, True, 0),   # the same, two rows
+    (1, 40, 4, 2, 16, 16, True, 0),        # the TINY twins' prefill
+    (2, 100, 6, 2, 16, 16, False, 0),      # narrow heads, non-causal
+    (1, 200, 4, 4, 256, 256, True, 0),     # the widest: 32-key tiles
+    (2, 257, 6, 3, 256, 256, False, 0),    # the same, non-causal, GQA 2
+    (1, 300, 4, 1, 64, 128, True, 0),      # d < dv, MQA
+    (1, 129, 4, 1, 128, 64, False, 0),     # d > dv, non-causal
+    (1, 100, 6, 2, 12, 20, True, 0),       # widths no multiple of 8
+    (1, 100, 6, 2, 256, 8, True, 0),       # the widest d, narrowest dv
+    (1, 512, 40, 40, 96, 64, True, 0),     # minicpm3's MLA heads
+    (1, 1000, 4, 1, 128, 128, True, 1),    # a window of one key
+    (1, 512, 24, 8, 128, 128, True, 77),   # an edge across two tiles
+    (2, 1000, 9, 1, 64, 64, True, 100),    # GQA 9, two rows
+    (1, 65, 4, 4, 256, 256, True, 63),     # widest heads, windowed
+    (1, 1000, 9, 1, 256, 256, True, 17),   # the same, a short window
+])
+def test_tf32x3_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
+                                              causal, w):
+    """The f32 kernel (three TF32 passes on the tensor cores) against the
+    plain version within the reference's 2e-5 on every lane, the CUDA-core
+    kernel beside it; one wrapper call counts one launch of it."""
+    assert FK.kernel_for(torch.float32, d, dv) == FK.TF32X3
+    if w:
+        _check_window(cuda, b, s, h, kvh, d, dv, torch.float32, w)
+    else:
+        _check_and_count(cuda, b, s, h, kvh, d, dv, torch.float32, causal)
+
+
 WINDOW_S = [1, 63, 64, 65, 1000, 8192]
 WINDOW_W = [1, 17, 63, 64, 65, 4096]
 
 
 def _check_window(cuda, b, s, h, kvh, d, dv, dtype, window):
-    """Each kernel that takes the case (the tensor-core one for bf16 widths
-    that are multiples of 8, the CUDA-core one always) against
+    """Each kernel that takes the case (the tensor-core one the split
+    picks, and the CUDA-core one always) against
     ``sdpa_ref(window=)`` within the reference's tolerance; one call of
     the wrapper counts one launch, of the kernel the split picks."""
     q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, s + window, cuda)
@@ -453,7 +489,8 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
         cache.close()
     assert runs["cpu"] == runs[str(cuda)]
     assert runs["cpu"][1] == [0, 16, 16, 16, 0, 0, 0, 0]
-    assert FK.LAUNCHES == {FK.SIMT: 5 * cfg.num_layers, FK.WGMMA: 0}
+    assert FK.LAUNCHES == {FK.TF32X3: 5 * cfg.num_layers, FK.WGMMA: 0,
+                           FK.SIMT: 0}
     if flush_threshold:
         assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES
 
@@ -466,7 +503,8 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
 def test_family_serving_on_card_equals_serving_on_cpu(cuda, arch):
     """Each family's TINY in f32 with the same weights on both devices:
     the same greedy outputs, cached prefixes and cache stats; every
-    attention prefill on the card went through the CUDA-core kernel."""
+    attention prefill on the card went through the f32 tensor-core
+    kernel."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -498,4 +536,5 @@ def test_family_serving_on_card_equals_serving_on_cpu(cuda, arch):
     assert runs["cpu"] == runs[str(cuda)]
     attn_layers = cfg.num_groups * cfg.layer_pattern.count("attn")
     prefills = 5 if "ssm" not in cfg.layer_pattern else 8
-    assert FK.LAUNCHES == {FK.SIMT: prefills * attn_layers, FK.WGMMA: 0}
+    assert FK.LAUNCHES == {FK.TF32X3: prefills * attn_layers,
+                           FK.WGMMA: 0, FK.SIMT: 0}
