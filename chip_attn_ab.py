@@ -2,14 +2,18 @@
 """The flash-attention kernels of two or more checkouts, in turns, on one
 NVIDIA GPU.
 
-    python3 chip_attn_ab.py [--cases f32,f32_long] [--reps N] DIR [DIR ...]
+    python3 chip_attn_ab.py [--cases f32,f32_long] [--case NAME=S,DTYPE,H,KVH,D,DV]
+                            [--reps N] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository (the parent commit
 and a change unpacked with ``git archive`` into a git-ignored directory,
 or a copy whose ``csrc/`` was edited by hand to try a variant). Every
 checkout's ``flash_attn.cu`` is built into its own library (one ``nvcc``
 each, started together). For each ``chip_smoke.ATTN_CASES`` entry named
-in ``--cases`` (this checkout's list), the inputs are drawn once
+in ``--cases`` (this checkout's list), and for each causal case that
+``--case`` defines (``d16=512,bfloat16,6,2,16,16``: any shape, e.g. a
+width whose rows TMA takes beside one it does not), the inputs are drawn
+once
 (``check.make_inputs``) and the kernel this checkout's split picks is
 launched through each library's C entry point: its largest difference
 from the plain version is printed, and its device time (``device_ms``:
@@ -34,6 +38,8 @@ ROOT = Path(__file__).resolve().parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", default="f32,f32_window,f32_long")
+    ap.add_argument("--case", action="append", default=[],
+                    help="NAME=S,DTYPE,H,KVH,D,DV: a causal case of its own")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("dirs", nargs="+")
     args = ap.parse_args()
@@ -72,7 +78,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
     cases = {c[0]: c for c in chip_smoke.ATTN_CASES}
-    for name in args.cases.split(","):
+    names = [n for n in args.cases.split(",") if n]
+    for spec in args.case:
+        name, shape = spec.split("=")
+        s, dtype, *heads = shape.split(",")
+        cases[name] = (name, int(s), dtype, True,
+                       tuple(int(x) for x in heads), 1.0)
+        names.append(name)
+    for name in names:
         _, s, dtype, causal, (h, kvh, d, dv), qk_scale, *w = cases[name]
         window = w[0] if w else 0
         dt = getattr(torch, dtype)
@@ -80,14 +93,13 @@ def main() -> int:
                                     qk_scale)
         want = ref.sdpa_ref(q, k, v, causal=causal, window=window)
         which = kernel.kernel_for(dt, d, dv)
-        entry = kernel.ENTRIES.get(which, "fa_forward")
-        extra = () if which in kernel.ENTRIES else (int(dt == torch.bfloat16),)
+        entry = kernel.ENTRIES[which]
         outs, fns = {}, {}
         for label, lib in libs.items():
             fn = getattr(lib.load(), entry)
             o = outs[label] = torch.empty((1, s, h, dv), dtype=dt, device=dev)
             a = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, s,
-                 h, kvh, d, dv, 1.0 / d ** 0.5, int(causal), window, *extra)
+                 h, kvh, d, dv, 1.0 / d ** 0.5, int(causal), window)
             fns[label] = (lambda _, fn=fn, a=a: fn(
                 *a, torch.cuda.current_stream(dev).cuda_stream))
             if fns[label](0) != 0:

@@ -31,25 +31,28 @@ fails (non-zero exit, no result line) without them. Phases:
    included) in turns of 10 calls between two events; the plain version
    over single calls. The query kernels' cold device times at the path's
    layout are taken again from a ``torch.profiler`` trace (a cross
-   check). The three flash-attention kernels against their plain version
+   check). The two flash-attention kernels against their plain version
    at llama3.2-3b's attention shapes (b=1, h=24, kvh=8, d=dv=128): bf16
    causal at s=512 (the serve phase's prefill), 4096 and a ragged 1000,
-   non-causal and with q and k scaled x8 at 512 (the bf16 tensor-core
-   kernel), f32 at 512 (the f32 serve's prefill), at 4096 and at the tiny
-   twin's prefill (the f32 tensor-core kernel: three TF32 passes), and
-   starcoder2 TINY's heads (6 / 2 of d = 12) in bf16 at 512 (the
-   CUDA-core kernel, which no path runs), within 2e-2 (bf16) / 2e-5 (f32)
-   with PyTorch's TF32 off; each case's one wrapper call must launch the
-   kernel the split names and no other. CUDA-event medians timed in
-   turns: the kernel, the CUDA-core kernel at the tensor-core kernels'
-   shapes (the "before"), one ``scaled_dot_product_attention`` call
-   (timed only, never on the path; at f32 512 and 4096 the profiler's
-   names of the kernels it runs are printed) and the plain version, and
-   the first three's device times. The sliding-window cases, each held
+   non-causal and with q and k scaled x8 at 512 (the bf16 kernel), f32 at
+   512 (the f32 serve's prefill), at 4096 and at the tiny twin's prefill
+   (the f32 kernel: three TF32 passes); and at heads whose rows are no
+   multiple of 16 bytes, which each kernel's producer warp loads without
+   TMA: starcoder2 TINY's (6 / 2 of d = 12) in bf16 at 512 and at a ragged
+   1,000 with w = 100, 6 / 2 of d = 10, dv = 5 in bf16 at a ragged 1,000
+   (odd rows on 2-byte boundaries), 4 / 2 of 6 in f32 at 512; within 2e-2
+   (bf16) / 2e-5 (f32) with PyTorch's TF32 off; each case's one wrapper
+   call must launch the kernel the split names and no other. CUDA-event
+   medians timed in turns: the kernel, one
+   ``scaled_dot_product_attention`` call (timed only, never on the path;
+   at f32 512 and 4096 the profiler's names of the kernels it runs are
+   printed) and the plain version, and the first two's device times. The
+   sliding-window cases, each held
    against ``sdpa_ref(window=)``: starcoder2-7b's heads at s = 8,192 with
    its 4,096-token window, llama's at a ragged 1,000 with w = 100 and at
    512 with w = 1 (bf16), f32 at 512 with w = 77 and the windowed tiny
-   twin's prefill (s = 40, w = 8); each prints beside its times the same
+   twin's prefill (s = 40, w = 8), and ``bf16_d12_window`` above; each
+   prints beside its times the same
    kernel's causal launch at the same s, the windowed FLOP bound, and
    SDPA under the dense boolean band mask;
 3. the TF-IDF path end to end: ``TfIdfPipeline`` over ``FlashStore`` with
@@ -217,7 +220,12 @@ fails (non-zero exit, no result line) without them. Phases:
    and hybrid stacks) with identical outputs, cached prefixes and stats,
    every attention prefill on the f32 tensor-core kernel; MLA again with a
    flush threshold of 1 (all three hash kernels launched on the card);
-   llama32's twin again with a sliding window of 8;
+   llama32's twin again with a sliding window of 8, and with heads of 6
+   (24-byte rows, loaded without TMA; each prefill's last logits on the
+   card also within 2e-5 of the CPU's); then starcoder2's TINY in bf16
+   (heads of 12) served on the card in the same order, every prefill on
+   the bf16 kernel, its last logits within 5e-2 of the same prefill's
+   with attention by the plain version on the card;
 15. continuous twins of minicpm3, granite, mamba2 and jamba on the card
    and on the CPU: identical outputs, cached prefixes and stats; the
    paged path for MLA and MoE (``TINY_CONTINUOUS``), the whole-prompt
@@ -286,11 +294,13 @@ fails (non-zero exit, no result line) without them. Phases:
    line with the records of 16-17, a ``mesh`` JSON line with 18's, a
    ``kernels`` JSON line (each hash kernel's launches on the main path,
    each attention kernel's on the paths that run it: bf16 every family's
-   serve, f32 the f32 serve and every f32 twin, the CUDA-core kernel its
-   ``bf16_d12`` case's one call, as the line says; each also with a
-   window (``window_launches``: the windowed starcoder2 serve's, the
-   windowed f32 twin's) beside its windowed case's error, device time,
-   bound and SDPA time, as
+   serve and the bf16 starcoder2 TINY serve, f32 the f32 serve and every
+   f32 twin; each also with a window (``window_launches``: the windowed
+   starcoder2 serve's, the windowed f32 twin's) beside its windowed
+   case's error, device time, bound and SDPA time, and with rows that are
+   no multiple of 16 bytes (``odd_launches``: the bf16 TINY serve's, the
+   f32 twin's with heads of 6) beside its odd case's (``bf16_d12``,
+   ``f32_d6``), as
    ``race_launches`` under the race phase's tracer (0 for attention,
    checked), as ``train_launches`` in phase 16 and as ``mesh_launches``
    in phase 18), then the card line, then the result line.
@@ -333,7 +343,8 @@ CHUNK = 1 << 16
 #: and of the other families' prefills: minicpm3's MLA (the latent
 #: expanded to 40 heads of nope 64 + rope 32, values of 64),
 #: granite-moe-1b, starcoder2-7b (h/kvh = 9) and nemotron-4-340b; and
-#: starcoder2's TINY twin (d = 12: no multiple of 8)
+#: starcoder2's TINY twin (d = 12: no multiple of 8), and heads whose rows
+#: are no multiple of 16 bytes in bf16 (d = 10, dv = 5) and in f32 (6)
 LLAMA_HEADS = (24, 8, 128, 128)
 TINY_HEADS = (4, 2, 16, 16)
 STARCODER2_TINY_HEADS = (6, 2, 12, 12)
@@ -341,15 +352,19 @@ MLA_HEADS = (40, 40, 96, 64)
 GRANITE_HEADS = (16, 8, 64, 64)
 STARCODER2_HEADS = (36, 4, 128, 128)
 NEMOTRON_HEADS = (96, 8, 192, 192)
+ODD_HEADS = (6, 2, 10, 5)
+F32_D6_HEADS = (4, 2, 6, 6)
 #: flash attention cases: (name, s, dtype, causal, heads, q/k scale[,
 #: sliding window]); the tiny twin's prefill is its 40-token prompt. The
 #: windowed cases: starcoder2-7b's published window (4,096) over twice its
 #: length, a window no multiple of a tile over a ragged length, a window
 #: of one key, and the f32 kernel at llama's heads and at the windowed
 #: tiny twin's prefill (40 tokens, w = 8). The f32 cases run the f32
-#: tensor-core kernel (the CUDA-core one timed beside it as the "before");
-#: ``bf16_d12`` (starcoder2 TINY's heads in bf16) is the only one that
-#: runs the CUDA-core kernel as the split picks it
+#: kernel, the others the bf16 one. The last four have rows that are no
+#: multiple of 16 bytes, which each kernel's producer warp loads without
+#: TMA: starcoder2 TINY's heads in bf16 (d = 12), also over a ragged 1,000
+#: with w = 100; d = 10, dv = 5 in bf16 (odd rows on 2-byte boundaries)
+#: over a ragged 1,000; f32 heads of 6
 ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("long", 4096, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("ragged", 1000, "bfloat16", True, LLAMA_HEADS, 1.0),
@@ -371,10 +386,13 @@ ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("f32_window", 512, "float32", True, LLAMA_HEADS, 1.0, 77),
               ("tiny_f32_window", 40, "float32", True, TINY_HEADS, 1.0, 8),
               ("bf16_d12", 512, "bfloat16", True, STARCODER2_TINY_HEADS,
-               1.0)]
+               1.0),
+              ("bf16_odd", 1000, "bfloat16", True, ODD_HEADS, 1.0),
+              ("f32_d6", 512, "float32", True, F32_D6_HEADS, 1.0),
+              ("bf16_d12_window", 1000, "bfloat16", True,
+               STARCODER2_TINY_HEADS, 1.0, 100)]
 #: attention cases longer than this (f32: this long) are timed over 3
-#: rounds (the plain version, the CUDA-core kernel and SDPA take ~10 ms a
-#: call there)
+#: rounds (the plain version and SDPA take ~10 ms a call there)
 ATTN_LONG = 4096
 #: the serve phase's traffic (full width) and its scaled-down twin (TINY)
 SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
@@ -446,6 +464,14 @@ WINDOW_SERVE = dict(arch="starcoder2_7b", window=4096,
 WINDOW_LOGIT_TOL = 0.05
 #: the windowed TINY twins: llama32 with a window of 8 (40-token prompts)
 TINY_WINDOW = 8
+#: llama32's TINY twin with heads of 6 (24-byte f32 rows, loaded without
+#: TMA): each prefill's logits on the card within ``TWIN_LOGIT_TOL`` of the
+#: CPU's (the f32 kernel's tolerance); starcoder2's TINY in bf16 (heads of
+#: 12) against the plain attention route within ``BF16_TWIN_LOGIT_TOL``
+#: (``tests/test_torch_model.py``'s bf16 tolerance)
+TINY_HEAD_DIM = 6
+TWIN_LOGIT_TOL = 2e-5
+BF16_TWIN_LOGIT_TOL = 5e-2
 #: the SSM and hybrid stacks' TINY serial order: 32-token prompts (their
 #: TINY chunk), 16 shared
 TINY_SERVE_SSM = dict(TINY_SERVE, prompt_len=32)
@@ -845,25 +871,22 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
                                    attention_only(want, 1)):
             fail(f"flash_attention {name} ran {r['kernel']} (launches "
                  f"{r['launches']}), not {want}")
-        for who in ("", "simt_"):
-            if who + "max_abs_err" in r and not (
-                    r[who + "finite"] and r[who + "within_tolerance"]):
-                fail(f"flash_attention {name} ({who or r['kernel']}) "
-                     f"disagrees with its plain version (max abs err "
-                     f"{r[who + 'max_abs_err']}, tolerance "
-                     f"{r['tolerance']})")
+        if not (r["finite"] and r["within_tolerance"]):
+            fail(f"flash_attention {name} ({r['kernel']}) disagrees with "
+                 f"its plain version (max abs err {r['max_abs_err']}, "
+                 f"tolerance {r['tolerance']})")
         shares = "; ".join(
             f"{k} {r[k]:.5g} ms ({r[k[:-2] + 'bound_share']:.1%} of the "
-            f"bound)" for k in ("device_ms", "ms", "simt_device_ms",
-                                "simt_ms", "library_device_ms", "library_ms",
-                                "plain_ms") if r.get(k))
+            f"bound)" for k in ("device_ms", "ms", "library_device_ms",
+                                "library_ms", "plain_ms") if r.get(k))
         causal_note = (
             f"; window {window}: causal launch at the same s "
             f"{r['causal_device_ms']:.5g} ms ({r['causal_device_bound_share']:.1%}"
             f" of its bound {r['causal_bound_ms']:.5g} ms), windowed / causal "
             f"{r['device_ms'] / r['causal_device_ms']:.3f}"
             if r.get("causal_device_ms") else "")
-        print(f"flash_attention {name} ({r['kernel']}): {shares}; bound "
+        print(f"flash_attention {name} ({r['kernel']}, {r['loads']} "
+              f"loads): {shares}; bound "
               f"{r['bound_ms']:.5g} ms ({r['bound_by']}){causal_note}",
               flush=True)
         res[name] = r
@@ -2124,25 +2147,14 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
     torch.cuda.synchronize(dev)
     t_init = time.perf_counter() - t_phase
     params = sum(p.numel() for p in model.parameters())
-    runs = []          # each prefill: its inputs, last logits, launches
-    prefill = model.prefill
-
-    def kept(tokens, *args):
-        before = dict(FK.LAUNCHES)
-        out = prefill(tokens, *args)
-        runs.append({"tokens": tokens, "args": args,
-                     "logits": out[0][0, -1].float().clone(),
-                     "launches": {k: FK.LAUNCHES[k] - before[k]
-                                  for k in FK.LAUNCHES}})
-        return out
-    model.prefill = kept     # the serve's timer wraps it and removes both
+    runs = keep_prefills(model)   # each prefill: inputs, logits, launches
     zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
     rec = serve(cfg, model, dev, seed, geo, timed=True)
     no_baseline(f"serve {cfg.name} f32")
     rng = np.random.default_rng(seed + long_len)
     tok = torch.tensor([rng.integers(0, cfg.vocab_size, long_len).tolist()],
                        dtype=torch.int64, device=dev)
-    model.prefill = kept
+    runs_long = keep_prefills(model)
     with torch.inference_mode():
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2150,6 +2162,7 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
         torch.cuda.synchronize(dev)
         long_ms = (time.perf_counter() - t0) * 1e3
     del model.prefill
+    runs += runs_long
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
     name = f"serve {cfg.name} f32"
     want = attention_only(FK.TF32X3, attn_layers(cfg))
@@ -2362,17 +2375,19 @@ def continuous_phase(seed: int, dev, model, serial_tokens_per_s: float):
     return out
 
 
-def tiny_models(seed: int, dev, arch: str = "llama32_3b", window: int = 0):
-    """``arch``'s TINY in f32 (with a sliding ``window`` if > 0) with the
-    same weights on ``dev`` and on the CPU → (cfg, models by device
-    type)."""
+def tiny_models(seed: int, dev, arch: str = "llama32_3b", window: int = 0,
+                head_dim: int = 0):
+    """``arch``'s TINY in f32 (with a sliding ``window`` if > 0, heads of
+    ``head_dim`` if > 0) with the same weights on ``dev`` and on the CPU →
+    (cfg, models by device type)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32",
-                              sliding_window=window)
+    cfg = get_config(arch, tiny=True)
+    cfg = dataclasses.replace(cfg, dtype="float32", sliding_window=window,
+                              head_dim=head_dim or cfg.head_dim)
     cpu = torch.device("cpu")
     weights = Model(cfg, device=cpu, seed=seed).state_dict()
     models = {}
@@ -2382,24 +2397,102 @@ def tiny_models(seed: int, dev, arch: str = "llama32_3b", window: int = 0):
     return cfg, models
 
 
+def keep_prefills(model) -> list:
+    """Until the next serve's timer (or a ``del model.prefill``) removes
+    it, every ``model.prefill`` call appends to the list returned its
+    inputs, its last-position logits (f32) and the flash-attention
+    launches it made."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    runs = []
+    prefill = model.prefill
+
+    def kept(tokens, *args):
+        before = dict(FK.LAUNCHES)
+        out = prefill(tokens, *args)
+        runs.append({"tokens": tokens, "args": args,
+                     "logits": out[0][0, -1].float().clone(),
+                     "launches": {k: FK.LAUNCHES[k] - before[k]
+                                  for k in FK.LAUNCHES}})
+        return out
+    model.prefill = kept     # the serve's timer wraps it and removes both
+    return runs
+
+
+def tiny_bf16_serve(seed: int, dev, arch: str = "starcoder2_7b") -> dict:
+    """``arch``'s TINY in bf16 (starcoder2's heads of 12: 24-byte rows,
+    which the bf16 kernel loads without TMA), random weights from ``seed``
+    on the card, served by the serial engine in the serve tiny order
+    (``TINY_SERVE``). Every prefill must launch the bf16 flash-attention
+    kernel once an attention layer and no other attention kernel; then
+    each prefill runs again on the same inputs with attention by the plain
+    version on the card (:func:`plain_attention`): its last-position
+    logits must agree within ``BF16_TWIN_LOGIT_TOL`` (absolute and
+    relative, as ``tests/test_torch_model.py`` holds bf16 logits to the
+    reference's)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="bfloat16")
+    model = M.Model(cfg, device=dev, seed=seed)
+    runs = keep_prefills(model)
+    zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+    rec = serve(cfg, model, dev, seed, TINY_SERVE)
+    launches = dict(FK.LAUNCHES)
+    name = f"serve tiny {arch} bf16"
+    no_baseline(name)
+    want = attention_only(FK.WGMMA, attn_layers(cfg))
+    if len(runs) != rec["stats"]["misses"] or any(
+            r["launches"] != want for r in runs):
+        fail(f"{name}: prefills launched "
+             f"{[r['launches'] for r in runs]}, expected {want} each for "
+             f"{rec['stats']['misses']} misses")
+    gaps = []
+    with torch.inference_mode(), plain_attention():
+        for r in runs:
+            plain = model.prefill(r["tokens"], *r["args"])[0][0, -1].float()
+            got, plain = r["logits"][:cfg.vocab_size], plain[:cfg.vocab_size]
+            gaps.append(float((got - plain).abs().max()))
+            if not torch.allclose(got, plain, rtol=BF16_TWIN_LOGIT_TOL,
+                                  atol=BF16_TWIN_LOGIT_TOL):
+                fail(f"{name}: the kernel's prefill logits against the "
+                     f"plain route's differ by {gaps[-1]} (tolerance "
+                     f"{BF16_TWIN_LOGIT_TOL})")
+    if FK.LAUNCHES != launches:
+        fail(f"{name}: the plain route launched a kernel")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "head_dim": cfg.head_dim,
+           "outputs": rec["outputs"], "cached_tokens": rec["cached_tokens"],
+           "prefills": len(runs), "logit_max_abs_diff": gaps,
+           "attention_launches": launches}
+    print(f"{name}: {json.dumps(out)}", flush=True)
+    return out
+
+
 def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
-                     drained: bool = True, window: int = 0) -> dict:
+                     drained: bool = True, window: int = 0,
+                     head_dim: int = 0) -> dict:
     """``arch``'s TINY in f32, the same weights on the card and on the CPU:
     identical outputs, cached prefixes, prefix-cache stats and refcounts,
     first as the serial engine leaves them, then (``drained``) drained
     into the device table (every flash-hash kernel launched on the card).
     Every prefill on the card runs the f32 tensor-core flash-attention
     kernel in each attention layer. ``window`` > 0 serves the twin with that
-    sliding window. Returns the first run's record and its
+    sliding window; ``head_dim`` > 0 with heads of that width, and then each
+    prefill's last-position logits on the card must also agree with the
+    CPU's within ``TWIN_LOGIT_TOL``. Returns the first run's record and its
     flash-attention launches."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models.model import has_ssm
-    cfg, models = tiny_models(seed, dev, arch, window)
+    cfg, models = tiny_models(seed, dev, arch, window, head_dim)
     cpu = torch.device("cpu")
     label = ("tiny" if arch == "llama32_3b" else f"tiny {arch}") + (
-        f" window {window}" if window else "")
+        f" window {window}" if window else "") + (
+            f" head_dim {head_dim}" if head_dim else "")
     base = TINY_SERVE_SSM if has_ssm(cfg) else TINY_SERVE
     geos = [(label, base)]
     if drained:
@@ -2409,8 +2502,11 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
     for name, geo in geos:
         runs = {}
         timing = TIMING_STATS if geo.get("flush_threshold") else ()
+        logits = {}
         for d in (dev, cpu):
             zero_launches(K.LAUNCHES, FK.LAUNCHES, K.BASELINE_LAUNCHES)
+            if head_dim:
+                logits[d.type] = keep_prefills(models[d.type])
             rec = serve(cfg, models[d.type], d, seed, geo)
             no_baseline(f"serve {name}")
             stats = {k: v for k, v in rec["stats"].items()
@@ -2432,16 +2528,32 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
         if geo.get("flush_threshold") and min(launches.values()) <= 0:
             fail(f"serve {name}: the refcounts never went through a "
                  f"flash-hash kernel on the card: {launches}")
+        gap = None
+        if head_dim:
+            pairs = [(a["logits"].cpu(), b["logits"])
+                     for a, b in zip(logits["cuda"], logits["cpu"])]
+            gap = max((float((a - b).abs().max()) for a, b in pairs),
+                      default=None)
+            if len(pairs) != prefills or not all(
+                    torch.allclose(a, b, rtol=TWIN_LOGIT_TOL,
+                                   atol=TWIN_LOGIT_TOL) for a, b in pairs):
+                fail(f"serve {name}: the card's prefill logits are not "
+                     f"within {TWIN_LOGIT_TOL} of the CPU's ({prefills} "
+                     f"prefills, largest difference {gap})")
         print(f"serve {name} card == cpu: cached {json.dumps(runs['cpu'][1])}"
               f" held refcounts {json.dumps(runs['cpu'][3])} stats "
               f"{json.dumps(runs['cpu'][2])} card launches "
-              f"{json.dumps({**launches, **attn})}", flush=True)
+              f"{json.dumps({**launches, **attn})}"
+              + (f"; prefill logits card - cpu at most {gap}" if head_dim
+                 else ""), flush=True)
         if first is None:
             first = {"arch": cfg.name, "prompt_len": geo["prompt_len"],
                      "outputs_equal": True, "cached_tokens": runs["cpu"][1],
                      "hits": rec["stats"]["hits"],
                      "misses": rec["stats"]["misses"],
                      "attention_launches": attn}
+            if head_dim:
+                first.update(head_dim=head_dim, logit_max_abs_diff=gap)
         else:
             first["drained_launches"] = launches
     return first
@@ -2772,6 +2884,10 @@ def families_phase(seed: int, dev, card: str) -> dict:
     windowed = f"llama32_3b window {TINY_WINDOW}"
     rec["tiny"][windowed] = tiny_card_vs_cpu(seed, dev, drained=False,
                                              window=TINY_WINDOW)
+    narrow = f"llama32_3b head_dim {TINY_HEAD_DIM}"
+    rec["tiny"][narrow] = tiny_card_vs_cpu(seed, dev, drained=False,
+                                           head_dim=TINY_HEAD_DIM)
+    rec["tiny_bf16"] = tiny_bf16_serve(seed, dev)
     rec["tiny_continuous"][windowed] = tiny_continuous(
         seed, dev, drained=False, window=TINY_WINDOW)
     rec["twins_s"] = time.perf_counter() - t0
@@ -3632,9 +3748,10 @@ def main() -> int:
     twins = tiny_train_twins(args.seed, dev)
     mesh = mesh_phase(args.seed, dev, card)
     window_serve = fam["window_serve"]["launches"]
+    tiny_bf16 = fam["tiny_bf16"]["attention_launches"][FK.WGMMA]
     wgmma = served["launches"][FK.WGMMA] + sum(
         r["launches"][FK.WGMMA] for r in fam["serve"].values()) + (
-            window_serve[FK.WGMMA])
+            window_serve[FK.WGMMA]) + tiny_bf16
     twin_f32 = twin["attention_launches"][FK.TF32X3] + sum(
         r["attention_launches"][FK.TF32X3] for r in fam["tiny"].values())
     kernels = []
@@ -3653,37 +3770,40 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     # each flash-attention kernel at the shape of the path that runs it:
-    # bf16, the serve prefill, launched by every family's serve, and with a
-    # window starcoder2-7b's serve; f32, the f32 serve's 512-token prefill,
-    # launched by the f32 serve (its 4,096-token prefill too) and every f32
-    # twin, and with a window the windowed f32 twin; the CUDA-core kernel,
-    # which no path runs (no shipped bf16 head is narrower than a multiple
-    # of 8), at its ``bf16_d12`` case, whose one wrapper call is its launch
+    # bf16, the serve prefill, launched by every family's serve and the
+    # bf16 starcoder2 TINY serve, and with a window starcoder2-7b's serve;
+    # f32, the f32 serve's 512-token prefill, launched by the f32 serve (its
+    # 4,096-token prefill too) and every f32 twin, and with a window the
+    # windowed f32 twin. Beside each, its case whose rows are no multiple of
+    # 16 bytes (loaded without TMA) and the path that launched it there:
+    # ``bf16_d12`` and the bf16 starcoder2 TINY serve; ``f32_d6`` and the
+    # f32 twin with heads of 6
     window_twin = fam["tiny"][f"llama32_3b window {TINY_WINDOW}"]
-    for name, case, launches, w_case, w_launches, extra in (
+    narrow_twin = fam["tiny"][f"llama32_3b head_dim {TINY_HEAD_DIM}"]
+    for name, case, launches, w_case, w_launches, o_case, o_launches, \
+            extra in (
             (FK.WGMMA, "serve", wgmma, "starcoder2_window",
-             window_serve[FK.WGMMA], {}),
+             window_serve[FK.WGMMA], "bf16_d12", tiny_bf16,
+             {"odd_window_max_abs_err":
+                  attn["bf16_d12_window"]["max_abs_err"],
+              "odd_window_device_ms": attn["bf16_d12_window"]["device_ms"],
+              "ragged_odd_max_abs_err": attn["bf16_odd"]["max_abs_err"],
+              "ragged_odd_device_ms": attn["bf16_odd"]["device_ms"],
+              "ragged_odd_library_device_ms":
+                  attn["bf16_odd"]["library_device_ms"]}),
             (FK.TF32X3, "f32",
              f32["launches"][FK.TF32X3] + twin_f32, "tiny_f32_window",
-             window_twin["attention_launches"][FK.TF32X3],
+             window_twin["attention_launches"][FK.TF32X3], "f32_d6",
+             narrow_twin["attention_launches"][FK.TF32X3],
              {"f32_serve_launches": f32["launches"][FK.TF32X3],
               "twin_launches": twin_f32,
-              "simt_device_ms": attn["f32"]["simt_device_ms"],
               "long_device_ms": attn["f32_long"]["device_ms"],
-              "long_simt_device_ms": attn["f32_long"]["simt_device_ms"],
               "long_library_device_ms":
                   attn["f32_long"]["library_device_ms"],
               "long_bound_ms": attn["f32_long"]["bound_ms"],
               "tiny_device_ms": attn["tiny_f32"]["device_ms"],
-              "f32_serve_logit_gap": max(f32["logit_gaps"])}),
-            (FK.SIMT, "bf16_d12", attn["bf16_d12"]["launches"][FK.SIMT],
-             "f32_window", 0,
-             {"launches_from": "the bf16_d12 attention case's wrapper "
-                               "call: no path runs this kernel",
-              "window_from": "the f32_window case, timed as the f32 "
-                             "kernel's before"})):
-        r, rw = attn[case], attn[w_case]
-        who = "simt_" if name == FK.SIMT else ""
+              "f32_serve_logit_gap": max(f32["logit_gaps"])})):
+        r, rw, ro = attn[case], attn[w_case], attn[o_case]
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
             "replaces": REPLACES["flash_attention"], "launches": launches,
@@ -3693,11 +3813,20 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "window_launches": w_launches,
-            "window_max_abs_err": rw[who + "max_abs_err"],
-            "window_device_ms": rw[who + "device_ms"],
+            "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "window_launches": w_launches,
+            "window_max_abs_err": rw["max_abs_err"],
+            "window_device_ms": rw["device_ms"],
             "window_bound_ms": rw["bound_ms"],
-            "window_library_ms": rw["library_ms"], **extra})
+            "window_library_ms": rw["library_ms"],
+            "odd_case": o_case, "odd_heads": ro["shape"][2:],
+            "odd_launches": o_launches,
+            "odd_max_abs_err": ro["max_abs_err"], "odd_ms": ro["ms"],
+            "odd_device_ms": ro["device_ms"], "odd_plain_ms": ro["plain_ms"],
+            "odd_bound_ms": ro["bound_ms"], "odd_bound_by": ro["bound_by"],
+            "odd_library_ms": ro["library_ms"],
+            "odd_library_device_ms": ro["library_device_ms"], **extra})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
     print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))

@@ -16,9 +16,7 @@ _I = ctypes.c_int
 
 LIBRARY = CudaLibrary(
     "flash_attn", Path(__file__).resolve().parent / "csrc" / "flash_attn.cu",
-    {"fa_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                    _I, _I, _I, _P],
-     "fa_forward_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    {"fa_forward_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           ctypes.c_float, _I, _I, _P],
      "fa_forward_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _I, _P]})

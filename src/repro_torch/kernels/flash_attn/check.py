@@ -6,24 +6,23 @@ tests at smaller ones. Inputs are N(0, 1) draws from a seed on the target
 device; ``qk_scale`` multiplies q and k, so the scores grow by its square
 (which stresses the online rescale and the -1e30 masking) while v and the
 output keep their size. :func:`check_flash_attention` runs the wrapper
-(for CUDA tensors, the kernel :func:`.kernel.kernel_for` picks) and the
-plain version, and returns the largest absolute difference, whether it
-is within the stated tolerance, the least time the card could take, and
-CUDA-event medians timed in turns within one call: the kernel, the
-CUDA-core kernel at the same shape where a tensor-core kernel took the
-call (the "before", bf16 or f32; its error is held too), one library
-call computing the same function (``scaled_dot_product_attention``, timed only: the
-port never calls it) and the plain version; and the device times of the
-kernel, the CUDA-core kernel and the library call with no Python between
-launches (``device_ms``, ``simt_device_ms``, ``library_device_ms``:
-graph replays, :func:`..flash_hash.check.device_ms`). With a sliding
-``window`` the kernel, the CUDA-core kernel and the plain version take it,
-the library call takes the dense boolean band mask, and the same kernel's
-causal launch at the same shape is timed beside it (``causal_ms``,
-``causal_device_ms``).
+(for CUDA tensors, the kernel :func:`.kernel.kernel_for` picks, by TMA
+or by its own loads as :func:`.kernel.tma_loads` says) and the plain
+version, and returns the largest absolute difference, whether it is
+within the stated tolerance, the least time the card could take, and
+CUDA-event medians timed in turns within one call: the kernel, one
+library call computing the same function (``scaled_dot_product_attention``,
+timed only: the port never calls it) and the plain version; and the
+device times of the kernel and the library call with no Python between
+launches (``device_ms``, ``library_device_ms``: graph replays,
+:func:`..flash_hash.check.device_ms`). With a sliding ``window`` the
+kernel and the plain version take it, the library call takes the dense
+boolean band mask, and the same kernel's causal launch at the same shape
+is timed beside it (``causal_ms``, ``causal_device_ms``).
 
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
-v and o (each read or written once) over the card's memory rate, and the
+v and o (each read or written once, at the true widths d and dv, never
+the padded ones) over the card's memory rate, and the
 FLOPs of the two products over the pairs the mask keeps (2 (d + dv) per
 (query, key, head); :func:`kept_pairs`) at the card's dense peak for the
 type. For bf16 that is the tensor cores' bf16 rate. For f32 it is the
@@ -178,17 +177,11 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
         torch.cuda.synchronize(device)
     out = {"shape": [b, s, h, kvh, d, dv], "dtype": str(dtype).split(".")[-1],
            "causal": causal, "window": window, "qk_scale": qk_scale,
-           "kernel": name if cuda else "plain", "launches": launched,
-           "tolerance": tol, **_error(got, want, tol)}
+           "kernel": name if cuda else "plain",
+           "loads": "tma" if K.tma_loads(dtype, d, dv) else "warp",
+           "launches": launched, "tolerance": tol, **_error(got, want, tol)}
     if cuda:
         fns = {"ms": lambda _: K.launch(q, k, v, causal, name, window)}
-        if name != K.SIMT:
-            simt = K.launch(q, k, v, causal, K.SIMT, window)
-            torch.cuda.synchronize(device)
-            err = _error(simt, want, tol)
-            out.update({f"simt_{key}": val for key, val in err.items()})
-            fns["simt_ms"] = lambda _: K.launch(q, k, v, causal, K.SIMT,
-                                                window)
         if window:
             fns["causal_ms"] = lambda _: K.launch(q, k, v, True, name)
         library = library_call(q, k, v, causal, window)
@@ -212,8 +205,8 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
         if out.get("causal_device_ms"):
             out["causal_device_bound_share"] = (out["causal_bound_ms"]
                                                 / out["causal_device_ms"])
-    for key in ("ms", "simt_ms", "library_ms", "plain_ms", "device_ms",
-                "simt_device_ms", "library_device_ms"):
+    for key in ("ms", "library_ms", "plain_ms", "device_ms",
+                "library_device_ms"):
         if out.get(key):
             out[key[:-2] + "bound_share"] = out["bound_ms"] / out[key]
     return out

@@ -6,11 +6,14 @@
 // allocates nothing, and returns the first CUDA error (cudaGetLastError()
 // after the launch) so that a refused launch surfaces in the wrapper.
 //
-// All three kernels replace src/repro/kernels/flash_attn/kernel.py:
+// Both kernels replace src/repro/kernels/flash_attn/kernel.py:
 // flash_attention_fwd (body _fwd_kernel): causal or non-causal GQA
 // attention with an online softmax. q (b, s, h, d), k (b, s, kvh, d),
 // v (b, s, kvh, dv) and the output o (b, s, h, dv) keep that layout in
 // device memory; query head hq of batch row bi reads KV head hq / (h / kvh).
+// d and dv are any widths from 1 to 256, as the reference's are (it pads
+// nothing and takes any width): flash_attn_wgmma_kernel takes every bf16
+// call, flash_attn_tf32x3_kernel every f32 one.
 // Precision follows the reference kernel step by step: f32 scores of the
 // inputs scaled by 1/sqrt(d) (the reference scales q in f32 first; the
 // two orders differ by f32 rounding only), masked scores and the initial
@@ -28,14 +31,54 @@
 // before every row's window are neither loaded nor computed: O(s w) work
 // instead of O(s^2). The lower edge is masked on each tile it crosses
 // (two tiles where window is no multiple of the tile). A row can find
-// every key of its first tile masked (its edge lies in the next tile):
-// the CUDA-core kernel then does the reference's arithmetic (max -1e30,
-// p = exp(0) = 1, cleared by the next tile's alpha = exp(-1e30 - m) = 0,
-// exactly); the tensor-core kernels, whose exp2 of a fused multiply-add
-// would see the rounding error of -1e30 x scale, take no shift for a
-// row whose max is still -1e30, so its p are exp2(-huge) = 0 and its l
-// and acc stay 0 until a kept key arrives (the same result: 0 against
-// x * 0).
+// every key of its first tile masked (its edge lies in the next tile).
+// The reference's arithmetic then takes max -1e30 and p = exp(0) = 1, which
+// the next tile's alpha = exp(-1e30 - m) = 0 clears exactly; the kernels,
+// whose exp2 of a fused multiply-add would see the rounding error of -1e30
+// x scale, take no shift for a row whose max is still -1e30, so its p are
+// exp2(-huge) = 0 and its l and acc stay 0 until a kept key arrives (the
+// same result: 0 against x * 0).
+//
+// Loads: both kernels read q, k and v as they lie (no padded copy in
+// device memory) into one shared-memory layout, boxes of 128 bytes of one
+// head's columns (64 bf16 or 32 f32) by 64 (or 32) positions, 128-byte
+// swizzled, on a 1024-byte boundary. The entry point picks one of two
+// routes a call, by the rows' length (width x element size, for d and dv):
+//   - 16-byte rows (bf16 widths multiples of 8, f32 of 4): TMA, from 4-D
+//     tensor maps built on the host for each call. TMA zero-fills rows past
+//     s and columns past d inside a box. Each full barrier takes one
+//     arrival and the boxes' bytes.
+//   - Other rows (a tensor map needs 16-byte strides): the producer warp's
+//     32 lanes write the same boxes (hopper.cuh: load_boxes) with their own
+//     loads, in granules of 2, 4 or 8 bytes: the largest power of two that
+//     divides every row's length and every tensor's address (the entry
+//     point's `granule`; 2 for a bf16 row of odd width, which starts on a
+//     2-byte boundary). Plain loads and not cp.async: cp.async copies 4, 8
+//     or 16 aligned bytes, so it would not take every row, and the
+//     registers let a unit be stored whole with its zeros. The whole warp
+//     and not one lane, since it is one warp's instruction stream that
+//     limits this route: a tile's K and V boxes are gathered together, the
+//     units that may hold data (rounded up to a power of two a row, so the
+//     index math is shifts) spread over the lanes, every granule load a
+//     predicated ld.global.nc (nothing read, zeros kept, past s or past the
+//     row's data: no branch, no clamped address), all issued before the
+//     producer waits for the buffer to be free, so the round trip to L2
+//     overlaps that wait. Measured on an H100 (PERF.md, section 6): with
+//     one element a load and clamped addresses the loader alone cost 1.8
+//     us a tile, twice the consumers' work at d = 12. The units past a
+//     row's data are zeroed once a buffer (they stay zero: only the
+//     producer writes K and V), or each tile where the f32 kernel's V^T
+//     lies over K. Each lane orders its stores before the tensor cores'
+//     reads (fence.proxy.async) and arrives on the stage's full barrier,
+//     which counts 32 arrivals on this route; the empty barriers, the
+//     ring, the consumers and their k steps are the TMA route's, and no
+//     tensor map is built.
+//   Zeros add exactly nothing to either product (in bf16, and in each of
+//   the three TF32 passes: a zero's lo part is zero), so a padded width
+//   gives the unpadded result; rows past s are masked keys (p = 0, and 0 x 0
+//   for V) or query rows that are not stored. The output's pairs are stored
+//   element by element where dv is odd (a pair would cross the row and its
+//   4- or 8-byte alignment).
 //
 // Bound on the card: at serving shapes (d = 128, bf16) the FLOPs of the
 // two products bound it from s of about 1,000 up (4 h d flops per
@@ -44,10 +87,10 @@
 // about 300 up, at a third of the tensor cores' TF32 peak (three passes).
 //
 // ---------------------------------------------------------------------------
-// flash_attn_wgmma_kernel: bf16 with d and dv multiples of 8, at most 256
-//   (the serve prefill). Both products run on the tensor cores (wgmma),
-//   and every tile arrives by TMA, so the CUDA cores are left with the
-//   softmax.
+// flash_attn_wgmma_kernel: bf16, d and dv from 1 to 256 (the serve
+//   prefill). Both products run on the tensor cores (wgmma), and every tile
+//   arrives by TMA or the producer warp's loads, so the consumers' CUDA
+//   cores are left with the softmax.
 //   - Work split: one CTA per (batch row x query head, 64-row query tile),
 //     the tiles of the last (heaviest causal) query rows launched first.
 //     Four consumer warps (one warpgroup, wgmma's M of 64) and one
@@ -55,13 +98,12 @@
 //     s = 512 that is 8 x 24 = 192 CTAs for 132 SMs; at d = 128 a CTA
 //     takes 82 KB of shared memory, so two share an SM and one's softmax
 //     overlaps the other's products.
-//   - Loads: 4-D tensor maps over q, k, v as they lie (no copies), built
-//     on the host for each call and passed as __grid_constant__ params.
-//     Boxes are 64 rows x 64 columns (128 bytes, the 128-byte swizzle's
+//   - Loads (see above; the tensor maps are __grid_constant__ params):
+//     boxes of 64 rows x 64 columns (128 bytes, the 128-byte swizzle's
 //     limit), so a 128-wide head is two boxes. Q is loaded once; K and V
 //     tiles of 64 keys go through a two-stage ring with full/empty
-//     mbarriers. TMA zero-fills rows past s and columns past d inside a
-//     box, so no garbage reaches a product; boxes wholly past d or dv
+//     mbarriers. Rows past s and columns past d inside a box arrive as
+//     zeros, so no garbage reaches a product; boxes wholly past d or dv
 //     are not loaded.
 //   - S = Q K^T: wgmma m64n64k16, both operands K-major from shared
 //     memory, f32 accumulators; the scores are scaled in f32.
@@ -80,9 +122,8 @@
 //     warpgroups per CTA sharing each K/V tile, and FlashAttention-3's
 //     overlap of one tile's softmax with the previous tile's PV product.
 //
-// flash_attn_tf32x3_kernel: f32, d and dv multiples of 4 (16-byte rows,
-//   so TMA takes every f32 shape the wrapper does). Both products run on
-//   the tensor cores in tf32 in three passes: x = hi + lo, where hi is x
+// flash_attn_tf32x3_kernel: f32, d and dv from 1 to 256. Both products run
+//   on the tensor cores in tf32 in three passes: x = hi + lo, where hi is x
 //   as the tensor core reads an f32 operand (its low 13 bits dropped:
 //   measured on an H100, where a lo taken against cvt.rna's rounding
 //   instead left errors of 2.8e-3) and lo = tf32(x - hi) (cvt.rna.tf32),
@@ -91,13 +132,13 @@
 //   of its operands (lo_a lo_b, under 2^-20 of it, is dropped): the
 //   reference's f32 tolerance of 2e-5 rules out one tf32 pass (10 bits:
 //   70-132x over it on the reference's f32 sweep), not three. So hi is the
-//   operand as it lies: Q and K go to the tensor cores as TMA wrote them,
+//   operand as it lies: Q and K go to the tensor cores as they were loaded,
 //   V^T and P as they are, and only lo is formed on the CUDA cores.
 //   - Work split, producer warp, consumer warpgroup, heaviest tiles first,
-//     window tiles skipped: as the bf16 kernel. Q, K and V arrive by TMA
-//     in boxes of 32 f32 columns (128 bytes, the swizzle's width; narrower
-//     heads are zero-filled in the box); K and V have one buffer each with
-//     full / empty mbarriers of their own.
+//     window tiles skipped, the two load routes: as the bf16 kernel. Q, K
+//     and V arrive in boxes of 32 f32 columns (128 bytes, the swizzle's
+//     width; narrower heads are zero-filled in the box); K and V have one
+//     buffer each with full / empty mbarriers of their own.
 //   - tf32 wgmma (m64nNk8) has no transpose bit: both operands are
 //     K-major. Q and K are as they lie; the consumers write each one's lo
 //     part beside it. V (keys x dv, dv contiguous) is MN-major, so the
@@ -124,17 +165,6 @@
 //     the phases in turn. O is a stack of m64n64 products, so dv = 256 is
 //     128 accumulator registers a thread, with no spill.
 //
-// flash_attn_fwd_kernel: bf16 heads whose d or dv is not a multiple of 8
-//   (and, through kernel.launch, the f32 "before" that check.py times).
-//   One CTA of four warps per (b*h, 32-row query tile). The scaled query
-//   tile is staged in shared memory in f32; the CTA walks 32-key K/V tiles
-//   from the window's first tile up to the causal limit, skipping the
-//   tiles the mask empties as the reference does. Each warp owns 8 query rows. For the scores a lane
-//   owns one key of the tile (float4 reads of its K row against broadcast
-//   reads of the query rows); the running max and denominator come from
-//   warp shuffles; for the PV product a lane owns the output dims
-//   lane + 32 i and reads each key's probability by shuffle. Everything
-//   runs on the CUDA cores in f32, far above the f32 FLOP bound.
 // ---------------------------------------------------------------------------
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -142,214 +172,8 @@
 
 #include "hopper.cuh"
 
-#define FULL_MASK 0xffffffffu
-
-namespace {
-
-constexpr int WARPS = 4;
-constexpr int ROWS = 8;             // query rows per warp
-constexpr int BQ = WARPS * ROWS;    // query rows per CTA
-constexpr int BK = 32;              // keys per K/V tile: one per lane
-constexpr int PAD = 4;              // floats of padding per shared row
-constexpr float NEG = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL_MASK, x, o);
-  return x;
-}
-
-// NDIM = ceil(dv / 32) rounded up to a power of two: output dims per lane.
-template <typename T, int NDIM>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int s,
-                      int h, int kvh, int d, int dv, float scale, int causal,
-                      int window) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldq = d + PAD;
-  const int ldv = dv + PAD;
-  float* Qs = smem;                 // [BQ][ldq] scaled queries
-  float* Ks = Qs + BQ * ldq;        // [BK][ldq]
-  float* Vs = Ks + BK * ldq;        // [BK][ldv]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int bi = blockIdx.y / h;
-  const int hq = blockIdx.y % h;
-  const int kh = hq / (h / kvh);
-  const int q0 = blockIdx.x * BQ;
-
-  // element strides between consecutive positions of each tensor
-  const long q_row = (long)h * d;
-  const long k_row = (long)kvh * d;
-  const long v_row = (long)kvh * dv;
-  const long o_row = (long)h * dv;
-  const T* qb = q + (long)bi * s * q_row + (long)hq * d;
-  const T* kb = k + (long)bi * s * k_row + (long)kh * d;
-  const T* vb = v + (long)bi * s * v_row + (long)kh * dv;
-  T* ob = o + (long)bi * s * o_row + (long)hq * dv;
-
-  for (int i = tid; i < BQ * d; i += WARPS * 32) {
-    const int r = i / d;
-    const int c = i - r * d;
-    const int pos = q0 + r;
-    Qs[r * ldq + c] = pos < s ? to_f<T>(qb[pos * q_row + c]) * scale : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][NDIM];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NDIM; ++i) acc[r][i] = 0.f;
-  }
-
-  int n_tiles = (s + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
-  const int lo = q0 - window + 1;  // the lowest row's first kept key
-  const int t0 = window > 0 && lo > 0 ? lo / BK : 0;
-  const float* q_rows = Qs + warp * ROWS * ldq;
-
-  for (int t = t0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    for (int i = tid; i < BK * d; i += WARPS * 32) {
-      const int r = i / d;
-      const int c = i - r * d;
-      const int pos = k0 + r;
-      Ks[r * ldq + c] = pos < s ? to_f<T>(kb[pos * k_row + c]) : 0.f;
-    }
-    for (int i = tid; i < BK * dv; i += WARPS * 32) {
-      const int r = i / dv;
-      const int c = i - r * dv;
-      const int pos = k0 + r;
-      Vs[r * ldv + c] = pos < s ? to_f<T>(vb[pos * v_row + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this lane's key against the warp's rows
-    float sc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) sc[r] = 0.f;
-    const float* k_lane = Ks + lane * ldq;
-    for (int c = 0; c < d; c += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(k_lane + c);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qq =
-            *reinterpret_cast<const float4*>(q_rows + r * ldq + c);
-        sc[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
-      }
-    }
-
-    // online softmax; sc[r] becomes the probability the PV product reads
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qpos = q0 + warp * ROWS + r;
-      const bool keep = kpos < s && (!causal || kpos <= qpos) &&
-                        (window <= 0 || kpos > qpos - window);
-      const float x = keep ? sc[r] : NEG;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < NDIM; ++i) acc[r][i] *= alpha;
-      sc[r] = to_f<T>(from_f<T>(p));
-    }
-
-    // PV: this lane's output dims over the tile's keys
-    for (int j = 0; j < BK; ++j) {
-      const float* v_key = Vs + j * ldv;
-      float vv[NDIM];
-#pragma unroll
-      for (int i = 0; i < NDIM; ++i) {
-        const int c = lane + 32 * i;
-        vv[i] = c < dv ? v_key[c] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float pj = __shfl_sync(FULL_MASK, sc[r], j);
-#pragma unroll
-        for (int i = 0; i < NDIM; ++i) acc[r][i] += pj * vv[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qpos = q0 + warp * ROWS + r;
-    if (qpos >= s) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NDIM; ++i) {
-      const int c = lane + 32 * i;
-      if (c < dv) ob[qpos * o_row + c] = from_f<T>(acc[r][i] / den);
-    }
-  }
-}
-
-template <typename T, int NDIM>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
-           int h, int kvh, int d, int dv, float scale, int causal, int window,
-           cudaStream_t stream) {
-  const size_t smem =
-      (size_t)((BQ + BK) * (d + PAD) + BK * (dv + PAD)) * sizeof(float);
-  auto kern = flash_attn_fwd_kernel<T, NDIM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s + BQ - 1) / BQ, b * h);
-  kern<<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, h, kvh, d, dv, scale,
-      causal, window);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int s, int h, int kvh, int d, int dv, float scale, int causal,
-             int window, cudaStream_t st) {
-  if (dv <= 32) return launch<T, 1>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
-  if (dv <= 64) return launch<T, 2>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
-  if (dv <= 128) return launch<T, 4>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
-  return launch<T, 8>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal, window, st);
-}
-
-}  // namespace
-
 // ---------------------------------------------------------------------------
-// Tensor maps (host): both tensor-core kernels load q, k, v by TMA
+// Tensor maps (host): both kernels' TMA route over q, k, v
 // ---------------------------------------------------------------------------
 namespace tma {
 
@@ -404,6 +228,29 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
 
 }  // namespace tma
 
+// One call's operands and sizes, as an entry point hands them to a launch.
+struct Call {
+  bool tma;                  // the route: TMA, or the producer warp's loads
+  CUtensorMap tq, tk, tv;    // the TMA route's maps (zeros on the other)
+  const void *q, *k, *v;
+  void* o;
+  int b, s, h, kvh, d, dv;
+  float scale_log2;          // 1/sqrt(d) log2(e): exp(x) = 2^(x log2 e)
+  int causal, window;
+  int g;                     // the other route's granule bytes
+  cudaStream_t stream;
+};
+
+// The largest power of two up to 8 that divides the rows' lengths (`elem`
+// x d and x dv bytes) and the tensors' addresses: the granule the producer
+// warp loads in where a row is not 16 bytes.
+int granule(int elem, int d, int dv, const void* q, const void* k,
+            const void* v) {
+  const uintptr_t x = (uintptr_t)(elem * d) | (uintptr_t)(elem * dv) |
+                      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | 8u;
+  return (int)(x & (~x + 1));
+}
+
 // ---------------------------------------------------------------------------
 // flash_attn_wgmma_kernel (design in the note at the top)
 // ---------------------------------------------------------------------------
@@ -432,14 +279,19 @@ struct Smem {
   static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * STAGES);
 };
 
-template <int P, int MIN_BLOCKS>
+// TMA: the boxes arrive by TMA (tm_*), else the producer warp loads them
+// from q, k, v (the note at the top).
+template <int P, int MIN_BLOCKS, bool TMA>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
+                        const uint16_t* __restrict__ q,
+                        const uint16_t* __restrict__ k,
+                        const uint16_t* __restrict__ v,
                         __nv_bfloat16* __restrict__ o, int s, int h, int kvh,
                         int d, int dv, float scale_log2, int causal,
-                        int window) {
+                        int window, int g) {
   using L = Smem<P>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align every box to it
@@ -464,15 +316,70 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int v_chunks = (dv + CHUNK - 1) / CHUNK;
 
   if (tid == 0) {
-    hopper::mbar_init(bar_q, 1);
+    hopper::mbar_init(bar_q, TMA ? 1 : 32);
     for (int i = 0; i < STAGES; ++i) {
-      hopper::mbar_init(bar_full + 8 * i, 1);
+      hopper::mbar_init(bar_full + 8 * i, TMA ? 1 : 32);
       hopper::mbar_init(bar_empty + 8 * i, CONSUMERS);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
+  if (!TMA && tid >= CONSUMERS) {  // the producer warp: all lanes load
+    using hopper::Box;
+    const int lane = tid - CONSUMERS;
+    // byte strides between positions, and each head's first row
+    const long ldq = 2L * h * d, ldk = 2L * kvh * d, ldv = 2L * kvh * dv;
+    const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
+                        ((long)bi * s + q0) * ldq + 2L * hq * d;
+    const uint8_t* kb =
+        reinterpret_cast<const uint8_t*>(k) + bi * s * ldk + 2L * kh * d;
+    const uint8_t* vb =
+        reinterpret_cast<const uint8_t*>(v) + bi * s * ldv + 2L * kh * dv;
+    auto produce = [&](auto gran) {
+      constexpr int G = decltype(gran)::value;
+      for (int c = 0; c < qk_chunks; ++c) {
+        const Box bq[1] = {{sq + c * BOX, qh + 128 * c, ldq, s - q0,
+                            2 * d - 128 * c}};
+        hopper::load_boxes<G, BQ>(bq, true, lane, hopper::NoWait());
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(bar_q);
+      for (int t = t0; t < n_tiles; ++t) {
+        const int j = t - t0;  // ring slot and phase count from t0
+        const int st = j % STAGES;
+        const uint32_t sk = skv + st * L::kStage;
+        const int rows = s - t * BK;
+        auto ready = [&] {
+          hopper::mbar_wait(bar_empty + 8 * st, ((j / STAGES) & 1) ^ 1);
+        };
+        // box c of K and box c of V together, while both have one
+        for (int c = 0; c < max(qk_chunks, v_chunks); ++c) {
+          const Box bk = {sk + c * BOX, kb + t * BK * ldk + 128 * c, ldk,
+                          rows, 2 * d - 128 * c};
+          const Box bv = {sk + L::kTile + c * BOX,
+                          vb + t * BK * ldv + 128 * c, ldv, rows,
+                          2 * dv - 128 * c};
+          if (c < qk_chunks && c < v_chunks) {
+            const Box kv[2] = {bk, bv};
+            hopper::load_boxes<G, BK>(kv, j < STAGES, lane, ready);
+          } else {
+            const Box one[1] = {c < qk_chunks ? bk : bv};
+            hopper::load_boxes<G, BK>(one, j < STAGES, lane, ready);
+          }
+        }
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(bar_full + 8 * st);
+      }
+    };
+    if (g == 8)
+      produce(hopper::Int<8>());
+    else if (g == 4)
+      produce(hopper::Int<4>());
+    else
+      produce(hopper::Int<2>());
+    return;
+  }
   if (tid >= CONSUMERS) {  // the producer warp: one lane issues every copy
     if (tid == CONSUMERS) {
       hopper::mbar_arrive_expect_tx(bar_q, qk_chunks * BOX);
@@ -608,14 +515,22 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const long o_row = (long)h * dv;
   __nv_bfloat16* ob = o + (long)bi * s * o_row + (long)hq * dv;
+  const bool pairs = TMA || dv % 2 == 0;  // a pair stays in the row, aligned
 #pragma unroll
   for (int i = 0; i < P / 2; i += 2) {
     const int r = (i >> 1) & 1;
     const int row = q0 + r_lo + 8 * r;
     const int col = 8 * (i >> 2) + c_in;
-    if (row < s && col < dv)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * o_row + col) =
-          __floats2bfloat162_rn(acc[i] / den[r], acc[i + 1] / den[r]);
+    if (row < s && col < dv) {
+      __nv_bfloat16* out = ob + row * o_row + col;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(out) =
+            __floats2bfloat162_rn(acc[i] / den[r], acc[i + 1] / den[r]);
+      } else {
+        out[0] = __float2bfloat16(acc[i] / den[r]);
+        if (col + 1 < dv) out[1] = __float2bfloat16(acc[i + 1] / den[r]);
+      }
+    }
   }
 }
 
@@ -627,21 +542,27 @@ bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
                        heads, width, CHUNK, 64);
 }
 
-template <int P, int MIN_BLOCKS>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int b, int s, int h, int kvh, int d, int dv,
-           float scale_log2, int causal, int window, cudaStream_t stream) {
+template <int P, int MIN_BLOCKS, bool TMA>
+int launch(const Call& c) {
   const int smem = Smem<P>::kBytes;
-  auto kern = flash_attn_wgmma_kernel<P, MIN_BLOCKS>;
+  auto kern = flash_attn_wgmma_kernel<P, MIN_BLOCKS, TMA>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b * h, (s + BQ - 1) / BQ);
-  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv,
-                                        static_cast<__nv_bfloat16*>(o), s, h,
-                                        kvh, d, dv, scale_log2, causal,
-                                        window);
+  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ);
+  kern<<<grid, THREADS, smem, c.stream>>>(
+      c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
+      static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
+      static_cast<__nv_bfloat16*>(c.o), c.s, c.h, c.kvh, c.d, c.dv,
+      c.scale_log2, c.causal, c.window, c.g);
   return (int)cudaGetLastError();
+}
+
+// The instance for heads padded to P columns, on the call's route.
+template <int P, int MIN_BLOCKS>
+int route(const Call& c) {
+  return c.tma ? launch<P, MIN_BLOCKS, true>(c)
+               : launch<P, MIN_BLOCKS, false>(c);
 }
 
 }  // namespace wg
@@ -743,13 +664,18 @@ __device__ __forceinline__ void transpose_v(const uint8_t* v, uint8_t* vt_hi,
   }
 }
 
-template <int P, int BK, int MIN_BLOCKS>
+// TMA: as the bf16 kernel's.
+template <int P, int BK, int MIN_BLOCKS, bool TMA>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
+                         const uint32_t* __restrict__ q,
+                         const uint32_t* __restrict__ k,
+                         const uint32_t* __restrict__ v,
                          float* __restrict__ o, int s, int h, int kvh, int d,
-                         int dv, float scale_log2, int causal, int window) {
+                         int dv, float scale_log2, int causal, int window,
+                         int g) {
   using L = Smem<P, BK>;
   static_assert(BK == 32 || BK == 64, "S is one m64n32 or m64n64 product");
   static_assert(P % 64 == 0, "O is a stack of m64n64 products");
@@ -776,15 +702,72 @@ flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int v_chunks = (dv + CHUNK - 1) / CHUNK;
 
   if (tid == 0) {
-    hopper::mbar_init(bar_q, 1);
-    hopper::mbar_init(bar_kfull, 1);
+    hopper::mbar_init(bar_q, TMA ? 1 : 32);
+    hopper::mbar_init(bar_kfull, TMA ? 1 : 32);
     hopper::mbar_init(bar_kempty, CONSUMERS);
-    hopper::mbar_init(bar_vfull, 1);
+    hopper::mbar_init(bar_vfull, TMA ? 1 : 32);
     hopper::mbar_init(bar_vempty, CONSUMERS);
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
+  if (!TMA && tid >= CONSUMERS) {  // the producer warp: all lanes load
+    using hopper::Box;
+    const int lane = tid - CONSUMERS;
+    // byte strides between positions, and each head's first row
+    const long ldq = 4L * h * d, ldk = 4L * kvh * d, ldv = 4L * kvh * dv;
+    const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
+                        ((long)bi * s + q0) * ldq + 4L * hq * d;
+    const uint8_t* kb =
+        reinterpret_cast<const uint8_t*>(k) + bi * s * ldk + 4L * kh * d;
+    const uint8_t* vb =
+        reinterpret_cast<const uint8_t*>(v) + bi * s * ldv + 4L * kh * dv;
+    auto produce = [&](auto gran) {
+      constexpr int G = decltype(gran)::value;
+      for (int c = 0; c < qk_chunks; ++c) {
+        const Box bq[1] = {{base + c * QBOX, qh + 128 * c, ldq, s - q0,
+                            4 * d - 128 * c}};
+        hopper::load_boxes<G, BQ>(bq, true, lane, hopper::NoWait());
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(bar_q);
+      for (int t = t0; t < n_tiles; ++t) {
+        const int par = ((t - t0) & 1) ^ 1;  // phases count from t0
+        const int rows = s - t * BK;
+        // K and V are loaded together: both buffers must be free (the
+        // consumers free V before K in each tile, so this waits no longer)
+        auto ready = [&] {
+          hopper::mbar_wait(bar_kempty, par);
+          hopper::mbar_wait(bar_vempty, par);
+        };
+        // the pad of K's boxes again each tile where V^T lies over them
+        const bool zero = t == t0 || L::kAlias;
+        for (int c = 0; c < max(qk_chunks, v_chunks); ++c) {
+          const Box bk = {base + L::kK + c * L::kKBox,
+                          kb + t * BK * ldk + 128 * c, ldk, rows,
+                          4 * d - 128 * c};
+          const Box bv = {base + L::kV + c * L::kKBox,
+                          vb + t * BK * ldv + 128 * c, ldv, rows,
+                          4 * dv - 128 * c};
+          if (c < qk_chunks && c < v_chunks) {
+            const Box kv[2] = {bk, bv};
+            hopper::load_boxes<G, BK>(kv, zero, lane, ready);
+          } else {
+            const Box one[1] = {c < qk_chunks ? bk : bv};
+            hopper::load_boxes<G, BK>(one, zero, lane, ready);
+          }
+        }
+        hopper::fence_proxy_async();  // K goes to the tensor cores as it lies
+        hopper::mbar_arrive(bar_kfull);
+        hopper::mbar_arrive(bar_vfull);
+      }
+    };
+    if (g == 8)
+      produce(hopper::Int<8>());
+    else
+      produce(hopper::Int<4>());
+    return;
+  }
   if (tid >= CONSUMERS) {  // the producer warp: one lane issues every copy
     if (tid == CONSUMERS) {
       hopper::mbar_arrive_expect_tx(bar_q, qk_chunks * QBOX);
@@ -993,30 +976,38 @@ flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const long o_row = (long)h * dv;
   float* ob = o + (long)bi * s * o_row + (long)hq * dv;
+  const bool pairs = TMA || dv % 2 == 0;  // a pair stays in the row, aligned
 #pragma unroll
   for (int i = 0; i < P / 2; i += 2) {
     const int r = (i >> 1) & 1;
     const int row = q0 + r_lo + 8 * r;
     const int col = 8 * (i >> 2) + c_in;
-    if (row < s && col < dv)
-      *reinterpret_cast<float2*>(ob + row * o_row + col) =
-          make_float2(acc[i] / den[r], acc[i + 1] / den[r]);
+    if (row < s && col < dv) {
+      float* out = ob + row * o_row + col;
+      if (pairs) {
+        *reinterpret_cast<float2*>(out) =
+            make_float2(acc[i] / den[r], acc[i + 1] / den[r]);
+      } else {
+        out[0] = acc[i] / den[r];
+        if (col + 1 < dv) out[1] = acc[i + 1] / den[r];
+      }
+    }
   }
 }
 
-template <int P, int BK, int MIN_BLOCKS>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int b, int s, int h, int kvh, int d, int dv,
-           float scale_log2, int causal, int window, cudaStream_t stream) {
+template <int P, int BK, int MIN_BLOCKS, bool TMA>
+int launch(const Call& c) {
   const int smem = Smem<P, BK>::kBytes;
-  auto kern = flash_attn_tf32x3_kernel<P, BK, MIN_BLOCKS>;
+  auto kern = flash_attn_tf32x3_kernel<P, BK, MIN_BLOCKS, TMA>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b * h, (s + BQ - 1) / BQ);
-  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o),
-                                        s, h, kvh, d, dv, scale_log2, causal,
-                                        window);
+  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ);
+  kern<<<grid, THREADS, smem, c.stream>>>(
+      c.tq, c.tk, c.tv, static_cast<const uint32_t*>(c.q),
+      static_cast<const uint32_t*>(c.k), static_cast<const uint32_t*>(c.v),
+      static_cast<float*>(c.o), c.s, c.h, c.kvh, c.d, c.dv, c.scale_log2,
+      c.causal, c.window, c.g);
   return (int)cudaGetLastError();
 }
 
@@ -1025,91 +1016,72 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 template <int P>
 constexpr int tile_keys() { return P <= 128 ? 64 : 32; }
 
+// The instance for heads padded to P columns, on the call's route.
+template <int P>
+int route(const Call& c) {
+  return c.tma ? launch<P, tile_keys<P>(), 1, true>(c)
+               : launch<P, tile_keys<P>(), 1, false>(c);
+}
+
 }  // namespace tf
 
 extern "C" {
 
-// The CUDA-core kernel. q, k, v, o: device pointers of contiguous (b, s,
-// h|kvh, d|dv) tensors, all float32 (is_bf16 = 0) or all bfloat16
-// (is_bf16 = 1). The wrapper
-// checks d, dv in [4, 256] and multiples of 4, h % kvh == 0, b*h <= 65535.
-// window: 0 (none) or the sliding window's width (causal only).
-int fa_forward(const void* q, const void* k, const void* v, void* o, int b,
-               int s, int h, int kvh, int d, int dv, float scale, int causal,
-               int window, int is_bf16, void* stream) {
-  if (d <= 0 || d > 256 || d % 4 || dv <= 0 || dv > 256 || dv % 4 ||
-      kvh <= 0 || h % kvh || window < 0 || (window > 0 && !causal))
-    return (int)cudaErrorInvalidValue;
-  if (b == 0 || s == 0 || h == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, kvh, d, dv, scale,
-                                   causal, window, st);
-  return dispatch<float>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal,
-                         window, st);
-}
-
-// The tensor-core kernel. q, k, v, o: device pointers of contiguous
-// bfloat16 (b, s, h|kvh, d|dv) tensors, each 16-byte aligned. The wrapper
-// checks d, dv in [8, 256] and multiples of 8, h % kvh == 0, and
-// ceil(s / 64) <= 65535; window as fa_forward's. Returns
-// cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a tensor map.
+// The bf16 kernel. q, k, v, o: device pointers of contiguous bfloat16 (b,
+// s, h|kvh, d|dv) tensors. The wrapper checks d, dv in [1, 256], h % kvh
+// == 0, ceil(s / 64) <= 65535, and that q, k and v are 16-byte aligned
+// where d and dv are multiples of 8 (the TMA route); window: 0 (none) or
+// the sliding window's width (causal only). Returns cudaErrorInvalidValue
+// where cuTensorMapEncodeTiled refuses a tensor map.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                      int b, int s, int h, int kvh, int d, int dv, float scale,
                      int causal, int window, void* stream) {
-  if (d < 8 || d > 256 || d % 8 || dv < 8 || dv > 256 || dv % 8 ||
-      kvh <= 0 || h % kvh || (s + wg::BQ - 1) / wg::BQ > 65535 ||
-      window < 0 || (window > 0 && !causal))
+  if (d < 1 || d > 256 || dv < 1 || dv > 256 || kvh <= 0 || h % kvh ||
+      (s + wg::BQ - 1) / wg::BQ > 65535 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
-  CUtensorMap tq, tk, tv;
-  if (!wg::make_map(&tq, q, b, s, h, d) || !wg::make_map(&tk, k, b, s, kvh, d) ||
-      !wg::make_map(&tv, v, b, s, kvh, dv))
+  Call c = {d % 8 == 0 && dv % 8 == 0,  // 16-byte rows: TMA
+            {}, {}, {}, q, k, v, o, b, s, h, kvh, d, dv,
+            scale * 1.4426950408889634f, causal, window,
+            granule(2, d, dv, q, k, v), static_cast<cudaStream_t>(stream)};
+  if (c.tma && (!wg::make_map(&c.tq, q, b, s, h, d) ||
+                !wg::make_map(&c.tk, k, b, s, kvh, d) ||
+                !wg::make_map(&c.tv, v, b, s, kvh, dv)))
     return (int)cudaErrorInvalidValue;
-  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int p = d > dv ? d : dv;
-  if (p <= 64)
-    return wg::launch<64, 3>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
-                             causal, window, st);
-  if (p <= 128)
-    return wg::launch<128, 2>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
-                              causal, window, st);
-  return wg::launch<256, 1>(tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2,
-                            causal, window, st);
+  if (p <= 64) return wg::route<64, 3>(c);
+  if (p <= 128) return wg::route<128, 2>(c);
+  return wg::route<256, 1>(c);
 }
 
-// The tf32 tensor-core kernel. q, k, v, o: device pointers of contiguous
-// float32 (b, s, h|kvh, d|dv) tensors, each 16-byte aligned. The wrapper
-// checks d, dv in [4, 256] and multiples of 4, h % kvh == 0, and
-// ceil(s / 64) <= 65535; window as fa_forward's. Returns
+// The f32 kernel. q, k, v, o: device pointers of contiguous float32 (b, s,
+// h|kvh, d|dv) tensors. The wrapper's checks are the bf16 kernel's, with
+// the TMA route where d and dv are multiples of 4. Returns
 // cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a tensor map.
 int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
                       int b, int s, int h, int kvh, int d, int dv,
                       float scale, int causal, int window, void* stream) {
-  if (d < 4 || d > 256 || d % 4 || dv < 4 || dv > 256 || dv % 4 ||
-      kvh <= 0 || h % kvh || (s + tf::BQ - 1) / tf::BQ > 65535 ||
-      window < 0 || (window > 0 && !causal))
+  if (d < 1 || d > 256 || dv < 1 || dv > 256 || kvh <= 0 || h % kvh ||
+      (s + tf::BQ - 1) / tf::BQ > 65535 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   const int p = d > dv ? d : dv;
   const int bk = p <= 128 ? tf::tile_keys<128>() : tf::tile_keys<256>();
-  CUtensorMap tq, tk, tv;
+  Call c = {d % 4 == 0 && dv % 4 == 0,  // 16-byte rows: TMA
+            {}, {}, {}, q, k, v, o, b, s, h, kvh, d, dv,
+            scale * 1.4426950408889634f, causal, window,
+            granule(4, d, dv, q, k, v), static_cast<cudaStream_t>(stream)};
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  if (!tma::make_map(&tq, f32, 4, q, b, s, h, d, tf::CHUNK, tf::BQ) ||
-      !tma::make_map(&tk, f32, 4, k, b, s, kvh, d, tf::CHUNK, bk) ||
-      !tma::make_map(&tv, f32, 4, v, b, s, kvh, dv, tf::CHUNK, bk))
+  if (c.tma &&
+      (!tma::make_map(&c.tq, f32, 4, q, b, s, h, d, tf::CHUNK, tf::BQ) ||
+       !tma::make_map(&c.tk, f32, 4, k, b, s, kvh, d, tf::CHUNK, bk) ||
+       !tma::make_map(&c.tv, f32, 4, v, b, s, kvh, dv, tf::CHUNK, bk)))
     return (int)cudaErrorInvalidValue;
-  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p <= 64)
-    return tf::launch<64, tf::tile_keys<64>(), 1>(
-        tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2, causal, window, st);
-  if (p <= 128)
-    return tf::launch<128, tf::tile_keys<128>(), 1>(
-        tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2, causal, window, st);
-  return tf::launch<256, tf::tile_keys<256>(), 1>(
-      tq, tk, tv, o, b, s, h, kvh, d, dv, scale_log2, causal, window, st);
+  if (p <= 64) return tf::route<64>(c);
+  if (p <= 128) return tf::route<128>(c);
+  return tf::route<256>(c);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, shared-memory matrix descriptors and warpgroup MMAs (wgmma).
-// Included by flash_attn.cu; nothing here launches or allocates.
+// loads, the same boxes loaded by a warp without TMA, shared-memory matrix
+// descriptors and warpgroup MMAs (wgmma). Included by flash_attn.cu;
+// nothing here launches or allocates.
 //
 // Layout contract shared by the TMA boxes and the wgmma descriptors: every
 // operand tile in shared memory is a stack of 64-element (128-byte) column
 // chunks, each chunk `rows` x 128 B, written by one TMA box with the
-// 128-byte swizzle and starting on a 1024-byte boundary.
+// 128-byte swizzle and starting on a 1024-byte boundary. `load_boxes`
+// writes the same boxes with threads, for rows TMA cannot take.
 //
 // Its tf32 twin: the same stack of 128-byte chunks, but a chunk is 32 f32
 // columns, and a k8 step of a tf32 wgmma is 8 columns, again 32 bytes, so
@@ -80,6 +82,158 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "r"(c2), "r"(c3)
       : "memory");
 }
+
+// ---- the same boxes without TMA --------------------------------------------
+// A granule of G bytes (2, 4 or 8) at p if `pred`, else zeros: one
+// predicated ld.global.nc, no branch, nothing read when pred is false.
+template <int G>
+struct Granule;
+template <>
+struct Granule<2> {
+  uint16_t v;
+  __device__ __forceinline__ void load(const uint8_t* p, bool pred) {
+    asm("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\nmov.b16 %0, 0;\n"
+        "@q ld.global.nc.u16 %0, [%1];\n}\n"
+        : "=h"(v) : "l"(p), "r"((int)pred));
+  }
+};
+template <>
+struct Granule<4> {
+  uint32_t v;
+  __device__ __forceinline__ void load(const uint8_t* p, bool pred) {
+    asm("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\nmov.b32 %0, 0;\n"
+        "@q ld.global.nc.u32 %0, [%1];\n}\n"
+        : "=r"(v) : "l"(p), "r"((int)pred));
+  }
+};
+template <>
+struct Granule<8> {
+  uint2 v;
+  __device__ __forceinline__ void load(const uint8_t* p, bool pred) {
+    asm("{\n.reg .pred q;\nsetp.ne.b32 q, %3, 0;\nmov.b32 %0, 0;\n"
+        "mov.b32 %1, 0;\n@q ld.global.nc.v2.u32 {%0, %1}, [%2];\n}\n"
+        : "=r"(v.x), "=r"(v.y) : "l"(p), "r"((int)pred));
+  }
+};
+
+// One 16-byte unit of a box from its granules.
+__device__ __forceinline__ uint4 pack_unit(const Granule<2> (&g)[8]) {
+  return make_uint4(g[0].v | (uint32_t)g[1].v << 16,
+                    g[2].v | (uint32_t)g[3].v << 16,
+                    g[4].v | (uint32_t)g[5].v << 16,
+                    g[6].v | (uint32_t)g[7].v << 16);
+}
+__device__ __forceinline__ uint4 pack_unit(const Granule<4> (&g)[4]) {
+  return make_uint4(g[0].v, g[1].v, g[2].v, g[3].v);
+}
+__device__ __forceinline__ uint4 pack_unit(const Granule<8> (&g)[2]) {
+  return make_uint4(g[0].v.x, g[0].v.y, g[1].v.x, g[1].v.y);
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 x) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+
+// One box of the TMA layout to be written by threads: ROWS_BOX rows of
+// 128 bytes, 128-byte swizzled (16-byte unit u of row r at `dst` + r * 128
+// + ((u ^ (r % 8)) * 16)), from one head of a (b, s, heads, width) tensor
+// as it lies. Row r of the box is position r0 + r, unit u holds bytes 16 u
+// .. 16 u + 15 of the row from column c0 on; `src` points at (r0, c0),
+// `ld` bytes separate two positions, and the first `rows` (>= 1)
+// positions and `bytes` (>= 1) bytes from (r0, c0) hold data. The rest of
+// the box is zeros, as TMA fills what lies outside a tensor.
+struct Box {
+  uint32_t dst;
+  const uint8_t* src;
+  long ld;
+  int rows, bytes;
+};
+
+// A tensor map needs every global stride to be a multiple of 16 bytes, and
+// a head's row is width x element size bytes. Where it is not, the 32
+// lanes of a warp write NB boxes (a K box and a V box together) as TMA
+// would have, in granules of G bytes: the largest power of two (2, 4 or 8)
+// that divides every row's length and every tensor's address, so a granule
+// is aligned and lies wholly inside or wholly outside a row's data (a bf16
+// row of odd width starts on a 2-byte boundary: G = 2). A box row's units
+// that may hold data (16 u < bytes) are rounded up to a power of two, du,
+// and spread over the 32 lanes, B a lane at a time for each box; each lane
+// issues all its predicated granule loads (rows past `rows` and granules
+// past `bytes` read nothing and give zeros) before it uses the first, and
+// calls ready() once, after the first loads and before the first store,
+// so the round trip to L2 overlaps the wait for the buffer to be free.
+// Each unit is stored whole (one 16-byte st.shared). With `zero_rest` the
+// units from du to the box edge are zeroed too: once a buffer, since they
+// stay zero until something else writes the buffer. The caller orders the
+// stores before an async-proxy read (fence_proxy_async) and publishes them
+// (an mbarrier arrival).
+template <int G, int ROWS_BOX, int NB, typename Ready>
+__device__ __forceinline__ void load_boxes(const Box (&bx)[NB],
+                                           bool zero_rest, int lane,
+                                           Ready ready) {
+  constexpr int NG = 16 / G;              // granules of a unit
+  constexpr int B = NG > 4 ? 2 : 4;       // units of a box a lane holds
+  int lg[NB], n[NB], steps = 0;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int du = (bx[b].bytes + 15) >> 4;
+    lg[b] = du > 4 ? 3 : du > 2 ? 2 : du > 1 ? 1 : 0;
+    n[b] = ROWS_BOX << lg[b];
+    steps = max(steps, (n[b] + 32 * B - 1) / (32 * B));
+  }
+  for (int k = 0; k < steps; ++k) {
+    Granule<G> x[NB][B][NG];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        const int i = 32 * (B * k + j) + lane;
+        const int r = i >> lg[b], c0 = (i & ((1 << lg[b]) - 1)) << 4;
+        const bool row = i < n[b] && r < bx[b].rows;
+        const uint8_t* p = bx[b].src + r * bx[b].ld + c0;
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          x[b][j][g].load(p + g * G, row && c0 + g * G < bx[b].bytes);
+      }
+    }
+    if (k == 0) ready();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        const int i = 32 * (B * k + j) + lane;
+        const int r = i >> lg[b], u = i & ((1 << lg[b]) - 1);
+        if (i < n[b])
+          st_shared_v4(bx[b].dst + r * 128 + ((u ^ (r & 7)) << 4),
+                       pack_unit(x[b][j]));
+      }
+    }
+  }
+  if (zero_rest) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      for (int i = lane; i < ROWS_BOX * 8; i += 32) {
+        const int r = i >> 3, u = i & 7;
+        if (u >= 1 << lg[b])
+          st_shared_v4(bx[b].dst + r * 128 + ((u ^ (r & 7)) << 4),
+                       make_uint4(0, 0, 0, 0));
+      }
+    }
+  }
+}
+
+// Nothing to wait for (load_boxes' `ready`).
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// A granule size as a type, for a generic lambda's template argument.
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
 
 // ---- wgmma -----------------------------------------------------------------
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand.

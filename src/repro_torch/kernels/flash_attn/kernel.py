@@ -1,16 +1,19 @@
 """Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``).
 
-Three kernels compute the same function; :func:`kernel_for` picks one
-from the dtype and the head widths alone:
+Two kernels compute the same function, both on the tensor cores, and
+both take every head width ``d`` and ``dv`` from 1 to 256;
+:func:`kernel_for` picks one by the dtype alone:
 
-* ``flash_attention_wgmma``: bf16 with ``d`` and ``dv`` multiples of 8
-  (TMA needs 16-byte strides), on the tensor cores with TMA loads (the
-  serve prefill);
-* ``flash_attention_tf32x3``: f32 (any width the wrapper takes: a
-  multiple of 4 floats is 16 bytes), on the tensor cores in three TF32
-  passes (the f32 tolerance of 2e-5 rules out one TF32 pass, not three);
-* ``flash_attention_simt``: bf16 heads of other widths, on the CUDA
-  cores.
+* ``flash_attention_wgmma``: bf16 (the serve prefill);
+* ``flash_attention_tf32x3``: f32, in three TF32 passes (the f32
+  tolerance of 2e-5 rules out one TF32 pass, not three).
+
+Each loads its tiles by TMA where a head's row is a multiple of 16 bytes
+(:func:`tma_loads`: bf16 widths multiples of 8, f32 of 4; a tensor map
+needs 16-byte strides), and otherwise with its producer warp's own loads
+into the same shared-memory layout, the columns past the width and the
+rows past ``s`` zero-filled as TMA fills them; the C entry point picks
+the route.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
 refuses inputs that need a gradient (neither the kernels nor the
@@ -43,14 +46,13 @@ import torch
 
 from . import ref
 
-#: the three kernels, by the names their launches are counted under
+#: the two kernels, by the names their launches are counted under
 WGMMA = "flash_attention_wgmma"
 TF32X3 = "flash_attention_tf32x3"
-SIMT = "flash_attention_simt"
-#: the tensor-core kernels, by their C entry points
+#: the kernels, by their C entry points
 ENTRIES = {WGMMA: "fa_forward_wgmma", TF32X3: "fa_forward_tf32x3"}
 #: CUDA launches of each kernel (plain ints; reset by assigning 0)
-LAUNCHES = {WGMMA: 0, TF32X3: 0, SIMT: 0}
+LAUNCHES = {WGMMA: 0, TF32X3: 0}
 #: ``note(q, k, v, causal, window)`` called at each launch, or None
 NOTE: contextvars.ContextVar = contextvars.ContextVar("flash_attn_note",
                                                       default=None)
@@ -98,22 +100,24 @@ def _check(q, k, v) -> None:
     if kvh == 0 or h % kvh:
         raise ValueError(f"h={h} is not a multiple of kvh={kvh}")
     for name, n in (("d", d), ("dv", dv)):
-        if not (0 < n <= MAX_HEAD_DIM and n % 4 == 0):
-            raise ValueError(f"{name}={n} must be a multiple of 4 in "
-                             f"[4, {MAX_HEAD_DIM}]")
+        if not 0 < n <= MAX_HEAD_DIM:
+            raise ValueError(f"{name}={n} must be in [1, {MAX_HEAD_DIM}]")
     if b * h > 65535:
         raise ValueError(f"b*h={b * h} exceeds the grid's 65535 rows")
 
 
 def kernel_for(dtype, d: int, dv: int) -> str:
     """The kernel that takes q/k of width ``d`` and v of width ``dv`` in
-    ``dtype`` (widths the wrapper accepts): fixed by dtype and shape,
-    never by a failure."""
-    if dtype == torch.float32:
-        return TF32X3
-    if d % 8 == 0 and dv % 8 == 0:
-        return WGMMA
-    return SIMT
+    ``dtype`` (widths the wrapper accepts): fixed by the dtype alone,
+    never by a width or a failure."""
+    return TF32X3 if dtype == torch.float32 else WGMMA
+
+
+def tma_loads(dtype, d: int, dv: int) -> bool:
+    """Whether the kernel loads q, k and v by TMA (rows of 16-byte
+    multiples), as its C entry point decides; else by its producer warp."""
+    item = 4 if dtype == torch.float32 else 2
+    return d * item % 16 == 0 and dv * item % 16 == 0
 
 
 def _lib():
@@ -123,20 +127,19 @@ def _lib():
 
 def launch(q, k, v, causal: bool, name: str, window: int = 0):
     """Launch kernel ``name`` on checked CUDA tensors; returns o. The
-    wrapper's own path is :func:`flash_attention_fwd`; ``check.py`` also
-    times the CUDA-core kernel at the tensor-core kernels' shapes (bf16
-    and f32) through here."""
+    wrapper's own path is :func:`flash_attention_fwd`; ``check.py`` times
+    raw launches through here."""
     ref.check_window(causal, window)
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
-    if name in ENTRIES:
-        if kernel_for(q.dtype, d, dv) != name or any(
-                t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError(f"{name} takes 16-byte aligned heads of the "
-                             f"dtype and widths kernel_for gives it, got "
-                             f"{q.dtype} d={d} dv={dv}")
-        if s > 65535 * 64:
-            raise ValueError(f"s={s} exceeds the grid's 65535 query tiles")
+    if kernel_for(q.dtype, d, dv) != name:
+        raise ValueError(f"{name} does not take {q.dtype} heads")
+    if tma_loads(q.dtype, d, dv) and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError(f"{name} loads d={d} dv={dv} by TMA: q, k and v "
+                         f"must be 16-byte aligned")
+    if s > 65535 * 64:
+        raise ValueError(f"s={s} exceeds the grid's 65535 query tiles")
     dev = q.device
     o = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
     if o.numel():
@@ -145,11 +148,7 @@ def launch(q, k, v, causal: bool, name: str, window: int = 0):
                 h, kvh, d, dv, 1.0 / (d ** 0.5), int(bool(causal)),
                 int(window))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if name in ENTRIES:
-            err = getattr(lib, ENTRIES[name])(*args, stream)
-        else:
-            err = lib.fa_forward(*args, int(q.dtype == torch.bfloat16),
-                                 stream)
+        err = getattr(lib, ENTRIES[name])(*args, stream)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed (cudaError "
                                f"{err})")

@@ -1,6 +1,7 @@
 """Flash attention: a CUDA kernel on the card, its plain version on the
-CPU (:mod:`.kernel`, which picks a tensor-core or the CUDA-core kernel by
-dtype and head widths); the dense version lives in :mod:`.ref`."""
+CPU (:mod:`.kernel`, which picks the bf16 or the f32 tensor-core kernel by
+dtype; both take every head width from 1 to 256); the dense version lives
+in :mod:`.ref`."""
 from __future__ import annotations
 
 from .kernel import flash_attention_fwd
@@ -13,9 +14,8 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 
     ``block_q``/``block_k`` are the reference's tile sizes; they change
     only the order of its sums. The CUDA kernels' tiles are fixed by
-    their designs (64 query rows and 64 keys on the tensor cores, 32 keys
-    for f32 heads wider than 128; 32 and 32 on the CUDA cores), so here
-    they are only checked."""
+    their designs (64 query rows and 64 keys, 32 keys for f32 heads wider
+    than 128), so here they are only checked."""
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive, got "
                          f"block_q={block_q}, block_k={block_k}")

@@ -227,3 +227,27 @@ def test_attention_bound_counts_the_pairs_the_mask_keeps(s, causal, window,
             max(by_ops, fb["bound_bytes"] / 3.35e12 * 1e3), rel=1e-12)
         assert (fb["bound_ms"], fb["bound_by"]) == (pytest.approx(
             f32[0], rel=1e-6), f32[1])
+
+
+@pytest.mark.parametrize("dtype,item", [(torch.bfloat16, 2),
+                                        (torch.float32, 4)])
+def test_attention_bound_counts_the_true_widths(dtype, item):
+    """At starcoder2 TINY's heads (6 / 2 of d = 12, rows the kernels load
+    without TMA into boxes padded to 64 bf16 or 32 f32 columns) and at d =
+    10, dv = 5, the bound counts the bytes and FLOPs of the true d and dv,
+    never of the padded box."""
+    from repro_torch.kernels.flash_attn import check as FC
+    s = 512
+    pairs = s * (s + 1) // 2
+    for d, dv in ((12, 12), (10, 5)):
+        b = FC.attention_bound(1, s, 6, 2, d, dv, dtype, True)
+        assert b["bound_bytes"] == item * s * (6 * d + 2 * d + 2 * dv
+                                               + 6 * dv)
+        assert b["bound_flops"] == 2 * 6 * (d + dv) * pairs
+        assert b["bound_ms"] == pytest.approx(max(
+            b["bound_bytes"] / 3.35e12, b["bound_flops"]
+            / b["peak_flops_per_s"]) * 1e3, rel=1e-12)
+    # s = 512 at d = 12 in bf16: 196,608 bytes, the PR 27 figure's 5.9e-5 ms
+    b = FC.attention_bound(1, s, 6, 2, 12, 12, torch.bfloat16, True)
+    assert b["bound_bytes"] == 196_608
+    assert b["bound_ms"] == pytest.approx(5.87e-5, rel=1e-3)

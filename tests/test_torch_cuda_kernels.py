@@ -3,15 +3,17 @@
 Flash-hash kernels: exact equality at several geometries (blocks narrower
 than a warp up to 2048-slot blocks) and at the main path's shapes, plus
 the table driven on the card against the same table driven on the CPU.
-Flash attention: the three kernels within the reference's tolerances
-(2e-5 f32, 2e-2 bf16, TF32 off in PyTorch's own products) from tiny heads
-to llama3.2-3b's, ragged lengths included, each call counted under the
-kernel the dtype/shape split picks; the bf16 tensor-core kernel at every
-tile boundary, GQA ratio, head width and with q and k scaled x8; the f32
-one (three TF32 passes) on every lane of its own (lengths at tile edges,
-GQA ratios, head widths, d != dv, two rows, non-causal, windows at tile
-edges); each with a sliding window at tile edges, every GQA ratio and head
-width; and the serving path on the card against the CPU. Needs a CUDA card:
+Flash attention: the two kernels within the reference's tolerances (2e-5
+f32, 2e-2 bf16, TF32 off in PyTorch's own products) from tiny heads to
+llama3.2-3b's, ragged lengths included, each call counted under the
+kernel the dtype picks; the bf16 kernel at every tile boundary, GQA ratio,
+head width and with q and k scaled x8; the f32 one (three TF32 passes) on
+every lane of its own (lengths at tile edges, GQA ratios, head widths, d
+!= dv, two rows, non-causal, windows at tile edges); each with a sliding
+window at tile edges, every GQA ratio and head width; both at widths whose
+rows are no multiple of 16 bytes (loaded without TMA), odd ones on 2-byte
+boundaries and tensors that start off 16 bytes; and the serving path on
+the card against the CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
 import numpy as np
@@ -313,16 +315,15 @@ def test_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv, causal,
 
 
 def _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal, qk_scale=1.0):
-    """Both kernels that run the case within tolerance; one call of the
+    """The kernel that runs the case within tolerance; one call of the
     wrapper counts one launch, of the kernel the split picks."""
     name = FK.kernel_for(dtype, d, dv)
     before = dict(FK.LAUNCHES)
     res = FC.check_flash_attention(b, s, h, kvh, d, dv, dtype, causal, s,
                                    cuda, reps=1, qk_scale=qk_scale)
     assert res["kernel"] == name
+    assert res["loads"] == ("tma" if FK.tma_loads(dtype, d, dv) else "warp")
     assert res["finite"] and res["within_tolerance"], res
-    if name != FK.SIMT:     # the CUDA-core kernel, timed as the "before"
-        assert res["simt_finite"] and res["simt_within_tolerance"], res
     assert FK.LAUNCHES == before   # checks do not count
     q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, 1, cuda, qk_scale)
     FK.flash_attention_fwd(q, k, v, causal=causal)
@@ -383,8 +384,8 @@ def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
 def test_tf32x3_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
                                               causal, w):
     """The f32 kernel (three TF32 passes on the tensor cores) against the
-    plain version within the reference's 2e-5 on every lane, the CUDA-core
-    kernel beside it; one wrapper call counts one launch of it."""
+    plain version within the reference's 2e-5 on every lane; one wrapper
+    call counts one launch of it."""
     assert FK.kernel_for(torch.float32, d, dv) == FK.TF32X3
     if w:
         _check_window(cuda, b, s, h, kvh, d, dv, torch.float32, w)
@@ -397,19 +398,17 @@ WINDOW_W = [1, 17, 63, 64, 65, 4096]
 
 
 def _check_window(cuda, b, s, h, kvh, d, dv, dtype, window):
-    """Each kernel that takes the case (the tensor-core one the split
-    picks, and the CUDA-core one always) against
-    ``sdpa_ref(window=)`` within the reference's tolerance; one call of
-    the wrapper counts one launch, of the kernel the split picks."""
+    """The kernel the split picks against ``sdpa_ref(window=)`` within
+    the reference's tolerance; one call of the wrapper counts one launch,
+    of that kernel."""
     q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, dtype, s + window, cuda)
     want = FC.ref.sdpa_ref(q, k, v, window=window)
     name = FK.kernel_for(dtype, d, dv)
     before = dict(FK.LAUNCHES)
-    for kern in {name, FK.SIMT}:
-        got = FK.launch(q, k, v, True, kern, window)
-        torch.cuda.synchronize(cuda)
-        err = FC._error(got, want, FC.TOLERANCE[dtype])
-        assert err["finite"] and err["within_tolerance"], (kern, err)
+    got = FK.launch(q, k, v, True, name, window)
+    torch.cuda.synchronize(cuda)
+    err = FC._error(got, want, FC.TOLERANCE[dtype])
+    assert err["finite"] and err["within_tolerance"], (name, err)
     FK.LAUNCHES.update(before)
     FK.flash_attention_fwd(q, k, v, window=window)
     assert FK.LAUNCHES == {**before, name: before[name] + 1}
@@ -437,6 +436,75 @@ def test_windowed_flash_attention_matches_plain(cuda, s, w, dtype):
 def test_windowed_flash_attention_heads(cuda, b, s, h, kvh, d, dv, w,
                                         dtype):
     _check_window(cuda, b, s, h, kvh, d, dv, dtype, w)
+
+
+def _shifted(x):
+    """x's values in a contiguous tensor that starts one element past an
+    aligned allocation (2 bytes off 16 in bf16, 4 in f32)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,causal,w", [
+    (1, 512, 6, 2, 12, 12, True, 0),      # starcoder2 TINY's heads
+    (1, 1000, 6, 2, 10, 5, True, 0),      # odd dv: 2-byte rows, ragged
+    (2, 129, 4, 4, 3, 7, False, 0),       # odd d and dv, non-causal
+    (1, 512, 4, 2, 6, 6, True, 0),        # f32 rows of 24 bytes
+    (1, 65, 4, 1, 1, 1, True, 0),         # one column, one key past a tile
+    (1, 300, 6, 3, 130, 66, True, 0),     # three boxes of d: P = 256
+    (1, 200, 4, 2, 255, 255, False, 0),   # the widest odd width
+    (1, 1000, 6, 2, 12, 12, True, 100),   # windowed
+    (1, 1000, 9, 1, 10, 5, True, 17),     # windowed, GQA 9
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_not_16_bytes_match_plain(cuda, b, s, h, kvh, d, dv, causal,
+                                       w, dtype):
+    """Widths whose rows are no multiple of 16 bytes, which each kernel's
+    producer warp loads without TMA into the boxes TMA would write (zeros
+    past d, dv and s), within the reference's tolerance, one launch a
+    wrapper call; then the same call on tensors that start one element
+    past an aligned allocation (bf16 rows of odd width start on 2-byte
+    boundaries anyway), which only the TMA route refuses."""
+    if w:
+        _check_window(cuda, b, s, h, kvh, d, dv, dtype, w)
+    else:
+        _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal)
+    q, k, v = (_shifted(x) for x in FC.make_inputs(b, s, h, kvh, d, dv,
+                                                   dtype, 2, cuda))
+    if FK.tma_loads(dtype, d, dv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            FK.flash_attention_fwd(q, k, v, causal=causal, window=w)
+        return
+    got = FK.flash_attention_fwd(q, k, v, causal=causal, window=w)
+    want = FC.ref.sdpa_ref(q, k, v, causal=causal, window=w)
+    torch.cuda.synchronize(cuda)
+    err = FC._error(got, want, FC.TOLERANCE[dtype])
+    assert err["finite"] and err["within_tolerance"], err
+
+
+#: (d, dv) from 1 to 256: rows of every alignment (odd bf16 widths on
+#: 2-byte boundaries), each instance (P = 64, 128, 256) and d != dv
+WIDTHS = [(1, 1), (2, 3), (3, 7), (5, 5), (6, 6), (7, 9), (10, 5), (12, 12),
+          (13, 17), (33, 31), (63, 65), (65, 63), (100, 100), (127, 129),
+          (130, 66), (200, 250), (255, 255), (256, 255), (255, 256)]
+
+
+@pytest.mark.parametrize("d,dv", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_width_matches_plain(cuda, d, dv, dtype):
+    """Every width the reference takes, up to 256, at one position, one
+    key past a tile, a ragged non-causal length and a window of 17, two
+    rows of 6 / 2 heads: within the reference's tolerance."""
+    for s, causal, w in ((1, True, 0), (65, True, 0), (300, False, 0),
+                         (200, True, 17)):
+        q, k, v = FC.make_inputs(2, s, 6, 2, d, dv, dtype, s + d, cuda)
+        got = FK.flash_attention_fwd(q, k, v, causal=causal, window=w)
+        want = FC.ref.sdpa_ref(q, k, v, causal=causal, window=w)
+        torch.cuda.synchronize(cuda)
+        err = FC._error(got, want, FC.TOLERANCE[dtype])
+        assert err["finite"] and err["within_tolerance"], (s, causal, w, err)
 
 
 def test_flash_attention_refuses_mixed_devices(cuda):
@@ -489,8 +557,7 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
         cache.close()
     assert runs["cpu"] == runs[str(cuda)]
     assert runs["cpu"][1] == [0, 16, 16, 16, 0, 0, 0, 0]
-    assert FK.LAUNCHES == {FK.TF32X3: 5 * cfg.num_layers, FK.WGMMA: 0,
-                           FK.SIMT: 0}
+    assert FK.LAUNCHES == {FK.TF32X3: 5 * cfg.num_layers, FK.WGMMA: 0}
     if flush_threshold:
         assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES
 
@@ -537,4 +604,4 @@ def test_family_serving_on_card_equals_serving_on_cpu(cuda, arch):
     attn_layers = cfg.num_groups * cfg.layer_pattern.count("attn")
     prefills = 5 if "ssm" not in cfg.layer_pattern else 8
     assert FK.LAUNCHES == {FK.TF32X3: prefills * attn_layers,
-                           FK.WGMMA: 0, FK.SIMT: 0}
+                           FK.WGMMA: 0}

@@ -5,10 +5,12 @@ The reference's sweep of ``tests/test_flash_attn.py`` (four shapes, f32
 and bf16, non-causal, causality), the same tolerances (2e-5 in f32, 2e-2
 in bf16), inputs from numpy seeds handed to both packages. Ragged ``s``,
 which the reference kernel refuses, is held against the reference's
-dense oracle ``sdpa_ref``. The split between the three CUDA kernels,
-which only the card runs, is pinned here by dtype and head widths, and the
-f32 kernel's arithmetic (three TF32 passes in a tiled online softmax) is
-modelled in torch and held against the reference's Pallas kernel."""
+dense oracle ``sdpa_ref``. Both take head widths that are no multiple of
+4 or 8, as the reference does (d = 6, (10, 5), (3, 7)). The split between
+the two CUDA kernels, which only the card runs, is pinned here by dtype,
+and the f32 kernel's arithmetic (three TF32 passes in a tiled online
+softmax, heads zero-padded to the kernel's box) is modelled in torch and
+held against the reference's Pallas kernel."""
 import math
 
 import jax.numpy as jnp
@@ -47,13 +49,18 @@ def _np(x):
     (1, 256, 8, 2, 64, 64, 64),     # GQA 4:1
     (2, 128, 6, 2, 16, 64, 32),     # GQA 3:1, odd dims
     (1, 128, 4, 1, 32, 128, 128),   # MQA, single tile
+    # widths no multiple of 4 or 8 (d, dv): rows that are not 16 bytes
+    (1, 128, 4, 2, (6, 6), 64, 64),
+    (1, 128, 6, 2, (10, 5), 64, 32),
+    (2, 64, 4, 4, (3, 7), 32, 32),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matches_reference_kernel(b, s, h, kvh, d, bq, bk, dtype):
-    (jq, jk, jv), (q, k, v), tol = _inputs(0, b, s, h, kvh, d, d, dtype)
+    d, dv = d if isinstance(d, tuple) else (d, d)
+    (jq, jk, jv), (q, k, v), tol = _inputs(0, b, s, h, kvh, d, dv, dtype)
     want = jops.flash_attention(jq, jk, jv, block_q=bq, block_k=bk)
     got = ops.flash_attention(q, k, v, block_q=bq, block_k=bk)
-    assert got.dtype == q.dtype and got.shape == (b, s, h, d)
+    assert got.dtype == q.dtype and got.shape == (b, s, h, dv)
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
@@ -81,6 +88,9 @@ def test_causality_enforced():
     (37, 6, 2, 16, 16, True),       # GQA 3:1, below one tile
     (100, 8, 8, 32, 32, True),      # ragged over several tiles
     (100, 4, 1, 32, 16, False),     # dv != d, non-causal
+    (100, 4, 2, 6, 6, True),        # widths no multiple of 4
+    (77, 6, 2, 10, 5, True),        # odd dv, ragged
+    (50, 4, 1, 3, 7, False),        # odd d and dv, non-causal
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ragged_lengths_match_reference_oracle(s, h, kvh, d, dv, causal,
@@ -104,8 +114,9 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     (lambda q, k, v: (q, k.to(torch.bfloat16), v), TypeError),
     (lambda q, k, v: (q.transpose(1, 2), k, v), ValueError),
     (lambda q, k, v: (q, k[:, :10], v), ValueError),
-    (lambda q, k, v: (q[..., :14].contiguous(), k[..., :14].contiguous(),
-                      v), ValueError),
+    (lambda q, k, v: (torch.cat([q] * 17, -1)[..., :264].contiguous(),
+                      torch.cat([k] * 17, -1)[..., :264].contiguous(), v),
+     ValueError),                  # d = 264: wider than the kernels' 256
     (lambda q, k, v: (q[:, :, :5].contiguous(), k, v), ValueError),
     (lambda q, k, v: (q, k, v[0]), ValueError),
 ])
@@ -120,16 +131,23 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     (torch.bfloat16, 16, 16, K.WGMMA),     # narrow heads, padded to a box
     (torch.bfloat16, 64, 256, K.WGMMA),    # d != dv
     (torch.bfloat16, 256, 8, K.WGMMA),     # the widest and narrowest
-    (torch.bfloat16, 12, 16, K.SIMT),      # d: no 16-byte TMA stride
-    (torch.bfloat16, 16, 20, K.SIMT),      # dv: the same
+    (torch.bfloat16, 12, 16, K.WGMMA),     # d: no 16-byte row, loaded
+    (torch.bfloat16, 16, 20, K.WGMMA),     # dv: the same   without TMA
     (torch.float32, 128, 128, K.TF32X3),   # f32: 2e-5 rules out one
     (torch.float32, 16, 16, K.TF32X3),     # TF32 pass, not three
     (torch.float32, 12, 12, K.TF32X3),     # any multiple of 4: 16 bytes
     (torch.float32, 256, 8, K.TF32X3),     # the widest and narrowest
+    (torch.bfloat16, 5, 16, K.WGMMA),      # odd d: rows on 2-byte bounds
+    (torch.bfloat16, 16, 3, K.WGMMA),      # odd dv
+    (torch.float32, 5, 16, K.TF32X3),      # odd d: no 16-byte row
+    (torch.float32, 16, 3, K.TF32X3),      # odd dv
 ])
 def test_kernel_split_is_fixed_by_dtype_and_widths(dtype, d, dv, want):
     assert K.kernel_for(dtype, d, dv) == want
-    assert set(K.LAUNCHES) == {K.WGMMA, K.TF32X3, K.SIMT}
+    assert set(K.LAUNCHES) == {K.WGMMA, K.TF32X3}
+    item = 4 if dtype == torch.float32 else 2
+    assert K.tma_loads(dtype, d, dv) == (d * item % 16 == dv * item % 16
+                                         == 0)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -171,21 +189,30 @@ def _product(a, b, passes):
     return (ah @ bl + al @ bh) + ah @ bh
 
 
+def _boxed(x):
+    """x with its last dim zero-padded to the kernel's boxes of 32 f32
+    columns, as TMA or the producer warp fills them."""
+    return torch.nn.functional.pad(x, (0, -x.shape[-1] % 32))
+
+
 def _kernel_model(q, k, v, causal=True, window=0, passes=3):
-    """The kernel's f32 arithmetic: 64-row query tiles, key tiles of 64
-    (32 where a head is wider than 128), from the tile that holds the
-    lowest row's window edge up to the causal limit; unscaled scores, the
-    -1e30 mask, exp2 with the scale folded in, no shift for a row whose
-    max is still -1e30, l from the unrounded p, acc / max(l, 1e-30)."""
+    """The kernel's f32 arithmetic: heads zero-padded to its 32-column
+    boxes, 64-row query tiles, key tiles of 64 (32 where a head is wider
+    than 128), from the tile that holds the lowest row's window edge up to
+    the causal limit; unscaled scores, the -1e30 mask, exp2 with the scale
+    of the true d folded in, no shift for a row whose max is still -1e30, l
+    from the unrounded p, acc / max(l, 1e-30), the columns below dv."""
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     f32 = torch.float32
     bk = 64 if max(d, dv) <= 128 else 32
     scale_log2 = float(np.float32(1.0 / d ** 0.5) * np.float32(math.log2(math.e)))
-    qg = q.reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+    q, k, v = _boxed(q), _boxed(k), _boxed(v)
+    wide = v.shape[3]
+    qg = q.reshape(b, s, kvh, h // kvh, -1).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 3, 1)[:, :, None]       # (b, kvh, 1, d, s)
     vt = v.permute(0, 2, 1, 3)[:, :, None]       # (b, kvh, 1, s, dv)
-    out = torch.empty(b, kvh, h // kvh, s, dv, dtype=f32)
+    out = torch.empty(b, kvh, h // kvh, s, wide, dtype=f32)
     for q0 in range(0, s, 64):
         rows = torch.arange(q0, min(q0 + 64, s))
         n_tiles = -(-s // bk)
@@ -195,7 +222,7 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
         t0 = lo // bk if window and lo > 0 else 0
         m = torch.full(qg.shape[:3] + (len(rows), 1), ref.NEG, dtype=f32)
         l = torch.zeros_like(m)
-        acc = torch.zeros(qg.shape[:3] + (len(rows), dv), dtype=f32)
+        acc = torch.zeros(qg.shape[:3] + (len(rows), wide), dtype=f32)
         for t in range(t0, n_tiles):
             cols = torch.arange(t * bk, min(t * bk + bk, s))
             sc = _product(qg[..., rows, :], kt[..., cols], passes)
@@ -214,7 +241,7 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
             acc = acc * alpha + _product(p, vt[..., cols, :], passes)
             m = mx
         out[..., rows, :] = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, wide)[..., :dv]
 
 
 @pytest.mark.parametrize("b,s,h,kvh,d,causal,bq,bk", [
@@ -223,13 +250,19 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
     (2, 128, 6, 2, 16, True, 64, 32),     # GQA 3:1, odd dims
     (1, 128, 4, 1, 32, True, 128, 128),   # MQA, single tile
     (1, 64, 2, 2, 16, False, 32, 32),     # non-causal
+    (1, 128, 4, 2, 6, True, 64, 64),      # widths padded to a box: 6,
+    (1, 128, 6, 2, 10, True, 64, 32),     # 10, and (d, dv) = (3, 7)
+    (1, 64, 4, 4, (3, 7), False, 32, 32),
 ])
 def test_tf32x3_model_matches_reference_kernel(b, s, h, kvh, d, causal, bq,
                                                bk):
     """The model of the f32 kernel holds the reference kernel's f32
-    tolerance (2e-5) on the f32 sweep, interpret mode."""
+    tolerance (2e-5) on the f32 sweep, interpret mode, and at widths the
+    kernel zero-pads to its box (the padding adds exactly nothing in each
+    of the three passes)."""
+    d, dv = d if isinstance(d, tuple) else (d, d)
     (jq, jk, jv), (q, k, v), tol = _inputs(0 if causal else 1, b, s, h, kvh,
-                                           d, d, "float32")
+                                           d, dv, "float32")
     want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=bq,
                                 block_k=bk)
     got = _kernel_model(q, k, v, causal=causal)

@@ -145,6 +145,25 @@ def test_prefill_and_decode_match_reference_bf16():
     assert dt[0].k.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_head_dim_no_multiple_of_4_matches_reference(dtype, tol):
+    """llama32 TINY with heads of 6 (rows of 12 or 24 bytes: no 16-byte
+    multiple), which the reference serves through ``_sdpa``: the port's
+    prefill, through the flash-attention wrapper, and its greedy decode
+    hold the reference's logits, and in f32 its greedy ids."""
+    rcfg, params, cfg, model = _pair(dtype=dtype, head_dim=6)
+    steps, _, _ = _decode_both(rcfg, params, cfg, model,
+                               _tokens(cfg, 21, seed=4), steps=4)
+    for lj, lt in steps:
+        np.testing.assert_allclose(_np(lt)[..., :cfg.vocab_size],
+                                   _np(lj)[..., :rcfg.vocab_size],
+                                   rtol=tol, atol=tol)
+        if dtype == "float32":
+            assert (int(torch.argmax(lt[0, -1, :cfg.vocab_size]))
+                    == int(jnp.argmax(lj[0, -1, :rcfg.vocab_size])))
+
+
 def test_params_round_trip_through_numpy():
     for dtype in ("float32", "bfloat16"):
         rcfg, params, cfg, model = _pair(dtype=dtype)
