@@ -40,7 +40,16 @@ fails (non-zero exit, no result line) without them. Phases:
    multiple of 16 bytes, which each kernel's producer warp loads without
    TMA: starcoder2 TINY's (6 / 2 of d = 12) in bf16 at 512 and at a ragged
    1,000 with w = 100, 6 / 2 of d = 10, dv = 5 in bf16 at a ragged 1,000
-   (odd rows on 2-byte boundaries), 4 / 2 of 6 in f32 at 512; within 2e-2
+   (odd rows on 2-byte boundaries), 4 / 2 of 6 in f32 at 512; and at heads
+   wider than 256, which each kernel's wide instance takes (d in chunks of
+   128 columns, o in slices of 256 across CTAs; ``WIDE_CASES``): 8 / 2 of
+   320 at 512 in both dtypes, minicpm3's latent attention (40 / 1, d 288,
+   dv 256) at 1,024 in bf16 and 512 in f32, DeepSeek-V3's absorbed MLA
+   (128 / 1, d 576, dv 512) at 1,024 in bf16, odd widths on the producer
+   warp's route (6 / 2 of 333 / 301 at a ragged 1,000 in bf16; 1,030 /
+   517 non-causal at 300 in f32) and 6 / 2 of 512 at 1,000 with w = 100
+   in bf16, each also with the names of the kernels SDPA runs there;
+   within 2e-2
    (bf16) / 2e-5 (f32) with PyTorch's TF32 off; each case's one wrapper
    call must launch the kernel the split names and no other. CUDA-event
    medians timed in turns: the kernel, one
@@ -220,12 +229,14 @@ fails (non-zero exit, no result line) without them. Phases:
    and hybrid stacks) with identical outputs, cached prefixes and stats,
    every attention prefill on the f32 tensor-core kernel; MLA again with a
    flush threshold of 1 (all three hash kernels launched on the card);
-   llama32's twin again with a sliding window of 8, and with heads of 6
-   (24-byte rows, loaded without TMA; each prefill's last logits on the
-   card also within 2e-5 of the CPU's); then starcoder2's TINY in bf16
-   (heads of 12) served on the card in the same order, every prefill on
-   the bf16 kernel, its last logits within 5e-2 of the same prefill's
-   with attention by the plain version on the card;
+   llama32's twin again with a sliding window of 8, with heads of 6
+   (24-byte rows, loaded without TMA) and with heads of 320 (the f32
+   kernel's wide instance), each prefill's last logits on the card also
+   within 2e-5 of the CPU's; then starcoder2's TINY in bf16 (heads of 12)
+   and llama32's TINY in bf16 with heads of 320 (the bf16 kernel's wide
+   instance) served on the card in the same order, every prefill on the
+   bf16 kernel, its last logits within 5e-2 of the same prefill's with
+   attention by the plain version on the card;
 15. continuous twins of minicpm3, granite, mamba2 and jamba on the card
    and on the CPU: identical outputs, cached prefixes and stats; the
    paged path for MLA and MoE (``TINY_CONTINUOUS``), the whole-prompt
@@ -300,7 +311,8 @@ fails (non-zero exit, no result line) without them. Phases:
    case's error, device time, bound and SDPA time, and with rows that are
    no multiple of 16 bytes (``odd_launches``: the bf16 TINY serve's, the
    f32 twin's with heads of 6) beside its odd case's (``bf16_d12``,
-   ``f32_d6``), as
+   ``f32_d6``), and its wide instance's (``wide_launches``: the TINY
+   twins' with heads of 320) beside each of its ``WIDE_CASES``, as
    ``race_launches`` under the race phase's tracer (0 for attention,
    checked), as ``train_launches`` in phase 16 and as ``mesh_launches``
    in phase 18), then the card line, then the result line.
@@ -354,6 +366,20 @@ STARCODER2_HEADS = (36, 4, 128, 128)
 NEMOTRON_HEADS = (96, 8, 192, 192)
 ODD_HEADS = (6, 2, 10, 5)
 F32_D6_HEADS = (4, 2, 6, 6)
+#: heads wider than 256 (each kernel's wide instance: d in chunks of 128
+#: columns, o in slices of 256): 320 (two slices), minicpm3's latent
+#: attention (d = kv_lora_rank 256 + qk_rope_dim 32, dv 256; one KV head
+#: under 40 query heads), DeepSeek-V3's absorbed MLA (d = kv_lora_rank 512
+#: + qk_rope_head_dim 64, dv 512, 128 query heads over one latent head:
+#: deepseek-ai/DeepSeek-V3's config.json), odd widths on the producer
+#: warp's route (two slices; f32 1,030 / 517: nine chunks, three slices)
+#: and a windowed 512
+WIDE_HEADS = (8, 2, 320, 320)
+MLA_LATENT_HEADS = (40, 1, 288, 256)
+ABSORBED_576_HEADS = (128, 1, 576, 512)
+WIDE_ODD_HEADS = (6, 2, 333, 301)
+WIDE_F32_ODD_HEADS = (6, 2, 1030, 517)
+WIDE_WINDOW_HEADS = (6, 2, 512, 512)
 #: flash attention cases: (name, s, dtype, causal, heads, q/k scale[,
 #: sliding window]); the tiny twin's prefill is its 40-token prompt. The
 #: windowed cases: starcoder2-7b's published window (4,096) over twice its
@@ -390,7 +416,26 @@ ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("bf16_odd", 1000, "bfloat16", True, ODD_HEADS, 1.0),
               ("f32_d6", 512, "float32", True, F32_D6_HEADS, 1.0),
               ("bf16_d12_window", 1000, "bfloat16", True,
-               STARCODER2_TINY_HEADS, 1.0, 100)]
+               STARCODER2_TINY_HEADS, 1.0, 100),
+              ("wide_bf16", 512, "bfloat16", True, WIDE_HEADS, 1.0),
+              ("wide_f32", 512, "float32", True, WIDE_HEADS, 1.0),
+              ("mla_latent", 1024, "bfloat16", True, MLA_LATENT_HEADS, 1.0),
+              ("mla_latent_f32", 512, "float32", True, MLA_LATENT_HEADS,
+               1.0),
+              ("absorbed_576", 1024, "bfloat16", True, ABSORBED_576_HEADS,
+               1.0),
+              ("wide_odd", 1000, "bfloat16", True, WIDE_ODD_HEADS, 1.0),
+              ("wide_f32_odd", 300, "float32", False, WIDE_F32_ODD_HEADS,
+               1.0),
+              ("wide_window", 1000, "bfloat16", True, WIDE_WINDOW_HEADS,
+               1.0, 100)]
+#: the cases of heads wider than 256, by kernel: each prints the kernels
+#: SDPA runs there (its flash route stops at 256 columns)
+WIDE_CASES = {"flash_attention_wgmma": ("wide_bf16", "mla_latent",
+                                        "absorbed_576", "wide_odd",
+                                        "wide_window"),
+              "flash_attention_tf32x3": ("wide_f32", "mla_latent_f32",
+                                         "wide_f32_odd")}
 #: attention cases longer than this (f32: this long) are timed over 3
 #: rounds (the plain version and SDPA take ~10 ms a call there)
 ATTN_LONG = 4096
@@ -468,8 +513,12 @@ TINY_WINDOW = 8
 #: TMA): each prefill's logits on the card within ``TWIN_LOGIT_TOL`` of the
 #: CPU's (the f32 kernel's tolerance); starcoder2's TINY in bf16 (heads of
 #: 12) against the plain attention route within ``BF16_TWIN_LOGIT_TOL``
-#: (``tests/test_torch_model.py``'s bf16 tolerance)
+#: (``tests/test_torch_model.py``'s bf16 tolerance). The same twins with
+#: heads of 320 (``TINY_WIDE_HEAD_DIM``: each kernel's wide instance): the
+#: f32 llama32 card against the CPU, the bf16 llama32 against the plain
+#: route
 TINY_HEAD_DIM = 6
+TINY_WIDE_HEAD_DIM = 320
 TWIN_LOGIT_TOL = 2e-5
 BF16_TWIN_LOGIT_TOL = 5e-2
 #: the SSM and hybrid stacks' TINY serial order: 32-token prompts (their
@@ -860,8 +909,9 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
                                      seed + s, dev,
                                      reps=min(reps, 3) if long else reps,
                                      qk_scale=qk_scale, window=window)
-        if dtype == "float32" and dev.type == "cuda" and name in (
-                "f32", "f32_long"):
+        wide = any(name in c for c in WIDE_CASES.values())
+        if dev.type == "cuda" and (wide or dtype == "float32" and name in (
+                "f32", "f32_long")):
             # which kernels the library call runs (the profiler's names)
             r["library_kernels"] = FC.library_kernels(
                 1, s, h, kvh, d, dv, dt, causal, seed + s, dev, window)
@@ -2418,12 +2468,14 @@ def keep_prefills(model) -> list:
     return runs
 
 
-def tiny_bf16_serve(seed: int, dev, arch: str = "starcoder2_7b") -> dict:
+def tiny_bf16_serve(seed: int, dev, arch: str = "starcoder2_7b",
+                    head_dim: int = 0) -> dict:
     """``arch``'s TINY in bf16 (starcoder2's heads of 12: 24-byte rows,
-    which the bf16 kernel loads without TMA), random weights from ``seed``
-    on the card, served by the serial engine in the serve tiny order
-    (``TINY_SERVE``). Every prefill must launch the bf16 flash-attention
-    kernel once an attention layer and no other attention kernel; then
+    which the bf16 kernel loads without TMA; heads of ``head_dim`` if > 0),
+    random weights from ``seed`` on the card, served by the serial engine
+    in the serve tiny order (``TINY_SERVE``). Every prefill must launch the
+    bf16 flash-attention kernel once an attention layer and no other
+    attention kernel; then
     each prefill runs again on the same inputs with attention by the plain
     version on the card (:func:`plain_attention`): its last-position
     logits must agree within ``BF16_TWIN_LOGIT_TOL`` (absolute and
@@ -2437,12 +2489,14 @@ def tiny_bf16_serve(seed: int, dev, arch: str = "starcoder2_7b") -> dict:
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, head_dim=head_dim or cfg.head_dim)
     model = M.Model(cfg, device=dev, seed=seed)
     runs = keep_prefills(model)
     zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
     rec = serve(cfg, model, dev, seed, TINY_SERVE)
     launches = dict(FK.LAUNCHES)
-    name = f"serve tiny {arch} bf16"
+    name = f"serve tiny {arch} bf16" + (f" head_dim {head_dim}" if head_dim
+                                        else "")
     no_baseline(name)
     want = attention_only(FK.WGMMA, attn_layers(cfg))
     if len(runs) != rec["stats"]["misses"] or any(
@@ -2887,7 +2941,12 @@ def families_phase(seed: int, dev, card: str) -> dict:
     narrow = f"llama32_3b head_dim {TINY_HEAD_DIM}"
     rec["tiny"][narrow] = tiny_card_vs_cpu(seed, dev, drained=False,
                                            head_dim=TINY_HEAD_DIM)
+    wide = f"llama32_3b head_dim {TINY_WIDE_HEAD_DIM}"
+    rec["tiny"][wide] = tiny_card_vs_cpu(seed, dev, drained=False,
+                                         head_dim=TINY_WIDE_HEAD_DIM)
     rec["tiny_bf16"] = tiny_bf16_serve(seed, dev)
+    rec["tiny_bf16_wide"] = tiny_bf16_serve(seed, dev, "llama32_3b",
+                                            TINY_WIDE_HEAD_DIM)
     rec["tiny_continuous"][windowed] = tiny_continuous(
         seed, dev, drained=False, window=TINY_WINDOW)
     rec["twins_s"] = time.perf_counter() - t0
@@ -3749,9 +3808,10 @@ def main() -> int:
     mesh = mesh_phase(args.seed, dev, card)
     window_serve = fam["window_serve"]["launches"]
     tiny_bf16 = fam["tiny_bf16"]["attention_launches"][FK.WGMMA]
+    tiny_bf16_wide = fam["tiny_bf16_wide"]["attention_launches"][FK.WGMMA]
     wgmma = served["launches"][FK.WGMMA] + sum(
         r["launches"][FK.WGMMA] for r in fam["serve"].values()) + (
-            window_serve[FK.WGMMA]) + tiny_bf16
+            window_serve[FK.WGMMA]) + tiny_bf16 + tiny_bf16_wide
     twin_f32 = twin["attention_launches"][FK.TF32X3] + sum(
         r["attention_launches"][FK.TF32X3] for r in fam["tiny"].values())
     kernels = []
@@ -3780,6 +3840,14 @@ def main() -> int:
     # f32 twin with heads of 6
     window_twin = fam["tiny"][f"llama32_3b window {TINY_WINDOW}"]
     narrow_twin = fam["tiny"][f"llama32_3b head_dim {TINY_HEAD_DIM}"]
+    wide_twin = fam["tiny"][f"llama32_3b head_dim {TINY_WIDE_HEAD_DIM}"]
+    # each kernel's wide instance (heads over 256): the paths that launched
+    # it (the TINY twins with heads of 320) and each of its cases
+    wide_launches = {FK.WGMMA: tiny_bf16_wide,
+                     FK.TF32X3: wide_twin["attention_launches"][FK.TF32X3]}
+    wide_keys = ("shape", "loads", "max_abs_err", "ms", "device_ms",
+                 "plain_ms", "bound_ms", "bound_by", "device_bound_share",
+                 "library_ms", "library_device_ms")
     for name, case, launches, w_case, w_launches, o_case, o_launches, \
             extra in (
             (FK.WGMMA, "serve", wgmma, "starcoder2_window",
@@ -3826,7 +3894,12 @@ def main() -> int:
             "odd_device_ms": ro["device_ms"], "odd_plain_ms": ro["plain_ms"],
             "odd_bound_ms": ro["bound_ms"], "odd_bound_by": ro["bound_by"],
             "odd_library_ms": ro["library_ms"],
-            "odd_library_device_ms": ro["library_device_ms"], **extra})
+            "odd_library_device_ms": ro["library_device_ms"],
+            "wide_launches": wide_launches[name],
+            "wide_cases": {c: {**{key: attn[c].get(key) for key in wide_keys},
+                               "library_kernels": list(attn[c].get(
+                                   "library_kernels", {}))[:3]}
+                           for c in WIDE_CASES[name]}, **extra})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
     print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))

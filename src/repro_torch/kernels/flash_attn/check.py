@@ -22,7 +22,8 @@ is timed beside it (``causal_ms``, ``causal_device_ms``).
 
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
 v and o (each read or written once, at the true widths d and dv, never
-the padded ones) over the card's memory rate, and the
+the padded ones, nor the scores a wide instance recomputes once a slice
+of o's columns) over the card's memory rate, and the
 FLOPs of the two products over the pairs the mask keeps (2 (d + dv) per
 (query, key, head); :func:`kept_pairs`) at the card's dense peak for the
 type. For bf16 that is the tensor cores' bf16 rate. For f32 it is the
@@ -100,7 +101,9 @@ def library_call(q, k, v, causal: bool, window: int = 0):
     bf16 goes with ``enable_gqa`` (its flash route takes GQA). In f32 no
     fused route takes ``enable_gqa`` (the call falls to the math route's
     f32 GEMMs, 2.6-4x slower on an H100), so K and V are copied out to
-    every query head and the memory-efficient route takes the call."""
+    every query head and the memory-efficient route takes the call. Past
+    256 columns its flash route takes no head, so the call runs whatever
+    route PyTorch picks there: :func:`library_kernels` names it."""
     import torch.nn.functional as F
     gqa = q.dtype != torch.float32
     if not gqa:

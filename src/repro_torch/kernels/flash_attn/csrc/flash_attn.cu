@@ -11,9 +11,11 @@
 // attention with an online softmax. q (b, s, h, d), k (b, s, kvh, d),
 // v (b, s, kvh, dv) and the output o (b, s, h, dv) keep that layout in
 // device memory; query head hq of batch row bi reads KV head hq / (h / kvh).
-// d and dv are any widths from 1 to 256, as the reference's are (it pads
+// d and dv are any widths from 1 up, as the reference's are (it pads
 // nothing and takes any width): flash_attn_wgmma_kernel takes every bf16
-// call, flash_attn_tf32x3_kernel every f32 one.
+// call, flash_attn_tf32x3_kernel every f32 one, each in one launch. Heads
+// up to 256 columns (d and dv) take the instances padded to 64, 128 or 256
+// columns; a wider head takes each kernel's wide instance (below).
 // Precision follows the reference kernel step by step: f32 scores of the
 // inputs scaled by 1/sqrt(d) (the reference scales q in f32 first; the
 // two orders differ by f32 rounding only), masked scores and the initial
@@ -88,9 +90,10 @@
 //
 // ---------------------------------------------------------------------------
 // flash_attn_wgmma_kernel: bf16, d and dv from 1 to 256 (the serve
-//   prefill). Both products run on the tensor cores (wgmma), and every tile
-//   arrives by TMA or the producer warp's loads, so the consumers' CUDA
-//   cores are left with the softmax.
+//   prefill; wider heads: its wide instance, below). Both products run on
+//   the tensor cores (wgmma), and every tile arrives by TMA or the
+//   producer warp's loads, so the consumers' CUDA cores are left with the
+//   softmax.
 //   - Work split: one CTA per (batch row x query head, 64-row query tile),
 //     the tiles of the last (heaviest causal) query rows launched first.
 //     Four consumer warps (one warpgroup, wgmma's M of 64) and one
@@ -122,8 +125,9 @@
 //     warpgroups per CTA sharing each K/V tile, and FlashAttention-3's
 //     overlap of one tile's softmax with the previous tile's PV product.
 //
-// flash_attn_tf32x3_kernel: f32, d and dv from 1 to 256. Both products run
-//   on the tensor cores in tf32 in three passes: x = hi + lo, where hi is x
+// flash_attn_tf32x3_kernel: f32, d and dv from 1 to 256 (wider heads: its
+//   wide instance, below). Both products run on the tensor cores in tf32
+//   in three passes: x = hi + lo, where hi is x
 //   as the tensor core reads an f32 operand (its low 13 bits dropped:
 //   measured on an H100, where a lo taken against cvt.rna's rounding
 //   instead left errors of 2.8e-3) and lo = tf32(x - hi) (cvt.rna.tf32),
@@ -164,6 +168,40 @@
 //     tiles would not fit beside a 256-column Q), so that instance runs
 //     the phases in turn. O is a stack of m64n64 products, so dv = 256 is
 //     128 accumulator registers a thread, with no spill.
+//
+// The wide instances (flash_attn_wgmma_wide_kernel and
+//   flash_attn_tf32x3_wide_kernel: d or dv over 256). Neither a whole O
+//   row nor a resident Q fits: one warpgroup holds at most 256 f32
+//   accumulator columns (128 registers a thread), and a CTA's 227 KB of
+//   shared memory holds a 576-column bf16 Q and one K stage of the same
+//   width only just, an f32 one not at all. So:
+//   - O's columns are split across CTAs: grid z takes slices of 256
+//     columns (O_SLICE), and each CTA computes S and the softmax of its
+//     query tile over again and stores only its slice. S is recomputed
+//     once a slice: at d = 576, dv = 512 the kernel does 2 x 576 + 512 =
+//     1,664 columns of products for the function's 1,088 (1.53x).
+//   - d is streamed: for each key tile, Q's and K's chunks of 128 columns
+//     (kDChunk) pass through a ring of stages together (Q is read from L2
+//     again for each key tile), S = sum over chunks of Q_c K_c^T in the
+//     same f32 registers, then V's slice takes a stage of its own. The
+//     scale is 1/sqrt(d) of the true d. Stages are one size, so one ring
+//     and one pair of mbarriers a stage carry both kinds; one producer
+//     (wide::produce) fills it for both kernels, on both load routes.
+//   - bf16: chunks of 128 columns (Q_c 16 KB + K_c 16 KB = one 32 KB stage,
+//     as a 64-key x 256-column V slice is), six stages; P V in m64n64
+//     products, one a 64-column box of the slice that holds data.
+//   - f32: 32-key tiles, chunks of 128 columns (Q_c 32 KB + K_c 16 KB), 3
+//     stages of 48 KB; the lo parts of Q_c and K_c are formed in 48 KB of
+//     scratch, and V^T and its lo part (2 x 32 KB) lie over the same
+//     scratch once S is read out. Every phase runs in turn.
+//   - Both load routes as above: a slice is a column offset (TMA: a box
+//     coordinate in the same V map; the producer warp: a column offset in
+//     its source pointer, the row length still dv). The producer warp's
+//     boxes are zeroed past the data each time, since a stage holds Q and
+//     K in one use and V in the next.
+//   Offsets into q, k, v and o are 64-bit throughout (a q of more than
+//   2^31 elements is taken); the grid's limits stay: b h <= 65535, ceil(s /
+//   64) <= 65535, ceil(dv / 256) <= 65535.
 //
 // ---------------------------------------------------------------------------
 #include <cuda.h>
@@ -252,6 +290,268 @@ int granule(int elem, int d, int dv, const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
+// What the wide instances of both kernels share (the note at the top)
+// ---------------------------------------------------------------------------
+namespace wide {
+
+constexpr int O_SLICE = 256;     // columns of O a CTA computes (grid z)
+constexpr float NEG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// The masks and the online softmax of one key tile of BK = 2 N keys, as the
+// narrow instances run them: S's m64nBK accumulator fragment `sc` (row
+// r_lo + 8 ((i / 2) % 2), key k0 + 8 (i / 4) + c_in + i % 2 of register i)
+// becomes p (f32); m and l (this thread's share of each row's sum) are
+// carried, alpha is the rescale of O.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int q0, int k0, int r_lo,
+                                             int c_in, int s, int causal,
+                                             int window, float scale_log2) {
+  constexpr int BQ = 64, BK = 2 * N;
+  const bool windowed = window > 0;
+  // the causal mask on the diagonal tiles, the key one past s, the
+  // window's lower edge on every tile that holds some row's edge
+  if (k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
+      (windowed && k0 <= q0 + BQ - 1 - window)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int row = q0 + r_lo + 8 * ((i >> 1) & 1);
+      const int col = k0 + 8 * (i >> 2) + c_in + (i & 1);
+      if (col >= s || (causal && col > row) ||
+          (windowed && col <= row - window))
+        sc[i] = NEG;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float shift[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    alpha[r] = exp2f((m[r] - mx[r]) * scale_log2);
+    // a row with no kept key yet (its window starts in a later tile)
+    // takes no shift: its p are then exp2(-1e30 x scale) = 0
+    shift[r] = mx[r] == NEG ? 0.f : mx[r] * scale_log2;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = exp2f(fmaf(sc[i], scale_log2, -shift[r]));
+    rs[r] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// The producer warp's loads of n boxes of one operand into one stage, two
+// boxes a call of load_boxes: box i (ROWS positions x 128 bytes) at dst + i
+// box_bytes, from src + 128 i, with bytes - 128 i bytes of data a row and
+// the rest zeroed (a stage holds another operand in its previous use).
+template <int G, int ROWS, typename Ready>
+__device__ __forceinline__ void load_run(uint32_t dst, int box_bytes,
+                                         const uint8_t* src, long ld,
+                                         int rows, int bytes, int n,
+                                         int lane, Ready ready) {
+  using hopper::Box;
+  for (int i = 0; i < n; i += 2) {
+    const Box b0 = {dst + i * box_bytes, src + 128 * i, ld, rows,
+                    bytes - 128 * i};
+    if (i + 1 < n) {
+      const Box two[2] = {b0, {dst + (i + 1) * box_bytes,
+                               src + 128 * (i + 1), ld, rows,
+                               bytes - 128 * (i + 1)}};
+      hopper::load_boxes<G, ROWS>(two, true, lane, ready);
+    } else {
+      const Box one[1] = {b0};
+      hopper::load_boxes<G, ROWS>(one, true, lane, ready);
+    }
+  }
+}
+
+// One CTA of a wide instance whose shared-memory layout is L (kBQ query
+// rows, kBK keys a tile, boxes of kChunk columns, d's chunks of kDChunk):
+// its batch row and query head (grid x), its query tile, heaviest first
+// (grid y), its slice of O's columns from v0 (grid z), the key tiles it
+// walks (from t0, the tile that holds its lowest row's window edge) and the
+// boxes of its slice that hold data.
+template <typename L>
+struct Cta {
+  int bi, hq, kh, q0, v0, t0, n_tiles, d_chunks, v_boxes;
+
+  __device__ __forceinline__ Cta(int s, int h, int kvh, int d, int dv,
+                                 int causal, int window) {
+    bi = blockIdx.x / h;
+    hq = blockIdx.x % h;
+    kh = hq / (h / kvh);
+    q0 = (gridDim.y - 1 - blockIdx.y) * L::kBQ;
+    v0 = blockIdx.z * O_SLICE;
+    n_tiles = (s + L::kBK - 1) / L::kBK;
+    if (causal) n_tiles = min(n_tiles, (q0 + L::kBQ + L::kBK - 1) / L::kBK);
+    const int lo = q0 - window + 1;  // the lowest row's first kept key
+    t0 = window > 0 && lo > 0 ? lo / L::kBK : 0;
+    d_chunks = (d - 1) / L::kDChunk + 1;
+    v_boxes = min((dv - v0 + L::kChunk - 1) / L::kChunk, O_SLICE / L::kChunk);
+  }
+
+  // the boxes of d's chunk c that hold data
+  __device__ __forceinline__ int chunk_boxes(int d, int c) const {
+    return min(L::kDChunk / L::kChunk,
+               (d - c * L::kDChunk + L::kChunk - 1) / L::kChunk);
+  }
+};
+
+// The producer warp of a wide instance (`lane` 0-31). Stage j of the run
+// (for each key tile, d_chunks stages of Q's and K's chunk c, Q's boxes at
+// the stage's start and K's at L::kKOff, then one of V's slice) lies in slot
+// j % L::kStages, in phase (j / L::kStages) & 1, each slot with a full and
+// an empty mbarrier (bar_full + 8 slot, bar_empty + 8 slot); the consumers
+// take the stages in the same order. By TMA one lane issues the copies;
+// otherwise every lane loads the same boxes in granules of g bytes.
+template <typename L, bool TMA>
+__device__ __forceinline__ void produce(
+    const Cta<L>& c, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, const void* q, const void* k, const void* v,
+    int s, int h, int kvh, int d, int dv, int g, uint32_t base,
+    uint32_t bar_full, uint32_t bar_empty, int lane) {
+  constexpr int E = L::kElem, C = L::kChunk, BK = L::kBK;
+  if constexpr (TMA) {
+    if (lane != 0) return;
+    int j = 0;
+    for (int t = c.t0; t < c.n_tiles; ++t) {
+      for (int ch = 0; ch <= c.d_chunks; ++ch, ++j) {  // d_chunks: V's slice
+        const int st = j % L::kStages;
+        const uint32_t full = bar_full + 8 * st;
+        const uint32_t sd = base + st * L::kStage;
+        hopper::mbar_wait(bar_empty + 8 * st, ((j / L::kStages) & 1) ^ 1);
+        if (ch < c.d_chunks) {
+          const int col = ch * L::kDChunk;
+          const int n = c.chunk_boxes(d, ch);
+          hopper::mbar_arrive_expect_tx(full, n * (L::kQBox + L::kKBox));
+          for (int i = 0; i < n; ++i) {
+            hopper::tma_load_4d(sd + i * L::kQBox, tm_q, full, col + i * C,
+                                c.hq, c.q0, c.bi);
+            hopper::tma_load_4d(sd + L::kKOff + i * L::kKBox, tm_k, full,
+                                col + i * C, c.kh, t * BK, c.bi);
+          }
+        } else {
+          hopper::mbar_arrive_expect_tx(full, c.v_boxes * L::kKBox);
+          for (int i = 0; i < c.v_boxes; ++i)
+            hopper::tma_load_4d(sd + i * L::kKBox, tm_v, full,
+                                c.v0 + i * C, c.kh, t * BK, c.bi);
+        }
+      }
+    }
+  } else {
+    // byte strides between positions, and each head's first row (V's from
+    // the slice's first column)
+    const long ldq = (long)E * h * d, ldk = (long)E * kvh * d,
+               ldv = (long)E * kvh * dv;
+    const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
+                        ((long)c.bi * s + c.q0) * ldq + (long)E * c.hq * d;
+    const uint8_t* kb = reinterpret_cast<const uint8_t*>(k) +
+                        (long)c.bi * s * ldk + (long)E * c.kh * d;
+    const uint8_t* vb = reinterpret_cast<const uint8_t*>(v) +
+                        (long)c.bi * s * ldv + (long)E * (c.kh * (long)dv +
+                                                          c.v0);
+    auto run = [&](auto gran) {
+      constexpr int G = decltype(gran)::value;
+      int j = 0;
+      for (int t = c.t0; t < c.n_tiles; ++t) {
+        const int rows = s - t * BK;
+        for (int ch = 0; ch <= c.d_chunks; ++ch, ++j) {  // d_chunks: V
+          const int st = j % L::kStages;
+          const uint32_t sd = base + st * L::kStage;
+          auto ready = [&] {
+            hopper::mbar_wait(bar_empty + 8 * st,
+                              ((j / L::kStages) & 1) ^ 1);
+          };
+          if (ch < c.d_chunks) {
+            const int col = ch * L::kDChunk;
+            const int n = c.chunk_boxes(d, ch);
+            const int bytes = E * min(d - col, L::kDChunk);  // this chunk's
+            load_run<G, L::kBQ>(sd, L::kQBox, qh + (long)E * col, ldq,
+                                s - c.q0, bytes, n, lane, ready);
+            load_run<G, BK>(sd + L::kKOff, L::kKBox,
+                            kb + t * BK * ldk + (long)E * col, ldk, rows,
+                            bytes, n, lane, ready);
+          } else {
+            load_run<G, BK>(sd, L::kKBox, vb + t * BK * ldv, ldv, rows,
+                            E * min(dv - c.v0, O_SLICE), c.v_boxes, lane,
+                            ready);
+          }
+          hopper::fence_proxy_async();  // the tensor cores read these
+          hopper::mbar_arrive(bar_full + 8 * st);
+        }
+      }
+    };
+    if (g == 8) {
+      run(hopper::Int<8>());
+    } else if constexpr (E == 4) {  // f32 rows: granules of 4 or 8 bytes
+      run(hopper::Int<4>());
+    } else if (g == 4) {
+      run(hopper::Int<4>());
+    } else {
+      run(hopper::Int<2>());
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_one(__nv_bfloat16* out, float a) {
+  *out = __float2bfloat16(a);
+}
+__device__ __forceinline__ void store_one(float* out, float a) { *out = a; }
+
+// The epilogue of a wide instance: acc / max(l, 1e-30) in o's type, the
+// rows below s, the slice's columns below dv; a thread's column pairs are
+// stored whole where `pairs` (dv even: a pair stays in its row, aligned).
+template <typename L, typename T>
+__device__ __forceinline__ void store_slice(T* o, const Cta<L>& c,
+                                            const float (&acc)[O_SLICE / 2],
+                                            float (&l)[2], bool pairs,
+                                            int r_lo, int c_in, int s,
+                                            int h, int dv) {
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+  const long o_row = (long)h * dv;
+  T* ob = o + (long)c.bi * s * o_row + (long)c.hq * dv;
+#pragma unroll
+  for (int i = 0; i < O_SLICE / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = c.q0 + r_lo + 8 * r;
+    const int col = c.v0 + 8 * (i >> 2) + c_in;
+    if (row < s && col < dv) {
+      T* out = ob + row * o_row + col;
+      if (pairs) {
+        store_pair(out, acc[i] / den[r], acc[i + 1] / den[r]);
+      } else {
+        store_one(out, acc[i] / den[r]);
+        if (col + 1 < dv) store_one(out + 1, acc[i + 1] / den[r]);
+      }
+    }
+  }
+}
+
+}  // namespace wide
+
+// ---------------------------------------------------------------------------
 // flash_attn_wgmma_kernel (design in the note at the top)
 // ---------------------------------------------------------------------------
 namespace wg {
@@ -332,10 +632,10 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const long ldq = 2L * h * d, ldk = 2L * kvh * d, ldv = 2L * kvh * dv;
     const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
                         ((long)bi * s + q0) * ldq + 2L * hq * d;
-    const uint8_t* kb =
-        reinterpret_cast<const uint8_t*>(k) + bi * s * ldk + 2L * kh * d;
-    const uint8_t* vb =
-        reinterpret_cast<const uint8_t*>(v) + bi * s * ldv + 2L * kh * dv;
+    const uint8_t* kb = reinterpret_cast<const uint8_t*>(k) +
+                        (long)bi * s * ldk + 2L * kh * d;
+    const uint8_t* vb = reinterpret_cast<const uint8_t*>(v) +
+                        (long)bi * s * ldv + 2L * kh * dv;
     auto produce = [&](auto gran) {
       constexpr int G = decltype(gran)::value;
       for (int c = 0; c < qk_chunks; ++c) {
@@ -565,6 +865,157 @@ int route(const Call& c) {
                : launch<P, MIN_BLOCKS, false>(c);
 }
 
+
+// ---- the wide instance: d or dv over 256 (the note at the top) ----
+// Shared memory: kStages stages of 32 KB, each Q's and K's chunk (two
+// 64-row boxes each, K's at kKOff) or V's slice (four boxes), then the
+// barriers (full[], empty[]).
+struct WideSmem {
+  static constexpr int kElem = 2, kChunk = CHUNK, kBQ = BQ, kBK = BK;
+  static constexpr int kDChunk = 128;     // columns of d a stage holds
+  static constexpr int kStages = 6;
+  static constexpr int kQBox = BOX, kKBox = BOX;
+  static constexpr int kKOff = (kDChunk / kChunk) * kQBox;
+  static constexpr int kStage = kKOff + (kDChunk / kChunk) * kKBox;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kBytes = 1024 + kBars + 8 * 2 * kStages;
+  static_assert(wide::O_SLICE / kChunk * kKBox == kStage,
+                "V's slice fills one stage");
+};
+
+template <bool TMA>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const uint16_t* __restrict__ q,
+                             const uint16_t* __restrict__ k,
+                             const uint16_t* __restrict__ v,
+                             __nv_bfloat16* __restrict__ o, int s, int h,
+                             int kvh, int d, int dv, float scale_log2,
+                             int causal, int window, int g) {
+  using L = WideSmem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_full = base + L::kBars;                // + 8 i
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;     // + 8 i
+  const int tid = threadIdx.x;
+  const wide::Cta<L> c(s, h, kvh, d, dv, causal, window);
+
+  if (tid == 0) {
+    for (int i = 0; i < L::kStages; ++i) {
+      hopper::mbar_init(bar_full + 8 * i, TMA ? 1 : 32);
+      hopper::mbar_init(bar_empty + 8 * i, CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    wide::produce<L, TMA>(c, &tm_q, &tm_k, &tm_v, q, k, v, s, h, kvh, d, dv,
+                          g, base, bar_full, bar_empty, tid - CONSUMERS);
+    return;
+  }
+
+  // ---- the consumer warpgroup ----
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r_lo = warp * 16 + (lane >> 2);  // this thread's rows: r_lo, +8
+  const int c_in = 2 * (lane & 3);           // its columns in each 8-block
+  const int k_steps = (d - 1) / 16 + 1;      // k16 steps of S that see data
+
+  float acc[wide::O_SLICE / 2];
+#pragma unroll
+  for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  int j = 0;  // the ring's stage (wide::produce)
+  for (int t = c.t0; t < c.n_tiles; ++t) {
+    // S = sum over d's chunks of Q_c K_c^T (f32), each stage freed as soon
+    // as its product is retired
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    for (int ch = 0; ch < c.d_chunks; ++ch, ++j) {
+      const int st = j % L::kStages;
+      const uint32_t sd = base + st * L::kStage;
+      hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
+      hopper::fence_regs(sc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < L::kDChunk / 16; ++kc) {
+        if (ch * (L::kDChunk / 16) + kc < k_steps) {
+          const uint32_t off = (kc / 4) * BOX + (kc % 4) * 32;
+          hopper::wgmma_ss(sc, hopper::smem_desc(sd + off, 16, 1024),
+                           hopper::smem_desc(sd + L::kKOff + off, 16, 1024),
+                           1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(sc);
+      hopper::mbar_arrive(bar_empty + 8 * st);  // this stage may be refilled
+    }
+
+    float alpha[2];
+    wide::softmax_tile(sc, m, l, alpha, c.q0, t * BK, r_lo, c_in, s, causal,
+                       window, scale_log2);
+
+    // O += P V over the slice: P rounded to bf16 in place as the A fragment,
+    // one m64n64 product a box of V that holds data
+    const int st = j % L::kStages;
+    const uint32_t sv = base + st * L::kStage;
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = hopper::pack_bf16x2(sc[8 * kk + 2 * e],
+                                        sc[8 * kk + 2 * e + 1]);
+      hopper::fence_regs(pa[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int ns = 0; ns < wide::O_SLICE / CHUNK; ++ns) {
+        if (ns < c.v_boxes)
+          hopper::wgmma_rs(
+              reinterpret_cast<float(&)[32]>(acc[32 * ns]), pa[kk],
+              hopper::smem_desc(sv + ns * BOX + kk * 16 * 128, BOX, 1024), 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(bar_empty + 8 * st);
+    ++j;
+  }
+  wide::store_slice(o, c, acc, l, TMA || dv % 2 == 0, r_lo, c_in, s, h, dv);
+}
+
+template <bool TMA>
+int launch_wide(const Call& c) {
+  const int smem = WideSmem::kBytes;
+  auto kern = flash_attn_wgmma_wide_kernel<TMA>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ,
+                  (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
+  kern<<<grid, THREADS, smem, c.stream>>>(
+      c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
+      static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
+      static_cast<__nv_bfloat16*>(c.o), c.s, c.h, c.kvh, c.d, c.dv,
+      c.scale_log2, c.causal, c.window, c.g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -718,10 +1169,10 @@ flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
     const long ldq = 4L * h * d, ldk = 4L * kvh * d, ldv = 4L * kvh * dv;
     const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
                         ((long)bi * s + q0) * ldq + 4L * hq * d;
-    const uint8_t* kb =
-        reinterpret_cast<const uint8_t*>(k) + bi * s * ldk + 4L * kh * d;
-    const uint8_t* vb =
-        reinterpret_cast<const uint8_t*>(v) + bi * s * ldv + 4L * kh * dv;
+    const uint8_t* kb = reinterpret_cast<const uint8_t*>(k) +
+                        (long)bi * s * ldk + 4L * kh * d;
+    const uint8_t* vb = reinterpret_cast<const uint8_t*>(v) +
+                        (long)bi * s * ldv + 4L * kh * dv;
     auto produce = [&](auto gran) {
       constexpr int G = decltype(gran)::value;
       for (int c = 0; c < qk_chunks; ++c) {
@@ -1023,21 +1474,226 @@ int route(const Call& c) {
                : launch<P, tile_keys<P>(), 1, false>(c);
 }
 
+
+// ---- the wide instance: d or dv over 256 (the note at the top) ----
+// Shared memory: kStages stages of 48 KB, each Q's chunk (four 64-row
+// boxes) and K's (four 32-row boxes, at kKOff) or V's slice (eight 32-row
+// boxes); then the consumers' scratch at kLo: the lo parts of Q's and K's
+// chunk, or V^T and its lo part over them; then the barriers (full[],
+// empty[]).
+struct WideSmem {
+  static constexpr int kElem = 4, kChunk = CHUNK, kBQ = BQ;
+  static constexpr int kBK = 32;           // keys a tile
+  static constexpr int kDChunk = 128;      // columns of d a stage holds
+  static constexpr int kStages = 3;
+  static constexpr int kQBox = QBOX, kKBox = kBK * 128;
+  static constexpr int kKOff = (kDChunk / kChunk) * kQBox;
+  static constexpr int kStage = kKOff + (kDChunk / kChunk) * kKBox;
+  static constexpr int kVT = wide::O_SLICE * 128;  // 256 rows of 32 keys
+  static constexpr int kLo = kStages * kStage;
+  static constexpr int kBars = kLo + (kStage > 2 * kVT ? kStage : 2 * kVT);
+  static constexpr int kBytes = 1024 + kBars + 8 * 2 * kStages;
+  static_assert(wide::O_SLICE / kChunk * kKBox <= kStage,
+                "V's slice fits one stage");
+  static_assert(kBytes <= 232448, "227 KB of shared memory a CTA");
+};
+static_assert(tile_keys<256>() == WideSmem::kBK, "the entry point's maps");
+
+template <bool TMA>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tf32x3_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const uint32_t* __restrict__ q,
+                              const uint32_t* __restrict__ k,
+                              const uint32_t* __restrict__ v,
+                              float* __restrict__ o, int s, int h, int kvh,
+                              int d, int dv, float scale_log2, int causal,
+                              int window, int g) {
+  using L = WideSmem;
+  constexpr int BK = L::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align every box to it
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t bar_full = base + L::kBars;                // + 8 i
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;     // + 8 i
+  const int tid = threadIdx.x;
+  const wide::Cta<L> c(s, h, kvh, d, dv, causal, window);
+
+  if (tid == 0) {
+    for (int i = 0; i < L::kStages; ++i) {
+      hopper::mbar_init(bar_full + 8 * i, TMA ? 1 : 32);
+      hopper::mbar_init(bar_empty + 8 * i, CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    wide::produce<L, TMA>(c, &tm_q, &tm_k, &tm_v, q, k, v, s, h, kvh, d, dv,
+                          g, base, bar_full, bar_empty, tid - CONSUMERS);
+    return;
+  }
+
+  // ---- the consumer warpgroup ----
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r_lo = warp * 16 + (lane >> 2);  // this thread's rows: r_lo, +8
+  const int c_in = 2 * (lane & 3);           // its columns in each 8-block
+  const int k_steps = (d - 1) / 8 + 1;       // k8 steps of S that see data
+  const int v_slices = (c.v_boxes + 1) / 2;  // n64 products of O that do
+  uint8_t* const scratch = sm + L::kLo;
+  const uint64_t desc_ql = hopper::smem_desc(base + L::kLo, 16, 1024);
+  const uint64_t desc_kl =
+      hopper::smem_desc(base + L::kLo + L::kKOff, 16, 1024);
+  const uint64_t desc_vh = desc_ql;           // V^T over Q's lo part
+  const uint64_t desc_vl = hopper::smem_desc(base + L::kLo + L::kVT, 16, 1024);
+
+  float acc[wide::O_SLICE / 2];
+#pragma unroll
+  for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P's A fragments, hi and lo
+
+  // Every wgmma group is committed and retired within one stage.
+  int j = 0;  // the ring's stage (wide::produce)
+  for (int t = c.t0; t < c.n_tiles; ++t) {
+    // S = sum over d's chunks of Q_c K_c^T (f32), each in three tf32
+    // passes, the small terms first; the first product overwrites S
+    float sc[BK / 2];
+    for (int ch = 0; ch < c.d_chunks; ++ch, ++j) {
+      const int st = j % L::kStages;
+      const uint32_t sd = base + st * L::kStage;
+      const int n = c.chunk_boxes(d, ch);
+      hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
+      split(sm + st * L::kStage, scratch, n * QBOX / 16, tid);
+      split(sm + st * L::kStage + L::kKOff, scratch + L::kKOff,
+            n * L::kKBox / 16, tid);
+      hopper::fence_proxy_async();
+      hopper::bar_sync(1, CONSUMERS);  // the lo parts are written
+      // the descriptors are made opaque each stage, as the narrow
+      // instances' each tile: hoisted with their k8 offsets, they would
+      // crowd out the accumulators
+      const uint64_t dq = hopper::smem_desc(sd, 16, 1024);
+      const uint64_t dk = hopper::smem_desc(sd + L::kKOff, 16, 1024);
+      uint64_t dql = desc_ql, dkl = desc_kl;
+      asm volatile("" : "+l"(dql), "+l"(dkl));
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+        const uint64_t a = pass == 1 ? dql : dq;   // Q hi, Q lo, Q hi
+        const uint64_t b = pass == 0 ? dkl : dk;   // K lo, K hi, K hi
+#pragma unroll
+        for (int kc = 0; kc < L::kDChunk / 8; ++kc) {
+          if (ch * (L::kDChunk / 8) + kc < k_steps)
+            hopper::wgmma_tf32_ss(
+                sc, a + (kc / 4) * (QBOX >> 4) + (kc % 4) * 2,
+                b + (kc / 4) * (L::kKBox >> 4) + (kc % 4) * 2,
+                ch + pass + kc > 0);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::bar_sync(1, CONSUMERS);  // every warp's S has read the scratch
+      hopper::mbar_arrive(bar_empty + 8 * st);  // this stage may be refilled
+    }
+
+    // V's slice as V^T and its lo part, over the scratch
+    const int st = j % L::kStages;
+    hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
+    transpose_v<wide::O_SLICE, BK>(sm + st * L::kStage, scratch,
+                                   scratch + L::kVT, c.v_boxes, warp, lane);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(bar_empty + 8 * st);  // V may be refilled
+    ++j;
+    hopper::bar_sync(1, CONSUMERS);  // V^T is written
+
+    float alpha[2];
+    wide::softmax_tile(sc, m, l, alpha, c.q0, t * BK, r_lo, c_in, s, causal,
+                       window, scale_log2);
+
+    // P's A fragments, p and its lo part (the key order of the narrow
+    // instances: column c is key 2c, c + 4 is key 2c + 1)
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const float pv[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                           sc[4 * kk + 3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ph[kk][e] = __float_as_uint(hopper::tf32_trunc(pv[e]));
+        pl[kk][e] = __float_as_uint(hopper::tf32_lo(pv[e]));
+      }
+    }
+
+    // O = alpha O + P V in three tf32 passes (P hi V lo, P lo V hi, P hi
+    // V hi), one m64n64 product per 64 columns of the slice that hold data
+#pragma unroll
+    for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    hopper::fence_regs(acc);
+    uint64_t dvh = desc_vh, dvl = desc_vl;
+    asm volatile("" : "+l"(dvh), "+l"(dvl));
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint64_t b = pass == 0 ? dvl : dvh;   // V^T lo, hi, hi
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+#pragma unroll
+        for (int ns = 0; ns < wide::O_SLICE / 64; ++ns) {
+          if (ns < v_slices)
+            hopper::wgmma_tf32_rs(
+                reinterpret_cast<float(&)[32]>(acc[32 * ns]),
+                pass == 1 ? pl[kk] : ph[kk],
+                b + (kk % 4) * 2 + ns * (64 * 128 >> 4), 1);
+        }
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::bar_sync(1, CONSUMERS);  // P V has read V^T: the scratch is free
+  }
+  wide::store_slice(o, c, acc, l, TMA || dv % 2 == 0, r_lo, c_in, s, h, dv);
+}
+
+template <bool TMA>
+int launch_wide(const Call& c) {
+  const int smem = WideSmem::kBytes;
+  auto kern = flash_attn_tf32x3_wide_kernel<TMA>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ,
+                  (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
+  kern<<<grid, THREADS, smem, c.stream>>>(
+      c.tq, c.tk, c.tv, static_cast<const uint32_t*>(c.q),
+      static_cast<const uint32_t*>(c.k), static_cast<const uint32_t*>(c.v),
+      static_cast<float*>(c.o), c.s, c.h, c.kvh, c.d, c.dv, c.scale_log2,
+      c.causal, c.window, c.g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tf
 
 extern "C" {
 
 // The bf16 kernel. q, k, v, o: device pointers of contiguous bfloat16 (b,
-// s, h|kvh, d|dv) tensors. The wrapper checks d, dv in [1, 256], h % kvh
-// == 0, ceil(s / 64) <= 65535, and that q, k and v are 16-byte aligned
-// where d and dv are multiples of 8 (the TMA route); window: 0 (none) or
-// the sliding window's width (causal only). Returns cudaErrorInvalidValue
-// where cuTensorMapEncodeTiled refuses a tensor map.
+// s, h|kvh, d|dv) tensors. The wrapper checks d, dv >= 1, h % kvh == 0,
+// b h <= 65535, ceil(s / 64) <= 65535, ceil(dv / 256) <= 65535, and that
+// q, k and v are 16-byte aligned where d and dv are multiples of 8 (the TMA
+// route); window: 0 (none) or the sliding window's width (causal only).
+// Returns cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a
+// tensor map.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                      int b, int s, int h, int kvh, int d, int dv, float scale,
                      int causal, int window, void* stream) {
-  if (d < 1 || d > 256 || dv < 1 || dv > 256 || kvh <= 0 || h % kvh ||
-      (s + wg::BQ - 1) / wg::BQ > 65535 || window < 0 ||
+  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh ||
+      (s + wg::BQ - 1) / wg::BQ > 65535 ||
+      (dv - 1) / wide::O_SLICE >= 65535 || window < 0 ||
       (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
@@ -1052,7 +1708,8 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
   const int p = d > dv ? d : dv;
   if (p <= 64) return wg::route<64, 3>(c);
   if (p <= 128) return wg::route<128, 2>(c);
-  return wg::route<256, 1>(c);
+  if (p <= 256) return wg::route<256, 1>(c);
+  return c.tma ? wg::launch_wide<true>(c) : wg::launch_wide<false>(c);
 }
 
 // The f32 kernel. q, k, v, o: device pointers of contiguous float32 (b, s,
@@ -1062,8 +1719,9 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
 int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
                       int b, int s, int h, int kvh, int d, int dv,
                       float scale, int causal, int window, void* stream) {
-  if (d < 1 || d > 256 || dv < 1 || dv > 256 || kvh <= 0 || h % kvh ||
-      (s + tf::BQ - 1) / tf::BQ > 65535 || window < 0 ||
+  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh ||
+      (s + tf::BQ - 1) / tf::BQ > 65535 ||
+      (dv - 1) / wide::O_SLICE >= 65535 || window < 0 ||
       (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
@@ -1081,7 +1739,8 @@ int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   if (p <= 64) return tf::route<64>(c);
   if (p <= 128) return tf::route<128>(c);
-  return tf::route<256>(c);
+  if (p <= 256) return tf::route<256>(c);
+  return c.tma ? tf::launch_wide<true>(c) : tf::launch_wide<false>(c);
 }
 
 }  // extern "C"

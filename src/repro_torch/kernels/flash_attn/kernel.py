@@ -1,8 +1,8 @@
 """Wrappers of the flash-attention CUDA kernels (``csrc/flash_attn.cu``).
 
 Two kernels compute the same function, both on the tensor cores, and
-both take every head width ``d`` and ``dv`` from 1 to 256;
-:func:`kernel_for` picks one by the dtype alone:
+both take every head width ``d`` and ``dv`` from 1 up, each call in one
+launch; :func:`kernel_for` picks one by the dtype alone:
 
 * ``flash_attention_wgmma``: bf16 (the serve prefill);
 * ``flash_attention_tf32x3``: f32, in three TF32 passes (the f32
@@ -13,7 +13,12 @@ Each loads its tiles by TMA where a head's row is a multiple of 16 bytes
 needs 16-byte strides), and otherwise with its producer warp's own loads
 into the same shared-memory layout, the columns past the width and the
 rows past ``s`` zero-filled as TMA fills them; the C entry point picks
-the route.
+the route. Heads up to 256 columns (d and dv) take instances that hold
+Q and a whole O row; a wider head takes each kernel's wide instance,
+which streams d through shared memory in chunks and splits o's columns
+across CTAs in slices of :data:`O_SLICE` (recomputing the scores once a
+slice). The grid bounds what is left: ``b * h``, ``ceil(s / 64)`` and
+``ceil(dv / O_SLICE)`` at most 65,535.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
 refuses inputs that need a gradient (neither the kernels nor the
@@ -71,8 +76,10 @@ def standing_in():
         STANDIN.reset(token)
 
 DTYPES = (torch.float32, torch.bfloat16)
-#: the widest q/k (d) and v (dv) head the kernel takes
-MAX_HEAD_DIM = 256
+#: columns of o one CTA of a wide instance computes (dv > 256 is split)
+O_SLICE = 256
+#: the grid's limit on each of its axes past the first
+GRID_LIMIT = 65535
 
 
 def _check(q, k, v) -> None:
@@ -100,10 +107,13 @@ def _check(q, k, v) -> None:
     if kvh == 0 or h % kvh:
         raise ValueError(f"h={h} is not a multiple of kvh={kvh}")
     for name, n in (("d", d), ("dv", dv)):
-        if not 0 < n <= MAX_HEAD_DIM:
-            raise ValueError(f"{name}={n} must be in [1, {MAX_HEAD_DIM}]")
-    if b * h > 65535:
-        raise ValueError(f"b*h={b * h} exceeds the grid's 65535 rows")
+        if n < 1:
+            raise ValueError(f"{name}={n}: a head is at least 1 wide")
+    if b * h > GRID_LIMIT:
+        raise ValueError(f"b*h={b * h} exceeds the grid's {GRID_LIMIT} rows")
+    if -(-dv // O_SLICE) > GRID_LIMIT:
+        raise ValueError(f"dv={dv} exceeds the grid's {GRID_LIMIT} slices "
+                         f"of {O_SLICE} columns")
 
 
 def kernel_for(dtype, d: int, dv: int) -> str:
@@ -138,8 +148,9 @@ def launch(q, k, v, causal: bool, name: str, window: int = 0):
                                          for t in (q, k, v)):
         raise ValueError(f"{name} loads d={d} dv={dv} by TMA: q, k and v "
                          f"must be 16-byte aligned")
-    if s > 65535 * 64:
-        raise ValueError(f"s={s} exceeds the grid's 65535 query tiles")
+    if -(-s // 64) > GRID_LIMIT:
+        raise ValueError(f"s={s} exceeds the grid's {GRID_LIMIT} query "
+                         f"tiles")
     dev = q.device
     o = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
     if o.numel():

@@ -12,8 +12,10 @@ every lane of its own (lengths at tile edges, GQA ratios, head widths, d
 != dv, two rows, non-causal, windows at tile edges); each with a sliding
 window at tile edges, every GQA ratio and head width; both at widths whose
 rows are no multiple of 16 bytes (loaded without TMA), odd ones on 2-byte
-boundaries and tensors that start off 16 bytes; and the serving path on
-the card against the CPU. Needs a CUDA card:
+boundaries and tensors that start off 16 bytes; both at heads wider
+than 256 (the wide instances: d in chunks, o in slices of 256 columns),
+one launch a call, and with a q of more than 2**31 elements; and the
+serving path on the card against the CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
 import numpy as np
@@ -351,6 +353,12 @@ def _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal, qk_scale=1.0):
     (1, 512, 16, 8, 64, 64, True, 1),       # granite-moe-1b
     (1, 512, 36, 4, 128, 128, True, 1),     # starcoder2-7b, h/kvh = 9
     (1, 512, 96, 8, 192, 192, True, 1),     # nemotron-4-340b
+    (1, 512, 8, 2, 320, 320, True, 1),      # wider than 256: TMA, 2 slices
+    (1, 1024, 40, 1, 288, 256, True, 1),    # minicpm3's latent attention
+    (1, 1024, 128, 1, 576, 512, True, 1),   # DeepSeek-V3's absorbed MLA
+    (1, 1000, 6, 2, 333, 301, True, 1),     # warp route, 2 slices, ragged
+    (2, 300, 6, 3, 1030, 517, False, 1),    # 9 chunks of d, 3 slices
+    (1, 200, 4, 2, 512, 512, True, 8),      # wide, q and k x8
 ])
 def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
                                              causal, qk_scale):
@@ -380,6 +388,13 @@ def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
     (2, 1000, 9, 1, 64, 64, True, 100),    # GQA 9, two rows
     (1, 65, 4, 4, 256, 256, True, 63),     # widest heads, windowed
     (1, 1000, 9, 1, 256, 256, True, 17),   # the same, a short window
+    (1, 512, 8, 2, 320, 320, True, 0),     # wider than 256: TMA, 2 slices
+    (1, 512, 40, 1, 288, 256, True, 0),    # minicpm3's latent attention
+    (1, 256, 128, 1, 576, 512, True, 0),   # DeepSeek-V3's absorbed MLA
+    (1, 300, 6, 2, 1030, 517, False, 0),   # warp route, 9 chunks, 3 slices
+    (2, 257, 6, 3, 333, 301, True, 0),     # odd widths, two rows
+    (1, 1000, 6, 2, 512, 512, True, 100),  # wide, windowed
+    (1, 65, 4, 4, 300, 200, True, 63),     # wide d, narrow dv, windowed
 ])
 def test_tf32x3_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
                                               causal, w):
@@ -484,19 +499,22 @@ def test_rows_not_16_bytes_match_plain(cuda, b, s, h, kvh, d, dv, causal,
     assert err["finite"] and err["within_tolerance"], err
 
 
-#: (d, dv) from 1 to 256: rows of every alignment (odd bf16 widths on
-#: 2-byte boundaries), each instance (P = 64, 128, 256) and d != dv
+#: (d, dv): rows of every alignment (odd bf16 widths on 2-byte
+#: boundaries), each instance (P = 64, 128, 256 and the wide one: d in
+#: chunks of 128, o in slices of 256) and d != dv on each side of 256
 WIDTHS = [(1, 1), (2, 3), (3, 7), (5, 5), (6, 6), (7, 9), (10, 5), (12, 12),
           (13, 17), (33, 31), (63, 65), (65, 63), (100, 100), (127, 129),
-          (130, 66), (200, 250), (255, 255), (256, 255), (255, 256)]
+          (130, 66), (200, 250), (255, 255), (256, 255), (255, 256),
+          (257, 257), (300, 200), (200, 300), (333, 301), (511, 513),
+          (576, 512), (1024, 1024)]
 
 
 @pytest.mark.parametrize("d,dv", WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_every_width_matches_plain(cuda, d, dv, dtype):
-    """Every width the reference takes, up to 256, at one position, one
-    key past a tile, a ragged non-causal length and a window of 17, two
-    rows of 6 / 2 heads: within the reference's tolerance."""
+    """Widths the reference takes, on each side of 256, at one position,
+    one key past a tile, a ragged non-causal length and a window of 17,
+    two rows of 6 / 2 heads: within the reference's tolerance."""
     for s, causal, w in ((1, True, 0), (65, True, 0), (300, False, 0),
                          (200, True, 17)):
         q, k, v = FC.make_inputs(2, s, 6, 2, d, dv, dtype, s + d, cuda)
@@ -505,6 +523,28 @@ def test_every_width_matches_plain(cuda, d, dv, dtype):
         torch.cuda.synchronize(cuda)
         err = FC._error(got, want, FC.TOLERANCE[dtype])
         assert err["finite"] and err["within_tolerance"], (s, causal, w, err)
+
+
+def test_q_of_more_than_2_31_elements(cuda):
+    """q, k, v and o of 2**31 elements each (4 GiB in bf16: b 2,048, s 64,
+    h 16, d 1,024), so that an offset taken in 32 bits would wrap: one
+    launch, within the bf16 tolerance of the plain version, which is
+    computed a batch slice at a time to bound its f32 copies."""
+    b, s, h, d = 2048, 64, 16, 1024
+    q, k, v = FC.make_inputs(b, s, h, h, d, d, torch.bfloat16, 7, cuda)
+    assert q.numel() == 2 ** 31
+    before = dict(FK.LAUNCHES)
+    got = FK.flash_attention_fwd(q, k, v)
+    assert FK.LAUNCHES == {**before, FK.WGMMA: before[FK.WGMMA] + 1}
+    worst = 0.0
+    for b0 in range(0, b, 256):
+        part = slice(b0, b0 + 256)
+        want = FC.ref.sdpa_ref(q[part], k[part], v[part])
+        err = FC._error(got[part], want, FC.TOLERANCE[torch.bfloat16])
+        assert err["finite"] and err["within_tolerance"], (b0, err)
+        worst = max(worst, err["max_abs_err"])
+    # the last batch row, whose offsets pass 2**31 elements, holds data
+    assert float(got[-1].float().abs().max()) > 0, worst
 
 
 def test_flash_attention_refuses_mixed_devices(cuda):

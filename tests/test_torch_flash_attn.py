@@ -6,11 +6,13 @@ and bf16, non-causal, causality), the same tolerances (2e-5 in f32, 2e-2
 in bf16), inputs from numpy seeds handed to both packages. Ragged ``s``,
 which the reference kernel refuses, is held against the reference's
 dense oracle ``sdpa_ref``. Both take head widths that are no multiple of
-4 or 8, as the reference does (d = 6, (10, 5), (3, 7)). The split between
-the two CUDA kernels, which only the card runs, is pinned here by dtype,
-and the f32 kernel's arithmetic (three TF32 passes in a tiled online
-softmax, heads zero-padded to the kernel's box) is modelled in torch and
-held against the reference's Pallas kernel."""
+4 or 8, as the reference does (d = 6, (10, 5), (3, 7)), and heads wider
+than 256 ((320, 320), (288, 256), (576, 512), (257, 1), (1, 257), 1,024).
+The split between the two CUDA kernels, which only the card runs, is
+pinned here by dtype, and the f32 kernel's arithmetic (three TF32 passes
+in a tiled online softmax, heads zero-padded to the kernel's box; past
+256 columns S summed over chunks of d and o in slices) is modelled in
+torch and held against the reference's Pallas kernel."""
 import math
 
 import jax.numpy as jnp
@@ -53,6 +55,13 @@ def _np(x):
     (1, 128, 4, 2, (6, 6), 64, 64),
     (1, 128, 6, 2, (10, 5), 64, 32),
     (2, 64, 4, 4, (3, 7), 32, 32),
+    # heads wider than 256: the wide instances (d in chunks, o in slices)
+    (1, 64, 4, 2, (320, 320), 64, 64),
+    (1, 64, 4, 1, (288, 256), 64, 32),    # minicpm3's latent attention
+    (1, 64, 4, 1, (576, 512), 32, 64),    # DeepSeek-V3's absorbed MLA
+    (1, 64, 2, 2, (257, 1), 64, 64),
+    (1, 64, 2, 1, (1, 257), 64, 64),
+    (1, 64, 2, 1, (1024, 1024), 64, 64),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matches_reference_kernel(b, s, h, kvh, d, bq, bk, dtype):
@@ -91,6 +100,7 @@ def test_causality_enforced():
     (100, 4, 2, 6, 6, True),        # widths no multiple of 4
     (77, 6, 2, 10, 5, True),        # odd dv, ragged
     (50, 4, 1, 3, 7, False),        # odd d and dv, non-causal
+    (70, 4, 2, 333, 301, True),     # wider than 256, odd, ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ragged_lengths_match_reference_oracle(s, h, kvh, d, dv, causal,
@@ -114,9 +124,8 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     (lambda q, k, v: (q, k.to(torch.bfloat16), v), TypeError),
     (lambda q, k, v: (q.transpose(1, 2), k, v), ValueError),
     (lambda q, k, v: (q, k[:, :10], v), ValueError),
-    (lambda q, k, v: (torch.cat([q] * 17, -1)[..., :264].contiguous(),
-                      torch.cat([k] * 17, -1)[..., :264].contiguous(), v),
-     ValueError),                  # d = 264: wider than the kernels' 256
+    (lambda q, k, v: (q[..., :0].contiguous(), k[..., :0].contiguous(), v),
+     ValueError),                  # d = 0: no head
     (lambda q, k, v: (q[:, :, :5].contiguous(), k, v), ValueError),
     (lambda q, k, v: (q, k, v[0]), ValueError),
 ])
@@ -141,6 +150,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     (torch.bfloat16, 16, 3, K.WGMMA),      # odd dv
     (torch.float32, 5, 16, K.TF32X3),      # odd d: no 16-byte row
     (torch.float32, 16, 3, K.TF32X3),      # odd dv
+    (torch.bfloat16, 320, 320, K.WGMMA),   # wider than 256: the wide
+    (torch.float32, 320, 320, K.TF32X3),   # instances, TMA
+    (torch.bfloat16, 576, 512, K.WGMMA),   # DeepSeek-V3's absorbed MLA
+    (torch.float32, 288, 256, K.TF32X3),   # minicpm3's latent width
+    (torch.bfloat16, 333, 301, K.WGMMA),   # wide, odd: producer warp
+    (torch.float32, 1030, 517, K.TF32X3),  # wide, no 16-byte row
+    (torch.bfloat16, 257, 1, K.WGMMA),     # one side wide, one narrow
+    (torch.float32, 1, 257, K.TF32X3),
 ])
 def test_kernel_split_is_fixed_by_dtype_and_widths(dtype, d, dv, want):
     assert K.kernel_for(dtype, d, dv) == want
@@ -195,17 +212,45 @@ def _boxed(x):
     return torch.nn.functional.pad(x, (0, -x.shape[-1] % 32))
 
 
+#: the f32 kernel's wide instance (d or dv over 256): d's chunks, o's slices
+D_CHUNK, O_SLICE = 128, 256
+
+
+def _scores(qt, kt, passes, chunk):
+    """S = Q K^T as the kernel sums it: in one product, or (``chunk``) over
+    d's chunks into the same f32 accumulator, each chunk's three passes in
+    turn (hi lo, lo hi, hi hi)."""
+    if chunk is None:
+        return _product(qt, kt, passes)
+    sc = torch.zeros(qt.shape[:-1] + kt.shape[-1:], dtype=torch.float32)
+    for c in range(0, qt.shape[-1], chunk):
+        a, b = qt[..., c:c + chunk], kt[..., c:c + chunk, :]
+        ah, bh = _tf32(a, rounded=False), _tf32(b, rounded=False)
+        if passes == 1:
+            sc = sc + ah @ bh
+            continue
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        sc = sc + ah @ bl
+        sc = sc + al @ bh
+        sc = sc + ah @ bh
+    return sc
+
+
 def _kernel_model(q, k, v, causal=True, window=0, passes=3):
     """The kernel's f32 arithmetic: heads zero-padded to its 32-column
     boxes, 64-row query tiles, key tiles of 64 (32 where a head is wider
     than 128), from the tile that holds the lowest row's window edge up to
     the causal limit; unscaled scores, the -1e30 mask, exp2 with the scale
     of the true d folded in, no shift for a row whose max is still -1e30, l
-    from the unrounded p, acc / max(l, 1e-30), the columns below dv."""
+    from the unrounded p, acc / max(l, 1e-30), the columns below dv. Where
+    d or dv is over 256 (the wide instance) S is summed over d's chunks of
+    128 columns, and o is computed in slices of 256 columns, each with its
+    own pass over the key tiles."""
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     f32 = torch.float32
     bk = 64 if max(d, dv) <= 128 else 32
+    chunk = D_CHUNK if max(d, dv) > 256 else None
     scale_log2 = float(np.float32(1.0 / d ** 0.5) * np.float32(math.log2(math.e)))
     q, k, v = _boxed(q), _boxed(k), _boxed(v)
     wide = v.shape[3]
@@ -213,34 +258,37 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
     kt = k.permute(0, 2, 3, 1)[:, :, None]       # (b, kvh, 1, d, s)
     vt = v.permute(0, 2, 1, 3)[:, :, None]       # (b, kvh, 1, s, dv)
     out = torch.empty(b, kvh, h // kvh, s, wide, dtype=f32)
-    for q0 in range(0, s, 64):
-        rows = torch.arange(q0, min(q0 + 64, s))
-        n_tiles = -(-s // bk)
-        if causal:
-            n_tiles = min(n_tiles, (q0 + 64 + bk - 1) // bk)
-        lo = q0 - window + 1
-        t0 = lo // bk if window and lo > 0 else 0
-        m = torch.full(qg.shape[:3] + (len(rows), 1), ref.NEG, dtype=f32)
-        l = torch.zeros_like(m)
-        acc = torch.zeros(qg.shape[:3] + (len(rows), wide), dtype=f32)
-        for t in range(t0, n_tiles):
-            cols = torch.arange(t * bk, min(t * bk + bk, s))
-            sc = _product(qg[..., rows, :], kt[..., cols], passes)
-            keep = torch.ones(len(rows), len(cols), dtype=torch.bool)
+    for v0 in range(0, wide, O_SLICE):
+        vs = vt[..., v0:v0 + O_SLICE]
+        for q0 in range(0, s, 64):
+            rows = torch.arange(q0, min(q0 + 64, s))
+            n_tiles = -(-s // bk)
             if causal:
-                keep &= cols[None, :] <= rows[:, None]
-            if window:
-                keep &= cols[None, :] > rows[:, None] - window
-            sc = torch.where(keep, sc, torch.tensor(ref.NEG, dtype=f32))
-            mx = torch.maximum(m, sc.amax(-1, keepdim=True))
-            alpha = torch.exp2((m - mx) * scale_log2)
-            shift = torch.where(mx == ref.NEG, torch.zeros_like(mx),
-                                mx * scale_log2)
-            p = torch.exp2(sc * scale_log2 - shift)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + _product(p, vt[..., cols, :], passes)
-            m = mx
-        out[..., rows, :] = acc / torch.clamp(l, min=1e-30)
+                n_tiles = min(n_tiles, (q0 + 64 + bk - 1) // bk)
+            lo = q0 - window + 1
+            t0 = lo // bk if window and lo > 0 else 0
+            m = torch.full(qg.shape[:3] + (len(rows), 1), ref.NEG, dtype=f32)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(qg.shape[:3] + (len(rows), vs.shape[-1]),
+                              dtype=f32)
+            for t in range(t0, n_tiles):
+                cols = torch.arange(t * bk, min(t * bk + bk, s))
+                sc = _scores(qg[..., rows, :], kt[..., cols], passes, chunk)
+                keep = torch.ones(len(rows), len(cols), dtype=torch.bool)
+                if causal:
+                    keep &= cols[None, :] <= rows[:, None]
+                if window:
+                    keep &= cols[None, :] > rows[:, None] - window
+                sc = torch.where(keep, sc, torch.tensor(ref.NEG, dtype=f32))
+                mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+                alpha = torch.exp2((m - mx) * scale_log2)
+                shift = torch.where(mx == ref.NEG, torch.zeros_like(mx),
+                                    mx * scale_log2)
+                p = torch.exp2(sc * scale_log2 - shift)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + _product(p, vs[..., cols, :], passes)
+                m = mx
+            out[..., rows, v0:v0 + O_SLICE] = acc / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, wide)[..., :dv]
 
 
@@ -253,13 +301,18 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
     (1, 128, 4, 2, 6, True, 64, 64),      # widths padded to a box: 6,
     (1, 128, 6, 2, 10, True, 64, 32),     # 10, and (d, dv) = (3, 7)
     (1, 64, 4, 4, (3, 7), False, 32, 32),
+    # the wide instance: S over d's chunks of 128, o in slices of 256
+    (1, 64, 4, 2, 320, True, 64, 32),
+    (1, 64, 4, 1, (576, 512), True, 64, 64),
+    (1, 64, 2, 1, 1024, False, 32, 32),
 ])
 def test_tf32x3_model_matches_reference_kernel(b, s, h, kvh, d, causal, bq,
                                                bk):
     """The model of the f32 kernel holds the reference kernel's f32
-    tolerance (2e-5) on the f32 sweep, interpret mode, and at widths the
+    tolerance (2e-5) on the f32 sweep, interpret mode, at widths the
     kernel zero-pads to its box (the padding adds exactly nothing in each
-    of the three passes)."""
+    of the three passes), and at heads wider than 256, where the wide
+    instance sums S over d's chunks and computes o in slices."""
     d, dv = d if isinstance(d, tuple) else (d, d)
     (jq, jk, jv), (q, k, v), tol = _inputs(0 if causal else 1, b, s, h, kvh,
                                            d, dv, "float32")

@@ -164,6 +164,26 @@ def test_head_dim_no_multiple_of_4_matches_reference(dtype, tol):
                     == int(jnp.argmax(lj[0, -1, :rcfg.vocab_size])))
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_head_dim_wider_than_256_matches_reference(dtype, tol):
+    """llama32 TINY with heads of 320, wider than the narrow instances'
+    256 (on the card the wide instance: d in chunks, o in two slices):
+    the port's prefill, through the flash-attention wrapper, and its
+    greedy decode hold the reference's logits, and in f32 its greedy
+    ids."""
+    rcfg, params, cfg, model = _pair(dtype=dtype, head_dim=320)
+    steps, _, _ = _decode_both(rcfg, params, cfg, model,
+                               _tokens(cfg, 21, seed=5), steps=4)
+    for lj, lt in steps:
+        np.testing.assert_allclose(_np(lt)[..., :cfg.vocab_size],
+                                   _np(lj)[..., :rcfg.vocab_size],
+                                   rtol=tol, atol=tol)
+        if dtype == "float32":
+            assert (int(torch.argmax(lt[0, -1, :cfg.vocab_size]))
+                    == int(jnp.argmax(lj[0, -1, :rcfg.vocab_size])))
+
+
 def test_params_round_trip_through_numpy():
     for dtype in ("float32", "bfloat16"):
         rcfg, params, cfg, model = _pair(dtype=dtype)
