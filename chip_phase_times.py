@@ -33,7 +33,7 @@ import time
 PHASES = ("kernel_phase", "attention_phase", "main_path", "race_phase",
           "durability_phase", "sim_vs_card", "sharded_phase",
           "two_rank_phase", "tiny_sharded_card_vs_cpu", "precision_phase",
-          "serve_phase",
+          "serve_phase", "f32_serve_phase", "f16_phase",
           "continuous_phase", "tiny_card_vs_cpu", "tiny_continuous",
           "families_phase", "family_serve_phase", "train_phase",
           "tiny_train_twins", "mesh_phase")

@@ -48,9 +48,12 @@ fails (non-zero exit, no result line) without them. Phases:
    (128 / 1, d 576, dv 512) at 1,024 in bf16, odd widths on the producer
    warp's route (6 / 2 of 333 / 301 at a ragged 1,000 in bf16; 1,030 /
    517 non-causal at 300 in f32) and 6 / 2 of 512 at 1,000 with w = 100
-   in bf16, each also with the names of the kernels SDPA runs there;
-   within 2e-2
-   (bf16) / 2e-5 (f32) with PyTorch's TF32 off; each case's one wrapper
+   in bf16, each also with the names of the kernels SDPA runs there; and
+   in f16 (the wgmma kernel's f16 instance, against SDPA in f16): llama's
+   heads at 512 and 4,096, starcoder2-7b's at 8,192 with its 4,096-token
+   window, starcoder2 TINY's heads of 12 (the producer warp's loads) and
+   8 / 2 of 320 (the wide instance); within 2e-2 (bf16) / 4e-3 (f16) /
+   2e-5 (f32) with PyTorch's TF32 off; each case's one wrapper
    call must launch the kernel the split names and no other. CUDA-event
    medians timed in turns: the kernel, one
    ``scaled_dot_product_attention`` call (timed only, never on the path;
@@ -144,7 +147,9 @@ fails (non-zero exit, no result line) without them. Phases:
    weight), and the backward of the autograd wrapper (``mm.dtype`` has no
    derivative) on the FFN case against the upcast form's; prints each
    case's error and the device times of the f32-result product, the
-   upcast form and the bf16 product; then the bf16 products where
+   upcast form and the bf16 product; the same two cases with f16 operands
+   (an f16 model's products, ``<case>_f16``: gradients within one f16
+   rounding); then the bf16 products where
    cuBLAS may split the inner dim (``PRECISION_BF16``: decode's and
    prefill's FFN down-products of llama3.2-3b and starcoder2-7b, and a
    weight gradient over rank 0's 16,384 train_4k tokens), each with
@@ -153,7 +158,10 @@ fails (non-zero exit, no result line) without them. Phases:
    bf16 ulps) and the exact sum (the largest error in ulps over the lanes
    whose f32 rounding noise is under a quarter ulp), and the device
    times; with the port's setting (off: every ``Model`` clears it) no
-   such lane may be more than one ulp off;
+   such lane may be more than one ulp off, nor any lane more than one ulp
+   past the f32 sum's noise bound; then the same products in f16 with
+   ``allow_fp16_reduced_precision_reduction`` on and off, in f16 ulps
+   (``precision f16 <case>``);
    then the serving path at full width: llama3.2-3b (28 layers, bf16, weights
    drawn from ``--seed`` on the card) behind ``ServeEngine`` with a
    ``PrefixKVCache(block_tokens=8, capacity_blocks=64)`` whose refcounts
@@ -184,7 +192,18 @@ fails (non-zero exit, no result line) without them. Phases:
    id and last-position logits must agree with the same prefill's with
    attention by the plain version on the card (``plain_attention``),
    within ``F32_LOGIT_TOL`` of the largest logit; it prints prefill times
-   of both routes, the gaps and the decode time;
+   of both routes, the gaps and the decode time. Then the same in f16
+   (its CONFIG with ``dtype="float16"``, 6.4 GB; ``F16_SERVE``: the same
+   order with the hits sharing 504 of 512 tokens; a 4,096-token
+   prefill): 28 launches of the wgmma kernel's f16 instance a prefill and
+   no other attention kernel, each prefill's logits within
+   ``F16_LOGIT_TOL`` of the plain route's largest logit (the greedy ids'
+   agreement printed), and the f16 TINY twins (``F16_TWINS``: llama32,
+   llama32 with heads of 320, minicpm3, starcoder2 with a window of 8),
+   each served on the card and on the CPU with the same weights: every
+   card prefill on the f16 instance, its last logits within
+   ``F16_TWIN_LOGIT_TOL`` of the CPU's, identical cached prefixes and
+   stats;
 11. the same request order scaled down on llama32 TINY in f32, served on
    the card and on the CPU with the same weights: outputs, cached
    prefixes and cache stats must be identical. The serial engine's pins
@@ -315,7 +334,10 @@ fails (non-zero exit, no result line) without them. Phases:
    twins' with heads of 320) beside each of its ``WIDE_CASES``, as
    ``race_launches`` under the race phase's tracer (0 for attention,
    checked), as ``train_launches`` in phase 16 and as ``mesh_launches``
-   in phase 18), then the card line, then the result line.
+   in phase 18; the f16 instance's launches are the f16 serve's and its
+   TINY twins', beside its cases ``f16``, ``f16_starcoder2_window``,
+   ``f16_d12`` and ``wide_f16``), then the card line, then the result
+   line. An ``f16`` JSON line before it holds phase 10's f16 records.
 
 Any mismatch or failed phase raises, so the script exits non-zero.
 """
@@ -325,6 +347,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import signal
@@ -390,7 +413,11 @@ WIDE_WINDOW_HEADS = (6, 2, 512, 512)
 #: multiple of 16 bytes, which each kernel's producer warp loads without
 #: TMA: starcoder2 TINY's heads in bf16 (d = 12), also over a ragged 1,000
 #: with w = 100; d = 10, dv = 5 in bf16 (odd rows on 2-byte boundaries)
-#: over a ragged 1,000; f32 heads of 6
+#: over a ragged 1,000; f32 heads of 6. The f16 cases (the wgmma kernel's
+#: f16 instance, last): llama's heads at 512 (the f16 serve's prefill) and
+#: 4,096, starcoder2-7b's at 8,192 with its 4,096-token window, starcoder2
+#: TINY's (d = 12, the producer warp's loads) and 8 / 2 of 320 (the wide
+#: instance)
 ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("long", 4096, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("ragged", 1000, "bfloat16", True, LLAMA_HEADS, 1.0),
@@ -428,16 +455,23 @@ ATTN_CASES = [("serve", 512, "bfloat16", True, LLAMA_HEADS, 1.0),
               ("wide_f32_odd", 300, "float32", False, WIDE_F32_ODD_HEADS,
                1.0),
               ("wide_window", 1000, "bfloat16", True, WIDE_WINDOW_HEADS,
-               1.0, 100)]
+               1.0, 100),
+              ("f16", 512, "float16", True, LLAMA_HEADS, 1.0),
+              ("f16_long", 4096, "float16", True, LLAMA_HEADS, 1.0),
+              ("f16_starcoder2_window", 8192, "float16", True,
+               STARCODER2_HEADS, 1.0, 4096),
+              ("f16_d12", 512, "float16", True, STARCODER2_TINY_HEADS, 1.0),
+              ("wide_f16", 512, "float16", True, WIDE_HEADS, 1.0)]
 #: the cases of heads wider than 256, by kernel: each prints the kernels
 #: SDPA runs there (its flash route stops at 256 columns)
 WIDE_CASES = {"flash_attention_wgmma": ("wide_bf16", "mla_latent",
                                         "absorbed_576", "wide_odd",
                                         "wide_window"),
               "flash_attention_tf32x3": ("wide_f32", "mla_latent_f32",
-                                         "wide_f32_odd")}
-#: attention cases longer than this (f32: this long) are timed over 3
-#: rounds (the plain version and SDPA take ~10 ms a call there)
+                                         "wide_f32_odd"),
+              "flash_attention_wgmma_f16": ("wide_f16",)}
+#: attention cases longer than this (f32 and f16: this long) are timed
+#: over 3 rounds (the plain version takes ~10 ms a call there)
 ATTN_LONG = 4096
 #: the serve phase's traffic (full width) and its scaled-down twin (TINY)
 SERVE = dict(prompt_len=512, shared=256, max_new=32, block_tokens=8,
@@ -451,6 +485,18 @@ TINY_SERVE = dict(prompt_len=40, shared=16, max_new=16, block_tokens=8,
 F32_SERVE = dict(SERVE, max_new=8)
 F32_LONG = 4096
 F32_LOGIT_TOL = 1e-3
+#: llama3.2-3b in f16 at full width, as the f32 serve (the serve run's
+#: order with 8 new tokens, then one ``F16_LONG``-token prefill), but the
+#: three hits share 504 of the 512 prompt tokens, so 24 prompt tokens are
+#: decoded one by one after their hits instead of 768 (the smoke's time
+#: limit: 71 s of host-bound decode steps on a slow host): each prefill's
+#: last-position logits within ``F16_LOGIT_TOL`` of the largest logit of
+#: the same prefill's with attention by the plain version (f16 rounds P
+#: and o to 11 bits, bf16 to 8: between f32's 1e-3 and the bf16 twins'
+#: 5e-2)
+F16_SERVE = dict(SERVE, shared=504, max_new=8)
+F16_LONG = 4096
+F16_LOGIT_TOL = 2e-2
 #: the twin again with every pin and unpin drained into the device table
 #: (the serial engine's pins otherwise cancel in H_R), each request's
 #: refcounts read back while it holds them
@@ -521,6 +567,16 @@ TINY_HEAD_DIM = 6
 TINY_WIDE_HEAD_DIM = 320
 TWIN_LOGIT_TOL = 2e-5
 BF16_TWIN_LOGIT_TOL = 5e-2
+#: the f16 TINY twins, card against CPU with the same weights: (arch,
+#: sliding window, head width or 0 for the config's): llama32, llama32
+#: with heads of 320 (the f16 instance's wide kernel), minicpm3 (MLA) and
+#: starcoder2 with a window of 8 (heads of 12: the producer warp's
+#: loads). Every prefill's last-position logits on the card within
+#: ``F16_TWIN_LOGIT_TOL`` of the CPU's, absolute and relative
+#: (``tests/test_torch_f16.py``'s logit tolerance against the reference)
+F16_TWINS = (("llama32_3b", 0, 0), ("llama32_3b", 0, TINY_WIDE_HEAD_DIM),
+             ("minicpm3_4b", 0, 0), ("starcoder2_7b", TINY_WINDOW, 0))
+F16_TWIN_LOGIT_TOL = 1e-2
 #: the SSM and hybrid stacks' TINY serial order: 32-token prompts (their
 #: TINY chunk), 16 shared
 TINY_SERVE_SSM = dict(TINY_SERVE, prompt_len=32)
@@ -669,10 +725,11 @@ def kernel_name(mangled: str) -> str:
             rest = mangled[i:]
             if not rest.startswith("I"):
                 return ident
-            args = re.findall(r"Li(\d+)E|^I(f)|13(__nv_bfloat16)|Lb([01])E",
-                              rest[:rest.find("EE") + 1])
+            args = re.findall(
+                r"Li(\d+)E|^I(f)|13(__nv_bfloat16)|6(__half)|Lb([01])E",
+                rest[:rest.find("EE") + 1])
             args = [{"f": "float", "b0": "false", "b1": "true"}.get(
-                "".join(a[:3]) or "b" + a[3], "".join(a)) for a in args]
+                "".join(a[:4]) or "b" + a[4], "".join(a)) for a in args]
             return f"{ident}<{','.join(args)}>"
     return mangled
 
@@ -680,8 +737,8 @@ def kernel_name(mangled: str) -> str:
 def kernel_report(lib) -> dict:
     """Each kernel of a built library: its static SASS counts of HGMMA,
     UTMALDG, UBLKCP, SYNCS and LDG and its registers and spills from
-    ``ptxas``. Fails if an instance of a tensor-core attention kernel (bf16
-    or f32) has no HGMMA, or one of the merge kernel no bulk copy."""
+    ``ptxas``. Fails if an instance of a tensor-core attention kernel (bf16,
+    f16 or f32) has no HGMMA, or one of the merge kernel no bulk copy."""
     from repro_torch.kernels import nvcc
     ptxas = nvcc.ptxas_report(lib.last_build["log"])
     out = {}
@@ -904,14 +961,14 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
     for name, s, dtype, causal, (h, kvh, d, dv), qk_scale, *w in cases:
         dt = getattr(torch, dtype)
         window = w[0] if w else 0
-        long = s > ATTN_LONG or (dtype == "float32" and s == ATTN_LONG)
+        long = s > ATTN_LONG or (dtype != "bfloat16" and s == ATTN_LONG)
         r = FC.check_flash_attention(1, s, h, kvh, d, dv, dt, causal,
                                      seed + s, dev,
                                      reps=min(reps, 3) if long else reps,
                                      qk_scale=qk_scale, window=window)
         wide = any(name in c for c in WIDE_CASES.values())
-        if dev.type == "cuda" and (wide or dtype == "float32" and name in (
-                "f32", "f32_long")):
+        if dev.type == "cuda" and (wide or name in (
+                "f32", "f32_long", "f16", "f16_long")):
             # which kernels the library call runs (the profiler's names)
             r["library_kernels"] = FC.library_kernels(
                 1, s, h, kvh, d, dv, dt, causal, seed + s, dev, window)
@@ -1928,86 +1985,23 @@ def decode_ops(model, dev) -> int:
 
 def precision_phase(seed: int, dev, card: str, reps: int = 20) -> dict:
     """``PRECISION_CASES`` on the card (see the module docstring, 9):
-    the port's f32-result product of bf16 operands against the upcast
-    form, the memory it allocates, its backward, and the device times of
-    the f32-result product, the upcast form and the bf16 product (CUDA
-    events around ``reps`` calls each, in turns)."""
+    the port's f32-result product of bf16 operands, and then of f16 ones
+    (``mm.dtype`` for an f16 model's products), against the upcast form,
+    the memory it allocates, its backward, and the device times of the
+    f32-result product, the upcast form and the product in the operands'
+    type (CUDA events around ``reps`` calls each, in turns); then
+    :func:`low_products` in bf16 and in f16."""
     import torch
-    from repro_torch.models import layers as L
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, m, d, n, tied in PRECISION_CASES:
-        x = (torch.randn(m, d, generator=gen, device=dev)).bfloat16()
-        if tied:                 # the table (V, d), read as its transpose
-            w = (torch.randn(n, d, generator=gen, device=dev)
-                 * 0.02).bfloat16().t()
-        else:
-            w = (torch.randn(d, n, generator=gen, device=dev)
-                 / d ** 0.5).bfloat16()
-        torch.cuda.synchronize(dev)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        got = L.matmul_f32(x, w)
-        torch.cuda.synchronize(dev)
-        extra = torch.cuda.max_memory_allocated(dev) - base - \
-            got.numel() * got.element_size()
-        want = x.float() @ w.float()
-        err = float((got - want).abs().max() / want.abs().max())
-        bf16_err = float((x @ w).float().sub(want).abs().max()
-                         / want.abs().max())
-        if got.dtype != torch.float32 or not torch.isfinite(got).all():
-            fail(f"precision {name}: result {got.dtype}, not finite f32")
-        if err > PRECISION_TOL:
-            fail(f"precision {name}: max relative error {err} against the "
-                 f"upcast form, over {PRECISION_TOL}")
-        if extra > PRECISION_SLACK:
-            fail(f"precision {name}: the f32-result product allocated "
-                 f"{extra} bytes beyond its result")
-        calls = {"f32_result": lambda: L.matmul_f32(x, w),
-                 "upcast": lambda: x.float() @ w.float(),
-                 "bf16": lambda: x @ w}
-        ms = {k: [] for k in calls}
-        for _ in range(3):                      # in turns
-            for k, fn in calls.items():
-                fn()
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                for _ in range(reps):
-                    fn()
-                t1.record()
-                torch.cuda.synchronize(dev)
-                ms[k].append(t0.elapsed_time(t1) / reps)
-        rec = {"shape": [m, d, n], "max_rel_err": err,
-               "bf16_max_rel_err": bf16_err, "extra_bytes": extra,
-               **{f"{k}_ms": min(v) for k, v in ms.items()}}
-        if not tied:
-            # the backward: x's gradient an f32-result product of the
-            # bf16-rounded cotangent, handed on in x's type; w's in w's
-            xg = x.clone().requires_grad_(True)
-            wg = w.clone().requires_grad_(True)
-            g = torch.randn(m, n, generator=gen, device=dev)
-            L.matmul_f32(xg, wg).backward(g)
-            gb = g.bfloat16().float()
-            gx = gb @ w.float().t()
-            gw = x.float().t() @ gb
-            rec["grad_x_rel_err"] = float(
-                (xg.grad.float() - gx).abs().max() / gx.abs().max())
-            rec["grad_w_rel_err"] = float(
-                (wg.grad.float() - gw).abs().max() / gw.abs().max())
-            if xg.grad.dtype != torch.bfloat16 or \
-                    wg.grad.dtype != torch.bfloat16:
-                fail(f"precision {name}: gradients in {xg.grad.dtype} / "
-                     f"{wg.grad.dtype}, not the operands' bf16")
-            # both rounded once to bf16 (2**-8 relative at most)
-            if max(rec["grad_x_rel_err"], rec["grad_w_rel_err"]) > 2 ** -8:
-                fail(f"precision {name}: gradients {rec}")
-        out[name] = rec
-        print(f"precision {name}: {json.dumps(rec)}; card {card}",
-              flush=True)
-        del x, w, got, want
-    out["bf16"] = bf16_products(seed, dev, card, reps)
+    for low, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        for name, m, d, n, tied in PRECISION_CASES:
+            key = name if low == "bf16" else f"{name}_{low}"
+            out[key] = precision_case(gen, dev, card, key, m, d, n, tied,
+                                      low, dt, reps)
+    out["bf16"] = low_products(seed, dev, card, torch.bfloat16, reps)
+    out["f16"] = low_products(seed, dev, card, torch.float16, reps)
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"precision ({out['phase_s']:.1f} s): torch "
@@ -2015,9 +2009,86 @@ def precision_phase(seed: int, dev, card: str, reps: int = 20) -> dict:
     return out
 
 
-def bf16_ulps(a, b):
-    """|a - b| in bf16 ulps, lane by lane (bf16 tensors): the distance
-    between their bit patterns on a line ordered like the values."""
+def precision_case(gen, dev, card: str, name: str, m: int, d: int, n: int,
+                   tied: bool, low: str, dt, reps: int) -> dict:
+    """One ``PRECISION_CASES`` case with operands in ``dt`` (``low`` its
+    short name)."""
+    import torch
+    from repro_torch.models import layers as L
+    x = (torch.randn(m, d, generator=gen, device=dev)).to(dt)
+    if tied:                 # the table (V, d), read as its transpose
+        w = (torch.randn(n, d, generator=gen, device=dev)
+             * 0.02).to(dt).t()
+    else:
+        w = (torch.randn(d, n, generator=gen, device=dev)
+             / d ** 0.5).to(dt)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = L.matmul_f32(x, w)
+    torch.cuda.synchronize(dev)
+    extra = torch.cuda.max_memory_allocated(dev) - base - \
+        got.numel() * got.element_size()
+    want = x.float() @ w.float()
+    err = float((got - want).abs().max() / want.abs().max())
+    low_err = float((x @ w).float().sub(want).abs().max()
+                    / want.abs().max())
+    if got.dtype != torch.float32 or not torch.isfinite(got).all():
+        fail(f"precision {name}: result {got.dtype}, not finite f32")
+    if err > PRECISION_TOL:
+        fail(f"precision {name}: max relative error {err} against the "
+             f"upcast form, over {PRECISION_TOL}")
+    if extra > PRECISION_SLACK:
+        fail(f"precision {name}: the f32-result product allocated "
+             f"{extra} bytes beyond its result")
+    calls = {"f32_result": lambda: L.matmul_f32(x, w),
+             "upcast": lambda: x.float() @ w.float(),
+             low: lambda: x @ w}
+    ms = {k: [] for k in calls}
+    for _ in range(3):                      # in turns
+        for k, fn in calls.items():
+            fn()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(reps):
+                fn()
+            t1.record()
+            torch.cuda.synchronize(dev)
+            ms[k].append(t0.elapsed_time(t1) / reps)
+    rec = {"shape": [m, d, n], "max_rel_err": err,
+           f"{low}_max_rel_err": low_err, "extra_bytes": extra,
+           **{f"{k}_ms": min(v) for k, v in ms.items()}}
+    if not tied:
+        # the backward: x's gradient an f32-result product of the
+        # cotangent rounded to dt, handed on in x's type; w's in w's
+        xg = x.clone().requires_grad_(True)
+        wg = w.clone().requires_grad_(True)
+        g = torch.randn(m, n, generator=gen, device=dev)
+        L.matmul_f32(xg, wg).backward(g)
+        gb = g.to(dt).float()
+        gx = gb @ w.float().t()
+        gw = x.float().t() @ gb
+        rec["grad_x_rel_err"] = float(
+            (xg.grad.float() - gx).abs().max() / gx.abs().max())
+        rec["grad_w_rel_err"] = float(
+            (wg.grad.float() - gw).abs().max() / gw.abs().max())
+        if xg.grad.dtype != dt or wg.grad.dtype != dt:
+            fail(f"precision {name}: gradients in {xg.grad.dtype} / "
+                 f"{wg.grad.dtype}, not the operands' {low}")
+        # both rounded once to dt (2**-8 relative at most in bf16, 2**-11
+        # in f16: half the type's eps)
+        if max(rec["grad_x_rel_err"], rec["grad_w_rel_err"]) > \
+                torch.finfo(dt).eps / 2:
+            fail(f"precision {name}: gradients {rec}")
+    print(f"precision {name}: {json.dumps(rec)}; card {card}", flush=True)
+    return rec
+
+
+def half_ulps(a, b):
+    """|a - b| in ulps of their 16-bit type (bf16 or f16), lane by lane:
+    the distance between their bit patterns on a line ordered like the
+    values."""
     import torch
 
     def key(t):
@@ -2027,58 +2098,74 @@ def bf16_ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
-def bf16_products(seed: int, dev, card: str, reps: int = 20) -> dict:
-    """``PRECISION_BF16`` on the card: each bf16 product with cuBLAS's
-    reduced-precision split-K reduction allowed and cleared. Against the
-    f32 sum rounded once (the f32 product of the same values, TF32 off):
-    the lanes that differ and the largest difference in bf16 ulps; two
-    f32 sums in other orders differ by their rounding noise, which on a
-    lane whose terms nearly cancel is many of that lane's ulps. So
-    against the exact sum (f64): the largest error in ulps of the exact
-    value over the lanes where that noise is under a quarter ulp
-    (``sqrt(inner) · 2**-23 · (|x| @ |w|)``: ``conditioned``), which one
-    rounding keeps within half an ulp and more roundings need not; and
-    the device times (CUDA events around ``reps`` calls, in turns). Fails
-    if, with the flag cleared (the port's setting), a conditioned lane is
-    more than one ulp off."""
+def low_products(seed: int, dev, card: str, dt, reps: int = 20) -> dict:
+    """``PRECISION_BF16`` on the card with operands in ``dt`` (bf16 or
+    f16): each product with cuBLAS's reduced-precision split-K reduction
+    allowed and cleared (``allow_bf16_reduced_precision_reduction`` or
+    ``allow_fp16_...``). Against the f32 sum rounded once (the f32 product
+    of the same values, TF32 off): the lanes that differ and the largest
+    difference in ulps of dt; two f32 sums in other orders differ by their
+    rounding noise, which on a lane whose terms nearly cancel is many of
+    that lane's ulps. So against the exact sum (f64): the largest error in
+    ulps of the exact value over the lanes where that noise is under a
+    quarter ulp (``sqrt(inner) · 2**-23 · (|x| @ |w|)``: ``conditioned``;
+    f16's ulp is 8 times bf16's, so fewer lanes are), which one rounding
+    keeps within half an ulp and more roundings need not; over every lane,
+    the largest error past that noise bound (``max_excess_ulps``), and the
+    lanes where the flag's two settings differ; and the device times (CUDA
+    events around ``reps`` calls, in turns). Fails if, with the flag
+    cleared (the port's setting), a conditioned lane is more than one ulp
+    off, or any lane more than one ulp past the noise bound (in f16 the
+    conditioned lanes are few or none at these inner dims: its ulp is
+    under the f32 sum's noise)."""
     import torch
     mm = torch.backends.cuda.matmul
+    low = "bf16" if dt == torch.bfloat16 else "f16"
+    flag = ("allow_bf16_reduced_precision_reduction" if low == "bf16"
+            else "allow_fp16_reduced_precision_reduction")
     tf32 = mm.allow_tf32
     mm.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    nmant = round(-math.log2(torch.finfo(dt).eps))   # 7 bf16, 10 f16
     out = {}
     try:
         for name, m, k, n, xt in PRECISION_BF16:
             if xt:
-                x = torch.randn(k, m, generator=gen, device=dev).bfloat16().t()
+                x = torch.randn(k, m, generator=gen, device=dev).to(dt).t()
             else:
-                x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+                x = torch.randn(m, k, generator=gen, device=dev).to(dt)
             w = (torch.randn(k, n, generator=gen, device=dev)
-                 / k ** 0.5).bfloat16()
-            ref = (x.float() @ w.float()).bfloat16()
+                 / k ** 0.5).to(dt)
+            ref = (x.float() @ w.float()).to(dt)
             exact = x.double() @ w.double()
             ulp = torch.exp2(torch.floor(torch.log2(
-                exact.abs().clamp(min=2.0 ** -120))) - 7)
+                exact.abs().clamp(min=2.0 ** -120))) - nmant)
             noise = (x.double().abs() @ w.double().abs()) * (k ** 0.5
                                                              * 2.0 ** -23)
             keep = noise < 0.25 * ulp
-            del noise
             rec = {"shape": [m, k, n], "lanes": m * n,
                    "conditioned_lanes": int(keep.sum())}
-            ms = {}
-            for label, flag in (("on", True), ("off", False)):
-                mm.allow_bf16_reduced_precision_reduction = flag
-                got = x @ w
-                u = bf16_ulps(got, ref)
+            ms, got = {}, {}
+            for label, on in (("on", True), ("off", False)):
+                setattr(mm, flag, on)
+                got[label] = x @ w
+                u = half_ulps(got[label], ref)
                 rec[f"lanes_off_{label}"] = int((u > 0).sum())
                 rec[f"max_ulps_{label}"] = int(u.max())
-                err = ((got.double() - exact).abs() / ulp)[keep]
-                rec[f"max_err_ulps_{label}"] = float(err.max())
+                dev_ulps = (got[label].double() - exact).abs() / ulp
+                err = dev_ulps[keep]
+                rec[f"max_err_ulps_{label}"] = (float(err.max())
+                                                if err.numel() else 0.0)
+                # every lane: the error past the f32 sum's noise bound
+                rec[f"max_excess_ulps_{label}"] = float(
+                    (dev_ulps - noise / ulp).max())
                 ms[label] = []
-                del got, u, err
+                del u, err, dev_ulps
+            rec["lanes_on_vs_off"] = int((got["on"] != got["off"]).sum())
+            del got, noise
             for _ in range(3):                  # in turns
-                for label, flag in (("on", True), ("off", False)):
-                    mm.allow_bf16_reduced_precision_reduction = flag
+                for label, on in (("on", True), ("off", False)):
+                    setattr(mm, flag, on)
                     x @ w
                     t0 = torch.cuda.Event(enable_timing=True)
                     t1 = torch.cuda.Event(enable_timing=True)
@@ -2090,15 +2177,19 @@ def bf16_products(seed: int, dev, card: str, reps: int = 20) -> dict:
                     ms[label].append(t0.elapsed_time(t1) / reps)
             rec.update({f"ms_{k_}": min(v) for k_, v in ms.items()})
             out[name] = rec
-            print(f"precision bf16 {name}: {json.dumps(rec)}; card {card}",
+            print(f"precision {low} {name}: {json.dumps(rec)}; card {card}",
                   flush=True)
             if rec["max_err_ulps_off"] > 1:
-                fail(f"precision bf16 {name}: a conditioned lane "
+                fail(f"precision {low} {name}: a conditioned lane "
                      f"{rec['max_err_ulps_off']} ulps off the exact sum with "
                      f"the flag cleared")
+            if rec["max_excess_ulps_off"] > 1:
+                fail(f"precision {low} {name}: a lane "
+                     f"{rec['max_excess_ulps_off']} ulps past the f32 sum's "
+                     f"noise bound with the flag cleared")
             del x, w, ref, exact, ulp, keep
     finally:
-        mm.allow_bf16_reduced_precision_reduction = False
+        setattr(mm, flag, False)
         mm.allow_tf32 = tf32
     return out
 
@@ -2171,15 +2262,35 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
                     long_len: int = F32_LONG) -> dict:
     """llama3.2-3b's CONFIG at full width in f32 (``dtype="float32"``: 28
     layers, d 3,072, 24 / 8 heads of 128; random weights from ``seed``,
-    ~12.8 GB), served by ``ServeEngine`` over a device ``PrefixKVCache``
-    in the serve run's order (``geo``: 8 new tokens), then one
-    ``long_len``-token prefill. Every prefill must launch the f32
-    tensor-core flash-attention kernel once a layer and no other attention
-    kernel. Then each prefill runs again on the same inputs with attention
-    by the plain version on the card (:func:`plain_attention`, which
-    launches nothing): the greedy id and the last-position logits must
-    agree, within ``F32_LOGIT_TOL`` of the largest logit. The model is
-    freed before it returns."""
+    ~12.8 GB): :func:`typed_serve_phase` on the f32 tensor-core kernel,
+    within ``F32_LOGIT_TOL``."""
+    return typed_serve_phase(seed, dev, card, "float32", F32_LOGIT_TOL, geo,
+                             long_len, need_greedy=True)
+
+
+def f16_serve_phase(seed: int, dev, card: str, geo: dict = F16_SERVE,
+                    long_len: int = F16_LONG) -> dict:
+    """llama3.2-3b's CONFIG at full width in f16 (``dtype="float16"``: 28
+    layers, 3.21B parameters, 6.4 GB of random weights from ``seed``):
+    :func:`typed_serve_phase` on the wgmma kernel's f16 instance, within
+    ``F16_LOGIT_TOL``; the greedy ids' agreement with the plain route is
+    printed (two logits closer than the kernel's rounding may swap)."""
+    return typed_serve_phase(seed, dev, card, "float16", F16_LOGIT_TOL, geo,
+                             long_len, need_greedy=False)
+
+
+def typed_serve_phase(seed: int, dev, card: str, dtype: str, tol: float,
+                      geo: dict, long_len: int, need_greedy: bool) -> dict:
+    """llama3.2-3b's CONFIG at full width in ``dtype``, served by
+    ``ServeEngine`` over a device ``PrefixKVCache`` in the serve run's
+    order (``geo``: 8 new tokens), then one ``long_len``-token prefill.
+    Every prefill must launch the dtype's flash-attention kernel
+    (``kernel.kernel_for``) once a layer and no other attention kernel.
+    Then each prefill runs again on the same inputs with attention by the
+    plain version on the card (:func:`plain_attention`, which launches
+    nothing): the last-position logits must agree within ``tol`` of the
+    largest logit, and with ``need_greedy`` the greedy ids too. The model
+    is freed before it returns."""
     import dataclasses
     import statistics
 
@@ -2189,7 +2300,10 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(get_config("llama32_3b"), dtype="float32")
+    cfg = dataclasses.replace(get_config("llama32_3b"), dtype=dtype)
+    short = {"float32": "f32", "float16": "f16", "bfloat16": "bf16"}[dtype]
+    kernel = FK.kernel_for(getattr(torch, dtype), cfg.head_dim,
+                           cfg.head_dim)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t_phase = time.perf_counter()
@@ -2200,7 +2314,7 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
     runs = keep_prefills(model)   # each prefill: inputs, logits, launches
     zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
     rec = serve(cfg, model, dev, seed, geo, timed=True)
-    no_baseline(f"serve {cfg.name} f32")
+    no_baseline(f"serve {cfg.name} {short}")
     rng = np.random.default_rng(seed + long_len)
     tok = torch.tensor([rng.integers(0, cfg.vocab_size, long_len).tolist()],
                        dtype=torch.int64, device=dev)
@@ -2214,8 +2328,8 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
     del model.prefill
     runs += runs_long
     launches = {**FK.LAUNCHES, **K.LAUNCHES}
-    name = f"serve {cfg.name} f32"
-    want = attention_only(FK.TF32X3, attn_layers(cfg))
+    name = f"serve {cfg.name} {short}"
+    want = attention_only(kernel, attn_layers(cfg))
     for i, r in enumerate(runs):
         if r["launches"] != want:
             fail(f"{name}: prefill {i} ({r['tokens'].shape[1]} tokens) "
@@ -2240,10 +2354,10 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
                 == int(want_logits[:cfg.vocab_size].argmax()))
         if FK.LAUNCHES != before:
             fail(f"{name}: the plain route launched {FK.LAUNCHES}")
-    if not all(greedy) or max(gaps) > F32_LOGIT_TOL:
+    if (need_greedy and not all(greedy)) or max(gaps) > tol:
         fail(f"{name}: the kernel's prefills against the plain route: "
              f"greedy ids equal {greedy}, logit gaps {gaps} (at most "
-             f"{F32_LOGIT_TOL} of the largest logit)")
+             f"{tol} of the largest logit)")
     decode = rec["decode_ms"]
     out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
            "parameters": params, "init_s": t_init,
@@ -2265,9 +2379,10 @@ def f32_serve_phase(seed: int, dev, card: str, geo: dict = F32_SERVE,
           f"ms {[round(x, 3) for x in out['prefill_ms']]}, {long_len} "
           f"tokens {long_ms:.3f} ms (plain route "
           f"{[round(x, 3) for x in plain_ms]}); largest logit gap "
-          f"{max(gaps):.4g} of the largest logit, greedy ids equal; decode "
+          f"{max(gaps):.4g} of the largest logit, greedy ids equal "
+          f"{sum(greedy)} of {len(greedy)}; decode "
           f"{out['decode_ms_per_token']:.3f} ms/token; "
-          f"{FK.LAUNCHES[FK.TF32X3]} launches of {FK.TF32X3}; peak "
+          f"{FK.LAUNCHES[kernel]} launches of {kernel}; peak "
           f"{out['phase_peak_gib']:.2f} GiB; card {card}", flush=True)
     return out
 
@@ -2523,6 +2638,97 @@ def tiny_bf16_serve(seed: int, dev, arch: str = "starcoder2_7b",
            "attention_launches": launches}
     print(f"{name}: {json.dumps(out)}", flush=True)
     return out
+
+
+def tiny_f16_twin(seed: int, dev, arch: str, window: int = 0,
+                  head_dim: int = 0) -> dict:
+    """``arch``'s TINY in f16 (a sliding ``window`` if > 0, heads of
+    ``head_dim`` if > 0), the same weights on the card and on the CPU,
+    each served by the serial engine in the tiny order (``TINY_SERVE``).
+    Every prefill on the card must launch the wgmma kernel's f16 instance
+    once an attention layer and no other attention kernel, and its
+    last-position logits must agree with the same prefill's on the CPU
+    within ``F16_TWIN_LOGIT_TOL`` (absolute and relative); the cached
+    prefixes and cache stats, which follow from the prompts, must be
+    identical. The outputs' agreement is printed, not required: the two
+    devices may round an f16 sum an ulp apart, and two logits closer
+    than that may swap a greedy id."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_hash import kernel as K
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float16",
+                              sliding_window=window)
+    cfg = dataclasses.replace(cfg, head_dim=head_dim or cfg.head_dim)
+    cpu = torch.device("cpu")
+    weights = Model(cfg, device=cpu, seed=seed).state_dict()
+    name = (f"serve tiny {arch} f16" + (f" window {window}" if window else "")
+            + (f" head_dim {head_dim}" if head_dim else ""))
+    runs, recs = {}, {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        model = Model(cfg, device=d, seed=seed)
+        model.load_state_dict(weights)
+        runs[where] = keep_prefills(model)
+        zero_launches(FK.LAUNCHES, K.LAUNCHES, K.BASELINE_LAUNCHES)
+        recs[where] = serve(cfg, model, d, seed, TINY_SERVE)
+        no_baseline(name)
+        if where == "card":
+            attn = dict(FK.LAUNCHES)
+        del model
+    misses = recs["cpu"]["stats"]["misses"]
+    want = attention_only(FK.WGMMA_F16, attn_layers(cfg))
+    if len(runs["card"]) != misses or len(runs["cpu"]) != misses or (
+            dev.type == "cuda" and any(r["launches"] != want
+                                       for r in runs["card"])):
+        fail(f"{name}: prefills launched "
+             f"{[r['launches'] for r in runs['card']]}, expected {want} "
+             f"each for {misses} misses")
+    gaps = []
+    for a, b in zip(runs["card"], runs["cpu"]):
+        got, ref = a["logits"][:cfg.vocab_size].cpu(), b["logits"][
+            :cfg.vocab_size]
+        gaps.append(float((got - ref).abs().max()))
+        if not torch.allclose(got, ref, rtol=F16_TWIN_LOGIT_TOL,
+                              atol=F16_TWIN_LOGIT_TOL):
+            fail(f"{name}: the card's prefill logits differ from the "
+                 f"CPU's by {gaps[-1]} (tolerance {F16_TWIN_LOGIT_TOL})")
+    for key in ("cached_tokens", "stats"):
+        if recs["card"][key] != recs["cpu"][key]:
+            fail(f"{name}: {key} on the card {recs['card'][key]}, on the "
+                 f"CPU {recs['cpu'][key]}")
+    pairs = [(x, y) for o, p in zip(recs["card"]["outputs"],
+                                    recs["cpu"]["outputs"])
+             for x, y in zip(o, p)]
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "window": window,
+           "head_dim": cfg.head_dim, "prefills": misses,
+           "cached_tokens": recs["cpu"]["cached_tokens"],
+           "logit_max_abs_diff": gaps,
+           "outputs_equal": recs["card"]["outputs"] == recs["cpu"]["outputs"],
+           "equal_tokens": sum(x == y for x, y in pairs),
+           "tokens": len(pairs), "attention_launches": attn}
+    print(f"{name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def f16_phase(seed: int, dev, card: str) -> dict:
+    """The f16 models: llama3.2-3b served at full width
+    (:func:`f16_serve_phase`), then the f16 TINY twins (``F16_TWINS``,
+    :func:`tiny_f16_twin`). Returns their records."""
+    rec = {"serve": f16_serve_phase(seed, dev, card), "tiny": {}}
+    t0 = time.perf_counter()
+    for arch, window, head_dim in F16_TWINS:
+        key = arch + (f" window {window}" if window else "") + (
+            f" head_dim {head_dim}" if head_dim else "")
+        rec["tiny"][key] = tiny_f16_twin(seed, dev, arch, window, head_dim)
+    rec["twins_s"] = time.perf_counter() - t0
+    print(f"f16 twins ({rec['twins_s']:.1f} s): " + "; ".join(
+        f"{k}: logits card - cpu at most {max(r['logit_max_abs_diff']):.3g}"
+        f", {r['equal_tokens']} of {r['tokens']} tokens equal"
+        for k, r in rec["tiny"].items()) + f"; card {card}", flush=True)
+    return rec
 
 
 def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
@@ -3793,6 +3999,7 @@ def main() -> int:
     cont = continuous_phase(args.seed, dev, model, served["tokens_per_s"])
     del model
     f32 = f32_serve_phase(args.seed, dev, card)
+    f16 = f16_phase(args.seed, dev, card)
     print(f"serve continuous ({cont['phase_s']:.1f} s): {cont['ticks']} "
           f"ticks, chunk {cont['chunk_ms_median']:.3f} ms, packed decode "
           f"{cont['decode_ms_median']:.3f} ms (medians); "
@@ -3843,8 +4050,18 @@ def main() -> int:
     wide_twin = fam["tiny"][f"llama32_3b head_dim {TINY_WIDE_HEAD_DIM}"]
     # each kernel's wide instance (heads over 256): the paths that launched
     # it (the TINY twins with heads of 320) and each of its cases
+    # the f16 instance: the f16 serve and its TINY twins (starcoder2's
+    # windowed twin, heads of 12, is both its windowed and its odd path;
+    # llama32's with heads of 320 its wide one)
+    f16_twin = sum(r["attention_launches"][FK.WGMMA_F16]
+                   for r in f16["tiny"].values())
+    f16_window = f16["tiny"][f"starcoder2_7b window {TINY_WINDOW}"][
+        "attention_launches"][FK.WGMMA_F16]
     wide_launches = {FK.WGMMA: tiny_bf16_wide,
-                     FK.TF32X3: wide_twin["attention_launches"][FK.TF32X3]}
+                     FK.TF32X3: wide_twin["attention_launches"][FK.TF32X3],
+                     FK.WGMMA_F16: f16["tiny"][
+                         f"llama32_3b head_dim {TINY_WIDE_HEAD_DIM}"][
+                         "attention_launches"][FK.WGMMA_F16]}
     wide_keys = ("shape", "loads", "max_abs_err", "ms", "device_ms",
                  "plain_ms", "bound_ms", "bound_by", "device_bound_share",
                  "library_ms", "library_device_ms")
@@ -3870,7 +4087,20 @@ def main() -> int:
                   attn["f32_long"]["library_device_ms"],
               "long_bound_ms": attn["f32_long"]["bound_ms"],
               "tiny_device_ms": attn["tiny_f32"]["device_ms"],
-              "f32_serve_logit_gap": max(f32["logit_gaps"])})):
+              "f32_serve_logit_gap": max(f32["logit_gaps"])}),
+            (FK.WGMMA_F16, "f16",
+             f16["serve"]["launches"][FK.WGMMA_F16] + f16_twin,
+             "f16_starcoder2_window", f16_window, "f16_d12", f16_window,
+             {"f16_serve_launches": f16["serve"]["launches"][FK.WGMMA_F16],
+              "twin_launches": f16_twin,
+              "long_device_ms": attn["f16_long"]["device_ms"],
+              "long_library_device_ms":
+                  attn["f16_long"]["library_device_ms"],
+              "long_bound_ms": attn["f16_long"]["bound_ms"],
+              "f16_serve_logit_gap": max(f16["serve"]["logit_gaps"]),
+              "f16_serve_greedy_equal": f16["serve"]["greedy_equal"],
+              "twin_logit_gap": max(max(r["logit_max_abs_diff"])
+                                    for r in f16["tiny"].values())})):
         r, rw, ro = attn[case], attn[w_case], attn[o_case]
         kernels.append({
             "name": name, "route": "cuda", "source": FA_CU,
@@ -3902,6 +4132,9 @@ def main() -> int:
                            for c in WIDE_CASES[name]}, **extra})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
+    print(json.dumps({"f16": {"serve": {k: v for k, v in f16["serve"].items()
+                                        if k != "launches"},
+                              "tiny": f16["tiny"]}}))
     print(json.dumps({"train": {"llama32_3b": trained, "twins": twins}}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))

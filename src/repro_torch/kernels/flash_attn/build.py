@@ -16,10 +16,10 @@ _I = ctypes.c_int
 
 LIBRARY = CudaLibrary(
     "flash_attn", Path(__file__).resolve().parent / "csrc" / "flash_attn.cu",
-    {"fa_forward_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _I, _I, _P],
-     "fa_forward_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           ctypes.c_float, _I, _I, _P]})
+    {name: [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+            _P]
+     for name in ("fa_forward_wgmma", "fa_forward_wgmma_f16",
+                  "fa_forward_tf32x3")})
 build = LIBRARY.build
 load = LIBRARY.load
 last_build = LIBRARY.last_build

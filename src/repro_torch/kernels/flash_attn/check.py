@@ -26,7 +26,8 @@ the padded ones, nor the scores a wide instance recomputes once a slice
 of o's columns) over the card's memory rate, and the
 FLOPs of the two products over the pairs the mask keeps (2 (d + dv) per
 (query, key, head); :func:`kept_pairs`) at the card's dense peak for the
-type. For bf16 that is the tensor cores' bf16 rate. For f32 it is the
+type. For bf16 and f16 that is the tensor cores' dense rate for the
+type (the same 989 TFLOP/s). For f32 it is the
 faster of two ways to the reference's precision: the CUDA cores' f32
 rate, or three TF32 passes on the tensor cores (one TF32 pass would not
 hold 2e-5), so 3 x the FLOPs at the TF32 rate; ``bound_peak`` names the
@@ -43,13 +44,20 @@ from . import kernel as K
 from . import ref
 
 #: published dense peaks of an H100 SXM (NVIDIA's data sheet), op/s
-H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+                   torch.float32: 67e12}
 #: the tensor cores' dense TF32 peak, op/s, and the passes an f32 product
 #: takes there at the reference's precision (hi hi + hi lo + lo hi)
 H100_TF32_FLOPS = 494.7e12
 TF32_PASSES = 3
-#: the tolerances of the reference's kernel tests (tests/test_flash_attn.py)
-TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: the tolerances of the reference's kernel tests (tests/test_flash_attn.py);
+#: f16, which they do not sweep: 4e-3, about 4 f16 ulps at 1.0 (2**-10
+#: each) for an output rounded once from f32 sums of P rounded to f16
+#: (the reference's Pallas kernel reads 9.8e-4 against its oracle on its
+#: GQA 4:1 case), and tighter than bf16's 2e-2 by the 3 bits more that an
+#: f16 mantissa keeps
+TOLERANCE = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+             torch.float32: 2e-5}
 
 
 def kept_pairs(s: int, causal: bool, window: int = 0) -> int:
@@ -71,7 +79,8 @@ def attention_bound(b: int, s: int, h: int, kvh: int, d: int, dv: int,
     pairs = kept_pairs(s, causal, window)
     flops = 2 * b * h * (d + dv) * pairs
     by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    peaks = {"bf16 tensor cores": H100_PEAK_FLOPS[dtype]}
+    peaks = {f"{'f16' if dtype == torch.float16 else 'bf16'} tensor cores":
+             H100_PEAK_FLOPS[dtype]}
     if dtype == torch.float32:
         peaks = {"f32 CUDA cores": H100_PEAK_FLOPS[dtype],
                  "tf32 x3 tensor cores": H100_TF32_FLOPS / TF32_PASSES}
@@ -98,7 +107,8 @@ def library_call(q, k, v, causal: bool, window: int = 0):
     """``scaled_dot_product_attention`` on (b, h, s, d) copies made before
     the call: the same function as the kernel (the yardstick, never used
     by the port); with a window, under the dense boolean band mask (s, s).
-    bf16 goes with ``enable_gqa`` (its flash route takes GQA). In f32 no
+    bf16 and f16 go with ``enable_gqa`` (its flash route takes GQA in
+    either type, heads up to 256 columns). In f32 no
     fused route takes ``enable_gqa`` (the call falls to the math route's
     f32 GEMMs, 2.6-4x slower on an H100), so K and V are copied out to
     every query head and the memory-efficient route takes the call. Past

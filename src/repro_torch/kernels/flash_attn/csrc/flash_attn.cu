@@ -6,14 +6,17 @@
 // allocates nothing, and returns the first CUDA error (cudaGetLastError()
 // after the launch) so that a refused launch surfaces in the wrapper.
 //
-// Both kernels replace src/repro/kernels/flash_attn/kernel.py:
+// Both kernels (three entry points) replace
+// src/repro/kernels/flash_attn/kernel.py:
 // flash_attention_fwd (body _fwd_kernel): causal or non-causal GQA
 // attention with an online softmax. q (b, s, h, d), k (b, s, kvh, d),
 // v (b, s, kvh, dv) and the output o (b, s, h, dv) keep that layout in
 // device memory; query head hq of batch row bi reads KV head hq / (h / kvh).
 // d and dv are any widths from 1 up, as the reference's are (it pads
 // nothing and takes any width): flash_attn_wgmma_kernel takes every bf16
-// call, flash_attn_tf32x3_kernel every f32 one, each in one launch. Heads
+// and every f16 call (one instance for each type, each through its own
+// entry point), flash_attn_tf32x3_kernel every f32 one, each in one
+// launch. Heads
 // up to 256 columns (d and dv) take the instances padded to 64, 128 or 256
 // columns; a wider head takes each kernel's wide instance (below).
 // Precision follows the reference kernel step by step: f32 scores of the
@@ -89,8 +92,13 @@
 // about 300 up, at a third of the tensor cores' TF32 peak (three passes).
 //
 // ---------------------------------------------------------------------------
-// flash_attn_wgmma_kernel: bf16, d and dv from 1 to 256 (the serve
-//   prefill; wider heads: its wide instance, below). Both products run on
+// flash_attn_wgmma_kernel: bf16 or f16 (the template's T), d and dv from
+//   1 to 256 (the serve prefill; wider heads: its wide instance, below).
+//   The two types share everything but the MMA's input type (.bf16 or
+//   .f16 in each wgmma), the rounding of P and of the output (to T, to
+//   nearest even) and the tensor maps' element type: a 2-byte element
+//   gives the same boxes, swizzle, descriptors and k16 steps, and the
+//   producer warp's granules are bytes. Both products run on
 //   the tensor cores (wgmma), and every tile arrives by TMA or the
 //   producer warp's loads, so the consumers' CUDA cores are left with the
 //   softmax.
@@ -116,7 +124,7 @@
 //     (and the window's lower edge on each tile it crosses), and tiles the
 //     mask empties are never loaded.
 //   - O += P V: P's f32 accumulator fragment is rounded in place into the
-//     bf16 A fragment (registers), V is the MN-major B operand from shared
+//     T A fragment (registers), V is the MN-major B operand from shared
 //     memory (the transpose bit); O is rescaled by alpha before.
 //   - Heads are padded to 64, 128 or 256 columns (one instance each), the
 //     k16 steps past d are skipped, and only the columns below dv are
@@ -206,6 +214,7 @@
 // ---------------------------------------------------------------------------
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
@@ -288,6 +297,26 @@ int granule(int elem, int d, int dv, const void* q, const void* k,
                       (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | 8u;
   return (int)(x & (~x + 1));
 }
+
+// An output pair (two adjacent columns, the first 4- or 8-byte aligned)
+// and one output element, each rounded once to o's type.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* out, float a, float b) {
+  *reinterpret_cast<__half2*>(out) = __floats2half2_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_one(__nv_bfloat16* out, float a) {
+  *out = __float2bfloat16(a);
+}
+__device__ __forceinline__ void store_one(__half* out, float a) {
+  *out = __float2half_rn(a);
+}
+__device__ __forceinline__ void store_one(float* out, float a) { *out = a; }
 
 // ---------------------------------------------------------------------------
 // What the wide instances of both kernels share (the note at the top)
@@ -502,18 +531,6 @@ __device__ __forceinline__ void produce(
   }
 }
 
-__device__ __forceinline__ void store_pair(__nv_bfloat16* out, float a,
-                                           float b) {
-  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store_pair(float* out, float a, float b) {
-  *reinterpret_cast<float2*>(out) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_one(__nv_bfloat16* out, float a) {
-  *out = __float2bfloat16(a);
-}
-__device__ __forceinline__ void store_one(float* out, float a) { *out = a; }
-
 // The epilogue of a wide instance: acc / max(l, 1e-30) in o's type, the
 // rows below s, the slice's columns below dv; a thread's column pairs are
 // stored whole where `pairs` (dv even: a pair stays in its row, aligned).
@@ -581,7 +598,7 @@ struct Smem {
 
 // TMA: the boxes arrive by TMA (tm_*), else the producer warp loads them
 // from q, k, v (the note at the top).
-template <int P, int MIN_BLOCKS, bool TMA>
+template <typename T, int P, int MIN_BLOCKS, bool TMA>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -589,9 +606,9 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const uint16_t* __restrict__ q,
                         const uint16_t* __restrict__ k,
                         const uint16_t* __restrict__ v,
-                        __nv_bfloat16* __restrict__ o, int s, int h, int kvh,
-                        int d, int dv, float scale_log2, int causal,
-                        int window, int g) {
+                        T* __restrict__ o, int s, int h, int kvh, int d,
+                        int dv, float scale_log2, int causal, int window,
+                        int g) {
   using L = Smem<P>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align every box to it
@@ -734,8 +751,8 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kc = 0; kc < P / 16; ++kc) {
       if (kc < k_steps) {
         const uint32_t off = (kc / 4) * BOX + (kc % 4) * 32;
-        hopper::wgmma_ss(sc, hopper::smem_desc(sq + off, 16, 1024),
-                         hopper::smem_desc(sk + off, 16, 1024), 1);
+        hopper::wgmma_ss<T>(sc, hopper::smem_desc(sq + off, 16, 1024),
+                            hopper::smem_desc(sk + off, 16, 1024), 1);
       }
     }
     hopper::wgmma_commit();
@@ -784,28 +801,29 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < P / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: P rounded to bf16 in place as the A fragment
+    // O += P V: P rounded to T in place as the A fragment
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        pa[kk][j] = hopper::pack_bf16x2(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+        pa[kk][j] = hopper::pack2<T>(sc[8 * kk + 2 * j],
+                                     sc[8 * kk + 2 * j + 1]);
       hopper::fence_regs(pa[kk]);
     }
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      hopper::wgmma_rs(acc, pa[kk],
-                       hopper::smem_desc(sv + kk * 16 * 128, BOX, 1024), 1);
+      hopper::wgmma_rs<T>(acc, pa[kk],
+                          hopper::smem_desc(sv + kk * 16 * 128, BOX, 1024), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(acc);
     hopper::mbar_arrive(bar_empty + 8 * st);  // this stage may be refilled
   }
 
-  // epilogue: acc / max(l, 1e-30) in bf16, rows below s, columns below dv
+  // epilogue: acc / max(l, 1e-30) in T, rows below s, columns below dv
   float den[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -814,7 +832,7 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     den[r] = fmaxf(l[r], 1e-30f);
   }
   const long o_row = (long)h * dv;
-  __nv_bfloat16* ob = o + (long)bi * s * o_row + (long)hq * dv;
+  T* ob = o + (long)bi * s * o_row + (long)hq * dv;
   const bool pairs = TMA || dv % 2 == 0;  // a pair stays in the row, aligned
 #pragma unroll
   for (int i = 0; i < P / 2; i += 2) {
@@ -822,30 +840,32 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row = q0 + r_lo + 8 * r;
     const int col = 8 * (i >> 2) + c_in;
     if (row < s && col < dv) {
-      __nv_bfloat16* out = ob + row * o_row + col;
+      T* out = ob + row * o_row + col;
       if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(out) =
-            __floats2bfloat162_rn(acc[i] / den[r], acc[i + 1] / den[r]);
+        store_pair(out, acc[i] / den[r], acc[i + 1] / den[r]);
       } else {
-        out[0] = __float2bfloat16(acc[i] / den[r]);
-        if (col + 1 < dv) out[1] = __float2bfloat16(acc[i + 1] / den[r]);
+        store_one(out, acc[i] / den[r]);
+        if (col + 1 < dv) store_one(out + 1, acc[i + 1] / den[r]);
       }
     }
   }
 }
 
-// Tensor map over a contiguous bf16 (b, s, heads, width) tensor, in boxes
-// of 64 positions x 64 columns of one head, 128-byte swizzled.
+// Tensor map over a contiguous T (b, s, heads, width) tensor, in boxes of
+// 64 positions x 64 columns of one head, 128-byte swizzled.
+template <typename T>
 bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
               int width) {
-  return tma::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, b, s,
-                       heads, width, CHUNK, 64);
+  return tma::make_map(map,
+                       hopper::is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       2, ptr, b, s, heads, width, CHUNK, 64);
 }
 
-template <int P, int MIN_BLOCKS, bool TMA>
+template <typename T, int P, int MIN_BLOCKS, bool TMA>
 int launch(const Call& c) {
   const int smem = Smem<P>::kBytes;
-  auto kern = flash_attn_wgmma_kernel<P, MIN_BLOCKS, TMA>;
+  auto kern = flash_attn_wgmma_kernel<T, P, MIN_BLOCKS, TMA>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -853,16 +873,16 @@ int launch(const Call& c) {
   kern<<<grid, THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
       static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
-      static_cast<__nv_bfloat16*>(c.o), c.s, c.h, c.kvh, c.d, c.dv,
-      c.scale_log2, c.causal, c.window, c.g);
+      static_cast<T*>(c.o), c.s, c.h, c.kvh, c.d, c.dv, c.scale_log2,
+      c.causal, c.window, c.g);
   return (int)cudaGetLastError();
 }
 
 // The instance for heads padded to P columns, on the call's route.
-template <int P, int MIN_BLOCKS>
+template <typename T, int P, int MIN_BLOCKS>
 int route(const Call& c) {
-  return c.tma ? launch<P, MIN_BLOCKS, true>(c)
-               : launch<P, MIN_BLOCKS, false>(c);
+  return c.tma ? launch<T, P, MIN_BLOCKS, true>(c)
+               : launch<T, P, MIN_BLOCKS, false>(c);
 }
 
 
@@ -883,7 +903,7 @@ struct WideSmem {
                 "V's slice fills one stage");
 };
 
-template <bool TMA>
+template <typename T, bool TMA>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -891,9 +911,9 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const uint16_t* __restrict__ q,
                              const uint16_t* __restrict__ k,
                              const uint16_t* __restrict__ v,
-                             __nv_bfloat16* __restrict__ o, int s, int h,
-                             int kvh, int d, int dv, float scale_log2,
-                             int causal, int window, int g) {
+                             T* __restrict__ o, int s, int h, int kvh, int d,
+                             int dv, float scale_log2, int causal, int window,
+                             int g) {
   using L = WideSmem;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
@@ -947,9 +967,9 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kc = 0; kc < L::kDChunk / 16; ++kc) {
         if (ch * (L::kDChunk / 16) + kc < k_steps) {
           const uint32_t off = (kc / 4) * BOX + (kc % 4) * 32;
-          hopper::wgmma_ss(sc, hopper::smem_desc(sd + off, 16, 1024),
-                           hopper::smem_desc(sd + L::kKOff + off, 16, 1024),
-                           1);
+          hopper::wgmma_ss<T>(sc, hopper::smem_desc(sd + off, 16, 1024),
+                              hopper::smem_desc(sd + L::kKOff + off, 16, 1024),
+                              1);
         }
       }
       hopper::wgmma_commit();
@@ -962,7 +982,7 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     wide::softmax_tile(sc, m, l, alpha, c.q0, t * BK, r_lo, c_in, s, causal,
                        window, scale_log2);
 
-    // O += P V over the slice: P rounded to bf16 in place as the A fragment,
+    // O += P V over the slice: P rounded to T in place as the A fragment,
     // one m64n64 product a box of V that holds data
     const int st = j % L::kStages;
     const uint32_t sv = base + st * L::kStage;
@@ -971,8 +991,8 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        pa[kk][e] = hopper::pack_bf16x2(sc[8 * kk + 2 * e],
-                                        sc[8 * kk + 2 * e + 1]);
+        pa[kk][e] = hopper::pack2<T>(sc[8 * kk + 2 * e],
+                                     sc[8 * kk + 2 * e + 1]);
       hopper::fence_regs(pa[kk]);
     }
 #pragma unroll
@@ -985,7 +1005,7 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int ns = 0; ns < wide::O_SLICE / CHUNK; ++ns) {
         if (ns < c.v_boxes)
-          hopper::wgmma_rs(
+          hopper::wgmma_rs<T>(
               reinterpret_cast<float(&)[32]>(acc[32 * ns]), pa[kk],
               hopper::smem_desc(sv + ns * BOX + kk * 16 * 128, BOX, 1024), 1);
       }
@@ -999,10 +1019,10 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   wide::store_slice(o, c, acc, l, TMA || dv % 2 == 0, r_lo, c_in, s, h, dv);
 }
 
-template <bool TMA>
+template <typename T, bool TMA>
 int launch_wide(const Call& c) {
   const int smem = WideSmem::kBytes;
-  auto kern = flash_attn_wgmma_wide_kernel<TMA>;
+  auto kern = flash_attn_wgmma_wide_kernel<T, TMA>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1011,9 +1031,35 @@ int launch_wide(const Call& c) {
   kern<<<grid, THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
       static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
-      static_cast<__nv_bfloat16*>(c.o), c.s, c.h, c.kvh, c.d, c.dv,
-      c.scale_log2, c.causal, c.window, c.g);
+      static_cast<T*>(c.o), c.s, c.h, c.kvh, c.d, c.dv, c.scale_log2,
+      c.causal, c.window, c.g);
   return (int)cudaGetLastError();
+}
+
+// One call of either 2-byte type: the checks and routing of both entry
+// points (below).
+template <typename T>
+int forward(const void* q, const void* k, const void* v, void* o, int b,
+            int s, int h, int kvh, int d, int dv, float scale, int causal,
+            int window, void* stream) {
+  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || (s + BQ - 1) / BQ > 65535 ||
+      (dv - 1) / wide::O_SLICE >= 65535 || window < 0 ||
+      (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || s == 0 || h == 0) return 0;
+  Call c = {d % 8 == 0 && dv % 8 == 0,  // 16-byte rows: TMA
+            {}, {}, {}, q, k, v, o, b, s, h, kvh, d, dv,
+            scale * 1.4426950408889634f, causal, window,
+            granule(2, d, dv, q, k, v), static_cast<cudaStream_t>(stream)};
+  if (c.tma && (!make_map<T>(&c.tq, q, b, s, h, d) ||
+                !make_map<T>(&c.tk, k, b, s, kvh, d) ||
+                !make_map<T>(&c.tv, v, b, s, kvh, dv)))
+    return (int)cudaErrorInvalidValue;
+  const int p = d > dv ? d : dv;
+  if (p <= 64) return route<T, 64, 3>(c);
+  if (p <= 128) return route<T, 128, 2>(c);
+  if (p <= 256) return route<T, 256, 1>(c);
+  return c.tma ? launch_wide<T, true>(c) : launch_wide<T, false>(c);
 }
 
 }  // namespace wg
@@ -1681,35 +1727,26 @@ int launch_wide(const Call& c) {
 
 extern "C" {
 
-// The bf16 kernel. q, k, v, o: device pointers of contiguous bfloat16 (b,
-// s, h|kvh, d|dv) tensors. The wrapper checks d, dv >= 1, h % kvh == 0,
-// b h <= 65535, ceil(s / 64) <= 65535, ceil(dv / 256) <= 65535, and that
-// q, k and v are 16-byte aligned where d and dv are multiples of 8 (the TMA
-// route); window: 0 (none) or the sliding window's width (causal only).
-// Returns cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a
-// tensor map.
+// The wgmma kernel's two entry points, one for each 2-byte type: bf16
+// (fa_forward_wgmma) and f16 (fa_forward_wgmma_f16), the same kernel
+// instanced for the type. q, k, v, o: device pointers of contiguous (b, s,
+// h|kvh, d|dv) tensors of that type. The wrapper checks d, dv >= 1,
+// h % kvh == 0, b h <= 65535, ceil(s / 64) <= 65535, ceil(dv / 256) <=
+// 65535, and that q, k and v are 16-byte aligned where d and dv are
+// multiples of 8 (the TMA route); window: 0 (none) or the sliding window's
+// width (causal only). Returns cudaErrorInvalidValue where
+// cuTensorMapEncodeTiled refuses a tensor map.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                      int b, int s, int h, int kvh, int d, int dv, float scale,
                      int causal, int window, void* stream) {
-  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh ||
-      (s + wg::BQ - 1) / wg::BQ > 65535 ||
-      (dv - 1) / wide::O_SLICE >= 65535 || window < 0 ||
-      (window > 0 && !causal))
-    return (int)cudaErrorInvalidValue;
-  if (b == 0 || s == 0 || h == 0) return 0;
-  Call c = {d % 8 == 0 && dv % 8 == 0,  // 16-byte rows: TMA
-            {}, {}, {}, q, k, v, o, b, s, h, kvh, d, dv,
-            scale * 1.4426950408889634f, causal, window,
-            granule(2, d, dv, q, k, v), static_cast<cudaStream_t>(stream)};
-  if (c.tma && (!wg::make_map(&c.tq, q, b, s, h, d) ||
-                !wg::make_map(&c.tk, k, b, s, kvh, d) ||
-                !wg::make_map(&c.tv, v, b, s, kvh, dv)))
-    return (int)cudaErrorInvalidValue;
-  const int p = d > dv ? d : dv;
-  if (p <= 64) return wg::route<64, 3>(c);
-  if (p <= 128) return wg::route<128, 2>(c);
-  if (p <= 256) return wg::route<256, 1>(c);
-  return c.tma ? wg::launch_wide<true>(c) : wg::launch_wide<false>(c);
+  return wg::forward<__nv_bfloat16>(q, k, v, o, b, s, h, kvh, d, dv, scale,
+                                    causal, window, stream);
+}
+int fa_forward_wgmma_f16(const void* q, const void* k, const void* v,
+                         void* o, int b, int s, int h, int kvh, int d, int dv,
+                         float scale, int causal, int window, void* stream) {
+  return wg::forward<__half>(q, k, v, o, b, s, h, kvh, d, dv, scale, causal,
+                             window, stream);
 }
 
 // The f32 kernel. q, k, v, o: device pointers of contiguous float32 (b, s,

@@ -7,7 +7,10 @@
 // operand tile in shared memory is a stack of 64-element (128-byte) column
 // chunks, each chunk `rows` x 128 B, written by one TMA box with the
 // 128-byte swizzle and starting on a 1024-byte boundary. `load_boxes`
-// writes the same boxes with threads, for rows TMA cannot take.
+// writes the same boxes with threads, for rows TMA cannot take. bf16 and
+// f16 share all of it (64 2-byte elements a chunk, 32 bytes a k16 step):
+// the wgmma pieces below take either as their template parameter T, which
+// names the MMA's input type and how a pair of f32 is rounded.
 //
 // Its tf32 twin: the same stack of 128-byte chunks, but a chunk is 32 f32
 // columns, and a k8 step of a tf32 wgmma is 8 columns, again 32 bytes, so
@@ -20,6 +23,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -278,12 +282,41 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// Two f32 values as the bf16 pair of one A-fragment register (lo first),
-// rounded to nearest even.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Whether T (__nv_bfloat16 or __half) is f16: the wgmma's input type.
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  return false;
 }
+template <>
+__host__ __device__ constexpr bool is_f16<__half>() {
+  return true;
+}
+
+// Two f32 values as the T pair of one A-fragment register (lo first),
+// rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>()) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// The "+f" operands of an accumulator fragment d[I] .. d[I + 7], and of
+// the 32, 64 and 128 registers of an m64n64, m64n128 and m64n256 result.
+#define HOPPER_ACC8(d, I)                                                  \
+  "+f"(d[I]), "+f"(d[I + 1]), "+f"(d[I + 2]), "+f"(d[I + 3]),              \
+      "+f"(d[I + 4]), "+f"(d[I + 5]), "+f"(d[I + 6]), "+f"(d[I + 7])
+#define HOPPER_ACC32(d, I)                                                 \
+  HOPPER_ACC8(d, I), HOPPER_ACC8(d, I + 8), HOPPER_ACC8(d, I + 16),        \
+      HOPPER_ACC8(d, I + 24)
+#define HOPPER_ACC64(d) HOPPER_ACC32(d, 0), HOPPER_ACC32(d, 32)
+#define HOPPER_ACC128(d)                                                   \
+  HOPPER_ACC32(d, 0), HOPPER_ACC32(d, 32), HOPPER_ACC32(d, 64),            \
+      HOPPER_ACC32(d, 96)
 
 // Accumulator fragment of an m64nN f32 result, thread t of the warpgroup
 // (warp w = t / 32, lane l): register i holds row 16 w + l / 4 + 8 ((i / 2)
@@ -291,158 +324,117 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // (columns 16k..16k+15), packed pairwise, are the A fragment of the k-th
 // k16 slice of the same 64-row tile: FlashAttention-3's in-place P.
 
-// D (64 x 64, f32) (+)= A (64 x 16, bf16, shared, K-major) * B^T
-// (B: 64 x 16, bf16, shared, K-major). scale_d = 0 overwrites D.
+// The k16 MMAs of T (bf16 or f16) with an f32 accumulator, each asm
+// statement spelled once for either type (TY: "bf16" or "f16").
+#define HOPPER_WGMMA_SS_N64(TY)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                   \
+      : HOPPER_ACC32(d, 0)                                                 \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define HOPPER_WGMMA_RS_N64(TY)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                     \
+      : HOPPER_ACC32(d, 0)                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),           \
+        "r"(scale_d))
+#define HOPPER_WGMMA_RS_N128(TY)                                           \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                             \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                     \
+      : HOPPER_ACC64(d)                                                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),           \
+        "r"(scale_d))
+#define HOPPER_WGMMA_RS_N256(TY)                                           \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63, "                           \
+      "%64, %65, %66, %67, %68, %69, %70, %71, "                           \
+      "%72, %73, %74, %75, %76, %77, %78, %79, "                           \
+      "%80, %81, %82, %83, %84, %85, %86, %87, "                           \
+      "%88, %89, %90, %91, %92, %93, %94, %95, "                           \
+      "%96, %97, %98, %99, %100, %101, %102, %103, "                       \
+      "%104, %105, %106, %107, %108, %109, %110, %111, "                   \
+      "%112, %113, %114, %115, %116, %117, %118, %119, "                   \
+      "%120, %121, %122, %123, %124, %125, %126, %127"                     \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                \
+      : HOPPER_ACC128(d)                                                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),           \
+        "r"(scale_d))
+
+// D (64 x 64, f32) (+)= A (64 x 16, T, shared, K-major) * B^T
+// (B: 64 x 16, T, shared, K-major). scale_d = 0 overwrites D.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
-                                         uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>())
+    HOPPER_WGMMA_SS_N64("f16");
+  else
+    HOPPER_WGMMA_SS_N64("bf16");
 }
 
-// D (64 x 64, f32) (+)= A (64 x 16, bf16, registers) * B (16 x 64, bf16,
+// D (64 x 64, f32) (+)= A (64 x 16, T, registers) * B (16 x 64, T,
 // shared, MN-major: the transpose bit).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>())
+    HOPPER_WGMMA_RS_N64("f16");
+  else
+    HOPPER_WGMMA_RS_N64("bf16");
 }
 
-// D (64 x 128, f32) (+)= A (64 x 16, bf16, registers) * B (16 x 128, bf16,
+// D (64 x 128, f32) (+)= A (64 x 16, T, registers) * B (16 x 128, T,
 // shared, MN-major: the transpose bit).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>())
+    HOPPER_WGMMA_RS_N128("f16");
+  else
+    HOPPER_WGMMA_RS_N128("bf16");
 }
 
-// D (64 x 256, f32) (+)= A (64 x 16, bf16, registers) * B (16 x 256, bf16,
+// D (64 x 256, f32) (+)= A (64 x 16, T, registers) * B (16 x 256, T,
 // shared, MN-major: the transpose bit).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>())
+    HOPPER_WGMMA_RS_N256("f16");
+  else
+    HOPPER_WGMMA_RS_N256("bf16");
 }
 
 // ---- tf32 ------------------------------------------------------------------

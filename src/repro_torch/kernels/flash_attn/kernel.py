@@ -2,22 +2,25 @@
 
 Two kernels compute the same function, both on the tensor cores, and
 both take every head width ``d`` and ``dv`` from 1 up, each call in one
-launch; :func:`kernel_for` picks one by the dtype alone:
+launch. The first is instanced for each 2-byte type, so three names are
+counted, and :func:`kernel_for` picks one by the dtype alone:
 
 * ``flash_attention_wgmma``: bf16 (the serve prefill);
+* ``flash_attention_wgmma_f16``: f16, the same kernel with f16 MMAs and
+  P and the output rounded to f16 (a float16 model's prefill);
 * ``flash_attention_tf32x3``: f32, in three TF32 passes (the f32
   tolerance of 2e-5 rules out one TF32 pass, not three).
 
 Each loads its tiles by TMA where a head's row is a multiple of 16 bytes
-(:func:`tma_loads`: bf16 widths multiples of 8, f32 of 4; a tensor map
-needs 16-byte strides), and otherwise with its producer warp's own loads
-into the same shared-memory layout, the columns past the width and the
-rows past ``s`` zero-filled as TMA fills them; the C entry point picks
-the route. Heads up to 256 columns (d and dv) take instances that hold
-Q and a whole O row; a wider head takes each kernel's wide instance,
-which streams d through shared memory in chunks and splits o's columns
-across CTAs in slices of :data:`O_SLICE` (recomputing the scores once a
-slice). The grid bounds what is left: ``b * h``, ``ceil(s / 64)`` and
+(:func:`tma_loads`: bf16 and f16 widths multiples of 8, f32 of 4; a
+tensor map needs 16-byte strides), and otherwise with its producer
+warp's own loads into the same shared-memory layout, the columns past
+the width and the rows past ``s`` zero-filled as TMA fills them; the C
+entry point picks the route. Heads up to 256 columns (d and dv) take
+instances that hold Q and a whole O row; a wider head takes each
+kernel's wide instance, which streams d through shared memory in chunks
+and splits o's columns across CTAs in slices of :data:`O_SLICE`
+(recomputing the scores once a slice). The grid bounds what is left: ``b * h``, ``ceil(s / 64)`` and
 ``ceil(dv / O_SLICE)`` at most 65,535.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
@@ -51,13 +54,18 @@ import torch
 
 from . import ref
 
-#: the two kernels, by the names their launches are counted under
+#: the kernels, by the names their launches are counted under
 WGMMA = "flash_attention_wgmma"
+WGMMA_F16 = "flash_attention_wgmma_f16"
 TF32X3 = "flash_attention_tf32x3"
 #: the kernels, by their C entry points
-ENTRIES = {WGMMA: "fa_forward_wgmma", TF32X3: "fa_forward_tf32x3"}
+ENTRIES = {WGMMA: "fa_forward_wgmma", WGMMA_F16: "fa_forward_wgmma_f16",
+           TF32X3: "fa_forward_tf32x3"}
+#: the kernel of each dtype
+BY_DTYPE = {torch.bfloat16: WGMMA, torch.float16: WGMMA_F16,
+            torch.float32: TF32X3}
 #: CUDA launches of each kernel (plain ints; reset by assigning 0)
-LAUNCHES = {WGMMA: 0, TF32X3: 0}
+LAUNCHES = {name: 0 for name in ENTRIES}
 #: ``note(q, k, v, causal, window)`` called at each launch, or None
 NOTE: contextvars.ContextVar = contextvars.ContextVar("flash_attn_note",
                                                       default=None)
@@ -75,7 +83,7 @@ def standing_in():
     finally:
         STANDIN.reset(token)
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = tuple(BY_DTYPE)
 #: columns of o one CTA of a wide instance computes (dv > 256 is split)
 O_SLICE = 256
 #: the grid's limit on each of its axes past the first
@@ -90,8 +98,8 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be 4-D (b, s, heads, dim), got "
                              f"shape {tuple(t.shape)}")
         if t.dtype not in DTYPES:
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name} must be float32, bfloat16 or "
+                            f"float16, got {t.dtype}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.device != q.device:
@@ -120,7 +128,7 @@ def kernel_for(dtype, d: int, dv: int) -> str:
     """The kernel that takes q/k of width ``d`` and v of width ``dv`` in
     ``dtype`` (widths the wrapper accepts): fixed by the dtype alone,
     never by a width or a failure."""
-    return TF32X3 if dtype == torch.float32 else WGMMA
+    return BY_DTYPE[dtype]
 
 
 def tma_loads(dtype, d: int, dv: int) -> bool:

@@ -36,9 +36,16 @@ BF16 = torch.bfloat16
 NEG = -1e30
 
 
+#: the config ``dtype`` strings a model runs in: the floating types the
+#: reference's model runs (``jnp.dtype(cfg.dtype)``) and the port's
+#: kernels take
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """The ``torch.dtype`` of a config's ``dtype`` string."""
-    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(name)
+    dt = DTYPES.get(name)
     if dt is None:
         raise ValueError(f"unsupported dtype {name!r}")
     return dt

@@ -139,12 +139,13 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
         _check_supported(cfg)
-        # a bf16 product is its f32 sum rounded once (the reference's
-        # accumulation): cuBLAS may otherwise reduce split-K partials in
-        # bf16. Process-wide, so every entry point that builds a model
-        # runs with it cleared
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
-            = False
+        # a bf16 or f16 product is its f32 sum rounded once (the
+        # reference's accumulation): cuBLAS may otherwise reduce split-K
+        # partials in the operands' type. Process-wide, so every entry
+        # point that builds a model runs with both cleared
+        mm = torch.backends.cuda.matmul
+        mm.allow_bf16_reduced_precision_reduction = False
+        mm.allow_fp16_reduced_precision_reduction = False
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
         self.cfg = cfg

@@ -24,7 +24,8 @@ from typing import Dict, Mapping, NamedTuple
 import torch
 
 F32 = torch.float32
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)

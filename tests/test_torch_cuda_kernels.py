@@ -4,10 +4,11 @@ Flash-hash kernels: exact equality at several geometries (blocks narrower
 than a warp up to 2048-slot blocks) and at the main path's shapes, plus
 the table driven on the card against the same table driven on the CPU.
 Flash attention: the two kernels within the reference's tolerances (2e-5
-f32, 2e-2 bf16, TF32 off in PyTorch's own products) from tiny heads to
-llama3.2-3b's, ragged lengths included, each call counted under the
-kernel the dtype picks; the bf16 kernel at every tile boundary, GQA ratio,
-head width and with q and k scaled x8; the f32 one (three TF32 passes) on
+f32, 2e-2 bf16, TF32 off in PyTorch's own products; f16 4e-3) from tiny
+heads to llama3.2-3b's, ragged lengths included, each call counted under
+the kernel the dtype picks; the wgmma kernel (its bf16 and f16
+instances) at every tile boundary, GQA ratio, head width and with q and
+k scaled x8; the f32 one (three TF32 passes) on
 every lane of its own (lengths at tile edges, GQA ratios, head widths, d
 != dv, two rows, non-causal, windows at tile edges); each with a sliding
 window at tile edges, every GQA ratio and head width; both at widths whose
@@ -300,6 +301,12 @@ def test_wrappers_refuse_mixed_devices(cuda):
                      torch.zeros((2, 4), dtype=torch.int32, device=cuda))
 
 
+#: every dtype a kernel takes: f32 (the TF32 kernel), bf16 and f16 (the
+#: wgmma kernel's two instances)
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+WGMMA_DTYPES = [torch.bfloat16, torch.float16]
+
+
 @pytest.mark.parametrize("b,s,h,kvh,d,dv,causal", [
     (2, 128, 4, 4, 32, 32, True),      # MHA
     (1, 256, 8, 2, 64, 64, True),      # GQA 4:1
@@ -310,7 +317,7 @@ def test_wrappers_refuse_mixed_devices(cuda):
     (1, 64, 4, 2, 256, 256, True),     # the widest heads
     (1, 1000, 24, 8, 128, 128, True),  # llama3.2-3b, ragged
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv, causal,
                                        dtype):
     _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal)
@@ -360,11 +367,12 @@ def _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal, qk_scale=1.0):
     (2, 300, 6, 3, 1030, 517, False, 1),    # 9 chunks of d, 3 slices
     (1, 200, 4, 2, 512, 512, True, 8),      # wide, q and k x8
 ])
+@pytest.mark.parametrize("dtype", WGMMA_DTYPES)
 def test_wgmma_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
-                                             causal, qk_scale):
-    name = _check_and_count(cuda, b, s, h, kvh, d, dv, torch.bfloat16,
-                            causal, qk_scale)
-    assert name == FK.WGMMA
+                                             causal, qk_scale, dtype):
+    name = _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal,
+                            qk_scale)
+    assert name == (FK.WGMMA if dtype == torch.bfloat16 else FK.WGMMA_F16)
 
 
 @pytest.mark.parametrize("b,s,h,kvh,d,dv,causal,w", [
@@ -431,7 +439,7 @@ def _check_window(cuda, b, s, h, kvh, d, dv, dtype, window):
 
 @pytest.mark.parametrize("w", WINDOW_W)
 @pytest.mark.parametrize("s", WINDOW_S)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_windowed_flash_attention_matches_plain(cuda, s, w, dtype):
     """A sliding window at tile edges (63, 64, 65 keys; 1 and 17 inside
     a tile, 4,096 past most lengths), over lengths at tile edges, ragged
@@ -447,7 +455,7 @@ def test_windowed_flash_attention_matches_plain(cuda, s, w, dtype):
     (1, 8192, 36, 4, 128, 128, 4096),   # starcoder2-7b's heads and window
     (1, 1000, 8, 2, 64, 128, 77),       # d < dv
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_windowed_flash_attention_heads(cuda, b, s, h, kvh, d, dv, w,
                                         dtype):
     _check_window(cuda, b, s, h, kvh, d, dv, dtype, w)
@@ -473,7 +481,7 @@ def _shifted(x):
     (1, 1000, 6, 2, 12, 12, True, 100),   # windowed
     (1, 1000, 9, 1, 10, 5, True, 17),     # windowed, GQA 9
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_rows_not_16_bytes_match_plain(cuda, b, s, h, kvh, d, dv, causal,
                                        w, dtype):
     """Widths whose rows are no multiple of 16 bytes, which each kernel's
@@ -510,7 +518,7 @@ WIDTHS = [(1, 1), (2, 3), (3, 7), (5, 5), (6, 6), (7, 9), (10, 5), (12, 12),
 
 
 @pytest.mark.parametrize("d,dv", WIDTHS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_every_width_matches_plain(cuda, d, dv, dtype):
     """Widths the reference takes, on each side of 256, at one position,
     one key past a tile, a ragged non-causal length and a window of 17,
@@ -525,22 +533,24 @@ def test_every_width_matches_plain(cuda, d, dv, dtype):
         assert err["finite"] and err["within_tolerance"], (s, causal, w, err)
 
 
-def test_q_of_more_than_2_31_elements(cuda):
-    """q, k, v and o of 2**31 elements each (4 GiB in bf16: b 2,048, s 64,
-    h 16, d 1,024), so that an offset taken in 32 bits would wrap: one
-    launch, within the bf16 tolerance of the plain version, which is
-    computed a batch slice at a time to bound its f32 copies."""
+@pytest.mark.parametrize("dtype", WGMMA_DTYPES)
+def test_q_of_more_than_2_31_elements(cuda, dtype):
+    """q, k, v and o of 2**31 elements each (4 GiB in bf16 or f16: b
+    2,048, s 64, h 16, d 1,024), so that an offset taken in 32 bits would
+    wrap: one launch, within the type's tolerance of the plain version,
+    which is computed a batch slice at a time to bound its f32 copies."""
     b, s, h, d = 2048, 64, 16, 1024
-    q, k, v = FC.make_inputs(b, s, h, h, d, d, torch.bfloat16, 7, cuda)
+    q, k, v = FC.make_inputs(b, s, h, h, d, d, dtype, 7, cuda)
     assert q.numel() == 2 ** 31
+    name = FK.kernel_for(dtype, d, d)
     before = dict(FK.LAUNCHES)
     got = FK.flash_attention_fwd(q, k, v)
-    assert FK.LAUNCHES == {**before, FK.WGMMA: before[FK.WGMMA] + 1}
+    assert FK.LAUNCHES == {**before, name: before[name] + 1}
     worst = 0.0
     for b0 in range(0, b, 256):
         part = slice(b0, b0 + 256)
         want = FC.ref.sdpa_ref(q[part], k[part], v[part])
-        err = FC._error(got[part], want, FC.TOLERANCE[torch.bfloat16])
+        err = FC._error(got[part], want, FC.TOLERANCE[dtype])
         assert err["finite"] and err["within_tolerance"], (b0, err)
         worst = max(worst, err["max_abs_err"])
     # the last batch row, whose offsets pass 2**31 elements, holds data
@@ -597,7 +607,8 @@ def test_serving_on_card_equals_serving_on_cpu(cuda, flush_threshold):
         cache.close()
     assert runs["cpu"] == runs[str(cuda)]
     assert runs["cpu"][1] == [0, 16, 16, 16, 0, 0, 0, 0]
-    assert FK.LAUNCHES == {FK.TF32X3: 5 * cfg.num_layers, FK.WGMMA: 0}
+    assert FK.LAUNCHES == {FK.TF32X3: 5 * cfg.num_layers, FK.WGMMA: 0,
+                           FK.WGMMA_F16: 0}
     if flush_threshold:
         assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES
 
@@ -644,4 +655,4 @@ def test_family_serving_on_card_equals_serving_on_cpu(cuda, arch):
     attn_layers = cfg.num_groups * cfg.layer_pattern.count("attn")
     prefills = 5 if "ssm" not in cfg.layer_pattern else 8
     assert FK.LAUNCHES == {FK.TF32X3: prefills * attn_layers,
-                           FK.WGMMA: 0}
+                           FK.WGMMA: 0, FK.WGMMA_F16: 0}

@@ -8,8 +8,9 @@ which the reference kernel refuses, is held against the reference's
 dense oracle ``sdpa_ref``. Both take head widths that are no multiple of
 4 or 8, as the reference does (d = 6, (10, 5), (3, 7)), and heads wider
 than 256 ((320, 320), (288, 256), (576, 512), (257, 1), (1, 257), 1,024).
-The split between the two CUDA kernels, which only the card runs, is
-pinned here by dtype, and the f32 kernel's arithmetic (three TF32 passes
+The split between the CUDA kernels (the wgmma kernel's bf16 and f16
+instances, the f32 one), which only the card runs, is pinned here by
+dtype, and the f32 kernel's arithmetic (three TF32 passes
 in a tiled online softmax, heads zero-padded to the kernel's box; past
 256 columns S summed over chunks of d and o in slices) is modelled in
 torch and held against the reference's Pallas kernel."""
@@ -120,7 +121,7 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
 
 
 @pytest.mark.parametrize("mutate,err", [
-    (lambda q, k, v: (q.half(), k.half(), v.half()), TypeError),
+    (lambda q, k, v: (q.double(), k.double(), v.double()), TypeError),
     (lambda q, k, v: (q, k.to(torch.bfloat16), v), TypeError),
     (lambda q, k, v: (q.transpose(1, 2), k, v), ValueError),
     (lambda q, k, v: (q, k[:, :10], v), ValueError),
@@ -158,10 +159,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     (torch.float32, 1030, 517, K.TF32X3),  # wide, no 16-byte row
     (torch.bfloat16, 257, 1, K.WGMMA),     # one side wide, one narrow
     (torch.float32, 1, 257, K.TF32X3),
+    (torch.float16, 128, 128, K.WGMMA_F16),  # f16: the same kernel's f16
+    (torch.float16, 12, 12, K.WGMMA_F16),    # instance, on either load
+    (torch.float16, 320, 320, K.WGMMA_F16),  # route and the wide one
+    (torch.float16, 333, 301, K.WGMMA_F16),
 ])
 def test_kernel_split_is_fixed_by_dtype_and_widths(dtype, d, dv, want):
     assert K.kernel_for(dtype, d, dv) == want
-    assert set(K.LAUNCHES) == {K.WGMMA, K.TF32X3}
+    assert set(K.LAUNCHES) == {K.WGMMA, K.WGMMA_F16, K.TF32X3}
     item = 4 if dtype == torch.float32 else 2
     assert K.tma_loads(dtype, d, dv) == (d * item % 16 == dv * item % 16
                                          == 0)

@@ -7,10 +7,12 @@ The reference's ``init_params`` pytree is carried into the port by
 ``mla_full`` (the flash-attention kernel's plain version on the CPU)
 runs under both ``attn_impl``; the three cache modes (absorbed
 attention over the latent cache) write their rows in place. f32 within
-1e-4, bf16 within 5e-2. The reference's bf16 cache modes do not run on
-JAX's CPU backend (its batched bf16 x bf16 → f32 dots are unsupported
-there), so the port's bf16 cache modes are held to the reference run in
-f32 on the same bf16-rounded weights and inputs."""
+1e-4, f16 within 1e-2 (``tests/test_torch_f16.py``'s logit tolerance),
+bf16 within 5e-2. The reference's bf16 cache modes do not run on JAX's
+CPU backend (its batched bf16 x bf16 → f32 dots are unsupported there),
+so the port's bf16 cache modes are held to the reference run in f32 on
+the same bf16-rounded weights and inputs; its f16 cache modes run there,
+and the port's are held to them directly."""
 import dataclasses
 
 import jax
@@ -28,7 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 
 torch.set_num_threads(1)
-TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TOL = {"float32": 1e-4, "float16": 1e-2, "bfloat16": 5e-2}
 
 
 def _pair(dtype="float32", **kw):
@@ -65,7 +67,7 @@ def _close(got, want, tol):
 def _ref_mode(fn, p0, rcfg, *args):
     """The reference's cache mode ``fn``; for bf16, run in f32 on the
     bf16 values (see the module docstring)."""
-    if rcfg.dtype == "float32":
+    if rcfg.dtype != "bfloat16":
         return fn(p0, rcfg, *args)
     up = lambda a: (a.astype(jnp.float32) if hasattr(a, "dtype")
                     and a.dtype == jnp.bfloat16 else a)
@@ -116,7 +118,7 @@ def test_mla_full_bf16_matches_reference():
     _close(got, want, TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 def test_mla_decode_matches_reference(dtype):
     rcfg, p0, cfg, model = _pair(dtype)
     rng = np.random.default_rng(4)
@@ -136,7 +138,7 @@ def test_mla_decode_matches_reference(dtype):
         attn.mla_decode(model.layers[0].mixer, cfg, xt, ct, 20)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 def test_mla_decode_packed_matches_reference(dtype):
     """Four rows at their own depths, the last parked on the scratch row:
     each row's latent and roped key land at its index."""
@@ -158,7 +160,7 @@ def test_mla_decode_packed_matches_reference(dtype):
     assert gc.k_rope is ct.k_rope
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
 def test_mla_chunk_append_matches_reference(dtype):
     """A 16-token chunk at rows 16..31 over a cache whose first 16 rows
     hold an earlier chunk."""

@@ -431,3 +431,18 @@ def test_model_clears_reduced_precision_bf16_reductions():
         assert flag.allow_bf16_reduced_precision_reduction is False
     finally:
         flag.allow_bf16_reduced_precision_reduction = was
+
+
+def test_model_clears_reduced_precision_fp16_reductions():
+    """An f16 product rounds its f32 sum once, as a bf16 one does:
+    building a model (of any type) clears cuBLAS's split-K reductions in
+    f16 too."""
+    flag = torch.backends.cuda.matmul
+    was = flag.allow_fp16_reduced_precision_reduction
+    try:
+        flag.allow_fp16_reduced_precision_reduction = True
+        M.Model(dataclasses.replace(get_config("llama32_3b", tiny=True),
+                                    dtype="float16"), device="cpu")
+        assert flag.allow_fp16_reduced_precision_reduction is False
+    finally:
+        flag.allow_fp16_reduced_precision_reduction = was
