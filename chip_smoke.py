@@ -22,7 +22,11 @@ fails (non-zero exit, no result line) without them. Phases:
    live lanes) and the path's own dispatches (``check.path_query_layout``:
    1,024 keys bucketed by the path's code, a key or two per row). Each
    kernel the path's kernels replaced (the serial merge, the staged
-   query) is held to the plain version too. Times
+   query) is held to the plain version too. The merge again at the
+   paper's flash block (``paper_kernel_case``: 2**24 slots in 256 blocks
+   of 65,536, every block listed, rows of 2**15 updates holding 4,096 on
+   average), on the in-place route the staged one cannot take (the serial
+   kernel cannot stage such a tile and is not run). Times
    (``check.py``'s docstring): each kernel's device time from CUDA-graph
    replays (``device_ms``; the query kernels cold, with the L2 flushed
    before every launch, and warm), the same for the replaced kernel, and
@@ -75,7 +79,14 @@ fails (non-zero exit, no result line) without them. Phases:
    keys (half present, half absent) must equal ``np.unique`` counts of
    its stream, document frequencies included, with nothing dropped; the
    kernels' launch counters are zeroed before each run and must all be
-   above 0 after it. Then the race phase: ``repro_torch.analysis``'s
+   above 0 after it. Then ``paper_block``: MDB-L with the paper's flash
+   block (128 pages of 512 entries: 256 blocks of 65,536 slots, the same
+   2**24 slots, half a block of updates a row) on 2**23 tokens of the
+   same mix, with the same checks, the merge's in-place route launched
+   and its staged route not; and the card against the CPU
+   (``wide_card_vs_cpu``) at blocks of 1, 4 and 65,536 slots for MB, MDB
+   and MDB-L: identical answers, wear, counters and table state, the
+   in-place route launched. Both print their seconds. Then the race phase: ``repro_torch.analysis``'s
    race harness attached to a ``FlashStore`` (MDB-L at the same size,
    filters and the default hot cache on, the drain worker on) that takes
    the same stream in 16 ``update`` calls, a 2**16-key lookup after each
@@ -370,6 +381,20 @@ FULL = dict(q_log2=24, r_log2=10, log_capacity=1 << 21,
             max_updates_per_block=512, tokens=1 << 25)
 SMALL = dict(q_log2=20, r_log2=10, log_capacity=1 << 17,
              max_updates_per_block=512, tokens=1 << 21)
+#: the paper's flash block: 128 pages of 512 entries, 65,536 (key, count)
+#: slots (the reference cost model's TableGeometry defaults), on FULL's
+#: 2**24 slots: 256 blocks, half a block of updates a row as FULL has 512
+#: of 1,024; the stream cut to a quarter of FULL's for the time limit
+PAPER_BLOCK = dict(q_log2=24, r_log2=16, log_capacity=1 << 21,
+                   max_updates_per_block=1 << 15, tokens=1 << 23)
+#: the merge case at the paper's block (``paper_kernel_case``): every
+#: block listed, rows of max_u updates holding avg_u on average (the
+#: path's flushes bring ~8,192 a block), on a table at 0.55 load
+PAPER_KERNEL = dict(q_log2=24, r_log2=16, max_u=1 << 15, avg_u=1 << 12,
+                    load=0.55)
+#: the card against the CPU at widths the staged merge does not take:
+#: (q_log2, r_log2) for blocks of 1, 4 and 65,536 slots
+WIDE_VS_CPU = ((8, 0), (10, 2), (17, 16))
 DOC_LEN = 1 << 14
 N_QUERIES = 1 << 16
 CHUNK = 1 << 16
@@ -816,6 +841,44 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
     return res
 
 
+def paper_kernel_case(seed: int, dev, geo: dict = PAPER_KERNEL,
+                      reps: int = 10) -> dict:
+    """``merge_dirty`` at the paper's flash block against its plain
+    version (exact, every output): the in-place route, every block
+    listed in a shuffled order. The table is filled by rounds of parallel
+    probing (``check.probe_fill_table``: a plain merge would step once per
+    key of the fullest block); the plain version is timed by the one call
+    the check makes (a row of ~8,192 updates is as many steps)."""
+    from repro_torch.core.hashing import Pow2Hash
+    from repro_torch.kernels.flash_hash import check as C
+    from repro_torch.kernels.flash_hash import kernel as K
+    t0 = time.perf_counter()
+    pair = Pow2Hash(geo["q_log2"], geo["r_log2"])
+    n_b = pair.num_slots
+    table = C.probe_fill_table(pair, geo["load"], seed + 5, dev)
+    blocks, uk, uc = C.merge_case(pair, table[0], n_b, geo["max_u"],
+                                  geo["avg_u"], 0, seed + 6)
+    r = C.check_merge_dirty(pair, table, blocks, uk, uc, reps=reps,
+                            plain_once=True)
+    r.update(phase_s=time.perf_counter() - t0, q_log2=geo["q_log2"],
+             r_log2=geo["r_log2"], n_d=n_b, max_u=geo["max_u"],
+             updates=int((uk != K.EMPTY).sum()))
+    print(f"kernel merge_dirty_paper_block: {json.dumps(r)}", flush=True)
+    if r["max_abs_err"] != 0:
+        fail("merge_dirty at the paper's block disagrees with its plain "
+             "version")
+    if dev.type == "cuda" and r["route"] != "in_place":
+        fail(f"merge_dirty at r_log2={geo['r_log2']} took {r['route']}")
+    times = "; ".join(f"{k} {r[k]:.5g} ms ({r[k[:-2] + 'bound_share']:.1%} "
+                      f"of the bound)" for k in ("device_ms", "ms",
+                                                 "wrapper_ms") if r.get(k))
+    print(f"merge_dirty_paper_block ({r['route']}, {r['phase_s']:.1f} s): "
+          f"{times}; plain {r['plain_ms']:.5g} ms; bound "
+          f"{r['bound_ms']:.5g} ms ({r['bound_by']}); serial: "
+          f"{r.get('serial_skipped', 'run')}", flush=True)
+    return r
+
+
 def path_layout(pair, table, seed: int, n_keys: int, qcap: int):
     """The ``(blocks, q2)`` of the Bloom probe and of the query for one
     lookup dispatch: the smoke's mix (``check.lookup_mix``) through the
@@ -882,7 +945,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     docs = make_docs(geo["tokens"], seed, doc_len)
     stream = np.concatenate(docs)
     cfg = {k: v for k, v in geo.items() if k != "tokens"}
-    zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES)
+    zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES, K.MERGE_ROUTES)
     pipe = TfIdfPipeline(scheme=scheme, device=dev, chunk=chunk, **cfg)
     t0 = time.perf_counter()
     for doc in docs:
@@ -912,6 +975,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     if not np.array_equal(pipe.doc_table.query_batch(keys), df):
         fail(f"{scheme}: document frequencies differ from the stream's")
     launches = dict(K.LAUNCHES)
+    routes = dict(K.MERGE_ROUTES)
     stats = pipe.term_table.stats()
     wear = pipe.term_table.wear()
     for tbl in (pipe.term_table, pipe.doc_table):
@@ -932,7 +996,7 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
            "ingest_tokens_per_s": stream.size / t_ingest,
            "lookup_keys": n_queries, "lookup_s": t_query,
            "lookup_keys_per_s": n_queries / t_query, "launches": launches,
-           "wear": wear,
+           "merge_routes": routes, "r_log2": geo["r_log2"], "wear": wear,
            "query_filter_negatives": stats["query_filter_negatives"],
            "query_tile_loads": stats["query_tile_loads"],
            "write_overlap_us": stats["write_overlap_us"],
@@ -940,6 +1004,115 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
            "write_dispatches": stats["write_dispatches"]}
     print(f"main path {scheme}: {json.dumps(out)}", flush=True)
     out["answers"] = (keys, got)
+    return out
+
+
+def paper_block(seed: int, dev, geo: dict = PAPER_BLOCK,
+                doc_len: int = DOC_LEN, n_queries: int = N_QUERIES) -> dict:
+    """The main path (MDB-L) at the paper's flash block, with
+    ``main_path``'s checks, and the merge's in-place route launched while
+    its staged route was not."""
+    t0 = time.perf_counter()
+    out = main_path("MDB-L", geo, seed, dev, doc_len=doc_len,
+                    n_queries=n_queries)
+    routes = out["merge_routes"]
+    if dev.type == "cuda" and not (routes["in_place"] > 0
+                                   and routes["staged"] == 0):
+        fail(f"paper_block: the merge's routes launched {routes}, not the "
+             f"in-place one alone")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"paper_block ({out['phase_s']:.1f} s): ingest "
+          f"{out['ingest_tokens_per_s']:.0f} tokens/s; lookup "
+          f"{out['lookup_keys_per_s']:.0f} keys/s; wear "
+          f"{json.dumps(out['wear'])}; routes {json.dumps(routes)}",
+          flush=True)
+    return out
+
+
+def wide_stream(seed: int, n_keys: int, batches: int = 10):
+    """``(op, keys, deltas)``: updates over ``n_keys`` ids (a quarter of
+    the table at most), some with deltas of -1 to 2, lookups and one
+    flush half-way."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for i in range(batches):
+        yield "update", rng.integers(0, n_keys, 160), None
+        if i % 4 == 1:
+            yield "update", rng.integers(0, n_keys, 40), \
+                rng.integers(-1, 3, 40)
+        if i % 3 == 2:
+            yield "query", rng.integers(0, n_keys * 7 // 6, 80), None
+        if i == batches // 2:
+            yield "flush", None, None
+
+
+def wide_card_vs_cpu(seed: int, dev, geos=WIDE_VS_CPU) -> dict:
+    """The device ``FlashStore`` on the card and on the CPU (the plain
+    versions, which tier-1 holds against the reference) at block widths
+    the staged merge does not take, for every scheme, on one stream: the
+    same answers, ``wear()``, counters (but the wall-clock ones) and
+    table state; on the card the merge's in-place route launched and the
+    staged one not."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core.store import FlashStore
+    from repro_torch.kernels.flash_hash import kernel as K
+    t0 = time.perf_counter()
+    out = {}
+    for q_log2, r_log2 in geos:
+        n_keys = min(3000, (1 << q_log2) // 4)
+        for scheme in ("MB", "MDB", "MDB-L"):
+            # drains inline: the hot cache's counters then do not depend
+            # on when a background drain lands
+            kw = dict(scheme=scheme, track_wear=True, async_flush=False,
+                      q_log2=q_log2,
+                      r_log2=r_log2, log_capacity=256,
+                      max_updates_per_block=16,
+                      cs_partitions=min(4, 1 << (q_log2 - r_log2)),
+                      overflow_capacity=256, chunk=64, flush_threshold=96,
+                      query_chunk=64, hot_capacity=64)
+            zero_launches(K.LAUNCHES, K.BASELINE_LAUNCHES, K.MERGE_ROUTES)
+            runs = []
+            for where in ("cpu", dev):
+                st = FlashStore.open(backend="device", device=where, **kw)
+                got = []
+                for op, a, b in wide_stream(seed + q_log2, n_keys):
+                    if op == "update":
+                        st.update(a, b)
+                    elif op == "query":
+                        got.append(st.query_batch(a))
+                    else:
+                        st.flush()
+                st.flush()
+                got.append(st.query(np.arange(-1, n_keys * 7 // 6)))
+                stats = {k: v for k, v in st.stats().items()
+                         if k not in ("write_overlap_us", "write_stall_us")}
+                runs.append((got, st.wear(), stats,
+                             convert.state_to_numpy(st.state)))
+                st.close()
+            (a_got, a_wear, a_stats, a_state), (b_got, b_wear, b_stats,
+                                                b_state) = runs
+            name = f"r_log2={r_log2} {scheme}"
+            if not all(np.array_equal(x, y) for x, y in zip(a_got, b_got)):
+                fail(f"card vs CPU {name}: answers differ")
+            if a_wear != b_wear or a_wear["dropped"] != 0:
+                fail(f"card vs CPU {name}: wear {b_wear} vs {a_wear}")
+            if a_stats != b_stats:
+                fail(f"card vs CPU {name}: counters differ")
+            for f in ("keys", "counts", "log_keys", "ov_keys",
+                      "filter_words"):
+                if not np.array_equal(a_state[f], b_state[f]):
+                    fail(f"card vs CPU {name}: {f} differs")
+            routes = dict(K.MERGE_ROUTES)
+            if dev.type == "cuda" and not (routes["in_place"] > 0
+                                           and routes["staged"] == 0):
+                fail(f"card vs CPU {name}: merge routes {routes}")
+            out[name] = {"wear": b_wear, "merge_routes": routes,
+                         "launches": dict(K.LAUNCHES)}
+    phase_s = time.perf_counter() - t0
+    print(f"wide card vs cpu ({phase_s:.1f} s): identical answers, wear, "
+          f"counters and state; {json.dumps(out)}", flush=True)
+    out["phase_s"] = phase_s
     return out
 
 
@@ -3938,14 +4111,18 @@ def main() -> int:
               flush=True)
 
     res = kernel_phase(args.seed, dev)
+    res["merge_dirty_paper_block"] = paper_kernel_case(args.seed, dev)
     attn = attention_phase(args.seed, dev)
     runs = [main_path("MDB-L", FULL, args.seed, dev)]
     for scheme in ("MB", "MDB"):
         runs.append(main_path(scheme, SMALL, args.seed + 1, dev))
     main_run = runs[0]
-    for r in runs:
-        print(f"wear {r['scheme']}: {json.dumps(r['wear'])}")
-        print(f"ingest {r['scheme']}: {r['ingest_tokens_per_s']:.0f} tokens/s;"
+    paper = paper_block(args.seed, dev)
+    wide = wide_card_vs_cpu(args.seed, dev)
+    for r in runs + [paper]:
+        what = f"{r['scheme']} r_log2={r['r_log2']}"
+        print(f"wear {what}: {json.dumps(r['wear'])}")
+        print(f"ingest {what}: {r['ingest_tokens_per_s']:.0f} tokens/s;"
               f" lookup: {r['lookup_keys_per_s']:.0f} keys/s")
     race = race_phase(args.seed, dev)
     print(f"race ({race['phase_s']:.1f} s): {race['events']} events "
@@ -4036,6 +4213,23 @@ def main() -> int:
             "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # the merge's in-place route: blocks the staged fold cannot take, on
+    # the paper_block path (its launches there), timed at that path's block
+    r = res["merge_dirty_paper_block"]
+    kernels.append({
+        "name": "merge_dirty_in_place", "route": "cuda", "source": CU,
+        "replaces": REPLACES["merge_dirty"],
+        "launches": paper["merge_routes"]["in_place"],
+        "wide_card_vs_cpu_launches": sum(
+            v["merge_routes"]["in_place"] for k, v in wide.items()
+            if k != "phase_s"),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "shape": {k: r[k] for k in ("q_log2", "r_log2", "n_d", "max_u",
+                                    "updates")},
+        "serial_skipped": r.get("serial_skipped")})
     # each flash-attention kernel at the shape of the path that runs it:
     # bf16, the serve prefill, launched by every family's serve and the
     # bf16 starcoder2 TINY serve, and with a window starcoder2-7b's serve;

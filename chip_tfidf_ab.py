@@ -72,7 +72,8 @@ def run_one(job: str) -> None:
     from repro_torch.kernels.flash_hash import kernel as K
     from repro_torch.kernels.flash_hash import ops
     if arm == "serial":
-        K.MERGE_ENTRIES["per_row"] = K.MERGE_ENTRIES["serial"]
+        # the path's blocks of 1,024 slots take the staged route
+        K.MERGE_ENTRIES["staged"] = K.MERGE_ENTRIES["serial"]
     merge = ops.merge_dirty
     spent = {"merge_s": 0.0, "merge_calls": 0}
 

@@ -208,8 +208,20 @@
 //     boxes are zeroed past the data each time, since a stage holds Q and
 //     K in one use and V in the next.
 //   Offsets into q, k, v and o are 64-bit throughout (a q of more than
-//   2^31 elements is taken); the grid's limits stay: b h <= 65535, ceil(s /
-//   64) <= 65535, ceil(dv / 256) <= 65535.
+//   2^31 elements is taken).
+//
+// The grid (cta_grid, tile_of), every instance of both kernels: b h CTAs
+//   along x (its limit is 2^31 - 1), and the (query tile, o slice) pairs
+//   along y and z: y holds the tiles and z the slices where each count
+//   fits in 65,535 (the grid every instance ran on before), else the pairs
+//   in order fill y's 65,535 and go on along z, and a CTA past the last
+//   pair returns at once. Either way a CTA's pair is its index y + gridDim.y
+//   z, counted tiles first, heaviest (last) tile first, so the launch order
+//   (x fastest, then y, then z) stays: every b h of the heaviest tile,
+//   then the next, slice by slice. So any b h up to 2^31 - 1 and any s is
+//   taken (65,536 tiles or more: over 4,194,240 tokens), and any dv with
+//   them, as long as tiles x slices stays within 65,535^2 (an o that
+//   overran it would hold more than 2^46 elements).
 //
 // ---------------------------------------------------------------------------
 #include <cuda.h>
@@ -287,6 +299,46 @@ struct Call {
   int g;                     // the other route's granule bytes
   cudaStream_t stream;
 };
+
+// The grid of a call whose query tiles hold `bq` rows and whose o is cut
+// into `n_sl` column slices (the note at the top); x holds b h, which the
+// caller has checked against fits_grid.
+dim3 cta_grid(int bh, int s, int bq, int n_sl) {
+  const long long n_q = (s + (long long)bq - 1) / bq;
+  if (n_q <= 65535 && n_sl <= 65535)
+    return dim3(bh, (unsigned)n_q, n_sl);
+  const long long pairs = n_q * n_sl;
+  return dim3(bh, 65535, (unsigned)((pairs + 65534) / 65535));
+}
+
+// Whether cta_grid can lay out b h rows of such a call.
+bool fits_grid(int b, int h, int s, int bq, int n_sl) {
+  const long long n_q = (s + (long long)bq - 1) / bq;
+  return (long long)b * h <= 0x7fffffffLL &&
+         (n_q * n_sl + 65534) / 65535 <= 65535;
+}
+
+// This CTA's query tile, heaviest first (q0, its first row), and o's
+// column slice (sl) on cta_grid; false for a CTA past the last pair.
+// On the grid the kernels ran on before (y the tiles, z the slices) no
+// division is needed; 32 bits hold every index of a folded one (fits_grid
+// keeps the pairs within 65,535^2).
+__device__ __forceinline__ bool tile_of(int s, int bq, int n_sl, int& q0,
+                                        int& sl) {
+  const unsigned n_q = ((unsigned)s + bq - 1) / bq;
+  unsigned t = blockIdx.y, slice = blockIdx.z;
+  if (gridDim.y != n_q) {                  // folded: pairs along y, then z
+    const unsigned at = blockIdx.y + gridDim.y * blockIdx.z;
+    q0 = 0;
+    sl = 0;
+    if (at >= n_q * (unsigned)n_sl) return false;
+    t = at % n_q;
+    slice = at / n_q;
+  }
+  q0 = (int)(n_q - 1 - t) * bq;
+  sl = (int)slice;
+  return true;
+}
 
 // The largest power of two up to 8 that divides the rows' lengths (`elem`
 // x d and x dv bytes) and the tensors' addresses: the granule the producer
@@ -405,21 +457,24 @@ __device__ __forceinline__ void load_run(uint32_t dst, int box_bytes,
 
 // One CTA of a wide instance whose shared-memory layout is L (kBQ query
 // rows, kBK keys a tile, boxes of kChunk columns, d's chunks of kDChunk):
-// its batch row and query head (grid x), its query tile, heaviest first
-// (grid y), its slice of O's columns from v0 (grid z), the key tiles it
-// walks (from t0, the tile that holds its lowest row's window edge) and the
-// boxes of its slice that hold data.
+// its batch row and query head (grid x), its query tile, heaviest first,
+// and its slice of O's columns from v0 (tile_of: live is false for a CTA
+// past the last pair), the key tiles it walks (from t0, the tile that
+// holds its lowest row's window edge) and the boxes of its slice that hold
+// data.
 template <typename L>
 struct Cta {
   int bi, hq, kh, q0, v0, t0, n_tiles, d_chunks, v_boxes;
+  bool live;
 
   __device__ __forceinline__ Cta(int s, int h, int kvh, int d, int dv,
                                  int causal, int window) {
     bi = blockIdx.x / h;
     hq = blockIdx.x % h;
     kh = hq / (h / kvh);
-    q0 = (gridDim.y - 1 - blockIdx.y) * L::kBQ;
-    v0 = blockIdx.z * O_SLICE;
+    int sl;
+    live = tile_of(s, L::kBQ, (dv + O_SLICE - 1) / O_SLICE, q0, sl);
+    v0 = sl * O_SLICE;
     n_tiles = (s + L::kBK - 1) / L::kBK;
     if (causal) n_tiles = min(n_tiles, (q0 + L::kBQ + L::kBK - 1) / L::kBK);
     const int lo = q0 - window + 1;  // the lowest row's first kept key
@@ -623,7 +678,8 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bi = blockIdx.x / h;
   const int hq = blockIdx.x % h;
   const int kh = hq / (h / kvh);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  int q0, sl;                                        // heaviest tiles first
+  if (!tile_of(s, BQ, 1, q0, sl)) return;            // past the last tile
   int n_tiles = (s + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
   const int lo = q0 - window + 1;  // the lowest row's first kept key
@@ -869,7 +925,7 @@ int launch(const Call& c) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ);
+  const dim3 grid = cta_grid(c.b * c.h, c.s, BQ, 1);
   kern<<<grid, THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
       static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
@@ -921,6 +977,7 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_empty = bar_full + 8 * L::kStages;     // + 8 i
   const int tid = threadIdx.x;
   const wide::Cta<L> c(s, h, kvh, d, dv, causal, window);
+  if (!c.live) return;                               // past the last pair
 
   if (tid == 0) {
     for (int i = 0; i < L::kStages; ++i) {
@@ -1026,8 +1083,8 @@ int launch_wide(const Call& c) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ,
-                  (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
+  const dim3 grid = cta_grid(c.b * c.h, c.s, BQ,
+                             (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
   kern<<<grid, THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
       static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
@@ -1042,9 +1099,9 @@ template <typename T>
 int forward(const void* q, const void* k, const void* v, void* o, int b,
             int s, int h, int kvh, int d, int dv, float scale, int causal,
             int window, void* stream) {
-  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || (s + BQ - 1) / BQ > 65535 ||
-      (dv - 1) / wide::O_SLICE >= 65535 || window < 0 ||
-      (window > 0 && !causal))
+  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || window < 0 ||
+      (window > 0 && !causal) ||
+      !fits_grid(b, h, s, BQ, (dv + wide::O_SLICE - 1) / wide::O_SLICE))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   Call c = {d % 8 == 0 && dv % 8 == 0,  // 16-byte rows: TMA
@@ -1189,7 +1246,8 @@ flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bi = blockIdx.x / h;
   const int hq = blockIdx.x % h;
   const int kh = hq / (h / kvh);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  int q0, sl;                                        // heaviest tiles first
+  if (!tile_of(s, BQ, 1, q0, sl)) return;            // past the last tile
   int n_tiles = (s + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
   const int lo = q0 - window + 1;  // the lowest row's first kept key
@@ -1499,7 +1557,7 @@ int launch(const Call& c) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ);
+  const dim3 grid = cta_grid(c.b * c.h, c.s, BQ, 1);
   kern<<<grid, THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint32_t*>(c.q),
       static_cast<const uint32_t*>(c.k), static_cast<const uint32_t*>(c.v),
@@ -1567,6 +1625,7 @@ flash_attn_tf32x3_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_empty = bar_full + 8 * L::kStages;     // + 8 i
   const int tid = threadIdx.x;
   const wide::Cta<L> c(s, h, kvh, d, dv, causal, window);
+  if (!c.live) return;                               // past the last pair
 
   if (tid == 0) {
     for (int i = 0; i < L::kStages; ++i) {
@@ -1713,8 +1772,8 @@ int launch_wide(const Call& c) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(c.b * c.h, (c.s + BQ - 1) / BQ,
-                  (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
+  const dim3 grid = cta_grid(c.b * c.h, c.s, BQ,
+                             (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
   kern<<<grid, THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint32_t*>(c.q),
       static_cast<const uint32_t*>(c.k), static_cast<const uint32_t*>(c.v),
@@ -1731,11 +1790,11 @@ extern "C" {
 // (fa_forward_wgmma) and f16 (fa_forward_wgmma_f16), the same kernel
 // instanced for the type. q, k, v, o: device pointers of contiguous (b, s,
 // h|kvh, d|dv) tensors of that type. The wrapper checks d, dv >= 1,
-// h % kvh == 0, b h <= 65535, ceil(s / 64) <= 65535, ceil(dv / 256) <=
-// 65535, and that q, k and v are 16-byte aligned where d and dv are
-// multiples of 8 (the TMA route); window: 0 (none) or the sliding window's
-// width (causal only). Returns cudaErrorInvalidValue where
-// cuTensorMapEncodeTiled refuses a tensor map.
+// h % kvh == 0, that the grid can hold the call (b h <= 2^31 - 1, and
+// query tiles x o slices within 65,535^2: fits_grid), and that q, k and v
+// are 16-byte aligned where d and dv are multiples of 8 (the TMA route);
+// window: 0 (none) or the sliding window's width (causal only). Returns
+// cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a tensor map.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                      int b, int s, int h, int kvh, int d, int dv, float scale,
                      int causal, int window, void* stream) {
@@ -1756,10 +1815,9 @@ int fa_forward_wgmma_f16(const void* q, const void* k, const void* v,
 int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
                       int b, int s, int h, int kvh, int d, int dv,
                       float scale, int causal, int window, void* stream) {
-  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh ||
-      (s + tf::BQ - 1) / tf::BQ > 65535 ||
-      (dv - 1) / wide::O_SLICE >= 65535 || window < 0 ||
-      (window > 0 && !causal))
+  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || window < 0 ||
+      (window > 0 && !causal) ||
+      !fits_grid(b, h, s, tf::BQ, (dv + wide::O_SLICE - 1) / wide::O_SLICE))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   const int p = d > dv ? d : dv;

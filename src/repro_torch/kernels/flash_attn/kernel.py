@@ -20,8 +20,10 @@ entry point picks the route. Heads up to 256 columns (d and dv) take
 instances that hold Q and a whole O row; a wider head takes each
 kernel's wide instance, which streams d through shared memory in chunks
 and splits o's columns across CTAs in slices of :data:`O_SLICE`
-(recomputing the scores once a slice). The grid bounds what is left: ``b * h``, ``ceil(s / 64)`` and
-``ceil(dv / O_SLICE)`` at most 65,535.
+(recomputing the scores once a slice). Every instance takes any ``b * h``
+up to 2**31 - 1 (the grid's x) and any ``s`` and ``dv``: the query tiles
+of 64 rows and o's slices share its y and z, past 65,535 of either
+folded over both (:func:`fits_grid`), heaviest tiles launched first.
 
 :func:`flash_attention_fwd` checks dtype, shapes, contiguity and device,
 refuses inputs that need a gradient (neither the kernels nor the
@@ -86,8 +88,18 @@ def standing_in():
 DTYPES = tuple(BY_DTYPE)
 #: columns of o one CTA of a wide instance computes (dv > 256 is split)
 O_SLICE = 256
-#: the grid's limit on each of its axes past the first
-GRID_LIMIT = 65535
+#: query rows of one CTA (both kernels)
+BQ = 64
+#: the grid's limit on its first axis (b * h) and on each of the others
+GRID_X, GRID_YZ = 2 ** 31 - 1, 65535
+
+
+def fits_grid(b: int, s: int, h: int, dv: int) -> bool:
+    """Whether the kernels' grid holds a call: ``b * h`` CTAs along x, and
+    the (query tile, o slice) pairs along y then z, within 65,535 each
+    (the C entry points' ``fits_grid``)."""
+    pairs = -(-s // BQ) * -(-dv // O_SLICE)
+    return b * h <= GRID_X and -(-pairs // GRID_YZ) <= GRID_YZ
 
 
 def _check(q, k, v) -> None:
@@ -117,11 +129,10 @@ def _check(q, k, v) -> None:
     for name, n in (("d", d), ("dv", dv)):
         if n < 1:
             raise ValueError(f"{name}={n}: a head is at least 1 wide")
-    if b * h > GRID_LIMIT:
-        raise ValueError(f"b*h={b * h} exceeds the grid's {GRID_LIMIT} rows")
-    if -(-dv // O_SLICE) > GRID_LIMIT:
-        raise ValueError(f"dv={dv} exceeds the grid's {GRID_LIMIT} slices "
-                         f"of {O_SLICE} columns")
+    if not fits_grid(b, s, h, dv):
+        raise ValueError(f"b*h={b * h} past {GRID_X}, or s={s} and dv={dv} "
+                         f"past {GRID_YZ}**2 (query tile, o slice) pairs: "
+                         f"more than the grid holds")
 
 
 def kernel_for(dtype, d: int, dv: int) -> str:
@@ -156,9 +167,6 @@ def launch(q, k, v, causal: bool, name: str, window: int = 0):
                                          for t in (q, k, v)):
         raise ValueError(f"{name} loads d={d} dv={dv} by TMA: q, k and v "
                          f"must be 16-byte aligned")
-    if -(-s // 64) > GRID_LIMIT:
-        raise ValueError(f"s={s} exceeds the grid's {GRID_LIMIT} query "
-                         f"tiles")
     dev = q.device
     o = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
     if o.numel():

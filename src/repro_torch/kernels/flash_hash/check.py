@@ -2,8 +2,10 @@
 
 Used by ``chip_smoke.py`` at the main path's shapes and by the GPU tests
 at smaller ones. Every case is made from a seed on the target device:
-a table filled through the plain merge to a given load, then update rows
-(hits, inserts and overfull rows that spill) or query layouts. Two
+a table filled through the plain merge to a given load (past 8,192-slot
+blocks by rounds of parallel probing, :func:`probe_fill_table`), then
+update rows (hits, inserts and overfull rows that spill) or query
+layouts. Two
 query layouts: the dense :func:`query_layout` (every lane of every row
 live: held keys, absent keys, 1/16 EMPTY) and :func:`path_query_layout`,
 the very ``(blocks, q2)`` the lookup path hands the kernels for one
@@ -243,12 +245,13 @@ def profiled_ms(fns: Dict[str, Callable[[int], object]],
 def _counted(fn: Callable[[], Dict]) -> Dict:
     """``fn()`` with the launch counters as they were before it: the
     checks' launches are not the paths'."""
-    saved = dict(K.LAUNCHES), dict(K.BASELINE_LAUNCHES)
+    counters = (K.LAUNCHES, K.BASELINE_LAUNCHES, K.MERGE_ROUTES)
+    saved = [dict(c) for c in counters]
     try:
         return fn()
     finally:
-        K.LAUNCHES.update(saved[0])
-        K.BASELINE_LAUNCHES.update(saved[1])
+        for c, was in zip(counters, saved):
+            c.update(was)
 
 
 def _shares(out: Dict) -> Dict:
@@ -337,6 +340,57 @@ def fill_table(pair: Pow2Hash, load: float, seed: int, device):
     return keys, counts, filt
 
 
+def probe_fill_table(pair: Pow2Hash, load: float, seed: int, device):
+    """A table at ``load`` (distinct keys, counts 1 to 5) filled by rounds
+    of parallel linear probing, independent of the kernels: each round,
+    every key not yet placed asks for the next slot of its walk from home,
+    the lowest-numbered key asking for a free slot takes it, and the rest
+    walk on. Slots are never freed, so every key lies past only taken
+    slots of its home, as a serial insert leaves it. Where a block holds
+    tens of thousands of keys this takes as many rounds as the longest
+    walk, where :func:`fill_table`'s plain merge takes a step per key of
+    the fullest block. A key that walked its whole block is dropped.
+    Returns ``(keys, counts, filter_words)``."""
+    n_b, r = pair.num_slots, pair.r
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.unique(random_keys(int(load * pair.q), gen, device))
+    n = toks.numel()
+    cnt = torch.randint(1, 6, (n,), generator=gen, dtype=_I32).to(device)
+    keys = torch.full((n_b * r,), EMPTY, dtype=_I32, device=device)
+    counts = torch.zeros((n_b * r,), dtype=_I32, device=device)
+    base = pair.s(toks).long() * r
+    home = pair.home_within_block(toks).long()
+    walked = torch.zeros(n, dtype=torch.long, device=device)
+    live = torch.arange(n, device=device)
+    while live.numel():
+        slot = base[live] + ((home[live] + walked[live]) & (r - 1))
+        free = keys[slot] == EMPTY
+        ask, at = live[free], slot[free]
+        uniq, inv = torch.unique(at, return_inverse=True)
+        first = torch.full((uniq.numel(),), n, dtype=torch.long,
+                           device=device).scatter_reduce_(0, inv, ask, "amin")
+        won = first[inv] == ask
+        keys[at[won]] = toks[ask[won]]
+        counts[at[won]] = cnt[ask[won]]
+        placed = torch.zeros(n, dtype=torch.bool, device=device)
+        placed[ask[won]] = True
+        walked[live] += 1
+        live = live[~placed[live] & (walked[live] < r)]
+    keys, counts = keys.view(n_b, r), counts.view(n_b, r)
+    # both Bloom bits of every placed key: distinct (word, bit) pairs of a
+    # row summed are the row's OR
+    fw = filter_words_for(r)
+    held = keys[keys != EMPTY]
+    blk = pair.s(held).long()
+    bits = torch.cat([blk * fw * 32 + p
+                      for p in bloom_positions(held, filter_bits_log2(fw))])
+    bits = torch.unique(bits)
+    words = torch.zeros(n_b * fw, dtype=torch.long, device=device)
+    words.index_add_(0, bits // 32, torch.ones_like(bits) << (bits % 32))
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return keys, counts, words.to(_I32).view(n_b, fw)
+
+
 def full_table(pair: Pow2Hash, seed: int, device):
     """A table whose every tile is full: ``r`` distinct keys of each block
     merged into empty tiles through the plain merge."""
@@ -385,11 +439,17 @@ def merge_case(pair: Pow2Hash, keys, n_d: int, max_u: int, avg_u: int,
 
 
 def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
-                      identity: bool = False) -> Dict:
+                      identity: bool = False,
+                      plain_once: bool = False) -> Dict:
     """Kernel (``merge_dirty``, or ``merge`` with ``identity``) against
     ``merge_dirty_plain`` on copies of one table; on the card also the
-    serial kernel, held to the plain version (``serial_max_abs_err``) and
-    timed in turns with the kernel and the wrapper."""
+    serial kernel where it can stage the tile (:func:`.kernel.serial_fits`;
+    else ``serial_skipped`` says why), held to the plain version
+    (``serial_max_abs_err``) and timed in turns with the kernel and the
+    wrapper. ``route`` names the kernel's route. The plain version is timed
+    over ``reps`` further calls, or with ``plain_once`` by its one call of
+    the check itself (a row thousands of updates long is thousands of
+    steps)."""
     dev = table[0].device
     work = [t.clone() for t in table]
 
@@ -417,21 +477,27 @@ def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
         restore()
         got = [t.clone() for t in run_wrapper()]
         restore()
+        t0 = time.perf_counter()
         want = [t.clone() for t in run_plain()]
-        out = {"max_abs_err": _max_err(got, want),
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        one_plain_ms = (time.perf_counter() - t0) * 1e3
+        out = {"route": K.merge_route(pair.r_log2),
+               "max_abs_err": _max_err(got, want),
                "spills": int((want[3] != EMPTY).sum()),
                **merge_bound(pair, table, want[:3], blocks, uk)}
+        out["plain_ms"] = (one_plain_ms if plain_once else
+                           time_ms(run_plain, reps, restore, dev))
         if dev.type != "cuda":
             out["ms"] = time_ms(run_wrapper, reps, restore, dev)
-            out["plain_ms"] = time_ms(run_plain, reps, restore, dev)
             return out
         ids = (torch.arange(pair.num_slots, dtype=_I32, device=dev)
                if identity else blocks)
         res = merge_in_turns(pair, table, ids, uk, uc, reps, run_wrapper)
-        out["serial_max_abs_err"] = _max_err(res.pop("serial_out"), want)
+        if "serial_out" in res:
+            out["serial_max_abs_err"] = _max_err(res.pop("serial_out"), want)
         res.pop("per_row_out")
         out.update(res)
-        out["plain_ms"] = time_ms(run_plain, reps, restore, dev)
         return out
 
     return _shares(_counted(run))
@@ -442,8 +508,9 @@ def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
                    ) -> Dict:
     """Kernel-only CUDA-event times of the merge of ``uk``/``uc`` into
     blocks ``ids`` of ``table`` (checked CUDA tensors), in turns: the
-    parallel fold (``ms``), the serial kernel (``serial_ms``) and, if
-    given, ``wrapper(copy)`` (``wrapper_ms``); both kernels' device times
+    path's route (``ms``), the serial kernel (``serial_ms``, where it can
+    stage the tile; else ``serial_skipped`` says why) and, if given,
+    ``wrapper(copy)`` (``wrapper_ms``); both kernels' device times
     (``device_ms``, ``serial_device_ms``; :func:`device_ms`). Each call of
     a turn works on its own copy of the table, restored before the turn
     (before each graph replay), outside the timed region. ``per_row_out``
@@ -453,6 +520,15 @@ def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
     usual; callers restore the counters (:func:`_counted`)."""
     spill = [torch.empty_like(uk), torch.empty_like(uc)]
     copies = [[t.clone() for t in table] for _ in range(CALLS_PER_TURN)]
+    scratch = K.merge_scratch(pair, ids.numel(), uk.device)
+    variants = ["per_row"]
+    out = {}
+    if K.serial_fits(pair.r_log2, table[2].shape[1]):
+        variants.append("serial")
+    else:
+        out["serial_skipped"] = (f"the serial kernel stages the whole tile "
+                                 f"(2 x {pair.r} ints and the filter row), "
+                                 f"more than one CTA's shared memory")
 
     def restore_all():
         for copy in copies:
@@ -461,20 +537,20 @@ def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
 
     def launch(variant):
         return lambda i: K._launch_merge_dirty(
-            pair, *copies[i], ids, uk, uc, *spill, variant)
+            pair, *copies[i], ids, uk, uc, *spill, variant, scratch)
 
-    out = {}
-    for variant in K.MERGE_ENTRIES:
+    for variant in variants:
         restore_all()
         launch(variant)(0)
         out[f"{variant}_out"] = [t.clone() for t in copies[0] + spill]
-    fns = {"ms": launch("per_row"), "serial_ms": launch("serial")}
+    fns = {"ms": launch("per_row")}
+    graphs = {"device_ms": launch("per_row")}
+    if "serial" in variants:
+        fns["serial_ms"] = graphs["serial_device_ms"] = launch("serial")
     if wrapper is not None:
         fns["wrapper_ms"] = lambda i: wrapper(copies[i])
     out.update(in_turns(fns, reps, uk.device, restore_all))
-    out.update(device_ms({"device_ms": launch("per_row"),
-                          "serial_device_ms": launch("serial")}, reps,
-                         uk.device, before=restore_all))
+    out.update(device_ms(graphs, reps, uk.device, before=restore_all))
     return out
 
 

@@ -55,9 +55,12 @@
 //   card hides each CTA's loads behind the other CTAs on its SM and hands
 //   rows to SMs as they free up, where a fixed stride leaves the CTAs that
 //   drew long rows running alone at the end.
-//   Block widths r from 8 (two int4 groups) to 8192 (a new key's first
-//   free slot is packed into 14 bits of its class); the entry point
-//   refuses others with cudaErrorInvalidValue.
+//   It stages block widths r from 8 (two int4 groups) to 8192 (a new
+//   key's first free slot is packed into 14 bits of its class, and the
+//   whole tile must fit in one CTA's shared memory: at 65,536 slots the
+//   keys and counts alone are 512 KB); its entry point refuses others with
+//   cudaErrorInvalidValue, and the wrapper sends every other width to
+//   merge_dirty_in_place_kernel.
 //   Per row, in chunks of at most 1024 updates:
 //   1. a bitmap of the tile's EMPTY slots, ceil(r / 32) words;
 //   2. every valid update classified in parallel: its window scanned four
@@ -74,6 +77,36 @@
 //   4. the tile and filter row go back only if the row held a valid key,
 //      which keeps a repeated padding id harmless (the wrapper refuses a
 //      repeated id that carries updates: two CTAs would race on a tile).
+//
+// merge_dirty_in_place_kernel
+//   The same merge for every block width the staged fold does not take:
+//   blocks of 1, 2 and 4 slots, and blocks past 8192 slots, up to the
+//   paper's flash block (128 pages of 512 entries: 65,536 slots, r_log2 =
+//   16) and beyond (2**30 slots; slots are int32). The same fold, step for
+//   step, so the same result bit for bit: one CTA of 4 warps per listed
+//   row, chunks of 1024 updates, each valid update classified against its
+//   window, warp 0 placing the new keys 32 at a time and compacting the
+//   spills in update order, the other warps adding present keys' counts
+//   and OR-ing both Bloom bits of every valid update. What differs:
+//   - the tile stays in global memory and is folded where it lies (the
+//     only CTA that touches it is its row's); windows are walked slot by
+//     slot, so any alignment and any width, r = 1 included, is taken;
+//     counts and filter words change by global atomics; a row with no
+//     valid update reads nothing and writes no tile;
+//   - the free bitmap and its summary are built once per row, at its first
+//     chunk with a valid key, and kept: slots are never freed, so warp 0's
+//     cleared bits and a running free count are all a later chunk needs.
+//     They lie in shared memory up to 2**20 slots (128 KB of bitmap), else
+//     in a global scratch of fh_merge_scratch_words(r_log2) words a row,
+//     which the wrapper allocates;
+//   - whether a key of the tile lies past an EMPTY from its home is
+//     checked once, with the bitmap; a tile with none gets none (an
+//     insert takes the first free slot from its home), and where it has
+//     one the scan past the window runs as in merge_dirty_kernel;
+//   - a class and a key's first free slot lie in two arrays, and a
+//     placement in a third beside the hash, so nothing is packed.
+//   Speed is not its design yet: it is what every width outside 8..8192
+//   takes, right first (PERF.md has its time at the paper's block).
 //
 // merge_dirty_serial_kernel
 //   The kernel merge_dirty_kernel replaced, kept as the in-turn "before"
@@ -662,6 +695,245 @@ __global__ void __launch_bounds__(MERGE_THREADS, 8)
   }
 }
 
+// ---- merge_dirty_in_place_kernel -------------------------------------------
+// widest block whose free bitmap and summary shared memory holds (132 KB
+// at 2**20 slots); wider blocks keep them in the caller's scratch
+constexpr int IN_PLACE_SMEM_R_LOG2 = 20;
+// a placement of the in-place fold: a slot, the slot | IN_PLACE_FOUND of
+// a tile key met past an EMPTY, or -1 (a spill); slots lie below 2**30
+constexpr int IN_PLACE_FOUND = 1 << 30;
+
+// Shared memory of one in-place CTA, in ints: the chunk's update keys and
+// counts, each update's class and first free slot (f0), the hash of new
+// keys and each hash entry's placement, 8 scalars, then the free bitmap
+// and its summary where they fit (else they lie in the scratch).
+struct InPlaceSmem {
+  int up, hs, nw, ns;
+  bool bitmap_here;
+  __host__ __device__ InPlaceSmem(const MergeArgs& a)
+      : up((a.chunk + 3) & ~3), hs(1 << a.hash_log2),
+        nw((((1 << a.r_log2) + 31) >> 5)), ns((nw + 31) >> 5),
+        bitmap_here(a.r_log2 <= IN_PLACE_SMEM_R_LOG2) {}
+  __host__ __device__ int misc() const { return 4 * up + 2 * hs; }
+  // words of the bitmap and its summary, in shared memory or per row of
+  // the scratch
+  __host__ __device__ int bitmap_words() const { return nw + ns; }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(misc() + 8 + (bitmap_here ? bitmap_words() : 0)) *
+           sizeof(int);
+  }
+};
+
+// Smallest cyclic distance d < len from h at which the tile holds `key`,
+// one slot at a time (any r, any alignment); -1 if none.
+__device__ __forceinline__ int scan_slots(const int* tile, uint32_t rmask,
+                                          uint32_t h, int len, int key) {
+  for (int d = 0; d < len; ++d)
+    if (tile[(h + (uint32_t)d) & rmask] == key) return d;
+  return -1;
+}
+
+__global__ void __launch_bounds__(MERGE_THREADS)
+    merge_dirty_in_place_kernel(const MergeArgs a, uint32_t* scratch) {
+  extern __shared__ __align__(16) int smem[];
+  const InPlaceSmem L(a);
+  const int r = 1 << a.r_log2;
+  const uint32_t rmask = (uint32_t)r - 1u;
+  const int nwords = L.nw;
+  const uint32_t fmask = (1u << a.fbits_log2) - 1u;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t hmask = (uint32_t)L.hs - 1u;
+  const int row = blockIdx.x;
+  int* t_uk = smem;
+  int* t_uc = t_uk + L.up;
+  int* s_cls = t_uc + L.up;         // present: slot; new: -1 - hash slot
+  int* s_f0 = s_cls + L.up;         // new: first free slot from home, or -1
+  int* s_hash = s_f0 + L.up;        // new keys: smallest update index
+  int* s_place = s_hash + L.hs;     // ... and its placement
+  int* s_misc = smem + L.misc();    // n_free, n_used, n_spill, irregular
+  uint32_t* s_free =
+      L.bitmap_here ? reinterpret_cast<uint32_t*>(s_misc + 8)
+                    : scratch + (size_t)row * L.bitmap_words();
+  uint32_t* s_sum = s_free + nwords;
+  const size_t b = (size_t)a.blocks[row];
+  int* g_keys = a.keys + b * r;
+  int* g_counts = a.counts + b * r;
+  uint32_t* g_filt = a.filt + b * a.fw;
+  const int* g_uk = a.uk + (size_t)row * a.max_u;
+  const int* g_uc = a.uc + (size_t)row * a.max_u;
+  int* g_sk = a.sk + (size_t)row * a.max_u;
+  int* g_sc = a.sc + (size_t)row * a.max_u;
+  bool built = false;                     // the bitmap of this row's tile
+  int n_spill = 0;                        // warp 0's running spill count
+
+  for (int c0 = 0; c0 < a.max_u; c0 += a.chunk) {
+    const int n = min(a.chunk, a.max_u - c0);
+    if (c0 > 0) __syncthreads();          // the last chunk's reads done
+    copy_ints(t_uk, g_uk + c0, n, false);
+    copy_ints(t_uc, g_uc + c0, n, false);
+    if (tid == 0) s_misc[1] = 0;
+    for (int i = tid; i < L.hs; i += MERGE_THREADS) s_hash[i] = -1;
+    __syncthreads();
+    int used = 0;                         // past this chunk's last key
+    for (int j = tid; j < n; j += MERGE_THREADS)
+      if (t_uk[j] != EMPTY_KEY) used = j + 1;
+    if (used) atomicMax(&s_misc[1], used);
+    if (!__syncthreads_or(used)) continue;
+    const int n_used = s_misc[1];
+
+    // 1. at the row's first valid key: the tile's free bitmap, its summary,
+    //    the free count and whether a key of the tile lies past an EMPTY
+    //    from its home. Slots are never freed, so all of it holds for the
+    //    rest of the row: warp 0 clears the bits it takes and keeps the
+    //    count, a summary bit of a word emptied since is cleared when met,
+    //    and a tile with no key past an EMPTY gets none (an insert takes
+    //    the first free slot from its home).
+    if (!built) {
+      built = true;
+      if (tid == 0) s_misc[0] = s_misc[3] = 0;
+      __syncthreads();
+      for (int w = warp; w < nwords; w += MERGE_WARPS) {
+        const int i = 32 * w + lane;
+        const unsigned bal =
+            __ballot_sync(FULL_MASK, i < r && g_keys[i] == EMPTY_KEY);
+        if (lane == 0) {
+          s_free[w] = bal;
+          if (bal) atomicAdd(&s_misc[0], __popc(bal));
+        }
+      }
+      __syncthreads();
+      for (int sw = warp; 32 * sw < nwords; sw += MERGE_WARPS) {
+        const int w = 32 * sw + lane;
+        const unsigned bal =
+            __ballot_sync(FULL_MASK, w < nwords && s_free[w] != 0u);
+        if (lane == 0) s_sum[sw] = bal;
+      }
+      __syncthreads();
+      for (int i = tid; s_misc[0] && i < r; i += MERGE_THREADS) {
+        if ((s_free[i >> 5] >> (i & 31)) & 1u) continue;
+        const uint32_t h = home_of(g_keys[i], a.mult, rmask);
+        const int f0 = first_free_sum(s_free, s_sum, nwords, h);
+        if ((((uint32_t)i - h) & rmask) > (((uint32_t)f0 - h) & rmask))
+          s_misc[3] = 1;
+      }
+      __syncthreads();
+    }
+    const int n_free = s_misc[0];
+    const bool irregular = s_misc[3] != 0;
+
+    // 2. classify every update against the tile as it stands; new keys
+    //    into the hash, which keeps each key's smallest update index
+    for (int j = tid; j < n_used; j += MERGE_THREADS) {
+      const int key = t_uk[j];
+      int cls = CLS_INVALID, f0 = -1;
+      if (key != EMPTY_KEY) {
+        const uint32_t h = home_of(key, a.mult, rmask);
+        f0 = n_free ? first_free_sum(s_free, s_sum, nwords, h) : -1;
+        const int len = f0 < 0 ? r : (int)(((uint32_t)f0 - h) & rmask);
+        const int d = scan_slots(g_keys, rmask, h, len, key);
+        if (d >= 0) {
+          cls = (int)((h + (uint32_t)d) & rmask);
+        } else {
+          uint32_t p = bloom_mix(key) & hmask;
+          for (;;) {
+            const int old = atomicCAS(&s_hash[p], -1, j);
+            if (old == -1) break;
+            if (t_uk[old] == key) {
+              atomicMin(&s_hash[p], j);
+              break;
+            }
+            p = (p + 1u) & hmask;
+          }
+          cls = -1 - (int)p;
+        }
+      }
+      s_cls[j] = cls;
+      s_f0[j] = f0;
+    }
+    __syncthreads();
+
+    // 3. warp 0 places the first occurrence of each new key, 32 updates
+    //    at a time, as merge_dirty_kernel's step 3 does, on the tile in
+    //    global memory; the other warps add the present keys' counts and
+    //    OR every valid key's Bloom bits into the filter row
+    if (warp == 0) {
+      int left = n_free;
+      for (int base = 0; base < n_used; base += 32) {
+        const int j = base + lane;
+        const int cls = j < n_used ? s_cls[j] : CLS_INVALID;
+        const bool is_new = cls < 0 && cls != CLS_INVALID;
+        const int hp = is_new ? -1 - cls : 0;
+        const int f0 = is_new ? s_f0[j] : -1;
+        const int key = is_new ? t_uk[j] : EMPTY_KEY;
+        const uint32_t h = home_of(key, a.mult, rmask);
+        unsigned todo = __ballot_sync(FULL_MASK, is_new && s_hash[hp] == j);
+        while (todo) {
+          const bool active = (todo >> lane) & 1u;
+          const int cand =
+              active && left ? first_free_sum(s_free, s_sum, nwords, h) : -1;
+          int place = cand;
+          if (active && f0 >= 0 && cand != f0 && irregular) {
+            const int lo = (int)(((uint32_t)f0 - h) & rmask);
+            const int hi =
+                cand < 0 ? r : (int)(((uint32_t)cand - h) & rmask);
+            const int d =
+                scan_slots(g_keys, rmask, h + (uint32_t)lo, hi - lo, key);
+            if (d >= 0)
+              place =
+                  (int)((h + (uint32_t)(lo + d)) & rmask) | IN_PLACE_FOUND;
+          }
+          const unsigned same = __match_any_sync(
+              FULL_MASK, active && cand >= 0 ? cand : -2 - lane);
+          const unsigned clash = __ballot_sync(
+              FULL_MASK, active && (same & ((1u << lane) - 1u)) != 0u);
+          const unsigned done =
+              todo & (clash ? (1u << (__ffs(clash) - 1)) - 1u : FULL_MASK);
+          const bool mine = (done >> lane) & 1u;
+          const bool takes = mine && place >= 0 && !(place & IN_PLACE_FOUND);
+          if (takes) {
+            atomicAnd(&s_free[place >> 5], ~(1u << (place & 31)));
+            g_keys[place] = key;
+          }
+          if (mine) s_place[hp] = place;
+          left -= __popc(__ballot_sync(FULL_MASK, takes));
+          todo &= ~done;
+          __syncwarp();
+        }
+        const int place = is_new ? s_place[hp] : -1;
+        if (place >= 0)
+          atomicAdd(&g_counts[place & ~IN_PLACE_FOUND], t_uc[j]);
+        const bool sp = is_new && place < 0;
+        const unsigned bal = __ballot_sync(FULL_MASK, sp);
+        if (sp) {
+          const int pos = n_spill + __popc(bal & ((1u << lane) - 1u));
+          g_sk[pos] = key;
+          g_sc[pos] = t_uc[j];
+        }
+        n_spill += __popc(bal);
+      }
+      if (lane == 0) s_misc[0] = left;
+    } else {
+      for (int j = tid - 32; j < n_used; j += MERGE_THREADS - 32) {
+        const int key = t_uk[j];
+        if (key == EMPTY_KEY) continue;
+        const int cls = s_cls[j];
+        if (cls >= 0) atomicAdd(&g_counts[cls], t_uc[j]);
+        const uint32_t hb = bloom_mix(key);
+        const uint32_t p0 = hb & fmask;
+        const uint32_t p1 = (hb >> a.fbits_log2) & fmask;
+        atomicOr(&g_filt[p0 >> 5], 1u << (p0 & 31u));
+        atomicOr(&g_filt[p1 >> 5], 1u << (p1 & 31u));
+      }
+    }
+  }
+  if (tid == 0) s_misc[2] = n_spill;
+  __syncthreads();
+  for (int j = s_misc[2] + tid; j < a.max_u; j += MERGE_THREADS) {
+    g_sk[j] = EMPTY_KEY;
+    g_sc[j] = 0;
+  }
+}
+
 __global__ void query_grid_staged_kernel(const int* __restrict__ keys,
                                          const int* __restrict__ counts,
                                          const int* __restrict__ blocks,
@@ -835,16 +1107,10 @@ struct LaneGrid {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-int fh_merge_dirty(const void* blocks, int n_d, void* keys, void* counts,
-                   void* filt, int r_log2, int fw, const void* uk,
-                   const void* uc, int max_u, void* sk, void* sc,
-                   unsigned int mult, void* stream) {
-  // blocks of 8 to 8192 slots (merge_dirty_kernel's header says why)
-  if (r_log2 < 3 || r_log2 > 13) return (int)cudaErrorInvalidValue;
+MergeArgs merge_args(const void* blocks, void* keys, void* counts,
+                     void* filt, int r_log2, int fw, const void* uk,
+                     const void* uc, int max_u, void* sk, void* sc,
+                     unsigned int mult) {
   MergeArgs a;
   a.blocks = (const int*)blocks;
   a.keys = (int*)keys;
@@ -867,10 +1133,60 @@ int fh_merge_dirty(const void* blocks, int n_d, void* keys, void* counts,
   a.bulk_tile = aligned16(keys) && aligned16(counts);
   a.bulk_filt = fw % 4 == 0 && aligned16(filt);
   a.bulk_upd = max_u % 4 == 0 && aligned16(uk) && aligned16(uc);
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The staged fold (merge_dirty_kernel): blocks of 8 to 8192 slots (its
+// header says why); the entry point refuses others with
+// cudaErrorInvalidValue, and the wrapper sends them to
+// fh_merge_dirty_in_place.
+int fh_merge_dirty(const void* blocks, int n_d, void* keys, void* counts,
+                   void* filt, int r_log2, int fw, const void* uk,
+                   const void* uc, int max_u, void* sk, void* sc,
+                   unsigned int mult, void* stream) {
+  if (r_log2 < 3 || r_log2 > 13) return (int)cudaErrorInvalidValue;
+  const MergeArgs a = merge_args(blocks, keys, counts, filt, r_log2, fw, uk,
+                                 uc, max_u, sk, sc, mult);
   const size_t smem = MergeSmem(a).bytes();
   cudaError_t err = allow_smem((const void*)merge_dirty_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   merge_dirty_kernel<<<n_d, MERGE_THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// 32-bit words of scratch the in-place fold needs per listed row at blocks
+// of 2**r_log2 slots: 0 where the free bitmap and its summary fit in shared
+// memory (up to 2**20 slots).
+int fh_merge_scratch_words(int r_log2) {
+  if (r_log2 <= IN_PLACE_SMEM_R_LOG2) return 0;
+  const int nw = 1 << (r_log2 - 5);
+  return nw + ((nw + 31) >> 5);
+}
+
+// The in-place fold (merge_dirty_in_place_kernel): blocks of any width
+// from 1 to 2**30 slots, the tile folded where it lies. scratch: n_d x
+// fh_merge_scratch_words(r_log2) words (null where that is 0).
+int fh_merge_dirty_in_place(const void* blocks, int n_d, void* keys,
+                            void* counts, void* filt, int r_log2, int fw,
+                            const void* uk, const void* uc, int max_u,
+                            void* sk, void* sc, unsigned int mult,
+                            void* scratch, void* stream) {
+  if (r_log2 < 0 || r_log2 > 30 ||
+      (fh_merge_scratch_words(r_log2) > 0 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const MergeArgs a = merge_args(blocks, keys, counts, filt, r_log2, fw, uk,
+                                 uc, max_u, sk, sc, mult);
+  const size_t smem = InPlaceSmem(a).bytes();
+  cudaError_t err =
+      allow_smem((const void*)merge_dirty_in_place_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  merge_dirty_in_place_kernel<<<n_d, MERGE_THREADS, smem,
+                                (cudaStream_t)stream>>>(
+      a, (uint32_t*)scratch);
   return (int)cudaGetLastError();
 }
 

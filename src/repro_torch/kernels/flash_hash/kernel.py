@@ -17,9 +17,13 @@ raw launch (``_launch_*``: checked CUDA tensors and preallocated outputs
 in, no checks, no sync), which ``check.py`` times on its own.
 
 ``LAUNCHES`` counts CUDA launches per kernel of the paths; only a launch
-adds to it. ``BASELINE_LAUNCHES`` counts the kernels the path's kernels
-replaced (the serial merge, the staged query), which only ``check.py``
-launches, through the raw launches' ``variant``.
+adds to it. The merge has two routes, fixed by the block width alone
+(:func:`merge_route`): the staged fold for blocks of 8 to 8192 slots and
+the in-place fold for every other width; ``MERGE_ROUTES`` counts each
+merge launch under its route as well. ``BASELINE_LAUNCHES`` counts the
+kernels the path's kernels replaced (the serial merge, the staged
+query), which only ``check.py`` launches, through the raw launches'
+``variant``.
 """
 from __future__ import annotations
 
@@ -30,15 +34,41 @@ from . import ref
 
 EMPTY = ref.EMPTY
 
+#: shared memory one CTA can opt into on an H100 (bytes)
+SMEM_OPT_IN = 227 * 1024
 #: CUDA launches per kernel (a plain int each; reset by assigning 0)
 LAUNCHES = {"merge_dirty": 0, "query_grid": 0, "filter_probe_grid": 0}
 #: CUDA launches of the replaced kernels, the in-turn "before"s
 BASELINE_LAUNCHES = {"merge_dirty_serial": 0, "query_grid_staged": 0}
-#: C entry points of each kernel by variant: the first of each serves
-#: every path, the other is its baseline, timed by ``check.py`` only
-MERGE_ENTRIES = {"per_row": "fh_merge_dirty",
+#: CUDA launches of the merge by route (each also counts in ``LAUNCHES``)
+MERGE_ROUTES = {"staged": 0, "in_place": 0}
+#: block widths (log2) the staged fold takes; every other width takes the
+#: in-place fold
+STAGED_R_LOG2 = range(3, 14)
+#: C entry points of each kernel by variant. The merge's ``per_row`` (not
+#: a key here) is the path's, its route by :func:`merge_route`; ``staged``
+#: and ``in_place`` name each route, ``serial`` its baseline. The query's
+#: ``probe`` serves every path and ``staged`` is its baseline. Baselines
+#: are timed by ``check.py`` only
+MERGE_ENTRIES = {"staged": "fh_merge_dirty",
+                 "in_place": "fh_merge_dirty_in_place",
                  "serial": "fh_merge_dirty_serial"}
 QUERY_ENTRIES = {"probe": "fh_query_grid", "staged": "fh_query_grid_staged"}
+
+
+def merge_route(r_log2: int) -> str:
+    """The merge's route for blocks of ``2**r_log2`` slots, fixed by the
+    width alone: ``"staged"`` (the whole tile in one CTA's shared memory)
+    for 8 to 8192 slots, ``"in_place"`` (the tile folded in global memory)
+    for every other width."""
+    return "staged" if r_log2 in STAGED_R_LOG2 else "in_place"
+
+
+def serial_fits(r_log2: int, fw: int) -> bool:
+    """Whether the serial baseline can stage a tile of ``2**r_log2`` slots
+    and ``fw`` filter words in one CTA's shared memory (227 KB on an
+    H100): up to 16,384 slots."""
+    return (2 * (1 << r_log2) + fw) * 4 <= SMEM_OPT_IN
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -93,8 +123,8 @@ def merge_dirty(pair: Pow2Hash, table_keys, table_counts, filter_words,
     int32, EMPTY-padded. A block id may repeat only on rows without a
     valid update. Returns ``(table_keys, table_counts, filter_words,
     spill_keys, spill_counts)``, the spills ``(n_d, max_u)``. On the card
-    blocks hold 8 to 8192 slots; the kernel refuses other widths (the
-    launch raises)."""
+    every block width runs, through the route :func:`merge_route` names
+    for it."""
     n_b, r = pair.num_slots, pair.r
     dev = table_keys.device
     fw = filter_words.shape[1] if filter_words.dim() == 2 else -1
@@ -120,26 +150,46 @@ def merge_dirty(pair: Pow2Hash, table_keys, table_counts, filter_words,
     return table_keys, table_counts, filter_words, spill_k, spill_c
 
 
+def merge_scratch(pair: Pow2Hash, n_d: int, device):
+    """The in-place fold's scratch for ``n_d`` listed rows (its free
+    bitmaps, where shared memory cannot hold them: blocks past 2**20
+    slots), or None where it needs none."""
+    words = _lib().fh_merge_scratch_words(pair.r_log2)
+    if not words:
+        return None
+    return torch.empty(n_d * words, dtype=torch.int32, device=device)
+
+
 def _launch_merge_dirty(pair: Pow2Hash, table_keys, table_counts,
                         filter_words, dirty_blocks, upd_keys, upd_counts,
-                        spill_k, spill_c, variant: str = "per_row"):
-    """Launch the merge (``variant`` of :data:`MERGE_ENTRIES`) on CUDA
-    tensors :func:`merge_dirty` has checked, into ``spill_k``/``spill_c``
-    of ``upd_keys``' shape."""
+                        spill_k, spill_c, variant: str = "per_row",
+                        scratch=None):
+    """Launch the merge on CUDA tensors :func:`merge_dirty` has checked,
+    into ``spill_k``/``spill_c`` of ``upd_keys``' shape: ``variant`` is
+    ``"per_row"`` (the route :func:`merge_route` picks) or a key of
+    :data:`MERGE_ENTRIES`. The in-place route takes ``scratch``
+    (:func:`merge_scratch`), allocated here if not given."""
     n_d, max_u = upd_keys.shape
     if not (n_d and max_u):
         return
-    err = getattr(_lib(), MERGE_ENTRIES[variant])(
-        dirty_blocks.data_ptr(), n_d, table_keys.data_ptr(),
-        table_counts.data_ptr(), filter_words.data_ptr(), pair.r_log2,
-        filter_words.shape[1], upd_keys.data_ptr(), upd_counts.data_ptr(),
-        max_u, spill_k.data_ptr(), spill_c.data_ptr(), pair.mult,
-        _stream(table_keys.device))
-    _raise_if(err, f"merge_dirty ({variant})")
-    if variant == "serial":
+    route = merge_route(pair.r_log2) if variant == "per_row" else variant
+    args = [dirty_blocks.data_ptr(), n_d, table_keys.data_ptr(),
+            table_counts.data_ptr(), filter_words.data_ptr(), pair.r_log2,
+            filter_words.shape[1], upd_keys.data_ptr(),
+            upd_counts.data_ptr(), max_u, spill_k.data_ptr(),
+            spill_c.data_ptr(), pair.mult]
+    if route == "in_place":
+        if scratch is None:
+            scratch = merge_scratch(pair, n_d, table_keys.device)
+        args.append(0 if scratch is None else scratch.data_ptr())
+    err = getattr(_lib(), MERGE_ENTRIES[route])(
+        *args, _stream(table_keys.device))
+    _raise_if(err, f"merge_dirty ({route})")
+    if route == "serial":
         BASELINE_LAUNCHES["merge_dirty_serial"] += 1
     else:
         LAUNCHES["merge_dirty"] += 1
+        MERGE_ROUTES[route] += 1
 
 
 def merge(pair: Pow2Hash, table_keys, table_counts, filter_words,

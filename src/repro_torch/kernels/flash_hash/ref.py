@@ -143,29 +143,30 @@ def merge_dirty_plain(pair: Pow2Hash, table_keys, table_counts, filter_words,
     # steps past the last column holding a valid key change nothing
     live = torch.nonzero((upd_keys != EMPTY).any(0))
     n_steps = int(live.max()) + 1 if live.numel() else 0
+    # each step writes every row at one place, a row without a valid
+    # update (or whose update spills) its own value back: no step waits
+    # on the host
     for j in range(n_steps):
         k = upd_keys[:, j]
         c = upd_counts[:, j]
         valid = k != EMPTY
         home = pair.home_within_block(k)
         d = (ar[None, :] - home[:, None]) & rmask
-        d_match = torch.where(tk == k[:, None], d, inf).amin(1)
-        d_empty = torch.where(tk == EMPTY, d, inf).amin(1)
-        d_tgt = torch.minimum(d_match, d_empty)
+        # the first slot from home holding the key or EMPTY
+        stop = (tk == k[:, None]) | (tk == EMPTY)
+        d_tgt = torch.where(stop, d, inf).amin(1)
         found = valid & (d_tgt < inf)
         slot = ((home + d_tgt) & rmask).long()
-        fr, fs = rows[found], slot[found]
-        tc[fr, fs] += c[found]
-        ins = found & (d_empty < d_match)
-        tk[rows[ins], slot[ins]] = k[ins]
-        vr = rows[valid]
-        for p in bloom_positions(k[valid], bits_log2):
+        held = tk[rows, slot]
+        tc[rows, slot] += torch.where(found, c, 0)
+        tk[rows, slot] = torch.where(found & (held == EMPTY), k, held)
+        for p in bloom_positions(k, bits_log2):
             w = (p >> 5).long()
-            tf[vr, w] = tf[vr, w] | bit_masks(p)
+            tf[rows, w] |= torch.where(valid, bit_masks(p), 0)
         sp = valid & ~found
-        sr, sn = rows[sp], n_spill[sp]
-        spill_k[sr, sn] = k[sp]
-        spill_c[sr, sn] = c[sp]
+        # n_spill <= j < max_u
+        spill_k[rows, n_spill] = torch.where(sp, k, spill_k[rows, n_spill])
+        spill_c[rows, n_spill] = torch.where(sp, c, spill_c[rows, n_spill])
         n_spill += sp.long()
     wr = (upd_keys != EMPTY).any(1)
     table_keys[blocks[wr]] = tk[wr]

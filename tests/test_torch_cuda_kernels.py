@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
-Flash-hash kernels: exact equality at several geometries (blocks narrower
-than a warp up to 2048-slot blocks) and at the main path's shapes, plus
-the table driven on the card against the same table driven on the CPU.
+Flash-hash kernels: exact equality at several geometries (blocks of one
+slot up to 2**21-slot blocks, both merge routes) and at the main path's
+shapes, plus the table driven on the card against the same table driven
+on the CPU.
 Flash attention: the two kernels within the reference's tolerances (2e-5
 f32, 2e-2 bf16, TF32 off in PyTorch's own products; f16 4e-3) from tiny
 heads to llama3.2-3b's, ragged lengths included, each call counted under
@@ -31,6 +32,7 @@ from repro_torch.kernels.flash_attn import check as FC
 from repro_torch.kernels.flash_attn import kernel as FK
 from repro_torch.kernels.flash_hash import check as C
 from repro_torch.kernels.flash_hash import kernel as K
+from repro_torch.kernels.flash_hash import ref as R
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -77,7 +79,10 @@ def _fold_case(q_log2, r_log2, max_u, load, hot, scrambled, seed):
     pair = Pow2Hash(q_log2, r_log2)
     n_b, r = pair.num_slots, pair.r
     rng = np.random.default_rng(seed)
-    keys, counts, filt = C.fill_table(pair, load, seed, "cpu")
+    # a plain merge steps once per key of the fullest block: past 8,192
+    # slots fill by rounds of parallel probing instead
+    fill = C.fill_table if r_log2 <= 13 else C.probe_fill_table
+    keys, counts, filt = fill(pair, load, seed, "cpu")
     if scrambled:
         perm = torch.as_tensor(np.argsort(rng.random((n_b, r)), axis=1))
         keys, counts = keys.gather(1, perm), counts.gather(1, perm)
@@ -85,15 +90,16 @@ def _fold_case(q_log2, r_log2, max_u, load, hot, scrambled, seed):
                            .astype(np.int32))
     blk = pair.s(pool).numpy()
     pool = pool.numpy()
-    dirty = rng.permutation(n_b)[: max(n_b // 2, hot)].astype(np.int32)
+    dirty = rng.permutation(n_b)[: max(n_b // 2, hot, 1)].astype(np.int32)
     uk = np.full((len(dirty), max_u), -1, np.int32)
     for i, b in enumerate(dirty):
         held = keys[b][keys[b] != -1].numpy()
         fresh = np.unique(pool[blk == b])
         fresh = fresh[~np.isin(fresh, held)]
-        if i < hot:
+        if i < hot:   # (a one-slot tile may hold no key to repeat)
             row = np.concatenate([fresh[: max_u - max_u // 4],
-                                  rng.choice(held, max_u // 4)])
+                                  rng.choice(held, max_u // 4)
+                                  if held.size else []]).astype(np.int32)
         else:
             n = rng.integers(1, max_u + 1)
             row = rng.choice(np.concatenate([held[: n // 3],
@@ -116,7 +122,12 @@ def _on_card(t, cuda, misaligned):
     return out
 
 
-#: name: (q_log2, r_log2, max_u, load, hot rows, scrambled tiles)
+#: name: (q_log2, r_log2, max_u, load, hot rows, scrambled tiles). From
+#: ``r1`` on, every width the staged fold does not take (the in-place
+#: route) and its edges (r8, r8192): blocks of 1, 2 and 4 slots, 16,384,
+#: the paper's 65,536 (hot rows fill their tiles and spill), 2**20 (one
+#: block, the free bitmap at its most in shared memory) and 2**21 (the
+#: bitmap in the wrapper's scratch)
 FOLD_CASES = {
     "repeats": (12, 6, 64, 0.4, 0, False),
     "full_tiles": (12, 5, 64, 0.7, 16, False),
@@ -126,24 +137,44 @@ FOLD_CASES = {
     "all_hot": (14, 10, 1024, 0.55, 16, False),
     "r2048": (16, 11, 1024, 0.7, 4, True),
     "chunked": (16, 11, 2500, 0.5, 4, False),
+    "r1": (8, 0, 8, 0.5, 16, False),
+    "r2": (8, 1, 8, 0.5, 16, False),
+    "r4": (10, 2, 16, 0.5, 16, False),
+    "r4_keys_past_empty": (10, 2, 16, 0.5, 0, True),
+    "r8192": (16, 13, 2048, 0.9, 2, False),
+    "r16384": (16, 14, 4096, 0.9, 2, False),
+    "r16384_keys_past_empty": (16, 14, 2048, 0.6, 0, True),
+    "r65536": (18, 16, 8192, 0.95, 2, False),
+    "r2**20": (20, 20, 4096, 0.5, 0, False),
+    "r2**21": (21, 21, 2048, 0.5, 0, False),
 }
 
 
 @pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("case", list(FOLD_CASES))
 def test_merge_fold_matches_plain(cuda, case, misaligned):
-    """The parallel fold and the serial kernel, each against ``merge_dirty_plain`` exactly, on
-    repeated keys, full tiles, r=8 and r=2048, keys past an EMPTY, rows
-    longer than a chunk, all-hot rows and a row width that is not a
-    multiple of 4; with tensors on 16-byte boundaries (bulk copies) and
-    4 bytes past them (plain loads)."""
+    """The path's merge (the route its width takes) and the serial kernel
+    (where it can stage the tile), each against ``merge_dirty_plain``
+    exactly, on repeated keys, full tiles, keys past an EMPTY, rows
+    longer than a chunk, all-hot rows, a row width that is not a multiple
+    of 4 and every block width from 1 to 2**21 slots; with tensors on
+    16-byte boundaries (bulk copies) and 4 bytes past them (plain loads).
+    Replaces a test that pinned the card's refusal of blocks past 8,192
+    slots, which the reference takes."""
     pair, table, blocks, uk, uc = _fold_case(*FOLD_CASES[case],
                                              seed=len(case))
-    want = K.merge_dirty(pair, *(t.clone() for t in table), blocks, uk, uc)
+    want = R.merge_dirty_plain(pair, *(t.to(cuda) for t in table),
+                               blocks.to(cuda), uk.to(cuda), uc.to(cuda))
+    want = [w.cpu() for w in want]
     if FOLD_CASES[case][4]:
         assert (want[3] != -1).any()
-    launches = dict(K.LAUNCHES), dict(K.BASELINE_LAUNCHES)
-    for variant in K.MERGE_ENTRIES:
+    route = K.merge_route(pair.r_log2)
+    variants = ["per_row"]
+    if K.serial_fits(pair.r_log2, table[2].shape[1]):
+        variants.append("serial")
+    counters = K.LAUNCHES, K.BASELINE_LAUNCHES, K.MERGE_ROUTES
+    before = [dict(c) for c in counters]
+    for variant in variants:
         args = [_on_card(t, cuda, misaligned)
                 for t in (*table, blocks, uk, uc)]
         spill = [torch.empty(uk.shape, dtype=torch.int32, device=cuda)
@@ -153,20 +184,11 @@ def test_merge_fold_matches_plain(cuda, case, misaligned):
         for name, g, w in zip(("keys", "counts", "filter", "spill_k",
                                "spill_c"), got, want):
             assert torch.equal(g.cpu(), w), (variant, name)
-    assert K.LAUNCHES["merge_dirty"] == launches[0]["merge_dirty"] + 1
+    assert K.LAUNCHES["merge_dirty"] == before[0]["merge_dirty"] + 1
     assert (K.BASELINE_LAUNCHES["merge_dirty_serial"]
-            == launches[1]["merge_dirty_serial"] + 1)
-
-
-def test_merge_refuses_blocks_past_8192_slots(cuda):
-    """The parallel fold takes blocks of 8 to 8192 slots; the kernel's
-    entry point refuses wider ones and the launch raises."""
-    pair = Pow2Hash(16, 14)
-    table = [t.to(cuda) for t in C.fill_table(pair, 0.1, 1, "cpu")]
-    blocks = torch.zeros(1, dtype=torch.int32, device=cuda)
-    uk = torch.full((1, 8), 5, dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        K.merge_dirty(pair, *table, blocks, uk, torch.ones_like(uk))
+            == before[1]["merge_dirty_serial"] + ("serial" in variants))
+    assert K.MERGE_ROUTES == {**before[2], route: before[2][route] + 1}
+    assert route == ("staged" if 3 <= pair.r_log2 <= 13 else "in_place")
 
 
 #: name: (q_log2, r_log2, qcap, table, layout, misaligned). Tables:
@@ -555,6 +577,50 @@ def test_q_of_more_than_2_31_elements(cuda, dtype):
         worst = max(worst, err["max_abs_err"])
     # the last batch row, whose offsets pass 2**31 elements, holds data
     assert float(got[-1].float().abs().max()) > 0, worst
+
+
+@pytest.mark.parametrize("b,h,d", [(65537, 1, 8), (1, 65537, 8),
+                                   (65537, 1, 264)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b_times_h_past_65535(cuda, b, h, d, dtype):
+    """b * h = 65,537 CTAs along the grid's x, whose limit is 2**31 - 1
+    (the wrapper refused past 65,535 before), at a short s, on each
+    kernel and each one's wide instance: one launch, within the type's
+    tolerance of the plain version."""
+    q, k, v = FC.make_inputs(b, 16, h, 1, d, d, dtype, 5, cuda)
+    name = FK.kernel_for(dtype, d, d)
+    before = dict(FK.LAUNCHES)
+    got = FK.flash_attention_fwd(q, k, v)
+    assert FK.LAUNCHES == {**before, name: before[name] + 1}
+    want = FC.ref.sdpa_ref(q, k, v)
+    torch.cuda.synchronize(cuda)
+    err = FC._error(got, want, FC.TOLERANCE[dtype])
+    assert err["finite"] and err["within_tolerance"], err
+
+
+@pytest.mark.parametrize("s,d", [(65536 * 64 + 1, 8), (32768 * 64 + 1, 264)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_query_tiles_past_65535(cuda, s, d, dtype):
+    """More (query tile, o slice) pairs than the grid's y holds: 65,537
+    tiles of 64 rows at d = 8, and 32,769 tiles x 2 slices of o at d =
+    264 (the wide instance), so the pairs go on along z; h = kvh = 1 and
+    a window of 64 keep it cheap. The first, a middle and the last 4,096
+    rows against plain attention over those rows and the 63 keys before
+    them; one launch."""
+    w, n = 64, 4096
+    q, k, v = FC.make_inputs(1, s, 1, 1, d, d, dtype, 9, cuda)
+    name = FK.kernel_for(dtype, d, d)
+    before = dict(FK.LAUNCHES)
+    got = FK.flash_attention_fwd(q, k, v, window=w)
+    assert FK.LAUNCHES == {**before, name: before[name] + 1}
+    for lo in (0, (s // 2) // 64 * 64 + 13, s - n):
+        a = max(lo - (w - 1), 0)
+        part = slice(a, lo + n)
+        want = FC.ref.sdpa_ref(q[:, part], k[:, part], v[:, part],
+                               window=w)[:, lo - a:]
+        torch.cuda.synchronize(cuda)
+        err = FC._error(got[:, lo:lo + n], want, FC.TOLERANCE[dtype])
+        assert err["finite"] and err["within_tolerance"], (lo, err)
 
 
 def test_flash_attention_refuses_mixed_devices(cuda):

@@ -136,6 +136,38 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
         K.flash_attention_fwd(*mutate(q, k, v))
 
 
+@pytest.mark.parametrize("b,s,h,kvh,d,dv", [
+    (65537, 16, 1, 1, 8, 8),        # b * h past 65,535 (the grid's x)
+    (1, 16, 65537, 1, 8, 8),
+    (1, 4194305, 1, 1, 8, 8),       # 65,537 query tiles of 64 rows
+    (1, 2097153, 1, 1, 264, 264),   # 32,769 tiles x 2 slices of o
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wrapper_takes_grids_past_65535(b, s, h, kvh, d, dv, dtype):
+    """``b * h`` and query tiles past 65,535, which the card's grid takes
+    (x to 2**31 - 1; tiles and o's slices folded over y and z), pass the
+    wrapper's checks: shapes only, on meta tensors."""
+    q = torch.empty((b, s, h, d), dtype=dtype, device="meta")
+    k = torch.empty((b, s, kvh, d), dtype=dtype, device="meta")
+    v = torch.empty((b, s, kvh, dv), dtype=dtype, device="meta")
+    K._check(q, k, v)
+    assert K.fits_grid(b, s, h, dv)
+
+
+def test_grid_refuses_only_what_it_cannot_hold():
+    """Past 2**31 - 1 CTAs along x, or past 65,535**2 (query tile, o
+    slice) pairs: no grid holds it."""
+    assert K.fits_grid(1, 65535 * 64, 2 ** 31 - 1, 256)
+    assert not K.fits_grid(2, 64, 2 ** 30, 8)
+    assert K.fits_grid(1, 65535 * 65535 * 64, 1, 256)
+    assert not K.fits_grid(1, 65535 * 65535 * 64 + 1, 1, 256)
+    assert not K.fits_grid(1, 65535 * 64, 1, 65536 * 256)
+    q = torch.empty((2, 1, 2 ** 30, 8), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="grid"):
+        K._check(q, q, q)
+
+
 @pytest.mark.parametrize("dtype,d,dv,want", [
     (torch.bfloat16, 128, 128, K.WGMMA),   # llama3.2-3b: the serve prefill
     (torch.bfloat16, 16, 16, K.WGMMA),     # narrow heads, padded to a box

@@ -56,7 +56,10 @@ def _table(jp, rng, fill_keys):
     n_b, r = jp.num_slots, jp.r
     fw = filter_words_for(r)
     keys, cnts = jops.accumulate(jnp.asarray(fill_keys, jnp.int32))
-    uk, uc, _, _, _ = jops.bucket_updates(jp, keys, cnts, 4 * r)
+    # room for every key of a block (the reference's merge steps through
+    # every column, EMPTY ones too)
+    uk, uc, _, _, _ = jops.bucket_updates(jp, keys, cnts,
+                                          min(4 * r, len(fill_keys)))
     tk0 = jnp.full((n_b, r), EMPTY, jnp.int32)
     tc0 = jnp.zeros((n_b, r), jnp.int32)
     tf0 = jnp.zeros((n_b, fw), jnp.uint32)
@@ -64,8 +67,12 @@ def _table(jp, rng, fill_keys):
     return _np(nk), _np(nc), _np(nf)
 
 
+#: (q_log2, r_log2, max_u): blocks of 1, 4 and 2**14 slots and the
+#: paper's flash block of 2**16 (128 pages of 512 entries) beside the
+#: narrower ones
 MERGE_SHAPES = [(8, 5, 16), (10, 7, 64), (12, 8, 512), (13, 10, 256),
-                (11, 11, 128)]
+                (11, 11, 128), (6, 0, 4), (8, 2, 8), (16, 14, 64),
+                (17, 16, 256)]
 
 
 @pytest.mark.parametrize("q_log2,r_log2,max_u", MERGE_SHAPES)
@@ -154,6 +161,28 @@ def test_merge_dirty_refuses_repeated_id_with_updates():
         tk.merge_dirty(tp, tkeys.long(), tcnt, tf,
                        torch.tensor([3], dtype=torch.int32), uk[:1],
                        torch.ones_like(uk[:1]))
+
+
+def test_merge_route_is_fixed_by_the_block_width():
+    """Blocks of 8 to 8,192 slots take the staged fold and every other
+    width the in-place one, by the width alone; the serial baseline stages
+    tiles up to 16,384 slots; a merge of CPU tensors runs the plain
+    version and counts no launch on either route."""
+    assert [tk.merge_route(r) for r in range(31)] == (
+        ["in_place"] * 3 + ["staged"] * 11 + ["in_place"] * 17)
+    assert [tk.serial_fits(r, filter_words_for(1 << r))
+            for r in range(17)] == [True] * 15 + [False] * 2
+    _, tp = _pairs(6, 0)
+    n_b = tp.num_slots
+    counters = [dict(c) for c in (tk.LAUNCHES, tk.MERGE_ROUTES)]
+    tkeys = torch.full((n_b, 1), EMPTY, dtype=torch.int32)
+    uk = torch.full((n_b, 2), EMPTY, dtype=torch.int32)
+    uk[:, 0] = torch.arange(n_b, dtype=torch.int32)
+    got = tk.merge(tp, tkeys, torch.zeros_like(tkeys),
+                   torch.zeros((n_b, filter_words_for(1)), dtype=torch.int32),
+                   uk, torch.ones_like(uk))
+    assert [dict(c) for c in (tk.LAUNCHES, tk.MERGE_ROUTES)] == counters
+    assert int((got[0] != EMPTY).sum()) + int((got[3] != EMPTY).sum()) == n_b
 
 
 def test_merge_plain_matches_oracles():
