@@ -25,8 +25,10 @@ fails (non-zero exit, no result line) without them. Phases:
    query) is held to the plain version too. The merge again at the
    paper's flash block (``paper_kernel_case``: 2**24 slots in 256 blocks
    of 65,536, every block listed, rows of 2**15 updates holding 4,096 on
-   average), on the in-place route the staged one cannot take (the serial
-   kernel cannot stage such a tile and is not run). Times
+   average), on the cluster route (the tile striped over a thread-block
+   cluster's shared memory), the in-place route held to the same plain
+   result and timed in turns with it (the serial kernel cannot stage such
+   a tile and is not run). Times
    (``check.py``'s docstring): each kernel's device time from CUDA-graph
    replays (``device_ms``; the query kernels cold, with the L2 flushed
    before every launch, and warm), the same for the replaced kernel, and
@@ -82,11 +84,12 @@ fails (non-zero exit, no result line) without them. Phases:
    above 0 after it. Then ``paper_block``: MDB-L with the paper's flash
    block (128 pages of 512 entries: 256 blocks of 65,536 slots, the same
    2**24 slots, half a block of updates a row) on 2**23 tokens of the
-   same mix, with the same checks, the merge's in-place route launched
-   and its staged route not; and the card against the CPU
-   (``wide_card_vs_cpu``) at blocks of 1, 4 and 65,536 slots for MB, MDB
-   and MDB-L: identical answers, wear, counters and table state, the
-   in-place route launched. Both print their seconds. Then the race phase: ``repro_torch.analysis``'s
+   same mix, with the same checks, the merge's cluster route launched and
+   no other; and the card against the CPU (``wide_card_vs_cpu``) at blocks
+   of 1, 4 and 65,536 slots for MB, MDB and MDB-L: identical answers,
+   wear, counters and table state, the route ``merge_route`` names for
+   the width launched (in place at 1 and 4 slots, the cluster at 65,536)
+   and no other. Both print their seconds. Then the race phase: ``repro_torch.analysis``'s
    race harness attached to a ``FlashStore`` (MDB-L at the same size,
    filters and the default hot cache on, the drain worker on) that takes
    the same stream in 16 ``update`` calls, a 2**16-key lookup after each
@@ -763,7 +766,8 @@ def kernel_report(lib) -> dict:
     """Each kernel of a built library: its static SASS counts of HGMMA,
     UTMALDG, UBLKCP, SYNCS and LDG and its registers and spills from
     ``ptxas``. Fails if an instance of a tensor-core attention kernel (bf16,
-    f16 or f32) has no HGMMA, or one of the merge kernel no bulk copy."""
+    f16 or f32) has no HGMMA, or one of the staged or cluster merge no
+    bulk copy."""
     from repro_torch.kernels import nvcc
     ptxas = nvcc.ptxas_report(lib.last_build["log"])
     out = {}
@@ -773,7 +777,8 @@ def kernel_report(lib) -> dict:
         out[name] = {**counts, **ptxas.get(mangled, {})}
         if ("wgmma" in name or "tf32x3" in name) and counts["HGMMA"] == 0:
             fail(f"{name}: no HGMMA instruction in its SASS")
-        if name.startswith("merge_dirty_kernel") and counts["UBLKCP"] == 0:
+        if (name.startswith(("merge_dirty_kernel", "merge_dirty_cluster"))
+                and counts["UBLKCP"] == 0):
             fail(f"{name}: no bulk copy (UBLKCP) in its SASS")
     return out
 
@@ -826,7 +831,7 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
         table, *probed[0], reps, rotation=probed[1:])
     for name, r in res.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
-        for who in ("", "serial_", "staged_"):
+        for who in ("", "serial_", "staged_", "in_place_"):
             if r.get(who + "max_abs_err", 0) != 0:
                 fail(f"{name} ({who or 'kernel'}) disagrees with its plain "
                      f"version")
@@ -844,11 +849,13 @@ def kernel_phase(seed: int, dev, q_log2: int = 24, r_log2: int = 10,
 def paper_kernel_case(seed: int, dev, geo: dict = PAPER_KERNEL,
                       reps: int = 10) -> dict:
     """``merge_dirty`` at the paper's flash block against its plain
-    version (exact, every output): the in-place route, every block
-    listed in a shuffled order. The table is filled by rounds of parallel
-    probing (``check.probe_fill_table``: a plain merge would step once per
-    key of the fullest block); the plain version is timed by the one call
-    the check makes (a row of ~8,192 updates is as many steps)."""
+    version (exact, every output): the cluster route, every block listed
+    in a shuffled order, and the in-place route held to the same plain
+    result and timed in turns with it (``in_place_*``). The table is
+    filled by rounds of parallel probing (``check.probe_fill_table``: a
+    plain merge would step once per key of the fullest block); the plain
+    version runs once, timed by the one call the check makes (a row of
+    ~8,192 updates is as many steps)."""
     from repro_torch.core.hashing import Pow2Hash
     from repro_torch.kernels.flash_hash import check as C
     from repro_torch.kernels.flash_hash import kernel as K
@@ -859,19 +866,24 @@ def paper_kernel_case(seed: int, dev, geo: dict = PAPER_KERNEL,
     blocks, uk, uc = C.merge_case(pair, table[0], n_b, geo["max_u"],
                                   geo["avg_u"], 0, seed + 6)
     r = C.check_merge_dirty(pair, table, blocks, uk, uc, reps=reps,
-                            plain_once=True)
+                            plain_once=True,
+                            baselines=("serial", "in_place"))
     r.update(phase_s=time.perf_counter() - t0, q_log2=geo["q_log2"],
              r_log2=geo["r_log2"], n_d=n_b, max_u=geo["max_u"],
-             updates=int((uk != K.EMPTY).sum()))
+             updates=int((uk != K.EMPTY).sum()),
+             cluster_plan=vars(K.cluster_plan(geo["r_log2"])),
+             cluster_capacity=(K.cluster_capacity(K.cluster_plan(
+                 geo["r_log2"])) if dev.type == "cuda" else None))
     print(f"kernel merge_dirty_paper_block: {json.dumps(r)}", flush=True)
-    if r["max_abs_err"] != 0:
+    if r["max_abs_err"] != 0 or r.get("in_place_max_abs_err", 0) != 0:
         fail("merge_dirty at the paper's block disagrees with its plain "
              "version")
-    if dev.type == "cuda" and r["route"] != "in_place":
+    if dev.type == "cuda" and r["route"] != "cluster":
         fail(f"merge_dirty at r_log2={geo['r_log2']} took {r['route']}")
     times = "; ".join(f"{k} {r[k]:.5g} ms ({r[k[:-2] + 'bound_share']:.1%} "
-                      f"of the bound)" for k in ("device_ms", "ms",
-                                                 "wrapper_ms") if r.get(k))
+                      f"of the bound)" for k in (
+                          "device_ms", "in_place_device_ms", "ms",
+                          "in_place_ms", "wrapper_ms") if r.get(k))
     print(f"merge_dirty_paper_block ({r['route']}, {r['phase_s']:.1f} s): "
           f"{times}; plain {r['plain_ms']:.5g} ms; bound "
           f"{r['bound_ms']:.5g} ms ({r['bound_by']}); serial: "
@@ -1007,19 +1019,27 @@ def main_path(scheme: str, geo: dict, seed: int, dev, chunk: int = CHUNK,
     return out
 
 
+def only_route(routes: dict, r_log2: int) -> bool:
+    """Whether the merge launched on the route ``merge_route`` names for
+    blocks of ``2**r_log2`` slots, and on no other."""
+    from repro_torch.kernels.flash_hash import kernel as K
+    want = K.merge_route(r_log2)
+    return routes[want] > 0 and all(
+        n == 0 for route, n in routes.items() if route != want)
+
+
 def paper_block(seed: int, dev, geo: dict = PAPER_BLOCK,
                 doc_len: int = DOC_LEN, n_queries: int = N_QUERIES) -> dict:
     """The main path (MDB-L) at the paper's flash block, with
-    ``main_path``'s checks, and the merge's in-place route launched while
-    its staged route was not."""
+    ``main_path``'s checks, and the merge launched on the cluster route
+    (the route its width takes) alone."""
     t0 = time.perf_counter()
     out = main_path("MDB-L", geo, seed, dev, doc_len=doc_len,
                     n_queries=n_queries)
     routes = out["merge_routes"]
-    if dev.type == "cuda" and not (routes["in_place"] > 0
-                                   and routes["staged"] == 0):
+    if dev.type == "cuda" and not only_route(routes, geo["r_log2"]):
         fail(f"paper_block: the merge's routes launched {routes}, not the "
-             f"in-place one alone")
+             f"cluster one alone")
     out["phase_s"] = time.perf_counter() - t0
     print(f"paper_block ({out['phase_s']:.1f} s): ingest "
           f"{out['ingest_tokens_per_s']:.0f} tokens/s; lookup "
@@ -1051,8 +1071,8 @@ def wide_card_vs_cpu(seed: int, dev, geos=WIDE_VS_CPU) -> dict:
     versions, which tier-1 holds against the reference) at block widths
     the staged merge does not take, for every scheme, on one stream: the
     same answers, ``wear()``, counters (but the wall-clock ones) and
-    table state; on the card the merge's in-place route launched and the
-    staged one not."""
+    table state; on the card the merge's route for the width (in place at
+    1 and 4 slots, the cluster at 65,536) launched and no other."""
     import numpy as np
     from repro_torch import convert
     from repro_torch.core.store import FlashStore
@@ -1104,8 +1124,7 @@ def wide_card_vs_cpu(seed: int, dev, geos=WIDE_VS_CPU) -> dict:
                 if not np.array_equal(a_state[f], b_state[f]):
                     fail(f"card vs CPU {name}: {f} differs")
             routes = dict(K.MERGE_ROUTES)
-            if dev.type == "cuda" and not (routes["in_place"] > 0
-                                           and routes["staged"] == 0):
+            if dev.type == "cuda" and not only_route(routes, r_log2):
                 fail(f"card vs CPU {name}: merge routes {routes}")
             out[name] = {"wear": b_wear, "merge_routes": routes,
                          "launches": dict(K.LAUNCHES)}
@@ -4213,23 +4232,31 @@ def main() -> int:
             "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    # the merge's in-place route: blocks the staged fold cannot take, on
-    # the paper_block path (its launches there), timed at that path's block
+    # the merge's other two routes, each timed at the paper's block: the
+    # cluster fold (2**14 to 2**17 slots; its launches on the paper_block
+    # path, and the card-against-CPU stores' at 65,536 slots) and, in turns
+    # with it, the in-place fold (every other width; its launches in the
+    # card-against-CPU stores at 1 and 4 slots, the paper_block path's 0)
     r = res["merge_dirty_paper_block"]
-    kernels.append({
-        "name": "merge_dirty_in_place", "route": "cuda", "source": CU,
-        "replaces": REPLACES["merge_dirty"],
-        "launches": paper["merge_routes"]["in_place"],
-        "wide_card_vs_cpu_launches": sum(
-            v["merge_routes"]["in_place"] for k, v in wide.items()
-            if k != "phase_s"),
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "device_ms": r["device_ms"], "wrapper_ms": r["wrapper_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
-        "shape": {k: r[k] for k in ("q_log2", "r_log2", "n_d", "max_u",
-                                    "updates")},
-        "serial_skipped": r.get("serial_skipped")})
+    shape = {k: r[k] for k in ("q_log2", "r_log2", "n_d", "max_u",
+                               "updates")}
+    wide_routes = [v["merge_routes"] for k, v in wide.items()
+                   if k != "phase_s"]
+    for route, prefix in (("cluster", ""), ("in_place", "in_place_")):
+        kernels.append({
+            "name": f"merge_dirty_{route}", "route": "cuda", "source": CU,
+            "replaces": REPLACES["merge_dirty"],
+            "launches": (paper["merge_routes"][route] if route == "cluster"
+                         else sum(w[route] for w in wide_routes)),
+            "paper_block_launches": paper["merge_routes"][route],
+            "wide_card_vs_cpu_launches": sum(w[route] for w in wide_routes),
+            "max_abs_err": r[prefix + "max_abs_err"],
+            "ms": r[prefix + "ms"], "device_ms": r[prefix + "device_ms"],
+            **({"wrapper_ms": r["wrapper_ms"],
+                "plan": r["cluster_plan"]} if route == "cluster" else {}),
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
+            "serial_skipped": r.get("serial_skipped")})
     # each flash-attention kernel at the shape of the path that runs it:
     # bf16, the serve prefill, launched by every family's serve and the
     # bf16 starcoder2 TINY serve, and with a window starcoder2-7b's serve;

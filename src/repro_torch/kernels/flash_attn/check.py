@@ -107,15 +107,17 @@ def library_call(q, k, v, causal: bool, window: int = 0):
     """``scaled_dot_product_attention`` on (b, h, s, d) copies made before
     the call: the same function as the kernel (the yardstick, never used
     by the port); with a window, under the dense boolean band mask (s, s).
-    bf16 and f16 go with ``enable_gqa`` (its flash route takes GQA in
-    either type, heads up to 256 columns). In f32 no
-    fused route takes ``enable_gqa`` (the call falls to the math route's
-    f32 GEMMs, 2.6-4x slower on an H100), so K and V are copied out to
-    every query head and the memory-efficient route takes the call. Past
-    256 columns its flash route takes no head, so the call runs whatever
-    route PyTorch picks there: :func:`library_kernels` names it."""
+    bf16 and f16 heads up to 256 columns go with ``enable_gqa`` (its flash
+    route takes GQA in either type). In f32, and past 256 columns in any
+    type, no fused route takes ``enable_gqa`` (the call falls to the math
+    route's f32 GEMMs on the CUDA cores, 2.6-4x slower on an H100 in f32),
+    so K and V are copied out to every query head and the
+    memory-efficient route takes the call where it takes the widths (rows
+    a multiple of 8 elements); elsewhere the call runs whatever route
+    PyTorch picks: :func:`library_kernels` names it."""
     import torch.nn.functional as F
-    gqa = q.dtype != torch.float32
+    gqa = (q.dtype != torch.float32
+           and max(q.shape[-1], v.shape[-1]) <= 256)
     if not gqa:
         g = q.shape[2] // k.shape[2]
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)

@@ -16,7 +16,8 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 
 #: the merge's and the query's entry points each share one signature
-#: with their baseline's (the in-place merge adds its scratch)
+#: with their baseline's (the in-place merge adds its scratch, the
+#: cluster merge its plan)
 _MERGE = [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _U, _P]
 _QUERY = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _P]
 
@@ -24,6 +25,8 @@ LIBRARY = CudaLibrary(
     "flash_hash", Path(__file__).resolve().parent / "csrc" / "flash_hash.cu",
     {"fh_merge_dirty": _MERGE, "fh_merge_dirty_serial": _MERGE,
      "fh_merge_dirty_in_place": _MERGE[:-1] + [_P, _P],
+     "fh_merge_dirty_cluster": _MERGE[:-1] + [_I, _I, _P],
+     "fh_merge_cluster_capacity": [_I, _I],
      "fh_merge_scratch_words": [_I],
      "fh_query_grid": _QUERY, "fh_query_grid_staged": _QUERY,
      "fh_filter_probe_grid": [_P, _P, _P, _P, _I, _I, _I, _P]})

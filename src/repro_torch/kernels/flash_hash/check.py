@@ -439,14 +439,17 @@ def merge_case(pair: Pow2Hash, keys, n_d: int, max_u: int, avg_u: int,
 
 
 def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
-                      identity: bool = False,
-                      plain_once: bool = False) -> Dict:
+                      identity: bool = False, plain_once: bool = False,
+                      baselines: Sequence[str] = ("serial",)) -> Dict:
     """Kernel (``merge_dirty``, or ``merge`` with ``identity``) against
-    ``merge_dirty_plain`` on copies of one table; on the card also the
-    serial kernel where it can stage the tile (:func:`.kernel.serial_fits`;
-    else ``serial_skipped`` says why), held to the plain version
-    (``serial_max_abs_err``) and timed in turns with the kernel and the
-    wrapper. ``route`` names the kernel's route. The plain version is timed
+    ``merge_dirty_plain`` on copies of one table; on the card also each
+    of ``baselines`` (:func:`merge_in_turns`: the serial kernel where it
+    can stage the tile, else ``serial_skipped`` says why; the in-place
+    route), each held to the plain version (``serial_max_abs_err``,
+    ``in_place_max_abs_err``) and timed in turns with the kernel and the
+    wrapper. ``route`` names the route the wrapper's launch took (on the
+    CPU, which launches nothing, the one its width names). The plain
+    version is timed
     over ``reps`` further calls, or with ``plain_once`` by its one call of
     the check itself (a row thousands of updates long is thousands of
     steps)."""
@@ -475,14 +478,16 @@ def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
 
     def run() -> Dict:
         restore()
+        routes = dict(K.MERGE_ROUTES)
         got = [t.clone() for t in run_wrapper()]
+        taken = [k for k, n in K.MERGE_ROUTES.items() if n != routes[k]]
         restore()
         t0 = time.perf_counter()
         want = [t.clone() for t in run_plain()]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         one_plain_ms = (time.perf_counter() - t0) * 1e3
-        out = {"route": K.merge_route(pair.r_log2),
+        out = {"route": "+".join(taken) or K.merge_route(pair.r_log2),
                "max_abs_err": _max_err(got, want),
                "spills": int((want[3] != EMPTY).sum()),
                **merge_bound(pair, table, want[:3], blocks, uk)}
@@ -493,9 +498,11 @@ def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
             return out
         ids = (torch.arange(pair.num_slots, dtype=_I32, device=dev)
                if identity else blocks)
-        res = merge_in_turns(pair, table, ids, uk, uc, reps, run_wrapper)
-        if "serial_out" in res:
-            out["serial_max_abs_err"] = _max_err(res.pop("serial_out"), want)
+        res = merge_in_turns(pair, table, ids, uk, uc, reps, run_wrapper,
+                             baselines)
+        for v in baselines:
+            if f"{v}_out" in res:
+                out[f"{v}_max_abs_err"] = _max_err(res.pop(f"{v}_out"), want)
         res.pop("per_row_out")
         out.update(res)
         return out
@@ -504,31 +511,35 @@ def check_merge_dirty(pair: Pow2Hash, table, blocks, uk, uc, reps: int = 3,
 
 
 def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
-                   wrapper: Optional[Callable[[list], object]] = None
-                   ) -> Dict:
+                   wrapper: Optional[Callable[[list], object]] = None,
+                   baselines: Sequence[str] = ("serial",)) -> Dict:
     """Kernel-only CUDA-event times of the merge of ``uk``/``uc`` into
     blocks ``ids`` of ``table`` (checked CUDA tensors), in turns: the
-    path's route (``ms``), the serial kernel (``serial_ms``, where it can
-    stage the tile; else ``serial_skipped`` says why) and, if given,
-    ``wrapper(copy)`` (``wrapper_ms``); both kernels' device times
-    (``device_ms``, ``serial_device_ms``; :func:`device_ms`). Each call of
-    a turn works on its own copy of the table, restored before the turn
-    (before each graph replay), outside the timed region. ``per_row_out``
-    and ``serial_out`` are each kernel's outputs (keys, counts, filter
+    path's route (``ms``), each of ``baselines`` (variants of
+    :data:`.kernel.MERGE_ENTRIES`: ``serial_ms`` where the serial kernel
+    can stage the tile, else ``serial_skipped`` says why; ``in_place_ms``)
+    and, if given, ``wrapper(copy)`` (``wrapper_ms``); every kernel's
+    device time (``device_ms``, ``serial_device_ms``,
+    ``in_place_device_ms``; :func:`device_ms`). Each call of a turn works
+    on its own copy of the table, restored before the turn (before each
+    graph replay), outside the timed region. ``per_row_out`` and each
+    ``<baseline>_out`` are each kernel's outputs (keys, counts, filter
     words, spill keys and counts) from one untimed call on the table as
-    given. The launches are counted as
-    usual; callers restore the counters (:func:`_counted`)."""
+    given. The launches are counted as usual; callers restore the
+    counters (:func:`_counted`)."""
     spill = [torch.empty_like(uk), torch.empty_like(uc)]
     copies = [[t.clone() for t in table] for _ in range(CALLS_PER_TURN)]
     scratch = K.merge_scratch(pair, ids.numel(), uk.device)
     variants = ["per_row"]
     out = {}
-    if K.serial_fits(pair.r_log2, table[2].shape[1]):
-        variants.append("serial")
-    else:
-        out["serial_skipped"] = (f"the serial kernel stages the whole tile "
-                                 f"(2 x {pair.r} ints and the filter row), "
-                                 f"more than one CTA's shared memory")
+    for v in baselines:
+        if v != "serial" or K.serial_fits(pair.r_log2, table[2].shape[1]):
+            variants.append(v)
+        else:
+            out["serial_skipped"] = (
+                f"the serial kernel stages the whole tile (2 x {pair.r} "
+                f"ints and the filter row), more than one CTA's shared "
+                f"memory")
 
     def restore_all():
         for copy in copies:
@@ -545,8 +556,8 @@ def merge_in_turns(pair: Pow2Hash, table, ids, uk, uc, reps: int,
         out[f"{variant}_out"] = [t.clone() for t in copies[0] + spill]
     fns = {"ms": launch("per_row")}
     graphs = {"device_ms": launch("per_row")}
-    if "serial" in variants:
-        fns["serial_ms"] = graphs["serial_device_ms"] = launch("serial")
+    for v in variants[1:]:
+        fns[f"{v}_ms"] = graphs[f"{v}_device_ms"] = launch(v)
     if wrapper is not None:
         fns["wrapper_ms"] = lambda i: wrapper(copies[i])
     out.update(in_turns(fns, reps, uk.device, restore_all))

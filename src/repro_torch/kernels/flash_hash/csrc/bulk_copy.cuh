@@ -1,6 +1,6 @@
 // Hopper (sm_90a) 1-D bulk copies into shared memory, counted on mbarriers,
-// in inline PTX. Included by flash_hash.cu; nothing here launches or
-// allocates.
+// and out of it, in bulk groups, in inline PTX. Included by flash_hash.cu;
+// nothing here launches or allocates.
 //
 // A bulk copy moves a contiguous run of bytes from device memory into
 // shared memory without registers or per-thread instructions; its size and
@@ -61,6 +61,31 @@ __device__ __forceinline__ void copy_to_smem(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Orders the generic proxy's memory accesses before it (plain stores, in
+// this CTA's shared memory or, through a cluster barrier, another CTA's)
+// before the async proxy's after it (a bulk copy out of shared memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Copies `bytes` (a multiple of 16) from shared memory at `src` to `dst`,
+// both 16-byte aligned, in the calling thread's bulk group.
+__device__ __forceinline__ void copy_to_global(void* dst, const void* src,
+                                               uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+// Closes the calling thread's bulk group and returns once every copy of
+// it has read its shared memory (which may then be reused or released).
+__device__ __forceinline__ void commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace bulk

@@ -59,7 +59,8 @@
 //   key's first free slot is packed into 14 bits of its class, and the
 //   whole tile must fit in one CTA's shared memory: at 65,536 slots the
 //   keys and counts alone are 512 KB); its entry point refuses others with
-//   cudaErrorInvalidValue, and the wrapper sends every other width to
+//   cudaErrorInvalidValue, and the wrapper sends 2**14 to 2**17 slots to
+//   merge_dirty_cluster_kernel and every other width to
 //   merge_dirty_in_place_kernel.
 //   Per row, in chunks of at most 1024 updates:
 //   1. a bitmap of the tile's EMPTY slots, ceil(r / 32) words;
@@ -78,16 +79,80 @@
 //      which keeps a repeated padding id harmless (the wrapper refuses a
 //      repeated id that carries updates: two CTAs would race on a tile).
 //
+// merge_dirty_cluster_kernel
+//   The same merge for blocks of 2**14 to 2**17 slots, the paper's flash
+//   block first (128 pages of 512 entries: 65,536 slots, r_log2 = 16):
+//   the same fold and update order, so the same result bit for bit.
+//   Bound on the card: bytes, as merge_dirty_kernel's. At the paper's
+//   block a tile's keys and counts are 512 KB, past one CTA's shared
+//   memory, and a row of ~4,096 updates touches few of their sectors;
+//   moving whole stripes of keys costs ~2x the sectors the bound counts.
+//   Design: a thread-block cluster per listed row, of C <= 8 CTAs (the
+//   portable most) of 8 warps. The tile is cut into C stripes of 16,384
+//   slots, one a CTA: a cluster of 1 at 2**14, 4 at the paper's 65,536 and
+//   8 at 2**17. The plan (C and the shared memory a CTA) comes from
+//   kernel.py:cluster_plan, from the width alone, and the entry point
+//   checks it. Counts stay in global memory and change by atomics nothing
+//   waits on, so a CTA holds its stripe of keys, 64 KB, two fit an SM and
+//   the card holds 62 clusters of 4. Tried at the paper's block and
+//   slower (PERF.md): 8,192-slot stripes in clusters of 8, and counts
+//   staged in shared memory beside the keys; either lets fewer clusters
+//   fit at once.
+//   - Each CTA loads its stripe once (a bulk copy on an mbarrier where the
+//     tile is 16-byte aligned, coalesced loads otherwise) and builds its
+//     stripe's words of the free bitmap; after a cluster barrier each
+//     copies the others' words over distributed shared memory (DSMEM), so
+//     every CTA holds the whole bitmap and its summary, and checks its
+//     stripe's keys for one past an EMPTY from its home (the leader keeps
+//     the OR; a tile the fold built has none).
+//   - The row's last valid update column is found once, each CTA reading
+//     its share of the row by 16-byte loads; chunks past it (EMPTY only)
+//     are never read.
+//   - Per chunk of 1024 updates, every CTA copies the chunk, lists the
+//     valid updates whose home lies in its stripe and classifies them,
+//     spread over its threads: a window rarely leaves its stripe (a group
+//     of four slots is read in another CTA's shared memory where it
+//     does), and a key's repeats share its home, so the CTA's own hash
+//     names each new key's first occurrence. It hands each class and
+//     first free slot to the leader (CTA 0) over DSMEM, adds present
+//     keys' counts and ORs both Bloom bits into the filter row (global
+//     atomics).
+//   - After a cluster barrier the leader's 8 warps place the new keys in
+//     rounds over 256 updates: each takes the first free slot from home
+//     (past it, in a tile with a key past an EMPTY, it looks for its key
+//     first, as merge_dirty_kernel's step 3 does), and claims it in a
+//     bitmap; the updates up to the first one whose slot an earlier one
+//     also claims are final, the rest look again (from the slot they
+//     wanted: a slot still free is still the first from home). Each
+//     placed key goes into the CTA whose stripe holds its slot. Then the
+//     leader adds the new keys' counts and compacts the spills in update
+//     order (a prefix sum over the CTA). After a second barrier the other CTAs copy the
+//     leader's bitmap, summary and free count for the next chunk.
+//   - The spill count goes to every CTA before the last cluster barrier;
+//     past it no CTA touches another's shared memory, so each may leave.
+//     Each fills its share of the spill tail with EMPTY (16-byte stores
+//     where aligned), and writes its stripe back by a bulk copy (plain
+//     stores where unaligned) only if the row held a valid key: a repeated
+//     padding id (the wrapper refuses one that carries updates) writes
+//     nothing, so two clusters never write one tile.
+//   The entry point launches with cudaLaunchKernelEx and a cluster
+//   dimension, and refuses a plan that does not hold or that no SM can
+//   run a cluster of (cudaOccupancyMaxActiveClusters); the wrapper raises,
+//   and no other route stands in. What bounds it now (PERF.md): the
+//   leader's placement rounds, while the other CTAs wait, and 256 rows of
+//   unequal length in waves of 62 clusters.
+//
 // merge_dirty_in_place_kernel
-//   The same merge for every block width the staged fold does not take:
-//   blocks of 1, 2 and 4 slots, and blocks past 8192 slots, up to the
-//   paper's flash block (128 pages of 512 entries: 65,536 slots, r_log2 =
-//   16) and beyond (2**30 slots; slots are int32). The same fold, step for
-//   step, so the same result bit for bit: one CTA of 4 warps per listed
-//   row, chunks of 1024 updates, each valid update classified against its
-//   window, warp 0 placing the new keys 32 at a time and compacting the
-//   spills in update order, the other warps adding present keys' counts
-//   and OR-ing both Bloom bits of every valid update. What differs:
+//   The same merge for every block width the staged and cluster folds do
+//   not take: blocks of 1, 2 and 4 slots, and blocks past 2**17 slots, up
+//   to 2**30 (slots are int32); it takes every width, and at the cluster
+//   fold's it is that route's in-turn "before" (check.py). The same fold,
+//   step for step, so the same result bit for bit: one CTA of 4 warps per
+//   listed row, chunks of 1024 updates, each valid update classified
+//   against its window, warp 0 placing the new keys 32 at a time and
+//   compacting the spills in update order, the other warps adding present
+//   keys' counts and OR-ing both Bloom bits of every valid update. What
+//   differs:
 //   - the tile stays in global memory and is folded where it lies (the
 //     only CTA that touches it is its row's); windows are walked slot by
 //     slot, so any alignment and any width, r = 1 included, is taken;
@@ -105,8 +170,9 @@
 //     one the scan past the window runs as in merge_dirty_kernel;
 //   - a class and a key's first free slot lie in two arrays, and a
 //     placement in a third beside the hash, so nothing is packed.
-//   Speed is not its design yet: it is what every width outside 8..8192
-//   takes, right first (PERF.md has its time at the paper's block).
+//   Speed is not its design yet: it was right first (PERF.md has its time
+//   at the paper's block, 5.4% of its bound, where the cluster fold now
+//   runs).
 //
 // merge_dirty_serial_kernel
 //   The kernel merge_dirty_kernel replaced, kept as the in-turn "before"
@@ -169,6 +235,7 @@
 //   CTAs of 128 threads were each slower on the H100 at that layout
 //   (PERF.md). An EMPTY lane answers 0.
 // ---------------------------------------------------------------------------
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -176,6 +243,8 @@
 #include <algorithm>
 
 #include "bulk_copy.cuh"
+
+namespace cg = cooperative_groups;
 
 #define EMPTY_KEY (-1)
 #define FULL_MASK 0xffffffffu
@@ -934,6 +1003,525 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   }
 }
 
+// ---- merge_dirty_cluster_kernel --------------------------------------------
+constexpr int CLUSTER_THREADS = 256;
+// a CTA's stripe of the tile: 2**14 slots of keys, so a cluster of 1 to 8
+// CTAs (8 the most a portable cluster holds) covers 2**14 to 2**17 slots
+constexpr int STRIPE_LOG2 = 14;
+constexpr int STRIPE = 1 << STRIPE_LOG2;
+// entries of a CTA's hash of new keys: a chunk's keys at most half fill it
+constexpr int CLUSTER_HASH = 2 * MERGE_CHUNK;
+// the placement's claim bitmaps (in the space of the hash of new keys,
+// which placement does not use): two of CLAIM_WORDS words, a bit for a
+// slot modulo their width
+constexpr int CLAIM_WORDS = CLUSTER_HASH / 2;
+constexpr uint32_t CLAIM_MASK = 32u * CLAIM_WORDS - 1u;
+// the leader places the new keys among CLUSTER_THREADS updates a round, and
+// counts and compacts a chunk's in one pass of 4 updates a thread
+static_assert(MERGE_CHUNK == 4 * CLUSTER_THREADS, "a chunk is 4 a thread");
+// scalars of s_misc: this CTA's last valid update column + 1 and free
+// slots in its stripe (read by the others after the first barrier), the
+// row's (the largest and the sum), the free count as the last chunk's
+// placement left it, the row's spill count (sent by the leader before the
+// last barrier), the first contested update of a placement round, whether
+// a tile key lies past an EMPTY (the leader's), this CTA's updates in the
+// chunk (8 ints: the mbarrier after them stays 8-byte aligned)
+enum {
+  CM_LAST, CM_FREE, CM_USED, CM_NFREE, CM_SPILL, CM_FIRST, CM_IRREG, CM_OWN,
+  CM_N
+};
+static_assert(CM_N % 2 == 0, "the mbarrier after the scalars is 8-aligned");
+
+// Shared memory of one CTA of the cluster fold, in ints: its stripe of the
+// tile's keys, the whole free bitmap and its summary, then arrays of
+// MERGE_CHUNK: the chunk's update keys and counts, each update's class by
+// this CTA, and the leader's class, first free slot and placement of each;
+// the hash of new keys, the scalars and an 8-byte mbarrier.
+// kernel.py:cluster_plan computes the same size.
+struct ClusterSmem {
+  int r, nw, ns;
+  __host__ __device__ explicit ClusterSmem(int r_log2)
+      : r(1 << r_log2), nw(r >> 5), ns(nw >> 5) {}
+  __host__ __device__ int free_off() const { return STRIPE; }
+  __host__ __device__ int upd_off() const { return free_off() + nw + ns; }
+  __host__ __device__ int hash_off() const {
+    return upd_off() + 6 * MERGE_CHUNK;
+  }
+  __host__ __device__ int misc_off() const { return hash_off() + CLUSTER_HASH; }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(misc_off() + CM_N) * sizeof(int) + sizeof(uint64_t);
+  }
+};
+
+// scan_window over a tile striped across the cluster's CTAs (the stripe of
+// slot s in CTA s >> STRIPE_LOG2): a group of four slots lies in one stripe
+// and is read there, in this CTA's shared memory or another's.
+__device__ __forceinline__ int scan_stripes(cg::cluster_group& cluster,
+                                            int* s_keys, int rank,
+                                            uint32_t rmask, uint32_t h,
+                                            int len, int key) {
+  const uint32_t gmask = rmask >> 2;
+  const uint32_t smask = (uint32_t)STRIPE - 1u;
+  const int off = (int)(h & 3u);
+  const int n_groups = (off + len + 3) >> 2;
+  for (int i = 0; i < n_groups; ++i) {
+    const uint32_t s = (((h >> 2) + (uint32_t)i) & gmask) << 2;
+    const int owner = (int)(s >> STRIPE_LOG2);
+    int* p = s_keys + (s & smask);
+    const int4 q = owner == rank
+                       ? *reinterpret_cast<const int4*>(p)
+                       : *reinterpret_cast<const int4*>(
+                             cluster.map_shared_rank(p, owner));
+    const int d0 = 4 * i - off;
+    int best = -1;
+    if (q.w == key && d0 + 3 >= 0 && d0 + 3 < len) best = d0 + 3;
+    if (q.z == key && d0 + 2 >= 0 && d0 + 2 < len) best = d0 + 2;
+    if (q.y == key && d0 + 1 >= 0 && d0 + 1 < len) best = d0 + 1;
+    if (q.x == key && d0 >= 0 && d0 < len) best = d0;
+    if (best >= 0) return best;
+  }
+  return -1;
+}
+
+// Exclusive prefix sum of v over the CTA's threads in order, and its total;
+// s_tmp holds CLUSTER_THREADS / 32 ints until the caller's next barrier.
+__device__ __forceinline__ int cta_exclusive_scan(int v, int* s_tmp,
+                                                  int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_tmp[warp] = x;
+  __syncthreads();
+  total = 0;
+  for (int w = 0; w < CLUSTER_THREADS / 32; ++w) {
+    if (w < warp) x += s_tmp[w];
+    total += s_tmp[w];
+  }
+  return x - v;
+}
+
+__global__ void __launch_bounds__(CLUSTER_THREADS, 2)
+    merge_dirty_cluster_kernel(const MergeArgs a) {
+  extern __shared__ __align__(16) int smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const ClusterSmem L(a.r_log2);
+  const int r = L.r, S = STRIPE, nw = L.nw;
+  const uint32_t rmask = (uint32_t)r - 1u, smask = (uint32_t)S - 1u;
+  const int n_ranks = 1 << (a.r_log2 - STRIPE_LOG2);
+  const int rank = (int)cluster.block_rank();
+  const bool leader = rank == 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t fmask = (1u << a.fbits_log2) - 1u;
+  const uint32_t hmask = (uint32_t)CLUSTER_HASH - 1u;
+  int* s_keys = smem;
+  uint32_t* s_free = reinterpret_cast<uint32_t*>(smem + L.free_off());
+  uint32_t* s_sum = s_free + nw;
+  int* t_uk = smem + L.upd_off();
+  int* t_uc = t_uk + MERGE_CHUNK;
+  int* s_loc = t_uc + MERGE_CHUNK;    // own k-th: slot, -1 - hash slot
+  int* s_cls = s_loc + MERGE_CHUNK;   // leader: slot, -1 - first index
+  int* s_f0 = s_cls + MERGE_CHUNK;    // leader: first free slot from home
+  int* s_place = s_f0 + MERGE_CHUNK;  // leader: a first occurrence's place
+  int* s_own = s_place;               // before placement: own updates' j
+  int* s_hash = smem + L.hash_off();  // new keys: smallest update index
+  int* s_misc = smem + L.misc_off();
+  const uint32_t bar = bulk::smem_addr(s_misc + CM_N);
+  int* l_cls = cluster.map_shared_rank(s_cls, 0);
+  int* l_f0 = cluster.map_shared_rank(s_f0, 0);
+
+  const int row = blockIdx.x / n_ranks;
+  const size_t b = (size_t)a.blocks[row];
+  const size_t s0 = (size_t)rank * S;                // the stripe's first slot
+  int* g_keys = a.keys + b * r;
+  int* g_counts = a.counts + b * r;
+  uint32_t* g_filt = a.filt + b * a.fw;
+  const int* g_uk = a.uk + (size_t)row * a.max_u;
+  const int* g_uc = a.uc + (size_t)row * a.max_u;
+  int* g_sk = a.sk + (size_t)row * a.max_u;
+  int* g_sc = a.sc + (size_t)row * a.max_u;
+
+  // 1. the stripe into shared memory (by bulk copy where aligned), and
+  //    this CTA's share of the update row searched for its last valid
+  //    column, by 16-byte loads where aligned
+  if (tid == 0) {
+    for (int i = 0; i < CM_N; ++i) s_misc[i] = 0;
+    bulk::mbar_init(bar, 1);
+    bulk::fence_barrier_init();
+    if (a.bulk_tile) {
+      bulk::mbar_arrive_expect_tx(bar, S * 4u);
+      bulk::copy_to_smem(s_keys, g_keys + s0, S * 4u, bar);
+    }
+  }
+  __syncthreads();
+  if (!a.bulk_tile) {
+    for (int i = tid; i < S; i += CLUSTER_THREADS) s_keys[i] = g_keys[s0 + i];
+  }
+  {
+    const int per = ((a.max_u + n_ranks - 1) / n_ranks + 3) & ~3;
+    const int lo = rank * per, hi = min(a.max_u, lo + per);
+    int last = 0;
+    if (a.bulk_upd) {
+      const int4* v = reinterpret_cast<const int4*>(g_uk);
+      for (int q = (lo >> 2) + tid; q < (hi >> 2); q += CLUSTER_THREADS) {
+        const int4 x = v[q];
+        const int top = x.w != EMPTY_KEY   ? 4
+                        : x.z != EMPTY_KEY ? 3
+                        : x.y != EMPTY_KEY ? 2
+                        : x.x != EMPTY_KEY ? 1
+                                           : 0;
+        if (top) last = 4 * q + top;
+      }
+    } else {
+      for (int j = lo + tid; j < hi; j += CLUSTER_THREADS)
+        if (g_uk[j] != EMPTY_KEY) last = j + 1;
+    }
+    if (last) atomicMax(&s_misc[CM_LAST], last);
+  }
+  if (a.bulk_tile) bulk::mbar_wait(bar, 0);
+  __syncthreads();
+
+  // 2. the stripe's words of the free bitmap, a word a thread from eight
+  //    16-byte loads; every CTA then copies the others' words (the whole
+  //    bitmap in each) and takes the row's used length and free count from
+  //    their partials
+  for (int w = tid; w < (S >> 5); w += CLUSTER_THREADS) {
+    const int4* v = reinterpret_cast<const int4*>(s_keys + 32 * w);
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int4 q = v[i];
+      bits |= ((uint32_t)(q.x == EMPTY_KEY) | (uint32_t)(q.y == EMPTY_KEY) << 1 |
+               (uint32_t)(q.z == EMPTY_KEY) << 2 |
+               (uint32_t)(q.w == EMPTY_KEY) << 3) << (4 * i);
+    }
+    s_free[(s0 >> 5) + w] = bits;
+    if (bits) atomicAdd(&s_misc[CM_FREE], __popc(bits));
+  }
+  cluster.sync();
+  if (warp == 0) {                        // lane c reads CTA c's partials
+    int used = 0, n_free = 0;
+    if (lane < n_ranks) {
+      const int* m = cluster.map_shared_rank(s_misc, lane);
+      used = m[CM_LAST];
+      n_free = m[CM_FREE];
+    }
+    for (int o = 16; o; o >>= 1) {
+      used = max(used, __shfl_xor_sync(FULL_MASK, used, o));
+      n_free += __shfl_xor_sync(FULL_MASK, n_free, o);
+    }
+    if (lane == 0) {
+      s_misc[CM_USED] = used;
+      s_misc[CM_NFREE] = n_free;
+    }
+  }
+  __syncthreads();
+  const int row_used = s_misc[CM_USED];
+  int n_spill = 0;                        // the leader's running spill count
+
+  if (row_used) {
+    const int stripe_q = S >> 7;          // int4 groups of bitmap a stripe
+    for (int q = tid; q < (nw >> 2); q += CLUSTER_THREADS) {
+      const int c = q / stripe_q;
+      if (c != rank)
+        reinterpret_cast<int4*>(s_free)[q] = reinterpret_cast<const int4*>(
+            cluster.map_shared_rank(reinterpret_cast<int*>(s_free), c))[q];
+    }
+    __syncthreads();
+    for (int sw = warp; sw < L.ns; sw += CLUSTER_THREADS / 32) {
+      const unsigned bal = __ballot_sync(FULL_MASK, s_free[32 * sw + lane]);
+      if (lane == 0) s_sum[sw] = bal;
+    }
+    __syncthreads();
+
+    // 3. whether a key of the stripe lies past an EMPTY from its home (a
+    //    tile the fold built has none; the leader keeps the OR over the
+    //    cluster). A key at slot i with home h does when a free slot e lies
+    //    in [h, i): (i - h) >= (i - e) for the last free e before i, found
+    //    four slots at a time in i's bitmap word or the one before, else
+    //    for the first free e from h (a full tile has none)
+    bool irregular = false;
+    for (int g = tid; g < (S >> 2); g += CLUSTER_THREADS) {
+      const int4 q = reinterpret_cast<const int4*>(s_keys)[g];
+      const uint32_t i0 = (uint32_t)s0 + 4u * g;
+      const uint32_t w = i0 >> 5;
+      const uint32_t lo = s_free[(w - 1u) & ((uint32_t)nw - 1u)];
+      const uint32_t hi = s_free[w];
+      const int k4[4] = {q.x, q.y, q.z, q.w};
+      unsigned far = 0;                   // keys with neither word free
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t i = i0 + c;
+        const uint32_t h = home_of(k4[c], a.mult, rmask);
+        const uint32_t below = hi & ((1u << (i & 31u)) - 1u);
+        const uint32_t e =
+            below ? (w << 5) + 31u - __clz(below)
+                  : ((((w - 1u) << 5) + 31u - __clz(lo)) & rmask);
+        if (k4[c] == EMPTY_KEY) continue;
+        if (!below && !lo)
+          far |= 1u << c;
+        else if (((i - h) & rmask) >= ((i - e) & rmask))
+          irregular = true;
+      }
+      for (; far; far &= far - 1u) {
+        const int c = __ffs(far) - 1;
+        const uint32_t i = i0 + c;
+        const uint32_t h = home_of(k4[c], a.mult, rmask);
+        const int e = first_free_sum(s_free, s_sum, nw, h);
+        if (e >= 0 && ((i - h) & rmask) >= ((i - (uint32_t)e) & rmask))
+          irregular = true;
+      }
+    }
+    if (__syncthreads_or(irregular) && tid == 0)
+      atomicOr(cluster.map_shared_rank(&s_misc[CM_IRREG], 0), 1);
+
+    int left = s_misc[CM_NFREE];          // the leader's running free count
+    for (int c0 = 0; c0 < row_used; c0 += a.chunk) {
+      const int n = min(a.chunk, row_used - c0);
+      // 4. each CTA its copy of the chunk's updates; the hash cleared
+      if (a.bulk_upd) {
+        const int nq = min((n + 3) & ~3, a.max_u - c0) >> 2;
+        const int4* vk = reinterpret_cast<const int4*>(g_uk + c0);
+        const int4* vc = reinterpret_cast<const int4*>(g_uc + c0);
+        for (int q = tid; q < nq; q += CLUSTER_THREADS) {
+          reinterpret_cast<int4*>(t_uk)[q] = vk[q];
+          reinterpret_cast<int4*>(t_uc)[q] = vc[q];
+        }
+      } else {
+        for (int j = tid; j < n; j += CLUSTER_THREADS) {
+          t_uk[j] = g_uk[c0 + j];
+          t_uc[j] = g_uc[c0 + j];
+        }
+      }
+      for (int i = tid; i < CLUSTER_HASH; i += CLUSTER_THREADS) s_hash[i] = -1;
+      if (tid == 0) s_misc[CM_OWN] = 0;
+      __syncthreads();
+      const int n_free = s_misc[CM_NFREE];
+
+      // 5. each CTA lists the valid updates whose home lies in its stripe
+      //    (the leader marks the EMPTY ones), then classifies them, spread
+      //    evenly over its threads, against the tile as it stands: a key's
+      //    repeats share its home, so this CTA's hash names each new key's
+      //    first occurrence in the chunk
+      for (int j = tid; j < ((n + 31) & ~31); j += CLUSTER_THREADS) {
+        const int key = j < n ? t_uk[j] : EMPTY_KEY;
+        if (leader && j < n && key == EMPTY_KEY) s_cls[j] = CLS_INVALID;
+        const bool own = key != EMPTY_KEY &&
+                         (int)(home_of(key, a.mult, rmask) >> STRIPE_LOG2) ==
+                             rank;
+        const unsigned bal = __ballot_sync(FULL_MASK, own);
+        int at = 0;
+        if (lane == 0 && bal) at = atomicAdd(&s_misc[CM_OWN], __popc(bal));
+        at = __shfl_sync(FULL_MASK, at, 0);
+        if (own) s_own[at + __popc(bal & ((1u << lane) - 1u))] = j;
+      }
+      __syncthreads();
+      const int n_own = s_misc[CM_OWN];
+      for (int k = tid; k < n_own; k += CLUSTER_THREADS) {
+        const int j = s_own[k];
+        const int key = t_uk[j];
+        const uint32_t h = home_of(key, a.mult, rmask);
+        const int f0 = n_free ? first_free_sum(s_free, s_sum, nw, h) : -1;
+        const int len = f0 < 0 ? r : (int)(((uint32_t)f0 - h) & rmask);
+        const int d = scan_stripes(cluster, s_keys, rank, rmask, h, len, key);
+        int loc;
+        if (d >= 0) {
+          loc = (int)((h + (uint32_t)d) & rmask);
+        } else {
+          uint32_t p = bloom_mix(key) & hmask;
+          for (;;) {
+            const int old = atomicCAS(&s_hash[p], -1, j);
+            if (old == -1) break;
+            if (t_uk[old] == key) {
+              atomicMin(&s_hash[p], j);
+              break;
+            }
+            p = (p + 1u) & hmask;
+          }
+          loc = -1 - (int)p;
+          l_f0[j] = f0;
+        }
+        s_loc[k] = loc;
+      }
+      __syncthreads();
+      // ... hands each class to the leader (a new key's names its first
+      //    occurrence), adds the counts of present keys and ORs both Bloom
+      //    bits of every update it classified into the filter row
+      for (int k = tid; k < n_own; k += CLUSTER_THREADS) {
+        const int j = s_own[k];
+        const int loc = s_loc[k];
+        l_cls[j] = loc < 0 ? -1 - s_hash[-1 - loc] : loc;
+        if (loc >= 0) atomicAdd(&g_counts[loc], t_uc[j]);
+        const uint32_t hb = bloom_mix(t_uk[j]);
+        const uint32_t p0 = hb & fmask;
+        const uint32_t p1 = (hb >> a.fbits_log2) & fmask;
+        atomicOr(&g_filt[p0 >> 5], 1u << (p0 & 31u));
+        atomicOr(&g_filt[p1 >> 5], 1u << (p1 & 31u));
+      }
+      cluster.sync();
+
+      // 6. the leader places the first occurrence of each new key, in
+      //    rounds over CLUSTER_THREADS updates from the first unplaced one,
+      //    a thread an update: each takes the first free slot from its
+      //    key's home in the bitmap as it stands, unless it meets its key
+      //    on the way past the first free slot the classification saw (a
+      //    tile key past an EMPTY: only where the tile has one). Taking a
+      //    slot changes only the answer of a later key that wanted that
+      //    same slot, so the updates up to the first one whose slot an
+      //    earlier one of the round also wants are final, as in
+      //    merge_dirty_kernel's step 3 over 32; a slot is claimed in a
+      //    bitmap modulo 2**15, so two slots that share a bit only end a
+      //    round early. Each placed key goes into the stripe that holds its
+      //    slot.
+      if (leader) {
+        const bool irregular = s_misc[CM_IRREG] != 0;
+        uint32_t* s_claim = reinterpret_cast<uint32_t*>(s_hash);
+        uint32_t* s_contest = s_claim + CLAIM_WORDS;
+        for (int i = tid; i < CLUSTER_HASH; i += CLUSTER_THREADS) s_hash[i] = 0;
+        if (tid == 0) s_misc[CM_FIRST] = INT_MAX;
+        __syncthreads();
+        for (int base = 0; base < n;) {
+          const int j = base + tid;
+          const int cls = j < n ? s_cls[j] : CLS_INVALID;
+          const bool active = cls < 0 && cls != CLS_INVALID && -1 - cls == j;
+          int key = EMPTY_KEY, cand = -1, place = -1;
+          uint32_t cw = 0, cbit = 0;
+          if (active) {
+            key = t_uk[j];
+            const uint32_t h = home_of(key, a.mult, rmask);
+            const int f0 = s_f0[j];
+            if (irregular) {
+              cand = left ? first_free_sum(s_free, s_sum, nw, h) : -1;
+            } else if (f0 >= 0) {
+              // the slot this key wanted last (slots are never freed: if
+              // it is still free it is still the first from home)
+              cand = (s_free[f0 >> 5] >> (f0 & 31)) & 1u
+                         ? f0
+                         : left ? first_free_sum(s_free, s_sum, nw,
+                                                 ((uint32_t)f0 + 1u) & rmask)
+                                : -1;
+              s_f0[j] = cand;
+            }
+            place = cand;
+            if (irregular && f0 >= 0 && cand != f0) {
+              const int lo = (int)(((uint32_t)f0 - h) & rmask);
+              const int hi =
+                  cand < 0 ? r : (int)(((uint32_t)cand - h) & rmask);
+              const int d = scan_stripes(cluster, s_keys, rank, rmask,
+                                         h + (uint32_t)lo, hi - lo, key);
+              if (d >= 0)
+                place =
+                    (int)((h + (uint32_t)(lo + d)) & rmask) | IN_PLACE_FOUND;
+            }
+            if (cand >= 0) {
+              cw = ((uint32_t)cand & CLAIM_MASK) >> 5;
+              cbit = 1u << (cand & 31);
+              if (atomicOr(&s_claim[cw], cbit) & cbit)
+                atomicOr(&s_contest[cw], cbit);
+            }
+          }
+          __syncthreads();
+          if (cbit && (s_contest[cw] & cbit)) atomicMin(&s_misc[CM_FIRST], j);
+          __syncthreads();
+          const int first = s_misc[CM_FIRST];
+          const bool settles = active && j <= first;
+          const bool takes = settles && place >= 0 && !(place & IN_PLACE_FOUND);
+          if (takes) {
+            atomicAnd(&s_free[place >> 5], ~(1u << (place & 31)));
+            *cluster.map_shared_rank(s_keys + (place & smask),
+                                     place >> STRIPE_LOG2) = key;
+          }
+          if (settles) s_place[j] = place;
+          if (cbit) s_claim[cw] = s_contest[cw] = 0u;
+          base = first == INT_MAX ? base + CLUSTER_THREADS : first + 1;
+          left -= __syncthreads_count(takes);
+          if (tid == 0) s_misc[CM_FIRST] = INT_MAX;
+        }
+        // ... adds the new keys' counts at their places and compacts the
+        //     spills in update order, 4 updates a thread (a spill's place
+        //     is negative)
+        int place4[4], n_sp = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * tid + i;
+          const int cls = j < n ? s_cls[j] : CLS_INVALID;
+          place4[i] = INT_MAX;
+          if (cls >= 0 || cls == CLS_INVALID) continue;
+          place4[i] = s_place[-1 - cls];
+          if (place4[i] >= 0)
+            atomicAdd(&g_counts[place4[i] & ~IN_PLACE_FOUND], t_uc[j]);
+          else
+            ++n_sp;
+        }
+        int total;
+        int pos = n_spill + cta_exclusive_scan(n_sp, s_hash, total);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (place4[i] >= 0) continue;
+          g_sk[pos] = t_uk[4 * tid + i];
+          g_sc[pos++] = t_uc[4 * tid + i];
+        }
+        n_spill += total;
+        if (tid == 0) s_misc[CM_NFREE] = left;
+        bulk::fence_proxy_async();
+      }
+      cluster.sync();
+      // 7. every other CTA takes the leader's bitmap, summary and free
+      //    count for the next chunk's classification
+      if (!leader) {
+        const int4* src = reinterpret_cast<const int4*>(
+            cluster.map_shared_rank(reinterpret_cast<int*>(s_free), 0));
+        for (int q = tid; q < ((nw + L.ns) >> 2); q += CLUSTER_THREADS)
+          reinterpret_cast<int4*>(s_free)[q] = src[q];
+        if (tid == 0)
+          s_misc[CM_NFREE] = cluster.map_shared_rank(s_misc, 0)[CM_NFREE];
+      }
+    }
+  }
+  // 8. the spill count to every CTA, then the last barrier: past it no CTA
+  //    touches another's shared memory, so each may leave
+  if (leader && tid == 0)
+    for (int c = 0; c < n_ranks; ++c)
+      cluster.map_shared_rank(s_misc, c)[CM_SPILL] = n_spill;
+  cluster.sync();
+  const int n_sp = s_misc[CM_SPILL];
+  const int gt = rank * CLUSTER_THREADS + tid;
+  const int gn = n_ranks * CLUSTER_THREADS;
+  if (a.max_u % 4 == 0 && ((uintptr_t)a.sk | (uintptr_t)a.sc) % 16 == 0) {
+    const int head = min((n_sp + 3) & ~3, a.max_u);
+    for (int j = n_sp + gt; j < head; j += gn) {
+      g_sk[j] = EMPTY_KEY;
+      g_sc[j] = 0;
+    }
+    const int4 e = make_int4(EMPTY_KEY, EMPTY_KEY, EMPTY_KEY, EMPTY_KEY);
+    const int4 z = make_int4(0, 0, 0, 0);
+    for (int q = (head >> 2) + gt; q < (a.max_u >> 2); q += gn) {
+      reinterpret_cast<int4*>(g_sk)[q] = e;
+      reinterpret_cast<int4*>(g_sc)[q] = z;
+    }
+  } else {
+    for (int j = n_sp + gt; j < a.max_u; j += gn) {
+      g_sk[j] = EMPTY_KEY;
+      g_sc[j] = 0;
+    }
+  }
+  // 9. the stripe goes back only if the row held a valid key (a repeated
+  //    padding id writes nothing)
+  if (!row_used) return;
+  if (a.bulk_tile) {
+    bulk::fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      bulk::copy_to_global(g_keys + s0, s_keys, S * 4u);
+      bulk::commit_and_wait_read();
+    }
+  } else {
+    for (int i = tid; i < S; i += CLUSTER_THREADS) g_keys[s0 + i] = s_keys[i];
+  }
+}
+
 __global__ void query_grid_staged_kernel(const int* __restrict__ keys,
                                          const int* __restrict__ counts,
                                          const int* __restrict__ blocks,
@@ -1107,6 +1695,33 @@ struct LaneGrid {
   }
 };
 
+// The cluster fold's launch: n_d clusters of `cluster` CTAs, `smem` bytes a
+// CTA (not copyable: cfg points at attr).
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  const void* fn = (const void*)merge_dirty_cluster_kernel;
+  ClusterLaunch(int n_d, int cluster, int smem, void* stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)n_d * cluster);
+    cfg.blockDim = dim3(CLUSTER_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+  // Clusters the card holds at once (after opting into the shared memory).
+  cudaError_t capacity(int* n) const {
+    const cudaError_t err = allow_smem(fn, cfg.dynamicSmemBytes);
+    return err != cudaSuccess ? err
+                              : cudaOccupancyMaxActiveClusters(n, fn, &cfg);
+  }
+};
+
 MergeArgs merge_args(const void* blocks, void* keys, void* counts,
                      void* filt, int r_log2, int fw, const void* uk,
                      const void* uc, int max_u, void* sk, void* sc,
@@ -1188,6 +1803,44 @@ int fh_merge_dirty_in_place(const void* blocks, int n_d, void* keys,
                                 (cudaStream_t)stream>>>(
       a, (uint32_t*)scratch);
   return (int)cudaGetLastError();
+}
+
+// The cluster fold (merge_dirty_cluster_kernel): blocks of 2**14 to 2**17
+// slots in clusters of `cluster` CTAs, each a stripe of 2**14 slots, with
+// `smem` bytes of shared memory a CTA: the plan kernel.py:cluster_plan
+// computes. A plan that does not hold, or one no SM can run a cluster of,
+// is refused (cudaErrorInvalidValue, cudaErrorInvalidConfiguration); no
+// other route is taken instead.
+int fh_merge_dirty_cluster(const void* blocks, int n_d, void* keys,
+                           void* counts, void* filt, int r_log2, int fw,
+                           const void* uk, const void* uc, int max_u,
+                           void* sk, void* sc, unsigned int mult,
+                           int cluster, int smem, void* stream) {
+  if (r_log2 < STRIPE_LOG2 || r_log2 > STRIPE_LOG2 + 3 ||
+      cluster != 1 << (r_log2 - STRIPE_LOG2) ||
+      (size_t)smem != ClusterSmem(r_log2).bytes())
+    return (int)cudaErrorInvalidValue;
+  const MergeArgs a = merge_args(blocks, keys, counts, filt, r_log2, fw, uk,
+                                 uc, max_u, sk, sc, mult);
+  ClusterLaunch launch(n_d, cluster, smem, stream);
+  int n_clusters = 0;
+  cudaError_t err = launch.capacity(&n_clusters);
+  if (err != cudaSuccess) return (int)err;
+  if (n_clusters <= 0) return (int)cudaErrorInvalidConfiguration;
+  void* args[] = {(void*)&a};
+  err = cudaLaunchKernelExC(&launch.cfg, launch.fn, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Clusters of the plan that the card can hold at once
+// (cudaOccupancyMaxActiveClusters; its error where the query fails):
+// with the rows' count, the waves a launch takes. For check.py's reports.
+int fh_merge_cluster_capacity(int cluster, int smem) {
+  ClusterLaunch launch(1, cluster, smem, nullptr);
+  int n = 0;
+  const cudaError_t err = launch.capacity(&n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // The serial baseline (merge_dirty_serial_kernel), for check.py only.

@@ -17,15 +17,18 @@ raw launch (``_launch_*``: checked CUDA tensors and preallocated outputs
 in, no checks, no sync), which ``check.py`` times on its own.
 
 ``LAUNCHES`` counts CUDA launches per kernel of the paths; only a launch
-adds to it. The merge has two routes, fixed by the block width alone
-(:func:`merge_route`): the staged fold for blocks of 8 to 8192 slots and
-the in-place fold for every other width; ``MERGE_ROUTES`` counts each
-merge launch under its route as well. ``BASELINE_LAUNCHES`` counts the
-kernels the path's kernels replaced (the serial merge, the staged
-query), which only ``check.py`` launches, through the raw launches'
-``variant``.
+adds to it. The merge has three routes, fixed by the block width alone
+(:func:`merge_route`): the staged fold for blocks of 8 to 8192 slots, the
+cluster fold for 2**14 to 2**17 (the tile striped over a thread-block
+cluster's shared memory, by :func:`cluster_plan`) and the in-place fold
+for every other width; ``MERGE_ROUTES`` counts each merge launch under its
+route as well. ``BASELINE_LAUNCHES`` counts the kernels the path's kernels
+replaced (the serial merge, the staged query), which only ``check.py``
+launches, through the raw launches' ``variant``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -41,27 +44,77 @@ LAUNCHES = {"merge_dirty": 0, "query_grid": 0, "filter_probe_grid": 0}
 #: CUDA launches of the replaced kernels, the in-turn "before"s
 BASELINE_LAUNCHES = {"merge_dirty_serial": 0, "query_grid_staged": 0}
 #: CUDA launches of the merge by route (each also counts in ``LAUNCHES``)
-MERGE_ROUTES = {"staged": 0, "in_place": 0}
-#: block widths (log2) the staged fold takes; every other width takes the
-#: in-place fold
+MERGE_ROUTES = {"staged": 0, "cluster": 0, "in_place": 0}
+#: block widths (log2) the staged fold takes, and the cluster fold; every
+#: other width takes the in-place fold
 STAGED_R_LOG2 = range(3, 14)
+CLUSTER_R_LOG2 = range(14, 18)
 #: C entry points of each kernel by variant. The merge's ``per_row`` (not
-#: a key here) is the path's, its route by :func:`merge_route`; ``staged``
-#: and ``in_place`` name each route, ``serial`` its baseline. The query's
-#: ``probe`` serves every path and ``staged`` is its baseline. Baselines
-#: are timed by ``check.py`` only
+#: a key here) is the path's, its route by :func:`merge_route`; ``staged``,
+#: ``cluster`` and ``in_place`` name each route (``in_place`` takes every
+#: width, and is the cluster route's in-turn "before"), ``serial`` the
+#: staged one's baseline. The query's ``probe`` serves every path and
+#: ``staged`` is its baseline. Baselines are timed by ``check.py`` only
 MERGE_ENTRIES = {"staged": "fh_merge_dirty",
+                 "cluster": "fh_merge_dirty_cluster",
                  "in_place": "fh_merge_dirty_in_place",
                  "serial": "fh_merge_dirty_serial"}
 QUERY_ENTRIES = {"probe": "fh_query_grid", "staged": "fh_query_grid_staged"}
+
+#: the cluster fold's layout (``csrc/flash_hash.cu``: ``ClusterSmem``):
+#: updates folded a chunk at a time, the entries of a CTA's hash of new
+#: keys, its scalars (ints), and a CTA's stripe of the tile (log2 slots):
+#: 2**14 to 2**17 slots take clusters of 1 to 8 CTAs
+MERGE_CHUNK = 1024
+CLUSTER_HASH = 2 * MERGE_CHUNK
+CLUSTER_SCALARS = 8
+CLUSTER_STRIPE_LOG2 = 14
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """How the cluster fold lays out a tile: ``cluster`` CTAs, each a
+    stripe of ``2**stripe_log2`` slots of keys in ``smem_bytes`` of shared
+    memory."""
+
+    cluster: int
+    stripe_log2: int
+    smem_bytes: int
+
+
+def cluster_plan(r_log2: int) -> ClusterPlan:
+    """The cluster fold's plan for blocks of ``2**r_log2`` slots (one of
+    :data:`CLUSTER_R_LOG2`), from the width alone. The entry point checks
+    the plan against its own layout."""
+    if r_log2 not in CLUSTER_R_LOG2:
+        raise ValueError(f"the cluster fold takes blocks of 2**14 to 2**17 "
+                         f"slots, not 2**{r_log2}")
+    nw = (1 << r_log2) >> 5
+    ints = ((1 << CLUSTER_STRIPE_LOG2) + nw + (nw >> 5) + 6 * MERGE_CHUNK
+            + CLUSTER_HASH + CLUSTER_SCALARS)
+    return ClusterPlan(1 << (r_log2 - CLUSTER_STRIPE_LOG2),
+                       CLUSTER_STRIPE_LOG2, 4 * ints + 8)
+
+
+def cluster_capacity(plan: ClusterPlan) -> int:
+    """How many clusters of ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``): a launch of ``n_d`` rows takes
+    ``ceil(n_d / capacity)`` waves. Raises where the query fails."""
+    n = _lib().fh_merge_cluster_capacity(plan.cluster, plan.smem_bytes)
+    if n < 0:
+        raise RuntimeError(f"cluster capacity: cudaError {-n}")
+    return n
 
 
 def merge_route(r_log2: int) -> str:
     """The merge's route for blocks of ``2**r_log2`` slots, fixed by the
     width alone: ``"staged"`` (the whole tile in one CTA's shared memory)
-    for 8 to 8192 slots, ``"in_place"`` (the tile folded in global memory)
-    for every other width."""
-    return "staged" if r_log2 in STAGED_R_LOG2 else "in_place"
+    for 8 to 8192 slots, ``"cluster"`` (the tile striped over a cluster's
+    shared memory) for 2**14 to 2**17, ``"in_place"`` (the tile folded in
+    global memory) for every other width."""
+    if r_log2 in STAGED_R_LOG2:
+        return "staged"
+    return "cluster" if r_log2 in CLUSTER_R_LOG2 else "in_place"
 
 
 def serial_fits(r_log2: int, fw: int) -> bool:
@@ -168,7 +221,9 @@ def _launch_merge_dirty(pair: Pow2Hash, table_keys, table_counts,
     into ``spill_k``/``spill_c`` of ``upd_keys``' shape: ``variant`` is
     ``"per_row"`` (the route :func:`merge_route` picks) or a key of
     :data:`MERGE_ENTRIES`. The in-place route takes ``scratch``
-    (:func:`merge_scratch`), allocated here if not given."""
+    (:func:`merge_scratch`), allocated here if not given; the cluster
+    route :func:`cluster_plan`'s plan. A refused launch raises: no route
+    stands in for another."""
     n_d, max_u = upd_keys.shape
     if not (n_d and max_u):
         return
@@ -182,6 +237,9 @@ def _launch_merge_dirty(pair: Pow2Hash, table_keys, table_counts,
         if scratch is None:
             scratch = merge_scratch(pair, n_d, table_keys.device)
         args.append(0 if scratch is None else scratch.data_ptr())
+    if route == "cluster":
+        plan = cluster_plan(pair.r_log2)
+        args += [plan.cluster, plan.smem_bytes]
     err = getattr(_lib(), MERGE_ENTRIES[route])(
         *args, _stream(table_keys.device))
     _raise_if(err, f"merge_dirty ({route})")

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
 Flash-hash kernels: exact equality at several geometries (blocks of one
-slot up to 2**21-slot blocks, both merge routes) and at the main path's
+slot up to 2**21-slot blocks, every merge route) and at the main path's
 shapes, plus the table driven on the card against the same table driven
 on the CPU.
 Flash attention: the two kernels within the reference's tolerances (2e-5
@@ -123,11 +123,13 @@ def _on_card(t, cuda, misaligned):
 
 
 #: name: (q_log2, r_log2, max_u, load, hot rows, scrambled tiles). From
-#: ``r1`` on, every width the staged fold does not take (the in-place
-#: route) and its edges (r8, r8192): blocks of 1, 2 and 4 slots, 16,384,
-#: the paper's 65,536 (hot rows fill their tiles and spill), 2**20 (one
-#: block, the free bitmap at its most in shared memory) and 2**21 (the
-#: bitmap in the wrapper's scratch)
+#: ``r1`` on, every width the staged fold does not take and its edges
+#: (r8, r8192): the in-place route's blocks of 1, 2 and 4 slots, 2**20
+#: (one block, the free bitmap at its most in shared memory) and 2**21
+#: (the bitmap in the wrapper's scratch); the cluster route's 16,384 (a
+#: cluster of one CTA), 2**15, the paper's 65,536 (hot rows fill their
+#: tiles and spill; scrambled tiles; rows longer than a chunk, with
+#: chunks of EMPTY only after them) and 2**17 (a cluster of 8)
 FOLD_CASES = {
     "repeats": (12, 6, 64, 0.4, 0, False),
     "full_tiles": (12, 5, 64, 0.7, 16, False),
@@ -144,7 +146,11 @@ FOLD_CASES = {
     "r8192": (16, 13, 2048, 0.9, 2, False),
     "r16384": (16, 14, 4096, 0.9, 2, False),
     "r16384_keys_past_empty": (16, 14, 2048, 0.6, 0, True),
+    "r2**15": (17, 15, 4096, 0.95, 2, False),
     "r65536": (18, 16, 8192, 0.95, 2, False),
+    "r65536_keys_past_empty": (18, 16, 4096, 0.6, 0, True),
+    "r65536_chunked": (18, 16, 8192, 0.5, 0, False),
+    "r2**17": (18, 17, 8192, 0.97, 1, False),
     "r2**20": (20, 20, 4096, 0.5, 0, False),
     "r2**21": (21, 21, 2048, 0.5, 0, False),
 }
@@ -153,12 +159,13 @@ FOLD_CASES = {
 @pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("case", list(FOLD_CASES))
 def test_merge_fold_matches_plain(cuda, case, misaligned):
-    """The path's merge (the route its width takes) and the serial kernel
-    (where it can stage the tile), each against ``merge_dirty_plain``
-    exactly, on repeated keys, full tiles, keys past an EMPTY, rows
-    longer than a chunk, all-hot rows, a row width that is not a multiple
-    of 4 and every block width from 1 to 2**21 slots; with tensors on
-    16-byte boundaries (bulk copies) and 4 bytes past them (plain loads).
+    """The path's merge (the route its width takes), the serial kernel
+    (where it can stage the tile) and, at the cluster route's widths, the
+    in-place route too, each against ``merge_dirty_plain`` exactly, on
+    repeated keys, full tiles, keys past an EMPTY, rows longer than a
+    chunk, all-hot rows, a row width that is not a multiple of 4 and
+    every block width from 1 to 2**21 slots; with tensors on 16-byte
+    boundaries (bulk copies) and 4 bytes past them (plain loads).
     Replaces a test that pinned the card's refusal of blocks past 8,192
     slots, which the reference takes."""
     pair, table, blocks, uk, uc = _fold_case(*FOLD_CASES[case],
@@ -172,6 +179,8 @@ def test_merge_fold_matches_plain(cuda, case, misaligned):
     variants = ["per_row"]
     if K.serial_fits(pair.r_log2, table[2].shape[1]):
         variants.append("serial")
+    if route == "cluster":
+        variants.append("in_place")
     counters = K.LAUNCHES, K.BASELINE_LAUNCHES, K.MERGE_ROUTES
     before = [dict(c) for c in counters]
     for variant in variants:
@@ -184,11 +193,42 @@ def test_merge_fold_matches_plain(cuda, case, misaligned):
         for name, g, w in zip(("keys", "counts", "filter", "spill_k",
                                "spill_c"), got, want):
             assert torch.equal(g.cpu(), w), (variant, name)
-    assert K.LAUNCHES["merge_dirty"] == before[0]["merge_dirty"] + 1
+    in_place = "in_place" in variants
+    assert K.LAUNCHES["merge_dirty"] == before[0]["merge_dirty"] + 1 + in_place
     assert (K.BASELINE_LAUNCHES["merge_dirty_serial"]
             == before[1]["merge_dirty_serial"] + ("serial" in variants))
-    assert K.MERGE_ROUTES == {**before[2], route: before[2][route] + 1}
-    assert route == ("staged" if 3 <= pair.r_log2 <= 13 else "in_place")
+    assert K.MERGE_ROUTES == {**before[2], route: before[2][route] + 1,
+                              **({"in_place": before[2]["in_place"] + 1}
+                                 if in_place else {})}
+    assert route == ("staged" if 3 <= pair.r_log2 <= 13 else
+                     "cluster" if 14 <= pair.r_log2 <= 17 else "in_place")
+
+
+@pytest.mark.parametrize("r_log2", [14, 16])
+def test_cluster_merge_takes_a_repeated_padding_id(cuda, r_log2):
+    """A block id repeated on rows without a valid update (the path's
+    padding) beside the row that carries that block's updates, at the
+    cluster route's widths: the padding rows' clusters write no tile, so
+    the result equals ``merge_dirty_plain``'s bit for bit, spills
+    included, whichever cluster runs first."""
+    pair, table, blocks, uk, uc = _fold_case(r_log2 + 2, r_log2, 4096, 0.97,
+                                             1, False, seed=r_log2)
+    pad = blocks[0].repeat(3)
+    blocks = torch.cat([pad[:1], blocks, pad[1:]])
+    empty = torch.full((1, uk.shape[1]), -1, dtype=torch.int32)
+    uk = torch.cat([empty, uk, empty, empty])
+    uc = torch.cat([torch.zeros_like(empty), uc, torch.zeros_like(empty),
+                    torch.zeros_like(empty)])
+    args = [t.to(cuda) for t in (*table, blocks, uk, uc)]
+    want = [w.cpu() for w in R.merge_dirty_plain(
+        pair, *(t.clone() for t in args[:3]), *args[3:])]
+    before = dict(K.MERGE_ROUTES)
+    got = K.merge_dirty(pair, *args)
+    assert K.MERGE_ROUTES == {**before, "cluster": before["cluster"] + 1}
+    assert (want[3] != -1).any()
+    for name, g, w in zip(("keys", "counts", "filter", "spill_k", "spill_c"),
+                          got, want):
+        assert torch.equal(g.cpu(), w), name
 
 
 #: name: (q_log2, r_log2, qcap, table, layout, misaligned). Tables:

@@ -164,12 +164,14 @@ def test_merge_dirty_refuses_repeated_id_with_updates():
 
 
 def test_merge_route_is_fixed_by_the_block_width():
-    """Blocks of 8 to 8,192 slots take the staged fold and every other
-    width the in-place one, by the width alone; the serial baseline stages
-    tiles up to 16,384 slots; a merge of CPU tensors runs the plain
-    version and counts no launch on either route."""
+    """Blocks of 8 to 8,192 slots take the staged fold, 2**14 to 2**17
+    the cluster fold and every other width the in-place one, by the width
+    alone; the serial baseline stages tiles up to 16,384 slots; a merge of
+    CPU tensors runs the plain version and counts no launch on any
+    route."""
     assert [tk.merge_route(r) for r in range(31)] == (
-        ["in_place"] * 3 + ["staged"] * 11 + ["in_place"] * 17)
+        ["in_place"] * 3 + ["staged"] * 11 + ["cluster"] * 4
+        + ["in_place"] * 13)
     assert [tk.serial_fits(r, filter_words_for(1 << r))
             for r in range(17)] == [True] * 15 + [False] * 2
     _, tp = _pairs(6, 0)
@@ -183,6 +185,26 @@ def test_merge_route_is_fixed_by_the_block_width():
                    uk, torch.ones_like(uk))
     assert [dict(c) for c in (tk.LAUNCHES, tk.MERGE_ROUTES)] == counters
     assert int((got[0] != EMPTY).sum()) + int((got[3] != EMPTY).sum()) == n_b
+
+
+@pytest.mark.parametrize("r_log2", [14, 15, 16, 17])
+def test_cluster_plan_fits_a_portable_cluster(r_log2):
+    """The cluster fold's plan at each width it takes: at most 8 CTAs,
+    stripes of 16,384 slots that tile the block in whole 32-slot bitmap
+    words, and shared memory that leaves room for two CTAs an SM on an
+    H100 (228 KB of shared memory, 1 KB reserved a CTA; one CTA may opt
+    into 232,448 bytes); widths past the route's are refused."""
+    plan = tk.cluster_plan(r_log2)
+    stripe = 1 << plan.stripe_log2
+    assert stripe == 16_384
+    assert 1 <= plan.cluster <= 8
+    assert plan.cluster * stripe == 1 << r_log2
+    assert stripe % 32 == 0
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes % 16 == 8             # the mbarrier's 8 bytes
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    with pytest.raises(ValueError):
+        tk.cluster_plan(r_log2 + 4)
 
 
 def test_merge_plain_matches_oracles():
