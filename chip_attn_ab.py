@@ -18,7 +18,9 @@ once
 launched through each library's C entry point: its largest difference
 from the plain version is printed, and its device time (``device_ms``:
 graph replays timed in turns, the checkouts' order reversed in a second
-round). One line ``attn CASE: {json}`` a case, after each library's
+round). Every checkout must have this checkout's C interface (the f32
+entry takes the wide instance's scratch and its size). One line
+``attn CASE: {json}`` a case, after each library's
 ptxas notes that it serialised a kernel's wgmma instructions (C7514 /
 C7515: none is expected). A variant whose results are wrong on purpose
 (a phase taken out to time it) still prints its time. Exits non-zero
@@ -95,11 +97,17 @@ def main() -> int:
         which = kernel.kernel_for(dt, d, dv)
         entry = kernel.ENTRIES[which]
         outs, fns = {}, {}
+        extra = ()
+        if which == kernel.TF32X3:   # the wide instance's scratch
+            n = (kernel.split_floats(1, s, h, kvh, d, dv)
+                 if max(d, dv) > kernel.NARROW_MAX else 0)
+            scratch = torch.empty(n, dtype=torch.float32, device=dev)
+            extra = (scratch.data_ptr() if n else None, 4 * n)
         for label, lib in libs.items():
             fn = getattr(lib.load(), entry)
             o = outs[label] = torch.empty((1, s, h, dv), dtype=dt, device=dev)
             a = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, s,
-                 h, kvh, d, dv, 1.0 / d ** 0.5, int(causal), window)
+                 h, kvh, d, dv, 1.0 / d ** 0.5, int(causal), window, *extra)
             fns[label] = (lambda _, fn=fn, a=a: fn(
                 *a, torch.cuda.current_stream(dev).cuda_stream))
             if fns[label](0) != 0:

@@ -48,7 +48,9 @@ fails (non-zero exit, no result line) without them. Phases:
    1,000 with w = 100, 6 / 2 of d = 10, dv = 5 in bf16 at a ragged 1,000
    (odd rows on 2-byte boundaries), 4 / 2 of 6 in f32 at 512; and at heads
    wider than 256, which each kernel's wide instance takes (d in chunks of
-   128 columns, o in slices of 256 across CTAs; ``WIDE_CASES``): 8 / 2 of
+   256, 128 or 64 columns, S once for up to 512 columns of o, slices of
+   256 where those CTAs still fit one wave; ``WIDE_CASES``, each also with
+   its plan, the f32 pre-pass's own time, its time over SDPA's): 8 / 2 of
    320 at 512 in both dtypes, minicpm3's latent attention (40 / 1, d 288,
    dv 256) at 1,024 in bf16 and 512 in f32, DeepSeek-V3's absorbed MLA
    (128 / 1, d 576, dv 512) at 1,024 in bf16, odd widths on the producer
@@ -417,8 +419,9 @@ STARCODER2_HEADS = (36, 4, 128, 128)
 NEMOTRON_HEADS = (96, 8, 192, 192)
 ODD_HEADS = (6, 2, 10, 5)
 F32_D6_HEADS = (4, 2, 6, 6)
-#: heads wider than 256 (each kernel's wide instance: d in chunks of 128
-#: columns, o in slices of 256): 320 (two slices), minicpm3's latent
+#: heads wider than 256 (each kernel's wide instance: d in chunks, S once
+#: for up to 512 columns of o): 320 (two slices of 256 at s = 512: 2 x 64
+#: CTAs fit one wave), minicpm3's latent
 #: attention (d = kv_lora_rank 256 + qk_rope_dim 32, dv 256; one KV head
 #: under 40 query heads), DeepSeek-V3's absorbed MLA (d = kv_lora_rank 512
 #: + qk_rope_head_dim 64, dv 512, 128 query heads over one latent head:
@@ -1188,8 +1191,43 @@ def attention_phase(seed: int, dev, cases=ATTN_CASES, reps: int = 30):
               f"loads): {shares}; bound "
               f"{r['bound_ms']:.5g} ms ({r['bound_by']}){causal_note}",
               flush=True)
+        if wide:
+            print(f"flash_attention {name} wide: {wide_note(r)}", flush=True)
         res[name] = r
+    # the f32 wide instance's pre-pass alone at wide_f32's shape, bit for
+    # bit against its plain version
+    h, kvh, d, dv = WIDE_HEADS
+    r = FC.check_tf32_split(1, 512, h, kvh, d, dv, seed + 512, dev,
+                            reps=reps)
+    print(f"kernel {FK.TF32X3_SPLIT}: {json.dumps(r)}", flush=True)
+    if r["mismatches"]:
+        fail(f"{FK.TF32X3_SPLIT}: {r['mismatches']} elements differ from "
+             f"its plain version")
+    res["tf32_split"] = r
     return res
+
+
+def wide_note(r: dict) -> str:
+    """A wide case's plan (CTAs a query tile, warpgroups with columns of o,
+    d's chunks, Q resident or streamed, the load route), the f32 pre-pass's
+    own device time, and the kernel's time over SDPA's in the same call
+    beside its share of the bound."""
+    p = r["plan"]
+    note = (f"{p['ctas_per_query_tile']} CTA(s) a query tile (o in "
+            f"slices of {p['slice_cols']}), "
+            f"{p['warpgroups_with_columns']} warpgroup(s) with columns of o, "
+            f"d in {p['d_chunks']} chunk(s) of {p['d_chunk']}, Q "
+            f"{'resident' if p['q_resident'] else 'streamed'}, loads "
+            f"{p['loads']}")
+    if r.get("split_device_ms"):
+        note += (f"; pre-pass {r['split_device_ms']:.5g} ms (its bound "
+                 f"{r['split_bound_ms']:.5g} ms), "
+                 f"{r['split_device_ms'] / r['device_ms']:.1%} of the call")
+    if r.get("library_ratio"):
+        note += (f"; {r['library_ratio']:.3f}x SDPA "
+                 f"({r['device_bound_share']:.1%} of the bound, SDPA "
+                 f"{r['library_device_bound_share']:.1%})")
+    return note
 
 
 # ---------------------------------------------------------------------------
@@ -2956,7 +2994,8 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
         timing = TIMING_STATS if geo.get("flush_threshold") else ()
         logits = {}
         for d in (dev, cpu):
-            zero_launches(K.LAUNCHES, FK.LAUNCHES, K.BASELINE_LAUNCHES)
+            zero_launches(K.LAUNCHES, FK.LAUNCHES, K.BASELINE_LAUNCHES,
+                          FK.SPLIT_LAUNCHES)
             if head_dim:
                 logits[d.type] = keep_prefills(models[d.type])
             rec = serve(cfg, models[d.type], d, seed, geo)
@@ -2968,6 +3007,7 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
             if d.type == "cuda":
                 launches = dict(K.LAUNCHES)
                 attn = dict(FK.LAUNCHES)
+                splits = FK.SPLIT_LAUNCHES[FK.TF32X3_SPLIT]
         # every miss prefills the whole prompt
         prefills = rec["stats"]["misses"]
         want = attention_only(FK.TF32X3, prefills * attn_layers(cfg))
@@ -2975,6 +3015,11 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
             fail(f"serve {name}: flash-attention launches {attn}, expected "
                  f"{want} ({prefills} f32 prefills x {attn_layers(cfg)} "
                  f"attention layers)")
+        # the f32 wide instance launches its pre-pass once a call
+        wide = head_dim > FK.NARROW_MAX
+        if dev.type == "cuda" and splits != (want[FK.TF32X3] if wide else 0):
+            fail(f"serve {name}: {splits} launches of {FK.TF32X3_SPLIT}, "
+                 f"expected one a wide f32 launch")
         if runs["cuda"] != runs["cpu"]:
             fail(f"serve {name}: the card and the CPU differ: {runs}")
         if geo.get("flush_threshold") and min(launches.values()) <= 0:
@@ -3003,7 +3048,8 @@ def tiny_card_vs_cpu(seed: int, dev, arch: str = "llama32_3b",
                      "outputs_equal": True, "cached_tokens": runs["cpu"][1],
                      "hits": rec["stats"]["hits"],
                      "misses": rec["stats"]["misses"],
-                     "attention_launches": attn}
+                     "attention_launches": attn,
+                     "split_launches": splits if dev.type == "cuda" else 0}
             if head_dim:
                 first.update(head_dim=head_dim, logit_max_abs_diff=gap)
         else:
@@ -4283,9 +4329,10 @@ def main() -> int:
                      FK.WGMMA_F16: f16["tiny"][
                          f"llama32_3b head_dim {TINY_WIDE_HEAD_DIM}"][
                          "attention_launches"][FK.WGMMA_F16]}
-    wide_keys = ("shape", "loads", "max_abs_err", "ms", "device_ms",
+    wide_keys = ("shape", "loads", "plan", "max_abs_err", "ms", "device_ms",
                  "plain_ms", "bound_ms", "bound_by", "device_bound_share",
-                 "library_ms", "library_device_ms")
+                 "library_ms", "library_device_ms", "library_ratio",
+                 "split_device_ms")
     for name, case, launches, w_case, w_launches, o_case, o_launches, \
             extra in (
             (FK.WGMMA, "serve", wgmma, "starcoder2_window",
@@ -4351,6 +4398,18 @@ def main() -> int:
                                "library_kernels": list(attn[c].get(
                                    "library_kernels", {}))[:3]}
                            for c in WIDE_CASES[name]}, **extra})
+    # the f32 wide instance's pre-pass: launched once with each wide f32
+    # call (the f32 TINY twin with heads of 320), timed alone at wide_f32's
+    # shape and held bit for bit to its plain version
+    r = attn["tf32_split"]
+    kernels.append({
+        "name": FK.TF32X3_SPLIT, "route": "cuda", "source": FA_CU,
+        "replaces": REPLACES["flash_attention"],
+        "launches": wide_twin["split_launches"], "shape": r["shape"],
+        "max_abs_err": r["max_abs_err"], "mismatches": r["mismatches"],
+        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None})
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"families": fam}))
     print(json.dumps({"f16": {"serve": {k: v for k, v in f16["serve"].items()

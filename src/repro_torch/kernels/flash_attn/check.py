@@ -18,7 +18,12 @@ launches (``device_ms``, ``library_device_ms``: graph replays,
 :func:`..flash_hash.check.device_ms`). With a sliding ``window`` the
 kernel and the plain version take it, the library call takes the dense
 boolean band mask, and the same kernel's causal launch at the same shape
-is timed beside it (``causal_ms``, ``causal_device_ms``).
+is timed beside it (``causal_ms``, ``causal_device_ms``). Each result
+carries the kernel's plan (:func:`.kernel.wide_plan`) and, where both
+device times exist, ``library_ratio`` (the kernel's over the library
+call's, in one call); an f32 wide case also times its pre-pass alone
+(``split_device_ms`` beside ``split_bound_ms``), which
+:func:`check_tf32_split` holds bit for bit to :func:`.ref.tf32_split`.
 
 That least time (``bound_ms``) is the larger of two: the bytes of q, k,
 v and o (each read or written once, at the true widths d and dv, never
@@ -183,7 +188,10 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
                           qk_scale)
     name = K.kernel_for(dtype, d, dv)
     tol = TOLERANCE[dtype]
+    plan = K.wide_plan(dtype, b, s, h, d, dv)
+    split = plan["loads"] == "split"
     before = dict(K.LAUNCHES)    # comparison launches are not the path's
+    split_before = dict(K.SPLIT_LAUNCHES)
     got = K.flash_attention_fwd(q, k, v, causal=causal, window=window)
     launched = {key: K.LAUNCHES[key] - before[key] for key in K.LAUNCHES}
     want = ref.sdpa_ref(q, k, v, causal=causal, window=window)
@@ -194,6 +202,7 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
            "causal": causal, "window": window, "qk_scale": qk_scale,
            "kernel": name if cuda else "plain",
            "loads": "tma" if K.tma_loads(dtype, d, dv) else "warp",
+           "plan": plan,
            "launches": launched, "tolerance": tol, **_error(got, want, tol)}
     if cuda:
         fns = {"ms": lambda _: K.launch(q, k, v, causal, name, window)}
@@ -201,6 +210,8 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
             fns["causal_ms"] = lambda _: K.launch(q, k, v, True, name)
         library = library_call(q, k, v, causal, window)
         fns["library_ms"] = lambda _: library()
+        if split:   # the f32 wide instance's pre-pass on its own
+            fns["split_ms"] = lambda _: K.split_launch(q, k, v)
         on_device = {key[:-2] + "device_ms": fn for key, fn in fns.items()}
         fns["plain_ms"] = lambda _: ref.sdpa_ref(q, k, v, causal,
                                                  window=window)
@@ -213,7 +224,10 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
             q, k, v, causal, window=window), reps)
         out["library_ms"] = None
     K.LAUNCHES.update(before)
+    K.SPLIT_LAUNCHES.update(split_before)
     out.update(attention_bound(b, s, h, kvh, d, dv, dtype, causal, window))
+    if split:
+        out["split_bound_ms"] = split_bound(b, s, h, kvh, d, dv)["bound_ms"]
     if window:
         out["causal_bound_ms"] = attention_bound(b, s, h, kvh, d, dv, dtype,
                                                  True)["bound_ms"]
@@ -224,4 +238,60 @@ def check_flash_attention(b: int, s: int, h: int, kvh: int, d: int, dv: int,
                 "library_device_ms"):
         if out.get(key):
             out[key[:-2] + "bound_share"] = out["bound_ms"] / out[key]
+    if out.get("device_ms") and out.get("library_device_ms"):
+        # the kernel's device time over the library call's, in one call
+        out["library_ratio"] = out["device_ms"] / out["library_device_ms"]
     return out
+
+
+def split_bound(b: int, s: int, h: int, kvh: int, d: int, dv: int) -> Dict:
+    """Least time of the f32 wide instance's pre-pass: q, k and v read once
+    and its output (:func:`.kernel.split_floats` floats) written once, at
+    the memory rate (it does no arithmetic worth a bound)."""
+    n_bytes = 4 * (b * s * (h * d + kvh * d + kvh * dv)
+                   + K.split_floats(b, s, h, kvh, d, dv))
+    return {"bound_ms": n_bytes / H100_BYTES_PER_S * 1e3,
+            "bound_bytes": n_bytes, "bound_by": "bytes"}
+
+
+def check_tf32_split(b: int, s: int, h: int, kvh: int, d: int, dv: int,
+                     seed: int, device, reps: int = 10,
+                     misaligned: bool = False) -> Dict:
+    """The f32 wide instance's pre-pass against its plain version
+    (:func:`.ref.tf32_split`) on one seeded case, bit for bit
+    (``mismatches``: elements whose bits differ); on the card also its
+    device time beside its bytes bound and the plain version's time.
+    ``misaligned`` puts q, k and v 4 bytes past a 16-byte boundary."""
+    q, k, v = make_inputs(b, s, h, kvh, d, dv, torch.float32, seed, device)
+    if misaligned:
+        q, k, v = (_shifted(x) for x in (q, k, v))
+    want = ref.tf32_split(q, k, v)
+    out = {"shape": [b, s, h, kvh, d, dv], "misaligned": misaligned,
+           **split_bound(b, s, h, kvh, d, dv)}
+    if device.type != "cuda":
+        got = want
+    else:
+        before = dict(K.SPLIT_LAUNCHES)
+        got = K.split_launch(q, k, v)
+        torch.cuda.synchronize(device)
+        out.update(in_turns({"ms": lambda _: K.split_launch(q, k, v),
+                             "plain_ms": lambda _: ref.tf32_split(q, k, v)},
+                            reps, device))
+        out.update(device_ms({"device_ms": lambda _: K.split_launch(q, k, v)},
+                             reps, device))
+        K.SPLIT_LAUNCHES.update(before)
+        out["device_bound_share"] = out["bound_ms"] / out["device_ms"]
+    out["mismatches"] = int((got.view(torch.int32)
+                             != want.view(torch.int32)).sum())
+    out["max_abs_err"] = float((got - want).abs().max()) if got.numel() \
+        else 0.0
+    return out
+
+
+def _shifted(x):
+    """x's values in a contiguous tensor that starts one element past an
+    aligned allocation (4 bytes off 16 in f32)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y

@@ -178,37 +178,63 @@
 //     128 accumulator registers a thread, with no spill.
 //
 // The wide instances (flash_attn_wgmma_wide_kernel and
-//   flash_attn_tf32x3_wide_kernel: d or dv over 256). Neither a whole O
-//   row nor a resident Q fits: one warpgroup holds at most 256 f32
-//   accumulator columns (128 registers a thread), and a CTA's 227 KB of
-//   shared memory holds a 576-column bf16 Q and one K stage of the same
-//   width only just, an f32 one not at all. So:
-//   - O's columns are split across CTAs: grid z takes slices of 256
-//     columns (O_SLICE), and each CTA computes S and the softmax of its
-//     query tile over again and stores only its slice. S is recomputed
-//     once a slice: at d = 576, dv = 512 the kernel does 2 x 576 + 512 =
-//     1,664 columns of products for the function's 1,088 (1.53x).
-//   - d is streamed: for each key tile, Q's and K's chunks of 128 columns
-//     (kDChunk) pass through a ring of stages together (Q is read from L2
-//     again for each key tile), S = sum over chunks of Q_c K_c^T in the
-//     same f32 registers, then V's slice takes a stage of its own. The
-//     scale is 1/sqrt(d) of the true d. Stages are one size, so one ring
-//     and one pair of mbarriers a stage carry both kinds; one producer
-//     (wide::produce) fills it for both kernels, on both load routes.
-//   - bf16: chunks of 128 columns (Q_c 16 KB + K_c 16 KB = one 32 KB stage,
-//     as a 64-key x 256-column V slice is), six stages; P V in m64n64
-//     products, one a 64-column box of the slice that holds data.
-//   - f32: 32-key tiles, chunks of 128 columns (Q_c 32 KB + K_c 16 KB), 3
-//     stages of 48 KB; the lo parts of Q_c and K_c are formed in 48 KB of
-//     scratch, and V^T and its lo part (2 x 32 KB) lie over the same
-//     scratch once S is read out. Every phase runs in turn.
-//   - Both load routes as above: a slice is a column offset (TMA: a box
-//     coordinate in the same V map; the producer warp: a column offset in
-//     its source pointer, the row length still dv). The producer warp's
-//     boxes are zeroed past the data each time, since a stage holds Q and
-//     K in one use and V in the next.
-//   Offsets into q, k, v and o are 64-bit throughout (a q of more than
-//   2^31 elements is taken).
+//   flash_attn_tf32x3_wide_kernel: d or dv over 256). One warpgroup holds at
+//   most 256 f32 accumulator columns of O (128 registers a thread), and a
+//   CTA's 227 KB of shared memory holds a 576-column bf16 Q beside a ring of
+//   K stages, an f32 Q (hi and lo) not at all. So:
+//   - Two consumer warpgroups on the same 64 query rows and a producer
+//     warpgroup (setmaxnreg: the producers keep 40 registers a thread, 56
+//     on the producer-warp route, the consumers take 232, 224; at the 168
+//     ptxas gives 12 warps the accumulators spilled). Each consumer
+//     warpgroup computes S over half of d's columns (m64n64 products, the
+//     whole 64-key tile), the two partial sums are exchanged and added, and
+//     each holds half of the CTA's columns of O (wg_cols). S is computed
+//     once per (query tile, key tile) for the CTA's columns. The plan,
+//     fixed by the shape alone (slice_cols; kernel.py's wide_plan): a CTA
+//     computes 512 columns, so S once for every dv up to 512 (at d = 576,
+//     dv = 512 the products are the function's 1,088 columns: 1.0x; slices
+//     of 256 would take 1.53x), and grid z slices o past 512; or 256
+//     columns where dv <= 256 (128 a warpgroup) or where CTAs of 256
+//     columns still fit in one wave of the card's 132 SMs (8 / 2 heads of
+//     320 at s = 512 are 64 query tiles: 2 x 64 CTAs of 256 columns, each
+//     computing S again, busy twice the SMs).
+//   - The exchange: each warpgroup writes its partial S (16 KB of f32
+//     fragments) into its own half of the tile's last S stage, whose bytes
+//     only its own (retired) products read, signals the other (named
+//     barrier 1 + w, bar.arrive against bar.sync) and adds the other's:
+//     IEEE addition commutes, so both hold the same S. Both then run the
+//     same online softmax over the whole tile (m, l and alpha agree), and
+//     P stays in registers as the A fragment of their P V (bf16: rounded
+//     to T; f32: hi, the low 13 bits cleared, and lo), as in the narrow
+//     instances. One barrier a tile, nothing of P in shared memory.
+//   - d is streamed through one ring of stages, each consumed by both
+//     warpgroups (empty barriers count 256): for each key tile, d's chunks,
+//     then V's stages. A stage is released when its wgmma group retires:
+//     wgmma_wait<1> after the next chunk's product is issued. The scale is
+//     1/sqrt(d) of the true d. 64-key tiles in both types.
+//   - bf16 / f16: Q resident where d <= 576 (72 KB; else it is streamed
+//     beside K); a stage (32 KB) holds K's next 256 columns, warpgroup w's
+//     128 in its half (with Q streamed: Q's and K's next 128, a box of each
+//     a warpgroup), or half of V's tile: 32 keys x the slice's columns in
+//     boxes of 32 rows (the V map's boxes), each warpgroup's P V one m64n64
+//     product a 64-column box that holds data, two k16 steps a stage. Four
+//     stages. Both load routes; on the producer-warp route the four
+//     producer warps share a stage's boxes (box i by warp i % 4), each
+//     waiting for the stage and arriving on its full barrier (count 128).
+//   - f32: tf32_split_kernel, a pre-pass of the same call, writes into the
+//     scratch the wrapper allocates Q's and K's hi (the low 13 bits cleared
+//     explicitly, so the products no longer rely on the tensor cores
+//     dropping them) and lo = tf32(x - hi) parts, rows padded to 32
+//     columns, and V^T's hi and lo parts, keys along a row in the narrow
+//     instance's order: the values the narrow instance forms in shared
+//     memory, bit for bit. Every operand then arrives by TMA (no
+//     producer-warp route, at any width), and the inner loop is the three
+//     tf32 passes of each product and the softmax: nothing is split or
+//     transposed on the CUDA cores. A stage (64 KB) holds Q's and K's hi
+//     and lo over 64 columns of d (32 a warpgroup), or a quarter of V^T's
+//     (64 of each warpgroup's columns, hi and lo, 64 keys). Three stages.
+//   Offsets into q, k, v, o and the split copies are 64-bit throughout (a
+//   q of more than 2^31 elements is taken).
 //
 // The grid (cta_grid, tile_of), every instance of both kernels: b h CTAs
 //   along x (its limit is 2^31 - 1), and the (query tile, o slice) pairs
@@ -375,29 +401,55 @@ __device__ __forceinline__ void store_one(float* out, float a) { *out = a; }
 // ---------------------------------------------------------------------------
 namespace wide {
 
-constexpr int O_SLICE = 256;     // columns of O a CTA computes (grid z)
+constexpr int O_SLICE = 512;   // columns of O a CTA computes at most
+constexpr int WG_COLS = 256;   // of them, each consumer warpgroup's at most
+constexpr int SMS = 132;       // an H100's SMs: one wave of CTAs
+constexpr int BQ = 64;         // query rows a CTA: wgmma's M
+constexpr int BK = 64;         // keys a tile
+constexpr int HALF = BK / 2;   // half a key tile: a V stage (bf16), a V^T box
+constexpr int CONSUMERS = 256;            // two warpgroups
+constexpr int PRODUCERS = 128;            // and a producer warpgroup
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+// Registers a thread (setmaxnreg): 12 warps put 3 on each of the SM's four
+// register-file quarters of 16,384, so ptxas starts each thread at 168;
+// the producer warpgroup gives up to 40 (56 where its warps load the
+// boxes themselves) and each consumer takes 232 (224): 40 + 2 x 232 = 504
+// of a quarter's 512 registers a lane.
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr uint32_t BAR_READY = 1;  // + w: warpgroup w's partial S is written
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The masks and the online softmax of one key tile of BK = 2 N keys, as the
-// narrow instances run them: S's m64nBK accumulator fragment `sc` (row
-// r_lo + 8 ((i / 2) % 2), key k0 + 8 (i / 4) + c_in + i % 2 of register i)
-// becomes p (f32); m and l (this thread's share of each row's sum) are
+// The columns of O one CTA computes (the plan, fixed by the shape alone as
+// kernel.py's slice_cols fixes it): 512 (grid z slices o past it), or 256
+// where dv <= 256 (each warpgroup then holds half of them) or where the
+// CTAs of 256 columns still fit in one wave of the card (a query tile then
+// takes more CTAs, each computing S again, on SMs that would idle).
+inline int slice_cols(int b, int s, int h, int dv) {
+  const long long tiles = (long long)b * h * ((s + BQ - 1) / BQ);
+  return dv <= WG_COLS ||
+                 tiles * ((dv + O_SLICE / 2 - 1) / (O_SLICE / 2)) <= SMS
+             ? O_SLICE / 2
+             : O_SLICE;
+}
+
+// The masks and the online softmax of one key tile (keys k0 .. k0 + 63),
+// as the narrow instances run them: S's m64n64 accumulator fragment `sc`
+// (row r_lo + 8 ((i / 2) % 2), key k0 + 8 (i / 4) + c_in + i % 2 of register
+// i) becomes p (f32); m and l (this thread's share of each row's sum) are
 // carried, alpha is the rescale of O.
-template <int N>
-__device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              int q0, int k0, int r_lo,
                                              int c_in, int s, int causal,
                                              int window, float scale_log2) {
-  constexpr int BQ = 64, BK = 2 * N;
   const bool windowed = window > 0;
   // the causal mask on the diagonal tiles, the key one past s, the
   // window's lower edge on every tile that holds some row's edge
   if (k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
       (windowed && k0 <= q0 + BQ - 1 - window)) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < 32; ++i) {
       const int row = q0 + r_lo + 8 * ((i >> 1) & 1);
       const int col = k0 + 8 * (i >> 2) + c_in + (i & 1);
       if (col >= s || (causal && col > row) ||
@@ -407,7 +459,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+  for (int i = 0; i < 32; ++i)
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   float shift[2], rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -421,7 +473,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
     m[r] = mx[r];
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1;
     sc[i] = exp2f(fmaf(sc[i], scale_log2, -shift[r]));
     rs[r] += sc[i];
@@ -430,171 +482,76 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 }
 
-// The producer warp's loads of n boxes of one operand into one stage, two
-// boxes a call of load_boxes: box i (ROWS positions x 128 bytes) at dst + i
-// box_bytes, from src + 128 i, with bytes - 128 i bytes of data a row and
-// the rest zeroed (a stage holds another operand in its previous use).
-template <int G, int ROWS, typename Ready>
-__device__ __forceinline__ void load_run(uint32_t dst, int box_bytes,
-                                         const uint8_t* src, long ld,
-                                         int rows, int bytes, int n,
-                                         int lane, Ready ready) {
-  using hopper::Box;
-  for (int i = 0; i < n; i += 2) {
-    const Box b0 = {dst + i * box_bytes, src + 128 * i, ld, rows,
-                    bytes - 128 * i};
-    if (i + 1 < n) {
-      const Box two[2] = {b0, {dst + (i + 1) * box_bytes,
-                               src + 128 * (i + 1), ld, rows,
-                               bytes - 128 * (i + 1)}};
-      hopper::load_boxes<G, ROWS>(two, true, lane, ready);
-    } else {
-      const Box one[1] = {b0};
-      hopper::load_boxes<G, ROWS>(one, true, lane, ready);
-    }
+// The two warpgroups' partial S (each over its boxes of d) summed in both:
+// each writes its fragments into its own half of the tile's last S stage
+// (`stage`, halves of `half` bytes: the bytes only its own products read,
+// all retired), signals the other (named barrier BAR_READY + wg), waits
+// for the other's and adds them. IEEE addition is commutative, so both
+// warpgroups hold the same S, and each then runs the same softmax.
+__device__ __forceinline__ void exchange(float (&sc)[32], uint8_t* stage,
+                                         int half, int wg, int wt) {
+  float4* mine = reinterpret_cast<float4*>(stage + wg * half);
+  const float4* other =
+      reinterpret_cast<const float4*>(stage + (wg ^ 1) * half);
+#pragma unroll
+  for (int g = 0; g < 8; ++g)
+    mine[g * 128 + wt] =
+        make_float4(sc[4 * g], sc[4 * g + 1], sc[4 * g + 2], sc[4 * g + 3]);
+  hopper::bar_arrive(BAR_READY + wg, CONSUMERS);
+  hopper::bar_sync(BAR_READY + (wg ^ 1), CONSUMERS);
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const float4 x = other[g * 128 + wt];
+    sc[4 * g] += x.x;
+    sc[4 * g + 1] += x.y;
+    sc[4 * g + 2] += x.z;
+    sc[4 * g + 3] += x.w;
   }
 }
 
-// One CTA of a wide instance whose shared-memory layout is L (kBQ query
-// rows, kBK keys a tile, boxes of kChunk columns, d's chunks of kDChunk):
-// its batch row and query head (grid x), its query tile, heaviest first,
-// and its slice of O's columns from v0 (tile_of: live is false for a CTA
-// past the last pair), the key tiles it walks (from t0, the tile that
-// holds its lowest row's window edge) and the boxes of its slice that hold
-// data.
+// One CTA of a wide instance whose shared-memory layout is L: its batch row
+// and query head (grid x), its query tile, heaviest first, and its slice of
+// O's sw columns from v0 (tile_of: live is false for a CTA past the last
+// pair), the key tiles it walks (from t0, the tile that holds its lowest
+// row's window edge), the columns of O each warpgroup holds (warpgroup w
+// from v0 + w wg_cols, wg_cols = sw / 2), and the ring's stages a key tile
+// takes: d's chunks of L::chunk(d) columns, then V's (L::v_stages).
 template <typename L>
 struct Cta {
-  int bi, hq, kh, q0, v0, t0, n_tiles, d_chunks, v_boxes;
+  int bi, hq, kh, q0, v0, t0, n_tiles, s_stages, v_stages, wg_cols, cols[2];
   bool live;
 
   __device__ __forceinline__ Cta(int s, int h, int kvh, int d, int dv,
-                                 int causal, int window) {
+                                 int causal, int window, int sw) {
     bi = blockIdx.x / h;
     hq = blockIdx.x % h;
     kh = hq / (h / kvh);
     int sl;
-    live = tile_of(s, L::kBQ, (dv + O_SLICE - 1) / O_SLICE, q0, sl);
-    v0 = sl * O_SLICE;
-    n_tiles = (s + L::kBK - 1) / L::kBK;
-    if (causal) n_tiles = min(n_tiles, (q0 + L::kBQ + L::kBK - 1) / L::kBK);
+    live = tile_of(s, BQ, (dv + sw - 1) / sw, q0, sl);
+    v0 = sl * sw;
+    n_tiles = (s + BK - 1) / BK;
+    if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
     const int lo = q0 - window + 1;  // the lowest row's first kept key
-    t0 = window > 0 && lo > 0 ? lo / L::kBK : 0;
-    d_chunks = (d - 1) / L::kDChunk + 1;
-    v_boxes = min((dv - v0 + L::kChunk - 1) / L::kChunk, O_SLICE / L::kChunk);
-  }
-
-  // the boxes of d's chunk c that hold data
-  __device__ __forceinline__ int chunk_boxes(int d, int c) const {
-    return min(L::kDChunk / L::kChunk,
-               (d - c * L::kDChunk + L::kChunk - 1) / L::kChunk);
+    t0 = window > 0 && lo > 0 ? lo / BK : 0;
+    s_stages = (d - 1) / L::chunk(d) + 1;
+    const int here = min(dv - v0, sw);
+    wg_cols = sw / 2;
+    cols[0] = min(here, wg_cols);
+    cols[1] = here - cols[0];
+    v_stages = L::v_stages(cols[0]);
   }
 };
 
-// The producer warp of a wide instance (`lane` 0-31). Stage j of the run
-// (for each key tile, d_chunks stages of Q's and K's chunk c, Q's boxes at
-// the stage's start and K's at L::kKOff, then one of V's slice) lies in slot
-// j % L::kStages, in phase (j / L::kStages) & 1, each slot with a full and
-// an empty mbarrier (bar_full + 8 slot, bar_empty + 8 slot); the consumers
-// take the stages in the same order. By TMA one lane issues the copies;
-// otherwise every lane loads the same boxes in granules of g bytes.
-template <typename L, bool TMA>
-__device__ __forceinline__ void produce(
-    const Cta<L>& c, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
-    const CUtensorMap* tm_v, const void* q, const void* k, const void* v,
-    int s, int h, int kvh, int d, int dv, int g, uint32_t base,
-    uint32_t bar_full, uint32_t bar_empty, int lane) {
-  constexpr int E = L::kElem, C = L::kChunk, BK = L::kBK;
-  if constexpr (TMA) {
-    if (lane != 0) return;
-    int j = 0;
-    for (int t = c.t0; t < c.n_tiles; ++t) {
-      for (int ch = 0; ch <= c.d_chunks; ++ch, ++j) {  // d_chunks: V's slice
-        const int st = j % L::kStages;
-        const uint32_t full = bar_full + 8 * st;
-        const uint32_t sd = base + st * L::kStage;
-        hopper::mbar_wait(bar_empty + 8 * st, ((j / L::kStages) & 1) ^ 1);
-        if (ch < c.d_chunks) {
-          const int col = ch * L::kDChunk;
-          const int n = c.chunk_boxes(d, ch);
-          hopper::mbar_arrive_expect_tx(full, n * (L::kQBox + L::kKBox));
-          for (int i = 0; i < n; ++i) {
-            hopper::tma_load_4d(sd + i * L::kQBox, tm_q, full, col + i * C,
-                                c.hq, c.q0, c.bi);
-            hopper::tma_load_4d(sd + L::kKOff + i * L::kKBox, tm_k, full,
-                                col + i * C, c.kh, t * BK, c.bi);
-          }
-        } else {
-          hopper::mbar_arrive_expect_tx(full, c.v_boxes * L::kKBox);
-          for (int i = 0; i < c.v_boxes; ++i)
-            hopper::tma_load_4d(sd + i * L::kKBox, tm_v, full,
-                                c.v0 + i * C, c.kh, t * BK, c.bi);
-        }
-      }
-    }
-  } else {
-    // byte strides between positions, and each head's first row (V's from
-    // the slice's first column)
-    const long ldq = (long)E * h * d, ldk = (long)E * kvh * d,
-               ldv = (long)E * kvh * dv;
-    const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
-                        ((long)c.bi * s + c.q0) * ldq + (long)E * c.hq * d;
-    const uint8_t* kb = reinterpret_cast<const uint8_t*>(k) +
-                        (long)c.bi * s * ldk + (long)E * c.kh * d;
-    const uint8_t* vb = reinterpret_cast<const uint8_t*>(v) +
-                        (long)c.bi * s * ldv + (long)E * (c.kh * (long)dv +
-                                                          c.v0);
-    auto run = [&](auto gran) {
-      constexpr int G = decltype(gran)::value;
-      int j = 0;
-      for (int t = c.t0; t < c.n_tiles; ++t) {
-        const int rows = s - t * BK;
-        for (int ch = 0; ch <= c.d_chunks; ++ch, ++j) {  // d_chunks: V
-          const int st = j % L::kStages;
-          const uint32_t sd = base + st * L::kStage;
-          auto ready = [&] {
-            hopper::mbar_wait(bar_empty + 8 * st,
-                              ((j / L::kStages) & 1) ^ 1);
-          };
-          if (ch < c.d_chunks) {
-            const int col = ch * L::kDChunk;
-            const int n = c.chunk_boxes(d, ch);
-            const int bytes = E * min(d - col, L::kDChunk);  // this chunk's
-            load_run<G, L::kBQ>(sd, L::kQBox, qh + (long)E * col, ldq,
-                                s - c.q0, bytes, n, lane, ready);
-            load_run<G, BK>(sd + L::kKOff, L::kKBox,
-                            kb + t * BK * ldk + (long)E * col, ldk, rows,
-                            bytes, n, lane, ready);
-          } else {
-            load_run<G, BK>(sd, L::kKBox, vb + t * BK * ldv, ldv, rows,
-                            E * min(dv - c.v0, O_SLICE), c.v_boxes, lane,
-                            ready);
-          }
-          hopper::fence_proxy_async();  // the tensor cores read these
-          hopper::mbar_arrive(bar_full + 8 * st);
-        }
-      }
-    };
-    if (g == 8) {
-      run(hopper::Int<8>());
-    } else if constexpr (E == 4) {  // f32 rows: granules of 4 or 8 bytes
-      run(hopper::Int<4>());
-    } else if (g == 4) {
-      run(hopper::Int<4>());
-    } else {
-      run(hopper::Int<2>());
-    }
-  }
-}
-
 // The epilogue of a wide instance: acc / max(l, 1e-30) in o's type, the
-// rows below s, the slice's columns below dv; a thread's column pairs are
-// stored whole where `pairs` (dv even: a pair stays in its row, aligned).
+// rows below s, warpgroup wg's `cols` columns (from v0 + wg wg_cols); a
+// thread's column pairs are stored whole where `pairs` (dv even: a pair
+// stays in its row, aligned).
 template <typename L, typename T>
-__device__ __forceinline__ void store_slice(T* o, const Cta<L>& c,
-                                            const float (&acc)[O_SLICE / 2],
-                                            float (&l)[2], bool pairs,
-                                            int r_lo, int c_in, int s,
-                                            int h, int dv) {
+__device__ __forceinline__ void store_cols(T* o, const Cta<L>& c,
+                                           const float (&acc)[WG_COLS / 2],
+                                           float (&l)[2], bool pairs, int wg,
+                                           int cols, int r_lo, int c_in,
+                                           int s, int h, int dv) {
   float den[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -605,11 +562,12 @@ __device__ __forceinline__ void store_slice(T* o, const Cta<L>& c,
   const long o_row = (long)h * dv;
   T* ob = o + (long)c.bi * s * o_row + (long)c.hq * dv;
 #pragma unroll
-  for (int i = 0; i < O_SLICE / 2; i += 2) {
+  for (int i = 0; i < WG_COLS / 2; i += 2) {
     const int r = (i >> 1) & 1;
     const int row = c.q0 + r_lo + 8 * r;
-    const int col = c.v0 + 8 * (i >> 2) + c_in;
-    if (row < s && col < dv) {
+    const int at = 8 * (i >> 2) + c_in;  // in this warpgroup's columns
+    const int col = c.v0 + c.wg_cols * wg + at;
+    if (row < s && at < cols) {
       T* out = ob + row * o_row + col;
       if (pairs) {
         store_pair(out, acc[i] / den[r], acc[i + 1] / den[r]);
@@ -908,14 +866,14 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // Tensor map over a contiguous T (b, s, heads, width) tensor, in boxes of
-// 64 positions x 64 columns of one head, 128-byte swizzled.
+// `rows` positions x 64 columns of one head, 128-byte swizzled.
 template <typename T>
 bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
-              int width) {
+              int width, int rows = 64) {
   return tma::make_map(map,
                        hopper::is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                       2, ptr, b, s, heads, width, CHUNK, 64);
+                       2, ptr, b, s, heads, width, CHUNK, rows);
 }
 
 template <typename T, int P, int MIN_BLOCKS, bool TMA>
@@ -943,24 +901,35 @@ int route(const Call& c) {
 
 
 // ---- the wide instance: d or dv over 256 (the note at the top) ----
-// Shared memory: kStages stages of 32 KB, each Q's and K's chunk (two
-// 64-row boxes each, K's at kKOff) or V's slice (four boxes), then the
-// barriers (full[], empty[]).
+// Shared memory: Q (kQBoxes boxes: resident where d <= kQMax, else unused),
+// then kStages stages of 32 KB, then the barriers (q, full[], empty[]). A
+// stage holds one key tile's chunk of d, warpgroup w's part in its half w
+// (with Q resident, K's boxes 2w and 2w + 1 of the chunk's 256 columns;
+// with Q streamed, Q's and then K's box w of its 128), or half of V's tile
+// (32 keys x the slice's columns: boxes of 32 rows, warpgroup w's from box
+// w wg_cols / 64).
 struct WideSmem {
-  static constexpr int kElem = 2, kChunk = CHUNK, kBQ = BQ, kBK = BK;
-  static constexpr int kDChunk = 128;     // columns of d a stage holds
-  static constexpr int kStages = 6;
-  static constexpr int kQBox = BOX, kKBox = BOX;
-  static constexpr int kKOff = (kDChunk / kChunk) * kQBox;
-  static constexpr int kStage = kKOff + (kDChunk / kChunk) * kKBox;
-  static constexpr int kBars = kStages * kStage;
-  static constexpr int kBytes = 1024 + kBars + 8 * 2 * kStages;
-  static_assert(wide::O_SLICE / kChunk * kKBox == kStage,
-                "V's slice fills one stage");
+  static constexpr int kQMax = 576;               // widest resident Q
+  static constexpr int kQBoxes = kQMax / CHUNK;
+  static constexpr int kStages = 4;
+  static constexpr int kStage = 4 * BOX;
+  static constexpr int kVBox = wide::HALF * 128;  // 32 keys x 64 columns
+  static constexpr int kRing = kQBoxes * BOX;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+  static_assert(wide::O_SLICE / CHUNK * kVBox == kStage,
+                "half of V's tile fills one stage");
+  static_assert(wide::BQ * wide::BK * 4 <= kStage / 2,
+                "a warpgroup's partial S fits in its half of a stage");
+  static_assert(kBytes <= 232448, "227 KB of shared memory a CTA");
+  // d's columns a stage holds
+  __device__ static int chunk(int d) { return d <= kQMax ? 4 * CHUNK : 2 * CHUNK; }
+  // V's stages a key tile: its two halves
+  __device__ static int v_stages(int) { return 2; }
 };
 
 template <typename T, bool TMA>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(wide::THREADS, 1)
 flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
@@ -969,80 +938,229 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const uint16_t* __restrict__ v,
                              T* __restrict__ o, int s, int h, int kvh, int d,
                              int dv, float scale_log2, int causal, int window,
-                             int g) {
+                             int g, int sw) {
   using L = WideSmem;
+  constexpr int S = L::kStages, HALF = wide::HALF;
+  // registers a thread (the note at the top): the producer-warp route's
+  // granule loads want more than TMA's one issuing lane
+  constexpr int PREGS = TMA ? wide::PRODUCER_REGS : 56;
+  constexpr int CREGS = TMA ? wide::CONSUMER_REGS : 224;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t bar_full = base + L::kBars;                // + 8 i
-  const uint32_t bar_empty = bar_full + 8 * L::kStages;     // + 8 i
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t sq = base, ring = base + L::kRing;
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_full = bar_q + 8;             // + 8 i
+  const uint32_t bar_empty = bar_full + 8 * S;     // + 8 i
   const int tid = threadIdx.x;
-  const wide::Cta<L> c(s, h, kvh, d, dv, causal, window);
-  if (!c.live) return;                               // past the last pair
+  const wide::Cta<L> c(s, h, kvh, d, dv, causal, window, sw);
+  if (!c.live) return;                             // past the last pair
+  const bool resident = d <= L::kQMax;
+  const int cw = L::chunk(d);
+  const int v_boxes = (c.cols[0] + c.cols[1] + CHUNK - 1) / CHUNK;
 
   if (tid == 0) {
-    for (int i = 0; i < L::kStages; ++i) {
-      hopper::mbar_init(bar_full + 8 * i, TMA ? 1 : 32);
-      hopper::mbar_init(bar_empty + 8 * i, CONSUMERS);
+    hopper::mbar_init(bar_q, TMA ? 1 : wide::PRODUCERS);
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(bar_full + 8 * i, TMA ? 1 : wide::PRODUCERS);
+      hopper::mbar_init(bar_empty + 8 * i, wide::CONSUMERS);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {
-    wide::produce<L, TMA>(c, &tm_q, &tm_k, &tm_v, q, k, v, s, h, kvh, d, dv,
-                          g, base, bar_full, bar_empty, tid - CONSUMERS);
+  if (tid >= wide::CONSUMERS) {
+    // ---- the producer warpgroup: stage j of the run in slot j % S, phase
+    // (j / S) & 1; a key tile's stages are d's chunks, then V's halves (a
+    // half wholly past s is not loaded: nothing multiplies it). Box i of a
+    // chunk lies at i x BOX with Q resident, else Q's at 2 i x BOX and K's
+    // right after it ----
+    hopper::setmaxnreg_dec<PREGS>();
+    const int q_boxes = (d + CHUNK - 1) / CHUNK;
+    if constexpr (TMA) {
+      if (tid != wide::CONSUMERS) return;  // one lane issues every copy
+      if (resident) {
+        hopper::mbar_arrive_expect_tx(bar_q, q_boxes * BOX);
+        for (int i = 0; i < q_boxes; ++i)
+          hopper::tma_load_4d(sq + i * BOX, &tm_q, bar_q, i * CHUNK, c.hq,
+                              c.q0, c.bi);
+      }
+      int j = 0;
+      for (int t = c.t0; t < c.n_tiles; ++t) {
+        for (int x = 0; x < c.s_stages + c.v_stages; ++x, ++j) {
+          const int st = j % S;
+          const uint32_t full = bar_full + 8 * st;
+          const uint32_t sd = ring + st * L::kStage;
+          hopper::mbar_wait(bar_empty + 8 * st, ((j / S) & 1) ^ 1);
+          if (x < c.s_stages) {
+            const int col = x * cw;
+            const int n = min(cw, d - col + CHUNK - 1) / CHUNK;
+            hopper::mbar_arrive_expect_tx(full, (resident ? 1 : 2) * n * BOX);
+            for (int i = 0; i < n; ++i) {
+              if (!resident)
+                hopper::tma_load_4d(sd + 2 * i * BOX, &tm_q, full,
+                                    col + i * CHUNK, c.hq, c.q0, c.bi);
+              hopper::tma_load_4d(sd + (resident ? i : 2 * i + 1) * BOX,
+                                  &tm_k, full, col + i * CHUNK, c.kh,
+                                  t * wide::BK, c.bi);
+            }
+          } else {
+            const int k0 = t * wide::BK + (x - c.s_stages) * HALF;
+            const int n = k0 < s ? v_boxes : 0;
+            hopper::mbar_arrive_expect_tx(full, n * L::kVBox);
+            for (int i = 0; i < n; ++i)
+              hopper::tma_load_4d(sd + i * L::kVBox, &tm_v, full,
+                                  c.v0 + i * CHUNK, c.kh, k0, c.bi);
+          }
+        }
+      }
+    } else {
+      // the four warps load the boxes in granules of g bytes, box i of a
+      // stage by warp i % 4, one load_boxes each; every warp waits for the
+      // stage to be free and arrives on its full barrier (count 128). Byte
+      // strides between positions, and each head's first row (V's from the
+      // slice's first column)
+      const int pw = (tid - wide::CONSUMERS) >> 5, lane = tid & 31;
+      const long ldq = 2L * h * d, ldk = 2L * kvh * d, ldv = 2L * kvh * dv;
+      const uint8_t* qh = reinterpret_cast<const uint8_t*>(q) +
+                          ((long)c.bi * s + c.q0) * ldq + 2L * c.hq * d;
+      const uint8_t* kb = reinterpret_cast<const uint8_t*>(k) +
+                          (long)c.bi * s * ldk + 2L * c.kh * d;
+      const uint8_t* vb = reinterpret_cast<const uint8_t*>(v) +
+                          (long)c.bi * s * ldv + 2L * ((long)c.kh * dv + c.v0);
+      auto run = [&](auto gran) {
+        constexpr int G = decltype(gran)::value;
+        // one box: ROWS positions from src, bytes of data a row
+        auto box = [&](auto rows_box, uint32_t dst, const uint8_t* src,
+                       long ld, int rows, int bytes, auto ready) {
+          constexpr int ROWS = decltype(rows_box)::value;
+          const hopper::Box one[1] = {{dst, src, ld, rows, bytes}};
+          hopper::load_boxes<G, ROWS>(one, true, lane, ready);
+        };
+        if (resident) {
+          for (int i = pw; i < q_boxes; i += 4)
+            box(hopper::Int<wide::BQ>(), sq + i * BOX, qh + 128 * i, ldq,
+                s - c.q0, 2 * d - 128 * i, hopper::NoWait());
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(bar_q);
+        }
+        int j = 0;
+        for (int t = c.t0; t < c.n_tiles; ++t) {
+          const int rows = s - t * wide::BK;
+          for (int x = 0; x < c.s_stages + c.v_stages; ++x, ++j) {
+            const int st = j % S;
+            const uint32_t sd = ring + st * L::kStage;
+            auto ready = [&] {
+              hopper::mbar_wait(bar_empty + 8 * st, ((j / S) & 1) ^ 1);
+            };
+            if (x < c.s_stages) {
+              const int col = x * cw;
+              const int n = min(cw, d - col + CHUNK - 1) / CHUNK;
+              const int bytes = 2 * min(d - col, cw);  // this chunk's
+              // Q's boxes (streamed) are u = 0 .. n - 1, K's after them
+              const int q_n = resident ? 0 : n;
+              for (int u = pw; u < q_n + n; u += 4) {
+                const int i = u < q_n ? u : u - q_n;
+                if (u < q_n)
+                  box(hopper::Int<wide::BQ>(), sd + 2 * i * BOX,
+                      qh + 2L * col + 128 * i, ldq, s - c.q0, bytes - 128 * i,
+                      ready);
+                else
+                  box(hopper::Int<wide::BK>(),
+                      sd + (resident ? i : 2 * i + 1) * BOX,
+                      kb + t * wide::BK * ldk + 2L * col + 128 * i, ldk, rows,
+                      bytes - 128 * i, ready);
+              }
+            } else {
+              const int k0 = t * wide::BK + (x - c.s_stages) * HALF;
+              const int n = k0 < s ? v_boxes : 0;
+              for (int i = pw; i < n; i += 4)
+                box(hopper::Int<HALF>(), sd + i * L::kVBox,
+                    vb + k0 * ldv + 128 * i, ldv, s - k0,
+                    2 * (c.cols[0] + c.cols[1]) - 128 * i, ready);
+            }
+            ready();  // a warp with no box of this stage waits here
+            hopper::fence_proxy_async();  // the tensor cores read these
+            hopper::mbar_arrive(bar_full + 8 * st);
+          }
+        }
+      };
+      if (g == 8)
+        run(hopper::Int<8>());
+      else if (g == 4)
+        run(hopper::Int<4>());
+      else
+        run(hopper::Int<2>());
+    }
     return;
   }
 
-  // ---- the consumer warpgroup ----
-  const int warp = tid >> 5;
+  // ---- the two consumer warpgroups: each half of d's columns of every
+  // key tile's S, then the whole S and softmax, and its columns of O ----
+  hopper::setmaxnreg_inc<CREGS>();
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int warp = wt >> 5;
   const int lane = tid & 31;
   const int r_lo = warp * 16 + (lane >> 2);  // this thread's rows: r_lo, +8
   const int c_in = 2 * (lane & 3);           // its columns in each 8-block
-  const int k_steps = (d - 1) / 16 + 1;      // k16 steps of S that see data
+  const int cols = wg ? c.cols[1] : c.cols[0];  // its columns of O
+  const int n_box = (cols + CHUNK - 1) / CHUNK;   // its boxes of V
+  const int steps = cw / 32;                 // its k16 steps of a chunk
 
-  float acc[wide::O_SLICE / 2];
+  float acc[wide::WG_COLS / 2];
 #pragma unroll
-  for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < wide::WG_COLS / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG, NEG};
   float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
 
-  int j = 0;  // the ring's stage (wide::produce)
+  if (resident) hopper::mbar_wait(bar_q, 0);
+  int j = 0, prev = 0;  // the ring's stage, and the last one taken
   for (int t = c.t0; t < c.n_tiles; ++t) {
-    // S = sum over d's chunks of Q_c K_c^T (f32), each stage freed as soon
-    // as its product is retired
+    // this warpgroup's part of S: over its boxes of each of d's chunks
+    // (f32), a stage freed once the next chunk's product is issued and its
+    // own has retired; the tile's last stage is kept for the exchange
     float sc[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
-    for (int ch = 0; ch < c.d_chunks; ++ch, ++j) {
-      const int st = j % L::kStages;
-      const uint32_t sd = base + st * L::kStage;
-      hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
+    for (int x = 0; x < c.s_stages; ++x, ++j) {
+      const int st = j % S;
+      const uint32_t half = ring + st * L::kStage + wg * 2 * BOX;
+      hopper::mbar_wait(bar_full + 8 * st, (j / S) & 1);
+      const uint32_t a = resident ? sq + (x * 4 + wg * 2) * BOX : half;
+      const uint32_t b = resident ? half : half + BOX;
+      const int col0 = x * cw + wg * (cw / 2);  // its first column
       hopper::fence_regs(sc);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < L::kDChunk / 16; ++kc) {
-        if (ch * (L::kDChunk / 16) + kc < k_steps) {
+      for (int kc = 0; kc < 8; ++kc) {
+        if (kc < steps && col0 + 16 * kc < d) {
           const uint32_t off = (kc / 4) * BOX + (kc % 4) * 32;
-          hopper::wgmma_ss<T>(sc, hopper::smem_desc(sd + off, 16, 1024),
-                              hopper::smem_desc(sd + L::kKOff + off, 16, 1024),
-                              1);
+          hopper::wgmma_ss<T>(sc, hopper::smem_desc(a + off, 16, 1024),
+                              hopper::smem_desc(b + off, 16, 1024), 1);
         }
       }
       hopper::wgmma_commit();
-      hopper::wgmma_wait_all();
-      hopper::fence_regs(sc);
-      hopper::mbar_arrive(bar_empty + 8 * st);  // this stage may be refilled
+      if (x > 0) {
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(bar_empty + 8 * prev);
+      }
+      prev = st;
     }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    wide::exchange(sc, sm + L::kRing + prev * L::kStage, 2 * BOX, wg, wt);
+    hopper::fence_proxy_async();  // before the stage's next TMA writes
+    hopper::mbar_arrive(bar_empty + 8 * prev);
 
     float alpha[2];
-    wide::softmax_tile(sc, m, l, alpha, c.q0, t * BK, r_lo, c_in, s, causal,
-                       window, scale_log2);
+    wide::softmax_tile(sc, m, l, alpha, c.q0, t * wide::BK, r_lo, c_in, s,
+                       causal, window, scale_log2);
 
-    // O += P V over the slice: P rounded to T in place as the A fragment,
-    // one m64n64 product a box of V that holds data
-    const int st = j % L::kStages;
-    const uint32_t sv = base + st * L::kStage;
+    // O = alpha O + P V over this warpgroup's columns: P rounded to T in
+    // place as the A fragment, one m64n64 product a box of V that holds
+    // data, each half of the keys a stage
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -1053,27 +1171,43 @@ flash_attn_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::fence_regs(pa[kk]);
     }
 #pragma unroll
-    for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
-    hopper::fence_regs(acc);
-    hopper::wgmma_fence();
+    for (int i = 0; i < wide::WG_COLS / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    const uint32_t my_v = wg * (c.wg_cols / CHUNK) * L::kVBox;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int vh = 0; vh < 2; ++vh, ++j) {
+      const int st = j % S;
+      const uint32_t sd = ring + st * L::kStage + my_v;
+      hopper::mbar_wait(bar_full + 8 * st, (j / S) & 1);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      if (t * wide::BK + vh * HALF < s) {
 #pragma unroll
-      for (int ns = 0; ns < wide::O_SLICE / CHUNK; ++ns) {
-        if (ns < c.v_boxes)
-          hopper::wgmma_rs<T>(
-              reinterpret_cast<float(&)[32]>(acc[32 * ns]), pa[kk],
-              hopper::smem_desc(sv + ns * BOX + kk * 16 * 128, BOX, 1024), 1);
+        for (int kk = 0; kk < HALF / 16; ++kk) {
+#pragma unroll
+          for (int nb = 0; nb < wide::WG_COLS / CHUNK; ++nb) {
+            if (nb < n_box)
+              hopper::wgmma_rs<T>(
+                  reinterpret_cast<float(&)[32]>(acc[32 * nb]),
+                  pa[vh * HALF / 16 + kk],
+                  hopper::smem_desc(sd + nb * L::kVBox + kk * 16 * 128,
+                                    L::kVBox, 1024),
+                  1);
+          }
+        }
       }
+      hopper::wgmma_commit();
+      if (vh > 0) {
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(bar_empty + 8 * prev);
+      }
+      prev = st;
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait_all();
+    hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
-    hopper::mbar_arrive(bar_empty + 8 * st);
-    ++j;
+    hopper::mbar_arrive(bar_empty + 8 * prev);
   }
-  wide::store_slice(o, c, acc, l, TMA || dv % 2 == 0, r_lo, c_in, s, h, dv);
+  wide::store_cols(o, c, acc, l, TMA || dv % 2 == 0, wg, cols, r_lo, c_in, s,
+                   h, dv);
 }
 
 template <typename T, bool TMA>
@@ -1083,13 +1217,13 @@ int launch_wide(const Call& c) {
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = cta_grid(c.b * c.h, c.s, BQ,
-                             (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
-  kern<<<grid, THREADS, smem, c.stream>>>(
+  const int sw = wide::slice_cols(c.b, c.s, c.h, c.dv);
+  const dim3 grid = cta_grid(c.b * c.h, c.s, wide::BQ, (c.dv + sw - 1) / sw);
+  kern<<<grid, wide::THREADS, smem, c.stream>>>(
       c.tq, c.tk, c.tv, static_cast<const uint16_t*>(c.q),
       static_cast<const uint16_t*>(c.k), static_cast<const uint16_t*>(c.v),
       static_cast<T*>(c.o), c.s, c.h, c.kvh, c.d, c.dv, c.scale_log2,
-      c.causal, c.window, c.g);
+      c.causal, c.window, c.g, sw);
   return (int)cudaGetLastError();
 }
 
@@ -1101,7 +1235,7 @@ int forward(const void* q, const void* k, const void* v, void* o, int b,
             int window, void* stream) {
   if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || window < 0 ||
       (window > 0 && !causal) ||
-      !fits_grid(b, h, s, BQ, (dv + wide::O_SLICE - 1) / wide::O_SLICE))
+      !fits_grid(b, h, s, BQ, (dv - 1) / wide::slice_cols(b, s, h, dv) + 1))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   Call c = {d % 8 == 0 && dv % 8 == 0,  // 16-byte rows: TMA
@@ -1116,6 +1250,9 @@ int forward(const void* q, const void* k, const void* v, void* o, int b,
   if (p <= 64) return route<T, 64, 3>(c);
   if (p <= 128) return route<T, 128, 2>(c);
   if (p <= 256) return route<T, 256, 1>(c);
+  // the wide instance takes V in halves of a key tile: boxes of 32 keys
+  if (c.tma && !make_map<T>(&c.tv, v, b, s, kvh, dv, wide::HALF))
+    return (int)cudaErrorInvalidValue;
   return c.tma ? launch_wide<T, true>(c) : launch_wide<T, false>(c);
 }
 
@@ -1580,149 +1717,289 @@ int route(const Call& c) {
 
 
 // ---- the wide instance: d or dv over 256 (the note at the top) ----
-// Shared memory: kStages stages of 48 KB, each Q's chunk (four 64-row
-// boxes) and K's (four 32-row boxes, at kKOff) or V's slice (eight 32-row
-// boxes); then the consumers' scratch at kLo: the lo parts of Q's and K's
-// chunk, or V^T and its lo part over them; then the barriers (full[],
-// empty[]).
-struct WideSmem {
-  static constexpr int kElem = 4, kChunk = CHUNK, kBQ = BQ;
-  static constexpr int kBK = 32;           // keys a tile
-  static constexpr int kDChunk = 128;      // columns of d a stage holds
-  static constexpr int kStages = 3;
-  static constexpr int kQBox = QBOX, kKBox = kBK * 128;
-  static constexpr int kKOff = (kDChunk / kChunk) * kQBox;
-  static constexpr int kStage = kKOff + (kDChunk / kChunk) * kKBox;
-  static constexpr int kVT = wide::O_SLICE * 128;  // 256 rows of 32 keys
-  static constexpr int kLo = kStages * kStage;
-  static constexpr int kBars = kLo + (kStage > 2 * kVT ? kStage : 2 * kVT);
-  static constexpr int kBytes = 1024 + kBars + 8 * 2 * kStages;
-  static_assert(wide::O_SLICE / kChunk * kKBox <= kStage,
-                "V's slice fits one stage");
-  static_assert(kBytes <= 232448, "227 KB of shared memory a CTA");
-};
-static_assert(tile_keys<256>() == WideSmem::kBK, "the entry point's maps");
+// Its operands, split once a call by tf32_split_kernel into the scratch the
+// wrapper allocates (split_floats floats): q's and k's rows as (b, s,
+// heads, 2 dp), hi in columns [0, dp), lo in [dp, 2 dp), dp = d rounded up
+// to 32, zeros past d; then V^T as (b, kvh, 2, dv, s8), hi then lo, keys
+// along a row of s8 = s rounded up to 8, zeros past s. Within each 8 the
+// keys lie in the order 0 2 4 6 1 3 5 7 (position p holds key
+// split_key(p)), as the narrow instance writes V^T: P's A fragment is then
+// the S accumulator's registers as they lie (the note at the top).
+__host__ __device__ inline int split_cols(int d) { return (d + 31) / 32 * 32; }
+__host__ __device__ inline int split_keys(int s) { return (s + 7) / 8 * 8; }
+__device__ __forceinline__ int split_key(int p) {
+  return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1);
+}
+inline long long split_floats(int b, int s, int h, int kvh, int d, int dv) {
+  return (long long)b * s * (h + kvh) * 2 * split_cols(d) +
+         (long long)b * kvh * 2 * dv * split_keys(s);
+}
 
-template <bool TMA>
-__global__ void __launch_bounds__(THREADS, 1)
+constexpr int SPLIT_THREADS = 256;
+
+// The pre-pass. Blocks [0, nq) take q's elements (four columns of a row a
+// thread, hi and lo written as float4), [nq, nq + nk) k's, the rest V^T's
+// 32 x 32 tiles (b, kvh, key
+// block, column block), transposed through shared memory so that reads
+// and writes both run along rows (a permutation within 8 keys stays in a
+// tile).
+__global__ void __launch_bounds__(SPLIT_THREADS)
+tf32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ qs,
+                  float* __restrict__ ks, float* __restrict__ vt,
+                  long long q_rows, long long k_rows, long long nq,
+                  long long nk, int b, int s, int kvh, int d, int dv) {
+  const int dp = split_cols(d), s8 = split_keys(s);
+  const long long blk = blockIdx.x;
+  if (blk < nq + nk) {
+    const bool is_q = blk < nq;
+    // dp is a multiple of 32: a thread's four columns lie in one row
+    const long long e =
+        ((is_q ? blk : blk - nq) * SPLIT_THREADS + threadIdx.x) * 4;
+    if (e >= (is_q ? q_rows : k_rows) * dp) return;
+    const long long row = e / dp;
+    const int col = (int)(e - row * dp);
+    const float* src = (is_q ? q : k) + row * d;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = col + i < d ? src[col + i] : 0.f;
+    float* out = (is_q ? qs : ks) + row * 2 * dp + col;
+    *reinterpret_cast<float4*>(out) =
+        make_float4(hopper::tf32_trunc(x[0]), hopper::tf32_trunc(x[1]),
+                    hopper::tf32_trunc(x[2]), hopper::tf32_trunc(x[3]));
+    *reinterpret_cast<float4*>(out + dp) =
+        make_float4(hopper::tf32_lo(x[0]), hopper::tf32_lo(x[1]),
+                    hopper::tf32_lo(x[2]), hopper::tf32_lo(x[3]));
+    return;
+  }
+  __shared__ float tile[32][33];
+  const int k_blocks = (s8 + 31) / 32, c_blocks = (dv + 31) / 32;
+  long long tb = blk - nq - nk;
+  const int cb = (int)(tb % c_blocks);
+  tb /= c_blocks;
+  const int kb = (int)(tb % k_blocks);
+  tb /= k_blocks;
+  const int kh = (int)(tb % kvh);
+  const long long bi = tb / kvh;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += SPLIT_THREADS / 32) {  // columns along tx
+    const int key = kb * 32 + r, col = cb * 32 + tx;
+    tile[r][tx] = key < s && col < dv
+                      ? v[((bi * s + key) * kvh + kh) * dv + col]
+                      : 0.f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += SPLIT_THREADS / 32) {  // keys along tx
+    const int col = cb * 32 + r, at = kb * 32 + tx;       // at: a position
+    if (col < dv && at < s8) {
+      const float x = tile[split_key(tx)][r];
+      float* out = vt + ((bi * kvh + kh) * 2 * dv + col) * s8 + at;
+      out[0] = hopper::tf32_trunc(x);
+      out[(long long)dv * s8] = hopper::tf32_lo(x);
+    }
+  }
+}
+
+// The split copies of one call, in the scratch (above).
+struct Split {
+  float *qs, *ks, *vt;
+  Split(const Call& c, void* scratch)
+      : qs(static_cast<float*>(scratch)),
+        ks(qs + (long long)c.b * c.s * c.h * 2 * split_cols(c.d)),
+        vt(ks + (long long)c.b * c.s * c.kvh * 2 * split_cols(c.d)) {}
+};
+
+// Launches the pre-pass on the call's stream; returns its launch error.
+int split(const Call& c, const Split& sp) {
+  const long long q_rows = (long long)c.b * c.s * c.h;
+  const long long k_rows = (long long)c.b * c.s * c.kvh;
+  const int dp = split_cols(c.d);
+  const long long nq = (q_rows * dp / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  const long long nk = (k_rows * dp / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  const long long nv = (long long)c.b * c.kvh * ((split_keys(c.s) + 31) / 32) *
+                       ((c.dv + 31) / 32);
+  if (nq + nk + nv > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tf32_split_kernel<<<(unsigned)(nq + nk + nv), SPLIT_THREADS, 0, c.stream>>>(
+      static_cast<const float*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), sp.qs, sp.ks, sp.vt, q_rows, k_rows, nq,
+      nk, c.b, c.s, c.kvh, c.d, c.dv);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory: kStages stages of 64 KB, then the barriers (full[],
+// empty[]). A stage holds one key tile's chunk of d (64 columns), warpgroup
+// w's 32 in its half w: Q's hi and lo parts, then K's (64-row boxes); or a
+// quarter of V^T (for each warpgroup w, at w x 32 KB, 64 of its columns:
+// hi then lo, each two 32-key boxes).
+struct WideSmem {
+  static constexpr int kBox = 64 * 128;         // 64 rows x 32 f32
+  static constexpr int kChunk = 64;             // d's columns a stage
+  static constexpr int kStages = 3;
+  static constexpr int kStage = 8 * kBox;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kBytes = 1024 + kBars + 8 * 2 * kStages;
+  static_assert(kBytes <= 232448, "227 KB of shared memory a CTA");
+  __device__ static int chunk(int) { return kChunk; }
+  // V^T's stages a key tile: a quarter of each warpgroup's 256 columns
+  __device__ static int v_stages(int cols0) { return (cols0 + 63) / 64; }
+};
+
+__global__ void __launch_bounds__(wide::THREADS, 1)
 flash_attn_tf32x3_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
-                              const uint32_t* __restrict__ q,
-                              const uint32_t* __restrict__ k,
-                              const uint32_t* __restrict__ v,
                               float* __restrict__ o, int s, int h, int kvh,
                               int d, int dv, float scale_log2, int causal,
-                              int window, int g) {
+                              int window, int sw) {
   using L = WideSmem;
-  constexpr int BK = L::kBK;
+  constexpr int S = L::kStages, HALF = wide::HALF, BOX = L::kBox;
+  constexpr int BK = wide::BK;
   extern __shared__ uint8_t smem_raw[];
-  // the 128-byte swizzle repeats every 1024 bytes: align every box to it
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* const sm = smem_raw + (base - raw);  // the same bytes, generic
-  const uint32_t bar_full = base + L::kBars;                // + 8 i
-  const uint32_t bar_empty = bar_full + 8 * L::kStages;     // + 8 i
+  const uint32_t ring = base;
+  const uint32_t bar_full = base + L::kBars;       // + 8 i
+  const uint32_t bar_empty = bar_full + 8 * S;     // + 8 i
   const int tid = threadIdx.x;
-  const wide::Cta<L> c(s, h, kvh, d, dv, causal, window);
-  if (!c.live) return;                               // past the last pair
+  const wide::Cta<L> c(s, h, kvh, d, dv, causal, window, sw);
+  if (!c.live) return;                             // past the last pair
+  const int dp = split_cols(d);
 
   if (tid == 0) {
-    for (int i = 0; i < L::kStages; ++i) {
-      hopper::mbar_init(bar_full + 8 * i, TMA ? 1 : 32);
-      hopper::mbar_init(bar_empty + 8 * i, CONSUMERS);
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(bar_full + 8 * i, 1);
+      hopper::mbar_init(bar_empty + 8 * i, wide::CONSUMERS);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {
-    wide::produce<L, TMA>(c, &tm_q, &tm_k, &tm_v, q, k, v, s, h, kvh, d, dv,
-                          g, base, bar_full, bar_empty, tid - CONSUMERS);
+  if (tid >= wide::CONSUMERS) {
+    // ---- the producer warpgroup, one lane (every operand by TMA): stage
+    // j of the run in slot j % S, phase (j / S) & 1; a key tile's stages
+    // are d's chunks, then V^T's quarters (a 32-key half wholly past s is
+    // not loaded: nothing multiplies it) ----
+    hopper::setmaxnreg_dec<wide::PRODUCER_REGS>();
+    if (tid != wide::CONSUMERS) return;
+    int j = 0;
+    for (int t = c.t0; t < c.n_tiles; ++t) {
+      const int k0 = t * BK;
+      for (int x = 0; x < c.s_stages + c.v_stages; ++x, ++j) {
+        const int st = j % S;
+        const uint32_t full = bar_full + 8 * st;
+        const uint32_t sd = ring + st * L::kStage;
+        hopper::mbar_wait(bar_empty + 8 * st, ((j / S) & 1) ^ 1);
+        if (x < c.s_stages) {
+          const int col = x * L::kChunk;
+          const int n = min(2, (dp - col) / 32);
+          hopper::mbar_arrive_expect_tx(full, 4 * n * BOX);
+          for (int i = 0; i < n; ++i) {
+            const int hi = col + 32 * i, lo = dp + col + 32 * i;
+            const uint32_t at = sd + 4 * i * BOX;
+            hopper::tma_load_4d(at, &tm_q, full, hi, c.hq, c.q0, c.bi);
+            hopper::tma_load_4d(at + BOX, &tm_q, full, lo, c.hq, c.q0, c.bi);
+            hopper::tma_load_4d(at + 2 * BOX, &tm_k, full, hi, c.kh, k0, c.bi);
+            hopper::tma_load_4d(at + 3 * BOX, &tm_k, full, lo, c.kh, k0, c.bi);
+          }
+        } else {
+          const int qt = x - c.s_stages;  // the quarter
+          const int halves = k0 + HALF < s ? 2 : 1;
+          int n = 0;
+          for (int w = 0; w < 2; ++w) n += 64 * qt < c.cols[w];
+          hopper::mbar_arrive_expect_tx(full, n * 2 * halves * BOX);
+          for (int w = 0; w < 2; ++w) {
+            if (64 * qt >= c.cols[w]) continue;
+            for (int part = 0; part < 2; ++part)
+              for (int kb = 0; kb < halves; ++kb)
+                hopper::tma_load_4d(
+                    sd + (4 * w + 2 * part + kb) * BOX, &tm_v, full,
+                    k0 + HALF * kb, c.v0 + c.wg_cols * w + 64 * qt,
+                    2 * c.kh + part, c.bi);
+          }
+        }
+      }
+    }
     return;
   }
 
-  // ---- the consumer warpgroup ----
-  const int warp = tid >> 5;
+  // ---- the two consumer warpgroups: each half of d's columns of every
+  // key tile's S, then the whole S and softmax, and its columns of O;
+  // both products in three tf32 passes ----
+  hopper::setmaxnreg_inc<wide::CONSUMER_REGS>();
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int warp = wt >> 5;
   const int lane = tid & 31;
   const int r_lo = warp * 16 + (lane >> 2);  // this thread's rows: r_lo, +8
   const int c_in = 2 * (lane & 3);           // its columns in each 8-block
-  const int k_steps = (d - 1) / 8 + 1;       // k8 steps of S that see data
-  const int v_slices = (c.v_boxes + 1) / 2;  // n64 products of O that do
-  uint8_t* const scratch = sm + L::kLo;
-  const uint64_t desc_ql = hopper::smem_desc(base + L::kLo, 16, 1024);
-  const uint64_t desc_kl =
-      hopper::smem_desc(base + L::kLo + L::kKOff, 16, 1024);
-  const uint64_t desc_vh = desc_ql;           // V^T over Q's lo part
-  const uint64_t desc_vl = hopper::smem_desc(base + L::kLo + L::kVT, 16, 1024);
+  const int cols = wg ? c.cols[1] : c.cols[0];  // its columns of O
 
-  float acc[wide::O_SLICE / 2];
+  float acc[wide::WG_COLS / 2];
 #pragma unroll
-  for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < wide::WG_COLS / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG, NEG};
   float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
   uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P's A fragments, hi and lo
 
-  // Every wgmma group is committed and retired within one stage.
-  int j = 0;  // the ring's stage (wide::produce)
+  // Every wgmma group is retired within its key tile.
+  int j = 0, prev = 0;  // the ring's stage, and the last one taken
   for (int t = c.t0; t < c.n_tiles; ++t) {
-    // S = sum over d's chunks of Q_c K_c^T (f32), each in three tf32
-    // passes, the small terms first; the first product overwrites S
+    // this warpgroup's part of S: over its 32 columns of each of d's chunks,
+    // in three passes, the small terms first (Q hi K lo, Q lo K hi, Q hi K
+    // hi); a stage freed once the next chunk's product is issued and its
+    // own has retired; the tile's last stage is kept for the exchange
     float sc[BK / 2];
-    for (int ch = 0; ch < c.d_chunks; ++ch, ++j) {
-      const int st = j % L::kStages;
-      const uint32_t sd = base + st * L::kStage;
-      const int n = c.chunk_boxes(d, ch);
-      hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
-      split(sm + st * L::kStage, scratch, n * QBOX / 16, tid);
-      split(sm + st * L::kStage + L::kKOff, scratch + L::kKOff,
-            n * L::kKBox / 16, tid);
-      hopper::fence_proxy_async();
-      hopper::bar_sync(1, CONSUMERS);  // the lo parts are written
-      // the descriptors are made opaque each stage, as the narrow
-      // instances' each tile: hoisted with their k8 offsets, they would
-      // crowd out the accumulators
-      const uint64_t dq = hopper::smem_desc(sd, 16, 1024);
-      const uint64_t dk = hopper::smem_desc(sd + L::kKOff, 16, 1024);
-      uint64_t dql = desc_ql, dkl = desc_kl;
-      asm volatile("" : "+l"(dql), "+l"(dkl));
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    for (int x = 0; x < c.s_stages; ++x, ++j) {
+      const int st = j % S;
+      const uint32_t half = ring + st * L::kStage + wg * 4 * BOX;
+      hopper::mbar_wait(bar_full + 8 * st, (j / S) & 1);
+      // descriptors of each operand's first k8 step (a step adds 32 bytes:
+      // >> 4 in the address); opaque, so that they are not hoisted with
+      // their offsets
+      uint64_t qh = hopper::smem_desc(half, 16, 1024);
+      uint64_t ql = hopper::smem_desc(half + BOX, 16, 1024);
+      uint64_t kh = hopper::smem_desc(half + 2 * BOX, 16, 1024);
+      uint64_t kl = hopper::smem_desc(half + 3 * BOX, 16, 1024);
+      asm volatile("" : "+l"(qh), "+l"(ql), "+l"(kh), "+l"(kl));
+      const int col0 = x * L::kChunk + wg * 32;  // its first column
+      hopper::fence_regs(sc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int pass = 0; pass < 3; ++pass) {
-        const uint64_t a = pass == 1 ? dql : dq;   // Q hi, Q lo, Q hi
-        const uint64_t b = pass == 0 ? dkl : dk;   // K lo, K hi, K hi
+        const uint64_t a = pass == 1 ? ql : qh;
+        const uint64_t b = pass == 0 ? kl : kh;
 #pragma unroll
-        for (int kc = 0; kc < L::kDChunk / 8; ++kc) {
-          if (ch * (L::kDChunk / 8) + kc < k_steps)
-            hopper::wgmma_tf32_ss(
-                sc, a + (kc / 4) * (QBOX >> 4) + (kc % 4) * 2,
-                b + (kc / 4) * (L::kKBox >> 4) + (kc % 4) * 2,
-                ch + pass + kc > 0);
+        for (int kc = 0; kc < 4; ++kc) {
+          if (col0 + 8 * kc < d)
+            hopper::wgmma_tf32_ss(sc, a + kc * 2, b + kc * 2, 1);
         }
       }
       hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(sc);
-      hopper::bar_sync(1, CONSUMERS);  // every warp's S has read the scratch
-      hopper::mbar_arrive(bar_empty + 8 * st);  // this stage may be refilled
+      if (x > 0) {
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(bar_empty + 8 * prev);
+      }
+      prev = st;
     }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    wide::exchange(sc, sm + prev * L::kStage, 4 * BOX, wg, wt);
+    hopper::fence_proxy_async();  // before the stage's next TMA writes
+    hopper::mbar_arrive(bar_empty + 8 * prev);
 
-    // V's slice as V^T and its lo part, over the scratch
-    const int st = j % L::kStages;
-    hopper::mbar_wait(bar_full + 8 * st, (j / L::kStages) & 1);
-    transpose_v<wide::O_SLICE, BK>(sm + st * L::kStage, scratch,
-                                   scratch + L::kVT, c.v_boxes, warp, lane);
-    hopper::fence_proxy_async();
-    hopper::mbar_arrive(bar_empty + 8 * st);  // V may be refilled
-    ++j;
-    hopper::bar_sync(1, CONSUMERS);  // V^T is written
-
+    const int k0 = t * BK;
     float alpha[2];
-    wide::softmax_tile(sc, m, l, alpha, c.q0, t * BK, r_lo, c_in, s, causal,
+    wide::softmax_tile(sc, m, l, alpha, c.q0, k0, r_lo, c_in, s, causal,
                        window, scale_log2);
 
-    // P's A fragments, p and its lo part (the key order of the narrow
-    // instances: column c is key 2c, c + 4 is key 2c + 1)
+    // P's A fragments, hi (the low 13 bits cleared) and lo: registers
+    // 4kk..4kk+3 of the S accumulator are rows (r, r, r+8, r+8) at keys (2c,
+    // 2c+1, 2c, 2c+1) of the kk-th 8 keys; the fragment wants rows (r, r+8,
+    // r, r+8) at its columns (c, c, c+4, c+4), which V^T's order of keys
+    // (0 2 4 6 1 3 5 7) makes keys 2c and 2c+1
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
       const float pv[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
@@ -1734,51 +2011,99 @@ flash_attn_tf32x3_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // O = alpha O + P V in three tf32 passes (P hi V lo, P lo V hi, P hi
-    // V hi), one m64n64 product per 64 columns of the slice that hold data
+    // O = alpha O + P V in three passes (P hi V lo, P lo V hi, P hi V hi),
+    // each quarter of this warpgroup's columns a stage (an m64n64 product)
 #pragma unroll
-    for (int i = 0; i < wide::O_SLICE / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    hopper::fence_regs(acc);
-    uint64_t dvh = desc_vh, dvl = desc_vl;
-    asm volatile("" : "+l"(dvh), "+l"(dvl));
-    hopper::wgmma_fence();
+    for (int i = 0; i < wide::WG_COLS / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    const int halves = k0 + HALF < s ? 2 : 1;
 #pragma unroll
-    for (int pass = 0; pass < 3; ++pass) {
-      const uint64_t b = pass == 0 ? dvl : dvh;   // V^T lo, hi, hi
+    for (int qt = 0; qt < wide::WG_COLS / 64; ++qt) {
+      if (qt < c.v_stages) {
+        const int st = j % S;
+        const uint32_t sd = ring + st * L::kStage + wg * 4 * BOX;
+        hopper::mbar_wait(bar_full + 8 * st, (j / S) & 1);
+        uint64_t vh = hopper::smem_desc(sd, 16, 1024);
+        uint64_t vl = hopper::smem_desc(sd + 2 * BOX, 16, 1024);
+        asm volatile("" : "+l"(vh), "+l"(vl));
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        if (64 * qt < cols) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
+          for (int pass = 0; pass < 3; ++pass) {
+            const uint64_t b = pass == 0 ? vl : vh;
 #pragma unroll
-        for (int ns = 0; ns < wide::O_SLICE / 64; ++ns) {
-          if (ns < v_slices)
-            hopper::wgmma_tf32_rs(
-                reinterpret_cast<float(&)[32]>(acc[32 * ns]),
-                pass == 1 ? pl[kk] : ph[kk],
-                b + (kk % 4) * 2 + ns * (64 * 128 >> 4), 1);
+            for (int kk = 0; kk < BK / 8; ++kk) {
+              if (kk / 4 < halves)
+                hopper::wgmma_tf32_rs(
+                    reinterpret_cast<float(&)[32]>(acc[32 * qt]),
+                    pass == 1 ? pl[kk] : ph[kk],
+                    b + (kk / 4) * (BOX >> 4) + (kk % 4) * 2, 1);
+            }
+          }
         }
+        hopper::wgmma_commit();
+        if (qt > 0) {
+          hopper::wgmma_wait<1>();
+          hopper::mbar_arrive(bar_empty + 8 * prev);
+        }
+        prev = st;
+        ++j;
       }
     }
-    hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
-    hopper::bar_sync(1, CONSUMERS);  // P V has read V^T: the scratch is free
+    hopper::mbar_arrive(bar_empty + 8 * prev);
   }
-  wide::store_slice(o, c, acc, l, TMA || dv % 2 == 0, r_lo, c_in, s, h, dv);
+  wide::store_cols(o, c, acc, l, dv % 2 == 0, wg, cols, r_lo, c_in, s, h,
+                   dv);
 }
 
-template <bool TMA>
-int launch_wide(const Call& c) {
+// A tensor map over V^T's two parts (split_floats' layout): boxes of 32
+// key positions x 64 columns of V of one (kv head, part), 128-byte
+// swizzled; positions past s8 and columns past dv arrive as zeros.
+bool make_vt_map(CUtensorMap* map, const float* vt, int b, int s, int kvh,
+                 int dv) {
+  const tma::EncodeTiled fn = tma::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = (cuuint64_t)split_keys(s) * 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)split_keys(s), (cuuint64_t)dv,
+                              (cuuint64_t)kvh * 2, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {row, row * dv, row * dv * kvh * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)wide::HALF, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(vt),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wide call: the pre-pass, then the kernel on its output, each launch
+// checked. `bytes`: the scratch's size, at least split_floats x 4.
+int launch_wide(const Call& c, void* scratch, long long bytes) {
+  if (scratch == nullptr ||
+      bytes < 4 * split_floats(c.b, c.s, c.h, c.kvh, c.d, c.dv))
+    return (int)cudaErrorInvalidValue;
+  const Split sp(c, scratch);
+  int err = split(c, sp);
+  if (err != 0) return err;
+  const int dp = split_cols(c.d);
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tq, tk, tv;
+  if (!tma::make_map(&tq, f32, 4, sp.qs, c.b, c.s, c.h, 2 * dp, CHUNK, BQ) ||
+      !tma::make_map(&tk, f32, 4, sp.ks, c.b, c.s, c.kvh, 2 * dp, CHUNK,
+                     wide::BK) ||
+      !make_vt_map(&tv, sp.vt, c.b, c.s, c.kvh, c.dv))
+    return (int)cudaErrorInvalidValue;
   const int smem = WideSmem::kBytes;
-  auto kern = flash_attn_tf32x3_wide_kernel<TMA>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  auto kern = flash_attn_tf32x3_wide_kernel;
+  err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid = cta_grid(c.b * c.h, c.s, BQ,
-                             (c.dv + wide::O_SLICE - 1) / wide::O_SLICE);
-  kern<<<grid, THREADS, smem, c.stream>>>(
-      c.tq, c.tk, c.tv, static_cast<const uint32_t*>(c.q),
-      static_cast<const uint32_t*>(c.k), static_cast<const uint32_t*>(c.v),
-      static_cast<float*>(c.o), c.s, c.h, c.kvh, c.d, c.dv, c.scale_log2,
-      c.causal, c.window, c.g);
+  if (err != 0) return err;
+  const int sw = wide::slice_cols(c.b, c.s, c.h, c.dv);
+  const dim3 grid = cta_grid(c.b * c.h, c.s, wide::BQ, (c.dv + sw - 1) / sw);
+  kern<<<grid, wide::THREADS, smem, c.stream>>>(
+      tq, tk, tv, static_cast<float*>(c.o), c.s, c.h, c.kvh, c.d, c.dv,
+      c.scale_log2, c.causal, c.window, sw);
   return (int)cudaGetLastError();
 }
 
@@ -1810,22 +2135,28 @@ int fa_forward_wgmma_f16(const void* q, const void* k, const void* v,
 
 // The f32 kernel. q, k, v, o: device pointers of contiguous float32 (b, s,
 // h|kvh, d|dv) tensors. The wrapper's checks are the bf16 kernel's, with
-// the TMA route where d and dv are multiples of 4. Returns
-// cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a tensor map.
+// the TMA route where d and dv are multiples of 4. A wide call (d or dv over
+// 256) splits its operands first into `scratch` (device memory of
+// `scratch_bytes`, at least 4 x split_floats; unused by the other calls),
+// two launches, each checked. Returns cudaErrorInvalidValue where
+// cuTensorMapEncodeTiled refuses a tensor map or the scratch is short.
 int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
                       int b, int s, int h, int kvh, int d, int dv,
-                      float scale, int causal, int window, void* stream) {
+                      float scale, int causal, int window, void* scratch,
+                      long long scratch_bytes, void* stream) {
   if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || window < 0 ||
       (window > 0 && !causal) ||
-      !fits_grid(b, h, s, tf::BQ, (dv + wide::O_SLICE - 1) / wide::O_SLICE))
+      !fits_grid(b, h, s, tf::BQ,
+                 (dv - 1) / wide::slice_cols(b, s, h, dv) + 1))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return 0;
   const int p = d > dv ? d : dv;
-  const int bk = p <= 128 ? tf::tile_keys<128>() : tf::tile_keys<256>();
   Call c = {d % 4 == 0 && dv % 4 == 0,  // 16-byte rows: TMA
             {}, {}, {}, q, k, v, o, b, s, h, kvh, d, dv,
             scale * 1.4426950408889634f, causal, window,
             granule(4, d, dv, q, k, v), static_cast<cudaStream_t>(stream)};
+  if (p > 256) return tf::launch_wide(c, scratch, scratch_bytes);
+  const int bk = p <= 128 ? tf::tile_keys<128>() : tf::tile_keys<256>();
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   if (c.tma &&
       (!tma::make_map(&c.tq, f32, 4, q, b, s, h, d, tf::CHUNK, tf::BQ) ||
@@ -1834,8 +2165,22 @@ int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   if (p <= 64) return tf::route<64>(c);
   if (p <= 128) return tf::route<128>(c);
-  if (p <= 256) return tf::route<256>(c);
-  return c.tma ? tf::launch_wide<true>(c) : tf::launch_wide<false>(c);
+  return tf::route<256>(c);
+}
+
+// The f32 wide instance's pre-pass alone (its output is fa_forward_tf32x3's
+// scratch for the same call): held to its plain version and timed on its
+// own. Any d, dv >= 1.
+int fa_tf32x3_split(const void* q, const void* k, const void* v, int b,
+                    int s, int h, int kvh, int d, int dv, void* scratch,
+                    long long scratch_bytes, void* stream) {
+  if (d < 1 || dv < 1 || kvh <= 0 || h % kvh || scratch == nullptr ||
+      scratch_bytes < 4 * tf::split_floats(b, s, h, kvh, d, dv))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || s == 0 || h == 0) return 0;
+  Call c = {true, {}, {}, {}, q, k, v, nullptr, b, s, h, kvh, d, dv, 0.f,
+            0, 0, 4, static_cast<cudaStream_t>(stream)};
+  return tf::split(c, tf::Split(c, scratch));
 }
 
 }  // extern "C"

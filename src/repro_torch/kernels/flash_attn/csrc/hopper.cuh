@@ -459,10 +459,28 @@ __device__ __forceinline__ float tf32_lo(float x) {
   return tf32_round(x - tf32_trunc(x));
 }
 
+// Raises (inc) or lowers (dec) the registers of each thread of this
+// warpgroup to N, for the code that follows: every thread of the
+// warpgroup runs it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Named barrier `id` over `threads` threads (a warpgroup without the
 // producer warp; barrier 0 is __syncthreads).
 __device__ __forceinline__ void bar_sync(uint32_t id, uint32_t threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives at named barrier `id` without waiting (the threads that wait
+// there with bar_sync count these arrivals among `threads`).
+__device__ __forceinline__ void bar_arrive(uint32_t id, uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Orders this thread's shared-memory writes (generic proxy) before later

@@ -15,7 +15,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
     ``block_q``/``block_k`` are the reference's tile sizes; they change
     only the order of its sums. The CUDA kernels' tiles are fixed by
     their designs (64 query rows and 64 keys, 32 keys for f32 heads wider
-    than 128; d in chunks of 128 columns and o in slices of 256 for heads
+    than 128; d in chunks and o in slices of 512 or 256 columns for heads
     wider than 256), so here they are only checked."""
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive, got "

@@ -51,3 +51,49 @@ def sdpa_ref(q, k, v, causal: bool = True, mask=None, window: int = 0):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(f32), v.to(f32))
     return out.reshape(b, s, h, dv).to(v.dtype)
+
+
+def _tf32_cut(x):
+    """x with its low 13 bits cleared (an f32 tensor)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rna(x):
+    """x rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties
+    away from zero (half of the 13 dropped bits added to the magnitude,
+    then cut)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def tf32_split(q, k, v):
+    """Plain version of the f32 wide instance's pre-pass
+    (``tf32_split_kernel``): one flat f32 tensor of ``kernel.split_floats``
+    elements. q's and k's rows as (b, s, heads, 2 dp), dp = d rounded up to
+    32: the hi part (the low 13 bits cleared) in columns [0, dp), the lo
+    part tf32(x - hi) in [dp, 2 dp), zeros past d; then V^T as (b, kvh, 2,
+    dv, s8), s8 = s rounded up to 8, hi then lo, keys along a row, zeros
+    past s, within each 8 in the order 0 2 4 6 1 3 5 7 (:func:`split_key`:
+    the order the kernel's P fragments read them in)."""
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    dp, s8 = -(-d // 32) * 32, -(-s // 8) * 8
+    pad = torch.nn.functional.pad
+
+    def parts(x, last):
+        hi = _tf32_cut(x)
+        return torch.cat([hi, _tf32_rna(x - hi)], last)
+
+    qs = parts(pad(q.float(), (0, dp - d)), -1)
+    ks = parts(pad(k.float(), (0, dp - d)), -1)
+    vt = pad(v.float().permute(0, 2, 3, 1), (0, s8 - s))   # (b, kvh, dv, s8)
+    vt = vt[..., split_key(torch.arange(s8, device=v.device))]
+    vt = parts(vt[:, :, None], 2)                           # hi, lo on dim 2
+    assert vt.shape[2:] == (2, dv, s8)
+    return torch.cat([qs.reshape(-1), ks.reshape(-1), vt.reshape(-1)])
+
+
+def split_key(p):
+    """The key at position ``p`` of the pre-pass's V^T (an int or a tensor
+    of them): within each 8, keys 0 2 4 6 1 3 5 7."""
+    return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1)

@@ -15,8 +15,11 @@ every lane of its own (lengths at tile edges, GQA ratios, head widths, d
 window at tile edges, every GQA ratio and head width; both at widths whose
 rows are no multiple of 16 bytes (loaded without TMA), odd ones on 2-byte
 boundaries and tensors that start off 16 bytes; both at heads wider
-than 256 (the wide instances: d in chunks, o in slices of 256 columns),
-one launch a call, and with a q of more than 2**31 elements; and the
+than 256 (the wide instances: two warpgroups, each half of the scores
+and half of a CTA's columns of o, d in chunks, o in slices of 512 or 256
+columns; the f32
+one's pre-pass bit for bit against its plain split) at the design's
+edges, one launch a call, and with a q of more than 2**31 elements; and the
 serving path on the card against the CPU. Needs a CUDA card:
 every test skips without one (run them on the card with
 ``python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py``)."""
@@ -478,6 +481,82 @@ def test_tf32x3_flash_attention_matches_plain(cuda, b, s, h, kvh, d, dv,
         _check_and_count(cuda, b, s, h, kvh, d, dv, torch.float32, causal)
 
 
+#: the wide instances at their edges: (b, s, h, kvh, d, dv, causal, window);
+#: 40 query heads at s = 200 are 160 query tiles, enough CTAs for slices of
+#: 512 columns (``kernel.slice_cols``), 4 heads take slices of 256
+WIDE_EDGES = [
+    (1, 200, 40, 8, 300, 256, True, 0),    # dv 256: both warpgroups 128
+    (1, 200, 40, 8, 300, 257, True, 0),    # dv 257: the second's first one
+    (1, 200, 40, 8, 320, 512, True, 0),    # dv 512: both 256, one CTA
+    (1, 200, 40, 8, 320, 513, False, 0),   # dv 513: the first extra slice
+    (1, 200, 4, 2, 320, 513, True, 0),     # slices of 256: three
+    (1, 130, 4, 2, 257, 64, True, 0),      # d 257: the first chunk past 256
+    (1, 300, 6, 2, 577, 255, True, 0),     # d 577: bf16's Q streamed
+    (2, 150, 6, 3, 1030, 300, False, 0),   # d 1,030: the ninth 128-chunk
+    (1, 256, 128, 1, 576, 512, True, 0),   # MQA 128 / 1 (absorbed MLA)
+    (1, 333, 9, 1, 320, 320, True, 0),     # GQA 9, ragged
+    (1, 1000, 4, 1, 320, 320, True, 100),  # a window
+    (1, 1000, 40, 1, 512, 513, True, 65),  # a window, slices of 512
+    (2, 40, 4, 2, 320, 320, True, 0),      # s < 64
+    (1, 63, 4, 2, 301, 299, False, 0),     # s < 64, odd widths
+    (1, 65, 2, 1, 333, 517, True, 0),      # a key tile's second half past s
+    (1, 97, 2, 1, 322, 258, True, 0),      # its 33rd key the last
+]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv,causal,w", WIDE_EDGES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_instances_at_their_edges(cuda, b, s, h, kvh, d, dv, causal,
+                                       w, dtype):
+    """Each wide instance where its design has an edge (the warpgroups'
+    columns, o's slices of 512, d's chunks, a streamed Q, MQA and GQA 9, a
+    window, short and ragged lengths, a key tile's half wholly past s)
+    within the type's tolerance of the plain version, one launch a call;
+    then the same call on q, k and v 4 bytes past a 16-byte boundary,
+    which only a TMA route on the caller's tensors refuses (the f32 wide
+    instance's pre-pass reads them with plain loads)."""
+    if w:
+        _check_window(cuda, b, s, h, kvh, d, dv, dtype, w)
+    else:
+        _check_and_count(cuda, b, s, h, kvh, d, dv, dtype, causal)
+    q, k, v = (_shifted(x, 4) for x in FC.make_inputs(
+        b, s, h, kvh, d, dv, dtype, 3, cuda))
+    if FK.wide_plan(dtype, b, s, h, d, dv)["loads"] == "tma":
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            FK.flash_attention_fwd(q, k, v, causal=causal, window=w)
+        return
+    got = FK.flash_attention_fwd(q, k, v, causal=causal, window=w)
+    want = FC.ref.sdpa_ref(q, k, v, causal=causal, window=w)
+    torch.cuda.synchronize(cuda)
+    err = FC._error(got, want, FC.TOLERANCE[dtype])
+    assert err["finite"] and err["within_tolerance"], err
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv", [
+    (1, 512, 8, 2, 320, 320),     # the smoke's wide_f32
+    (2, 37, 4, 2, 300, 257),      # ragged s, widths no multiple of 32
+    (1, 300, 6, 2, 1030, 517),    # no multiple of 4
+    (1, 5, 3, 3, 1, 1),           # narrower than a box
+])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_tf32_split_matches_plain_bit_for_bit(cuda, b, s, h, kvh, d, dv,
+                                              misaligned):
+    """The f32 wide instance's pre-pass writes, bit for bit, the hi / lo /
+    V^T split of ``ref.tf32_split`` (which the CPU tests hold to the
+    model's ``_tf32``), also from tensors 4 bytes off 16; its launches are
+    counted under its own name and restored by the check."""
+    before = dict(FK.SPLIT_LAUNCHES)
+    res = FC.check_tf32_split(b, s, h, kvh, d, dv, 11, cuda, reps=1,
+                              misaligned=misaligned)
+    assert res["mismatches"] == 0, res
+    assert FK.SPLIT_LAUNCHES == before
+    q, k, v = FC.make_inputs(b, s, h, kvh, d, dv, torch.float32, 1, cuda)
+    if max(d, dv) > FK.NARROW_MAX:
+        FK.flash_attention_fwd(q, k, v)
+        assert FK.SPLIT_LAUNCHES == {
+            FK.TF32X3_SPLIT: before[FK.TF32X3_SPLIT] + 1}
+
+
 WINDOW_S = [1, 63, 64, 65, 1000, 8192]
 WINDOW_W = [1, 17, 63, 64, 65, 4096]
 
@@ -523,11 +602,13 @@ def test_windowed_flash_attention_heads(cuda, b, s, h, kvh, d, dv, w,
     _check_window(cuda, b, s, h, kvh, d, dv, dtype, w)
 
 
-def _shifted(x):
+def _shifted(x, by=None):
     """x's values in a contiguous tensor that starts one element past an
-    aligned allocation (2 bytes off 16 in bf16, 4 in f32)."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    y = buf[1:].view(x.shape)
+    aligned allocation (2 bytes off 16 in bf16, 4 in f32), or ``by`` bytes
+    past it."""
+    n = 1 if by is None else by // x.element_size()
+    buf = torch.empty(x.numel() + n, dtype=x.dtype, device=x.device)
+    y = buf[n:].view(x.shape)
     y.copy_(x)
     return y
 
@@ -571,7 +652,7 @@ def test_rows_not_16_bytes_match_plain(cuda, b, s, h, kvh, d, dv, causal,
 
 #: (d, dv): rows of every alignment (odd bf16 widths on 2-byte
 #: boundaries), each instance (P = 64, 128, 256 and the wide one: d in
-#: chunks of 128, o in slices of 256) and d != dv on each side of 256
+#: chunks, o in slices) and d != dv on each side of 256
 WIDTHS = [(1, 1), (2, 3), (3, 7), (5, 5), (6, 6), (7, 9), (10, 5), (12, 12),
           (13, 17), (33, 31), (63, 65), (65, 63), (100, 100), (127, 129),
           (130, 66), (200, 250), (255, 255), (256, 255), (255, 256),
@@ -638,12 +719,12 @@ def test_b_times_h_past_65535(cuda, b, h, d, dtype):
     assert err["finite"] and err["within_tolerance"], err
 
 
-@pytest.mark.parametrize("s,d", [(65536 * 64 + 1, 8), (32768 * 64 + 1, 264)])
+@pytest.mark.parametrize("s,d", [(65536 * 64 + 1, 8), (32768 * 64 + 1, 520)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_query_tiles_past_65535(cuda, s, d, dtype):
     """More (query tile, o slice) pairs than the grid's y holds: 65,537
     tiles of 64 rows at d = 8, and 32,769 tiles x 2 slices of o at d =
-    264 (the wide instance), so the pairs go on along z; h = kvh = 1 and
+    520 (the wide instance), so the pairs go on along z; h = kvh = 1 and
     a window of 64 keep it cheap. The first, a middle and the last 4,096
     rows against plain attention over those rows and the 63 keys before
     them; one launch."""

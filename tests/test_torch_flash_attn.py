@@ -140,7 +140,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
     (65537, 16, 1, 1, 8, 8),        # b * h past 65,535 (the grid's x)
     (1, 16, 65537, 1, 8, 8),
     (1, 4194305, 1, 1, 8, 8),       # 65,537 query tiles of 64 rows
-    (1, 2097153, 1, 1, 264, 264),   # 32,769 tiles x 2 slices of o
+    (1, 2097153, 1, 1, 520, 520),   # 32,769 tiles x 2 slices of o
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -162,7 +162,7 @@ def test_grid_refuses_only_what_it_cannot_hold():
     assert not K.fits_grid(2, 64, 2 ** 30, 8)
     assert K.fits_grid(1, 65535 * 65535 * 64, 1, 256)
     assert not K.fits_grid(1, 65535 * 65535 * 64 + 1, 1, 256)
-    assert not K.fits_grid(1, 65535 * 64, 1, 65536 * 256)
+    assert not K.fits_grid(1, 65535 * 64, 1, 65536 * 512)
     q = torch.empty((2, 1, 2 ** 30, 8), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="grid"):
         K._check(q, q, q)
@@ -250,53 +250,61 @@ def _boxed(x):
 
 
 #: the f32 kernel's wide instance (d or dv over 256): d's chunks, o's slices
-D_CHUNK, O_SLICE = 128, 256
+D_CHUNK = 64
 
 
 def _scores(qt, kt, passes, chunk):
-    """S = Q K^T as the kernel sums it: in one product, or (``chunk``) over
-    d's chunks into the same f32 accumulator, each chunk's three passes in
-    turn (hi lo, lo hi, hi hi)."""
+    """S = Q K^T as the kernel sums it: in one product, or (``chunk``: the
+    wide instance) by two warpgroups, each over its half of every chunk of
+    d (32 columns) into an f32 accumulator of its own, each chunk's three
+    passes in turn (hi lo, lo hi, hi hi), then the two sums added."""
     if chunk is None:
         return _product(qt, kt, passes)
-    sc = torch.zeros(qt.shape[:-1] + kt.shape[-1:], dtype=torch.float32)
-    for c in range(0, qt.shape[-1], chunk):
-        a, b = qt[..., c:c + chunk], kt[..., c:c + chunk, :]
-        ah, bh = _tf32(a, rounded=False), _tf32(b, rounded=False)
-        if passes == 1:
+    sums = []
+    for w in range(2):
+        sc = torch.zeros(qt.shape[:-1] + kt.shape[-1:], dtype=torch.float32)
+        for c in range(w * chunk // 2, qt.shape[-1], chunk):
+            a, b = qt[..., c:c + chunk // 2], kt[..., c:c + chunk // 2, :]
+            ah, bh = _tf32(a, rounded=False), _tf32(b, rounded=False)
+            if passes == 1:
+                sc = sc + ah @ bh
+                continue
+            al, bl = _tf32(a - ah), _tf32(b - bh)
+            sc = sc + ah @ bl
+            sc = sc + al @ bh
             sc = sc + ah @ bh
-            continue
-        al, bl = _tf32(a - ah), _tf32(b - bh)
-        sc = sc + ah @ bl
-        sc = sc + al @ bh
-        sc = sc + ah @ bh
-    return sc
+        sums.append(sc)
+    return sums[0] + sums[1]
 
 
 def _kernel_model(q, k, v, causal=True, window=0, passes=3):
     """The kernel's f32 arithmetic: heads zero-padded to its 32-column
-    boxes, 64-row query tiles, key tiles of 64 (32 where a head is wider
-    than 128), from the tile that holds the lowest row's window edge up to
-    the causal limit; unscaled scores, the -1e30 mask, exp2 with the scale
-    of the true d folded in, no shift for a row whose max is still -1e30, l
-    from the unrounded p, acc / max(l, 1e-30), the columns below dv. Where
-    d or dv is over 256 (the wide instance) S is summed over d's chunks of
-    128 columns, and o is computed in slices of 256 columns, each with its
-    own pass over the key tiles."""
+    boxes, 64-row query tiles, key tiles of 64 (32 where the widest head is
+    over 128 and at most 256), from the tile that holds the lowest row's
+    window edge up to the causal limit; unscaled scores, the -1e30 mask,
+    exp2 with the scale of the true d folded in, no shift for a row whose
+    max is still -1e30, l from the unrounded p, acc / max(l, 1e-30), the
+    columns below dv. Where d or dv is over 256 (the wide instance: its
+    operands' hi and lo parts from its pre-pass, the same values) S is
+    summed over d's chunks of 64 columns by two warpgroups, 32 columns of
+    each chunk a warpgroup, then added, and o is computed in the
+    kernel's slices (``kernel.slice_cols``: 512 columns, or 256), each
+    with its own pass over the key tiles."""
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     f32 = torch.float32
-    bk = 64 if max(d, dv) <= 128 else 32
+    bk = 32 if 128 < max(d, dv) <= 256 else 64
     chunk = D_CHUNK if max(d, dv) > 256 else None
     scale_log2 = float(np.float32(1.0 / d ** 0.5) * np.float32(math.log2(math.e)))
     q, k, v = _boxed(q), _boxed(k), _boxed(v)
     wide = v.shape[3]
+    o_slice = K.slice_cols(b, s, h, dv) if chunk else wide
     qg = q.reshape(b, s, kvh, h // kvh, -1).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 3, 1)[:, :, None]       # (b, kvh, 1, d, s)
     vt = v.permute(0, 2, 1, 3)[:, :, None]       # (b, kvh, 1, s, dv)
     out = torch.empty(b, kvh, h // kvh, s, wide, dtype=f32)
-    for v0 in range(0, wide, O_SLICE):
-        vs = vt[..., v0:v0 + O_SLICE]
+    for v0 in range(0, wide, o_slice):
+        vs = vt[..., v0:v0 + o_slice]
         for q0 in range(0, s, 64):
             rows = torch.arange(q0, min(q0 + 64, s))
             n_tiles = -(-s // bk)
@@ -325,7 +333,7 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
                 l = l * alpha + p.sum(-1, keepdim=True)
                 acc = acc * alpha + _product(p, vs[..., cols, :], passes)
                 m = mx
-            out[..., rows, v0:v0 + O_SLICE] = acc / torch.clamp(l, min=1e-30)
+            out[..., rows, v0:v0 + o_slice] = acc / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, wide)[..., :dv]
 
 
@@ -338,10 +346,11 @@ def _kernel_model(q, k, v, causal=True, window=0, passes=3):
     (1, 128, 4, 2, 6, True, 64, 64),      # widths padded to a box: 6,
     (1, 128, 6, 2, 10, True, 64, 32),     # 10, and (d, dv) = (3, 7)
     (1, 64, 4, 4, (3, 7), False, 32, 32),
-    # the wide instance: S over d's chunks of 128, o in slices of 256
+    # the wide instance: S over d's chunks of 64, o in the kernel's slices
     (1, 64, 4, 2, 320, True, 64, 32),
     (1, 64, 4, 1, (576, 512), True, 64, 64),
     (1, 64, 2, 1, 1024, False, 32, 32),
+    (1, 128, 2, 1, (257, 513), True, 64, 64),
 ])
 def test_tf32x3_model_matches_reference_kernel(b, s, h, kvh, d, causal, bq,
                                                bk):
@@ -385,3 +394,80 @@ def test_one_tf32_pass_exceeds_the_tolerance():
     one = np.abs(_np(_kernel_model(q, k, v, passes=1)) - want).max()
     three = np.abs(_np(_kernel_model(q, k, v)) - want).max()
     assert one > 5 * tol > 5 * three, (one, three)
+
+
+def _plan(sw, ctas, wgs, chunks, chunk, resident, loads):
+    return {"wide": True, "loads": loads, "slice_cols": sw,
+            "ctas_per_query_tile": ctas, "warpgroups_with_columns": wgs,
+            "d_chunks": chunks, "d_chunk": chunk, "q_resident": resident}
+
+
+BF, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,b,s,h,d,dv,want", [
+    (BF, 1, 512, 8, 256, 256, {"wide": False, "loads": "tma"}),
+    (F32, 1, 512, 4, 255, 7, {"wide": False, "loads": "warp"}),
+    # 64 query tiles: 2 x 64 CTAs of 256 columns fill one wave
+    (BF, 1, 512, 8, 320, 320, _plan(256, 2, 2, 2, 256, True, "tma")),
+    (F32, 1, 512, 8, 320, 320, _plan(256, 2, 2, 5, 64, False, "split")),
+    # dv <= 256: one CTA, each warpgroup half of the columns
+    (F16, 1, 1024, 40, 288, 256, _plan(256, 1, 2, 2, 256, True, "tma")),
+    (F32, 1, 64, 2, 257, 1, _plan(256, 1, 1, 5, 64, False, "split")),
+    # enough CTAs: the scores once for 512 columns
+    (BF, 1, 1024, 128, 576, 512, _plan(512, 1, 2, 3, 256, True, "tma")),
+    (F16, 2, 512, 40, 512, 512, _plan(512, 1, 2, 2, 256, True, "tma")),
+    (BF, 1, 4096, 16, 1030, 513, _plan(512, 2, 2, 9, 128, False, "warp")),
+    (BF, 1, 1000, 6, 333, 301, _plan(512, 1, 2, 2, 256, True, "warp")),
+    (F32, 1, 300, 6, 1030, 517, _plan(256, 3, 2, 17, 64, False, "split")),
+    # one wave's edge: 2 x 66 CTAs of 256 columns fit, 2 x 67 do not
+    (BF, 1, 64, 66, 320, 320, _plan(256, 2, 2, 2, 256, True, "tma")),
+    (BF, 1, 64, 67, 320, 320, _plan(512, 1, 2, 2, 256, True, "tma")),
+])
+def test_wide_plan_is_fixed_by_the_shape(dtype, b, s, h, d, dv, want):
+    """How the wide instances take a call (o's columns a CTA, the CTAs a
+    query tile takes, warpgroups with columns of o, d's chunks, a resident
+    Q, the load route) follows from the dtype and the shape alone: the
+    scores once for up to 512 columns of o, slices of 256 where those CTAs
+    still fit in one wave of the card's 132 SMs."""
+    assert K.wide_plan(dtype, b, s, h, d, dv) == want
+    if want["wide"]:
+        assert K.slice_cols(b, s, h, dv) == want["slice_cols"]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,dv", [
+    (1, 37, 4, 2, 300, 257),     # ragged s, widths no multiple of 32
+    (2, 64, 2, 1, 1030, 517),    # no multiple of 4: the pre-pass reads rows
+    (1, 5, 3, 3, 1, 1),          # narrower than a box
+])
+def test_tf32_split_is_the_models_split(b, s, h, kvh, d, dv):
+    """The plain version of the f32 wide instance's pre-pass
+    (``ref.tf32_split``, which the card holds the kernel to bit for bit) is
+    the model's split: hi the operand cut as the tensor cores read it, lo
+    ``_tf32(x - hi)``, zeros past d and s, V^T with keys along a row in
+    the order 0 2 4 6 1 3 5 7 within each 8."""
+    _, (q, k, v), _ = _inputs(b + s, b, s, h, kvh, d, dv, "float32")
+    got = ref.tf32_split(q, k, v)
+    assert got.numel() == K.split_floats(b, s, h, kvh, d, dv)
+    dp, s8 = -(-d // 32) * 32, -(-s // 8) * 8
+
+    def parts(x):
+        x = _boxed(x)
+        hi = _tf32(x, rounded=False)
+        return hi, _tf32(x - hi)
+
+    n_q, n_k = b * s * h * 2 * dp, b * s * kvh * 2 * dp
+    for x, flat in ((q, got[:n_q]), (k, got[n_q:n_q + n_k])):
+        rows = flat.view(b, s, x.shape[2], 2 * dp)
+        hi, lo = parts(x)
+        assert torch.equal(rows[..., :dp], hi) and torch.equal(
+            rows[..., dp:], lo)
+    vt = got[n_q + n_k:].view(b, kvh, 2, dv, s8)
+    order = [8 * (p // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[p % 8] for p in range(s8)]
+    assert ref.split_key(torch.arange(s8)).tolist() == order
+    keys = torch.nn.functional.pad(v.permute(0, 2, 3, 1), (0, s8 - s))
+    want_hi = _tf32(keys, rounded=False)[..., order]
+    want_lo = _tf32(keys[..., order] - want_hi)
+    assert torch.equal(vt[:, :, 0], want_hi)
+    assert torch.equal(vt[:, :, 1], want_lo)
+    assert not vt[..., [p for p in range(s8) if order[p] >= s]].any()
